@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K3 against their plain versions, on the card.
+"""The CUDA kernels K1-K7 against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use) and
 skip elsewhere. They import nothing of JAX, so they run on a machine without
@@ -9,12 +9,20 @@ it; tests/conftest.py imports jax, hence:
 Tolerances: fp32 atol = rtol = 1e-4 with TF32 off (same arithmetic, another
 summation order and the kernel's online softmax); bf16: the kernel and the
 plain version round at the same points, so outputs agree to about one bf16
-rounding step of the output (atol 2e-2, mean-abs 2e-3).
+rounding step of the output (atol 2e-2, mean-abs 2e-3). K4 and K6 round
+inside (p and alpha, the intermediate h) to bf16, and K7 requantizes its
+intermediate to int8, so a last-place difference before such a point moves
+one term by a bf16 step or one code: for K4-K7 the errors are taken
+relative to the output's largest magnitude (at least 1): 1e-3 in fp32, the
+bf16 bounds above in bf16.
 """
 import pytest
 import torch
 
+from walkgpt_tpu_torch.core.nn import int8_matmul
+from walkgpt_tpu_torch.models import llm
 from walkgpt_tpu_torch.ops import flash_attention as fa
+from walkgpt_tpu_torch.ops import int4, quant
 
 pytestmark = pytest.mark.cuda
 
@@ -92,3 +100,112 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):                         # fp16: no kernel
         fa.flash_attention(q.half(), q.half(), q.half(), True, None)
     assert fa.flash_attention.launches == before
+
+
+def _close_scaled(got, want, dtype):
+    """Errors relative to the output's largest magnitude (at least 1): 1e-3
+    in fp32; 2e-2 (max) and 2e-3 (mean) in bf16."""
+    got, want = got.float(), want.float()
+    scale = max(1.0, float(want.abs().max()))
+    err = (got - want).abs() / scale
+    if dtype == torch.float32:
+        assert err.max() <= 1e-3, err.max()
+    else:
+        assert err.max() <= 2e-2 and err.mean() <= 2e-3, (err.max(), err.mean())
+
+
+def _flat_cache(dev, g, b, l, n_kv, d, pack4):
+    k = torch.randn(2, b, l, n_kv, d, generator=g, device=dev)
+    v = torch.randn(2, b, l, n_kv, d, generator=g, device=dev)
+    quant_fn = llm._quant_pack4_flat if pack4 else (
+        lambda x: (lambda q, s: (q.flatten(-2), s))(*llm._quant_rows(x)))
+    (kq, ks), (vq, vs) = quant_fn(k), quant_fn(v)
+    return kq, ks.transpose(2, 3).contiguous(), vq, vs.transpose(2, 3).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,n_kv,d,l,block,pack4", [
+    (4, 2, 16, 48, 16, False), (4, 4, 20, 64, 32, True), (6, 3, 8, 24, 8, True),
+    (32, 32, 128, 512, 256, True), (16, 16, 128, 512, 256, False)])
+@pytest.mark.parametrize("qdot8,pv8", [(True, False), (False, False), (True, True)])
+def test_k4_kernel_matches_plain(dev, dtype, h, n_kv, d, l, block, pack4, qdot8, pv8):
+    g = torch.Generator(device=dev).manual_seed(h * d + l)
+    b = 2
+    kq, ks, vq, vs = _flat_cache(dev, g, b, l, n_kv, d, pack4)
+    q = torch.randn(b, h * d, generator=g, device=dev).to(dtype)
+    lens = torch.tensor([[l * 3 // 4], [l // 2 + 1]], device=dev)
+    mask = torch.arange(l, device=dev)[None] < lens
+    mask[0, 1] = False
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=1, block=block,
+              valid_len=l * 3 // 4, qdot_int8=qdot8, pv_int8=pv8)
+    before = fa.decode_attention_q.launches
+    out = fa.decode_attention_q(q, kq, ks, vq, vs, mask, **kw)
+    torch.cuda.synchronize()
+    assert fa.decode_attention_q.launches == before + 1
+    _close_scaled(out, fa.decode_attention_q_reference(q, kq, ks, vq, vs, mask, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (2, 4096, 12288), (5, 96, 384), (2, 4096, 32128)])
+def test_k5_kernel_matches_plain(dev, dtype, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    w = int4.quantize_weight4(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    before = int4.int4_matmul_pallas.launches
+    out = int4.int4_matmul_pallas(x, w["w_p4"], w["w_scale"])
+    torch.cuda.synchronize()
+    assert int4.int4_matmul_pallas.launches == before + 1
+    _close_scaled(out, int4.int4_matmul_pallas_reference(x, w["w_p4"], w["w_scale"]), dtype)
+
+
+def _mlp(dev, g, h, i_dim, act, fmt):
+    ws = {n: torch.randn(*shape, generator=g, device=dev) * 0.05 for n, shape in
+          (("gate", (h, i_dim)), ("up", (h, i_dim)), ("down", (i_dim, h)))}
+    if fmt == "int4":
+        p = quant.convert_mlp_int4({n: {"w": w} for n, w in ws.items()})
+    else:
+        p = {n: quant.convert_proj({"w": w}, True) for n, w in ws.items()}
+    return p if act == "silu" else {"fc1": p["gate"], "fc2": p["down"]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["int4", "int8"])
+@pytest.mark.parametrize("m,h,i_dim,act", [(1, 64, 96, "silu"), (5, 128, 384, "gelu"),
+                                           (2, 4096, 11008, "silu"), (2, 2048, 5504, "silu")])
+def test_k6_k7_kernels_match_plain(dev, dtype, fmt, m, h, i_dim, act):
+    g = torch.Generator(device=dev).manual_seed(m + h + i_dim)
+    p = _mlp(dev, g, h, i_dim, act, fmt)
+    x = torch.randn(m, 1, h, generator=g, device=dev).to(dtype)
+    fn, ref = ((int4.fused_mlp_int4, int4.fused_mlp_int4_reference) if fmt == "int4"
+               else (int4.fused_mlp_int8, int4.fused_mlp_int8_reference))
+    before = fn.launches
+    out = fn(p, x, act)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    _close_scaled(out, ref(p, x, act), dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(2, 4096, 4096), (2, 2048, 6144), (9800, 1280, 3840),
+                                   (3, 20, 12)])
+def test_int8_product_on_the_card_is_exact(dev, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    assert torch.equal(int8_matmul(a, b).cpu(), a.cpu().int() @ b.cpu().int())
+
+
+def test_quantized_wrappers_raise_instead_of_falling_back(dev):
+    counts = [f.launches for f in (fa.decode_attention_q, *int4.KERNELS)]
+    w = int4.quantize_weight4(torch.randn(64, 128, device=dev))
+    with pytest.raises(ValueError):                         # fp16: no kernel
+        int4.int4_matmul_pallas(torch.zeros(2, 64, device=dev).half(), w["w_p4"], w["w_scale"])
+    kq = torch.zeros(1, 1, 256, 32, dtype=torch.int8, device=dev)
+    ks = torch.zeros(1, 1, 2, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):                         # fp32 scales: no kernel
+        fa.decode_attention_q(torch.zeros(1, 32, device=dev), kq, ks.float(), kq, ks.float(),
+                              torch.ones(1, 256, dtype=torch.bool, device=dev), n_kv=2,
+                              head_dim=16)
+    p = _mlp(dev, torch.Generator(device=dev).manual_seed(0), 64, 96, "silu", "int8")
+    with pytest.raises(ValueError):                         # fp16: no kernel
+        int4.fused_mlp_int8(p, torch.zeros(1, 1, 64, device=dev).half(), "silu")
+    assert [f.launches for f in (fa.decode_attention_q, *int4.KERNELS)] == counts

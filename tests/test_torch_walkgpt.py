@@ -73,3 +73,19 @@ def test_generate_and_segment_matches_jax(setup, flash):
     final_j = jwalk.finalize_masks(want.pred_masks, (48, 64), (96, 128))
     assert final_t.shape == (8, 96, 128)
     np.testing.assert_allclose(final_t.numpy(), np.asarray(final_j), atol=1e-4, rtol=0)
+
+
+def test_fast_windowed_attention_selects_nothing_under_the_kernels(setup):
+    """As in the JAX package, fast_windowed_attention only changes the einsum
+    SAM attention; with use_flash_attention the kernels run either way. The
+    einsum branch it selects is not ported and raises."""
+    p, pt, inputs, seg, eos = setup
+    tc = tcfg.tiny_config(seg_token_id=seg).replace(use_flash_attention=True)
+    kw = dict(max_new_tokens=8, max_segs=8, eos_id=eos, device="cpu", **inputs)
+    base = twalk.generate_and_segment(pt, tc, **kw)
+    fast = twalk.generate_and_segment(pt, tc.replace(fast_windowed_attention=True), **kw)
+    assert torch.equal(base.tokens, fast.tokens) and torch.equal(base.seg_rows, fast.seg_rows)
+    assert torch.equal(base.pred_masks, fast.pred_masks)
+    with pytest.raises(NotImplementedError, match="fast_windowed"):
+        twalk.generate_and_segment(
+            pt, tc.replace(fast_windowed_attention=True, use_flash_attention=False), **kw)

@@ -126,8 +126,9 @@ class LLMConfig:
     mlp_bias: bool = False
     tie_embeddings: bool = False
     family: str = "llama"                  # "llama" | "mpt" | "stablelm"
-    # flat [B, L, Hkv*D] KV cache with a fused decode-attention kernel in the
-    # JAX package; not ported yet.
+    # flat bf16 [B, L, Hkv*D] KV cache with a fused decode-attention kernel
+    # (K11) in the JAX package; not ported yet (the quantized flat caches
+    # are: WalkGPTConfig.kv_quant_cache).
     fused_decode: bool = False
     # explicit head_dim override. None = hidden_size // num_heads (set by the
     # JAX package's manual tensor parallelism for local head counts).
@@ -229,12 +230,15 @@ class WalkGPTConfig:
     # attention); False: the plain einsum attention.
     use_flash_attention: bool = True
     # bf16 bias/logits in the einsum SAM window attention (not ported yet).
+    # With use_flash_attention the kernels run and this selects nothing, as
+    # in the JAX package.
     fast_windowed_attention: bool = False
     # tanh-approximate GELU in the SAM encoder MLPs.
     fast_gelu: bool = False
-    # quantized KV cache: False = full precision; "int8"/True, "int4",
-    # "int8_flat", "int4_flat" are the JAX package's quantized formats
-    # (not ported yet).
+    # quantized KV cache: False = full precision; "int8_flat" (int8 rows)
+    # and "int4_flat" (packed int4 rows) are the flat quantized caches read
+    # by the decode-attention kernel K4. The heads-layout "int8"/True and
+    # "int4" of the JAX package are not ported yet.
     kv_quant_cache: "bool | str" = False
     # SAM encoder sub-batch size for encode (0 = whole batch at once).
     sam_encode_chunk: int = 0

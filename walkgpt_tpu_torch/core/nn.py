@@ -1,8 +1,8 @@
 """Functional neural-net primitives over parameter trees (PyTorch).
 
-Counterpart of `walkgpt_tpu/core/nn.py`, dense paths only: every module is an
-(init, apply) pair of plain functions over nested dicts of tensors, with the
-JAX package's layouts — linear weights [in, out] (`y = x @ w`), convolution
+Counterpart of `walkgpt_tpu/core/nn.py`: every module is an (init, apply)
+pair of plain functions over nested dicts of tensors, with the JAX package's
+layouts — linear weights [in, out] (`y = x @ w`), convolution
 activations NHWC and kernels HWIO, permuted to PyTorch's NCHW/OIHW at the
 call, never in the stored tree.
 
@@ -99,16 +99,78 @@ def _promote(*xs: torch.Tensor):
     return tuple(x.to(dt) for x in xs)
 
 
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 matrices a [M, K] and b [K, N].
+
+    The JAX package leaves this product to XLA; here it is a library call
+    too: `a.int() @ b.int()` on the CPU, and on CUDA `torch._int_mm`
+    (cuBLASLt), which takes no fewer than 17 rows and K, N in multiples of
+    8 — short or ragged operands are zero-padded (exact) and the result
+    sliced. A float product of int8 values is not exact at K = 4096
+    (127^2 * 4096 > 2^24)."""
+    if a.device.type != "cuda":
+        return a.int() @ b.int()
+    m, k = a.shape
+    n = b.shape[1]
+    pad_m = 32 - m if m <= 16 else 0
+    pad_k, pad_n = -k % 8, -n % 8
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        b = F.pad(b, (0, pad_n, 0, pad_k))
+    y = torch._int_mm(a.contiguous(), b.contiguous())
+    return y[:m, :n] if (pad_m or pad_n) else y
+
+
+def unpack4(p: torch.Tensor, dtype=torch.bfloat16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """packed int4 bytes -> (lo, hi) in `dtype`: the sign-extended low
+    nibble and the arithmetic-shifted high nibble of each byte."""
+    p32 = p.int()
+    return ((p32 << 28) >> 28).to(dtype), (p32 >> 4).to(dtype)
+
+
+def int4_matmul(x: torch.Tensor, p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """The dual dot of a half-pair packed int4 weight p [K/2, N] in x's
+    dtype: x[..., :K/2] @ lo + x[..., K/2:] @ hi, times the scale s [N]
+    (each half rounds to x's dtype)."""
+    k2 = p.shape[0]
+    lo, hi = unpack4(p, x.dtype)
+    return (x[..., :k2] @ lo + x[..., k2:] @ hi) * s.to(x.dtype)
+
+
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Dense `x @ w (+ b)`. The quantized formats of the JAX package
-    (`w_q`, `a8`, `w_p4`) are not ported yet."""
-    if "w" not in p:
-        raise NotImplementedError(
-            f"quantized linear format {sorted(p)} is not ported yet")
-    x, w = _promote(x, p["w"])
-    y = x @ w
+    """`x @ w (+ b)` and the JAX package's quantized formats
+    (`walkgpt_tpu/core/nn.py:103-143`, `ops/quant.py`, `ops/int4.py`):
+
+    - "a8" (W8A8): per-token int8 activations, an exact int32 product with
+      the int8 weight, then the two scales. The activation is quantized in
+      x's dtype (a bf16 x * inv rounds to bf16 before the round to int);
+    - "w_q" (weight-only int8): x @ w_q in x's dtype, times the scale;
+    - "w_p4" (packed int4, half pairs): the dual dot
+      x[:, :K/2] @ lo + x[:, K/2:] @ hi in x's dtype, times the scale."""
+    if "a8" in p:
+        # a Python number over a tensor is computed as a reciprocal times the
+        # number; dividing a 0-d tensor rounds once, as the JAX package does
+        one = torch.ones((), device=x.device)
+        inv = (127.0 * one / x.abs().amax(-1, keepdim=True).float().clamp_min(1e-8))
+        inv = inv.to(x.dtype)
+        sx = one / inv.float()
+        xq = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+        y = int8_matmul(xq.reshape(-1, xq.shape[-1]), p["w_q"])
+        y = y.reshape(*x.shape[:-1], y.shape[-1])
+        y = (y.float() * sx * p["w_scale"]).to(x.dtype)
+    elif "w_q" in p:
+        y = (x @ p["w_q"].to(x.dtype)) * p["w_scale"].to(x.dtype)
+    elif "w_p4" in p:
+        y = int4_matmul(x, p["w_p4"], p["w_scale"])
+    else:
+        x, w = _promote(x, p["w"])
+        y = x @ w
+        if "b" in p:
+            y = y + p["b"]
+        return y
     if "b" in p:
-        y = y + p["b"]
+        y = y + p["b"].to(y.dtype)
     return y
 
 

@@ -4,7 +4,11 @@ The port keeps the JAX package's parameter layout: nested dicts and lists with
 the same key paths, linear weights stored [in, out], convolution kernels HWIO.
 `from_numpy_tree` carries a JAX tree (as `jax.device_get(params)` returns it:
 numpy arrays, lists, dicts, None) across as torch tensors, so both packages
-can run on the same weights.
+can run on the same weights. Integer leaves (int8 codes, packed int4 bytes)
+keep their type, and the bool markers of the quantized formats (the
+`"a8": True` of a W8A8 projection, a Python bool, or a 0-d bool array once
+it has passed through `jax.jit`) become Python bools, so `"a8" in p`
+dispatches as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,20 +43,24 @@ def _leaf_to_torch(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 def from_numpy_tree(tree: Any, device, dtype: Optional[torch.dtype] = None) -> Any:
     """Numpy parameter tree -> the same tree of torch tensors on `device`.
 
-    Dicts keep their keys, lists stay lists, None stays None. dtype, when
-    given, casts floating leaves only (integer buffers keep their type)."""
+    Dicts keep their keys, lists stay lists, None and bools stay as they
+    are. dtype, when given, casts floating leaves only (integer buffers keep
+    their type)."""
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy_tree(v, device, dtype) for v in tree)
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, bool):
+        return tree
+    if np.ndim(tree) == 0 and np.asarray(tree).dtype == np.bool_:
+        return bool(tree)
     return _leaf_to_torch(tree, device, dtype)
 
 
 def tree_paths(tree: Any, prefix: str = "") -> dict:
     """{"a/b/0/w": shape} for every tensor leaf (None leaves are listed with
-    shape None) — the key-path view the parity tests compare."""
+    shape None, bool markers with their value) — the key-path view the
+    parity tests compare."""
     out = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -60,8 +68,8 @@ def tree_paths(tree: Any, prefix: str = "") -> dict:
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             out.update(tree_paths(v, f"{prefix}{i}/"))
-    elif tree is None:
-        out[prefix.rstrip("/")] = None
+    elif tree is None or isinstance(tree, bool):
+        out[prefix.rstrip("/")] = tree
     else:
         out[prefix.rstrip("/")] = tuple(tree.shape)
     return out

@@ -17,6 +17,9 @@
 // key columns (t%16) + 16*j (j < 4) of each key tile; for the output it owns
 // the same 4 rows and head-dim columns (t%16) + 16*jj (jj < NJ), NJ = ceil(D/16).
 // A row's 16 owners are one half-warp, so row max / row sum are 4 shuffles.
+//
+// The end of the file holds what the quantized kernels (K4-K7) share: the
+// packed-int4 nibbles, the MLP activation and the in-order sum of tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -218,6 +221,31 @@ cudaError_t launch(const typename Prob::Args& a, int D, dim3 grid, cudaStream_t 
     case 8: return launch_nj<Prob, 8>(a, grid, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// shared by the quantized kernels
+// ---------------------------------------------------------------------------
+
+// Packed int4 byte b: the low nibble sign-extended, the high one by an
+// arithmetic shift.
+__device__ __forceinline__ int lo4(int b) { return int(unsigned(b) << 28) >> 28; }
+__device__ __forceinline__ int hi4(int b) { return b >> 4; }
+
+// silu(g), or exact (erf) gelu(g).
+__device__ __forceinline__ float act_fn(float g, int gelu) {
+  return gelu ? 0.5f * g * (1.f + erff(g * 0.70710678118654752f)) : g / (1.f + expf(-g));
+}
+
+// out[i] = the sum of scratch[t, i] over t < n_tiles, in tile order.
+template <typename T>
+__global__ void sum_tiles(const float* __restrict__ scratch, T* __restrict__ out, int n_tiles,
+                          int MH) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= MH) return;
+  float y = scratch[i];
+  for (int t = 1; t < n_tiles; ++t) y += scratch[size_t(t) * MH + i];
+  out[i] = from_f<T>(y);
 }
 
 }  // namespace wgt

@@ -1,12 +1,18 @@
 """Transformer LLM decoder (PyTorch counterpart of walkgpt_tpu/models/llm.py).
 
-The rope family (LLaMA; StableLM's partial rope and GQA) with dense weights
-and the heads-layout KV cache [layers, B, n_kv, L, D] in the activation
-dtype. Inputs are embeddings, not ids (the multimodal splice happens in
+The rope family (LLaMA; StableLM's partial rope and GQA) with dense or
+quantized weights (W8A8 "a8", weight-only int8, packed int4: fused "qkv4" /
+"qkv8" projections, packed MLPs and lm_head; ops/quant.py, ops/int4.py).
+Inputs are embeddings, not ids (the multimodal splice happens in
 models/walkgpt.py). Full-sequence forwards take a `flash_fn` (the K1 kernel
-wrapper) for causal attention with a key mask; the decode step uses the
-plain einsum attention over the cache. ALiBi (MPT), LoRA, the quantized
-formats and the flat cache layouts of the JAX package are not ported yet.
+wrapper) for causal attention with a key mask.
+
+Two KV caches: the heads layout [layers, B, n_kv, L, D] in the activation
+dtype, read by the plain einsum attention, and the flat quantized layout
+(int8 rows [layers, B, L, n_kv*D] or packed int4 rows [.., n_kv*D/2], bf16
+scales [layers, B, n_kv, L]) read by the K4 kernel. ALiBi (MPT), LoRA, the
+heads-layout quantized cache and the flat bf16 cache of the JAX package are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +23,9 @@ import torch.nn.functional as F
 
 from ..core import nn
 from ..core.config import LLMConfig
+from ..ops import int4
 from ..ops.attention import merge_heads, mha, split_heads
+from ..ops.flash_attention import decode_attention_q
 
 Params = Dict
 
@@ -115,9 +123,30 @@ def _norm(p, x, cfg: LLMConfig):
 
 
 def _mlp(p, x, cfg: LLMConfig):
+    """Packed int4 MLPs take K6 on decode rows; W8A8 MLPs take K7 on decode
+    rows (fused_mlp_int8 returns None for longer inputs); the rest the
+    per-projection products."""
+    if int4.mlp_is_int4(p):
+        return int4.mlp_int4(p, x, cfg.act)
+    if int4.mlp_is_w8a8(p):
+        y = int4.fused_mlp_int8(p, x, cfg.act)
+        if y is not None:
+            return y
     if cfg.act == "silu":
         return nn.linear(p["down"], F.silu(nn.linear(p["gate"], x)) * nn.linear(p["up"], x))
     return nn.linear(p["fc2"], nn.gelu_exact(nn.linear(p["fc1"], x)))
+
+
+def _qkv_proj(p, x: torch.Tensor, cfg: LLMConfig):
+    """q/k/v projections: one packed int4 product (K5 on decode rows) for
+    "qkv4", one W8A8 product for "qkv8", else three."""
+    if "qkv4" in p or "qkv8" in p:
+        qkv = (int4.int4_matmul_pallas(x, p["qkv4"]["w_p4"], p["qkv4"]["w_scale"])
+               if "qkv4" in p else nn.linear(p["qkv8"], x))
+        hq = cfg.num_heads * cfg.head_dim
+        kvd = cfg.num_kv_heads * cfg.head_dim
+        return qkv[..., :hq], qkv[..., hq:hq + kvd], qkv[..., hq + kvd:]
+    return nn.linear(p["q"], x), nn.linear(p["k"], x), nn.linear(p["v"], x)
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -129,9 +158,10 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _qkv_rope(p, cfg: LLMConfig, x: torch.Tensor, cos, sin):
-    q = split_heads(nn.linear(p["q"], x), cfg.num_heads)
-    k = split_heads(nn.linear(p["k"], x), cfg.num_kv_heads)
-    v = split_heads(nn.linear(p["v"], x), cfg.num_kv_heads)
+    qp, kp, vp = _qkv_proj(p, x, cfg)
+    q = split_heads(qp, cfg.num_heads)
+    k = split_heads(kp, cfg.num_kv_heads)
+    v = split_heads(vp, cfg.num_kv_heads)
     rot_dim = int(cfg.head_dim * cfg.rope_pct)
     return apply_rope(q, cos, sin, rot_dim), apply_rope(k, cos, sin, rot_dim), v
 
@@ -155,7 +185,13 @@ def _attention(p, cfg: LLMConfig, x: torch.Tensor, *, cos, sin,
 def lm_logits(params: Params, cfg: LLMConfig, hidden: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
         return hidden @ params["embed_tokens"]["w"].T
-    return nn.linear(params["lm_head"], hidden)
+    head = params["lm_head"]
+    if "w_p4" in head and "b" not in head:
+        # K5 on decode rows; the packed head may be zero-padded to a
+        # multiple of 128 columns: slice back to the vocabulary
+        logits = int4.int4_matmul_pallas(hidden, head["w_p4"], head["w_scale"])
+        return logits[..., :cfg.vocab_size]
+    return nn.linear(head, hidden)
 
 
 def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
@@ -163,15 +199,69 @@ def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# KV cache (heads layout)
+# KV caches
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, dtype=torch.float32,
-                  device=None) -> Params:
-    """Heads-layout cache {"k", "v"}: [layers, B, n_kv, max_len, D] zeros."""
+                  device=None, quant: str = "", layout: str = "heads") -> Params:
+    """Zeros. layout="heads": {"k", "v"} [layers, B, n_kv, max_len, D] in
+    dtype. layout="flat" with quant "int8" or "int4": values [layers, B,
+    max_len, n_kv*D] int8 (int4: [.., n_kv*D/2] packed in global halves) and
+    scales [layers, B, n_kv, max_len] bf16."""
+    if layout == "flat":
+        if quant not in ("int8", "int4"):
+            raise NotImplementedError("only the quantized flat caches are ported "
+                                      f"(quant 'int8' or 'int4', got {quant!r})")
+        kd = cfg.num_kv_heads * cfg.head_dim
+        shape = (cfg.num_layers, batch, max_len, kd // 2 if quant == "int4" else kd)
+        sshape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+                "v_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device)}
+    if quant:
+        raise NotImplementedError("the heads-layout quantized cache is not ported yet")
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cache_is_flat(kv_cache: Params) -> bool:
+    return kv_cache["k"].ndim == 4
+
+
+def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] -> (int8 [..., D], bf16 scale [...]): symmetric per row, 127
+    levels; the scale is rounded to bf16 first and the division is by the
+    rounded scale, so the stored pair is self-consistent."""
+    xf = x.float()
+    scale = (xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0).to(torch.bfloat16)
+    q = torch.clamp(torch.round(xf / scale.float()), -127, 127).to(torch.int8)
+    return q, scale[..., 0]
+
+
+def _quant_pack4_flat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., n_kv, D] -> (packed int8 [..., n_kv*D/2], bf16 scale [...,
+    n_kv]): per (row, kv head) int4 (7 levels) divided by the rounded bf16
+    scale, packed in GLOBAL halves of the flattened row: byte j holds flat
+    dims j (low nibble) and j + n_kv*D/2 (high nibble)."""
+    xf = x.float()
+    scale = (xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 7.0).to(torch.bfloat16)
+    q = torch.clamp(torch.round(xf / scale.float()), -7, 7).int()
+    kd = x.shape[-2] * x.shape[-1]
+    q = q.reshape(*x.shape[:-2], kd)
+    packed = ((q[..., :kd // 2] & 0xF) | ((q[..., kd // 2:] & 0xF) << 4))
+    return packed.to(torch.uint8).view(torch.int8), scale[..., 0]
+
+
+def _quant_flat(kv_cache: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., n_kv, D] -> the cache's row format: (values [..., width],
+    scales [..., n_kv])."""
+    n_kv, d = x.shape[-2:]
+    if kv_cache["k"].shape[-1] == n_kv * d // 2:
+        return _quant_pack4_flat(x)
+    q, s = _quant_rows(x)
+    return q.reshape(*x.shape[:-2], n_kv * d), s
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +300,12 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
                                        key_valid=attention_mask)
         x = x + h
         x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
-        if kv_cache is not None:
+        if kv_cache is not None and _cache_is_flat(kv_cache):
+            for name, val in (("k", k_new), ("v", v_new)):
+                q, sc = _quant_flat(kv_cache, val.transpose(1, 2))    # [B, T, n_kv, D]
+                kv_cache[name][i, :, :t] = q
+                kv_cache[name + "_scale"][i, :, :, :t] = sc.transpose(1, 2)
+        elif kv_cache is not None:
             kv_cache["k"][i, :, :, :t] = k_new
             kv_cache["v"][i, :, :, :t] = v_new
     return _norm(params["final_norm"], x, cfg), kv_cache
@@ -218,14 +313,16 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
 
 def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
                 inputs_embeds: torch.Tensor, cache_len: torch.Tensor,
-                key_mask: torch.Tensor, write_slot: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Params]:
-    """One decode step over the heads-layout cache.
+                key_mask: torch.Tensor, write_slot: Optional[int] = None,
+                valid_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+    """One decode step over the heads-layout cache or a flat quantized one.
 
     inputs_embeds: [B, 1, H]; cache_len: [B] int — logical position per row
     (drives rope; the K/V land at cache_len unless write_slot is given);
     key_mask: [B, L] bool — valid cache slots including this step.
     write_slot: one slot for every row (greedy_generate's uniform layout).
+    valid_len: no slot at or past it is valid (flat quantized caches: K4
+    skips the length blocks past it).
     The cache is updated in place. Returns (hidden [B, 1, H], kv_cache).
     """
     _check_supported(cfg)
@@ -233,19 +330,41 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
     cos, sin = rope_tables(cfg, cache_len[:, None])
     rows = torch.arange(b, device=inputs_embeds.device)
     n_rep = cfg.num_heads // cfg.num_kv_heads
+    flat = _cache_is_flat(kv_cache)
+    if flat and "k_scale" not in kv_cache:
+        raise NotImplementedError("the flat bf16 cache (fused_decode) is not ported yet")
+    if not flat and "k_scale" in kv_cache:
+        raise NotImplementedError("the heads-layout quantized cache is not ported yet")
+    slot = cache_len if write_slot is None else write_slot
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
         q, k1, v1 = _qkv_rope(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg), cos, sin)
-        if write_slot is not None:
-            kv_cache["k"][i, :, :, write_slot] = k1[:, :, 0]
-            kv_cache["v"][i, :, :, write_slot] = v1[:, :, 0]
+        if flat:
+            for name, val in (("k", k1), ("v", v1)):
+                qv, sc = _quant_flat(kv_cache, val[:, :, 0])          # [B, width], [B, n_kv]
+                if write_slot is None:
+                    kv_cache[name][i, rows, cache_len] = qv
+                    kv_cache[name + "_scale"][i, rows, :, cache_len] = sc
+                else:
+                    kv_cache[name][i, :, slot] = qv
+                    kv_cache[name + "_scale"][i, :, :, slot] = sc
+            att = decode_attention_q(
+                q[:, :, 0].reshape(b, cfg.num_heads * cfg.head_dim), kv_cache["k"],
+                kv_cache["k_scale"], kv_cache["v"], kv_cache["v_scale"], key_mask,
+                n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                pack4=kv_cache["k"].shape[-1] < cfg.num_kv_heads * cfg.head_dim,
+                layer=i, valid_len=valid_len)[:, None]
         else:
-            kv_cache["k"][i, rows, :, cache_len] = k1[:, :, 0]
-            kv_cache["v"][i, rows, :, cache_len] = v1[:, :, 0]
-        k_cache = kv_cache["k"][i].to(q.dtype)
-        v_cache = kv_cache["v"][i].to(q.dtype)
-        att = mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
-                  mask=key_mask[:, None, None, :])
-        x = x + nn.linear(layer["attn"]["o"], merge_heads(att))
+            if write_slot is not None:
+                kv_cache["k"][i, :, :, write_slot] = k1[:, :, 0]
+                kv_cache["v"][i, :, :, write_slot] = v1[:, :, 0]
+            else:
+                kv_cache["k"][i, rows, :, cache_len] = k1[:, :, 0]
+                kv_cache["v"][i, rows, :, cache_len] = v1[:, :, 0]
+            k_cache = kv_cache["k"][i].to(q.dtype)
+            v_cache = kv_cache["v"][i].to(q.dtype)
+            att = merge_heads(mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
+                                  mask=key_mask[:, None, None, :]))
+        x = x + nn.linear(layer["attn"]["o"], att)
         x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
     return _norm(params["final_norm"], x, cfg), kv_cache

@@ -6,9 +6,13 @@ walkgpt_tpu/models/walkgpt.py, SAM visual stream).
                     │      -> [SEG] predictor hidden states -> CTP
                     └──────────────────────────> SAM prompt encoder + mask decoder
 
-The entry points (`init`, `generate_and_segment`) run on CUDA unless the
-caller passes another device. The CLIP visual stream, speculative decode,
-the teacher-forced forward and the training losses are not ported yet.
+The entry points (`init`, `init_quantized`, `generate_and_segment`) run on
+CUDA unless the caller passes another device. Besides dense weights, the
+quantized production formats run: W8A8 or packed-int4 LLM weights
+(`init_quantized`), int8 SAM encoder blocks, and the flat int8 / packed
+int4 KV caches (cfg.kv_quant_cache "int8_flat" / "int4_flat"). The CLIP
+visual stream, speculative decode, the teacher-forced forward and the
+training losses are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 from ..core.config import WalkGPTConfig
 from ..core.tree import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..ops.quant import quantize_sam_encoder, quantized_llm_init
 from ..ops.resize import bilinear_resize
 from ..runtime.generate import greedy_generate
 from . import llm, sam
@@ -32,20 +37,44 @@ def sam_config(cfg: WalkGPTConfig) -> sam.SamConfig:
                          decoder=cfg.mask_decoder)
 
 
-def init(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.float32, device=None) -> Dict:
+def init(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.float32, device=None,
+         llm_init=None) -> Dict:
     """Random parameters with the JAX package's tree layout (without the CLIP
     tower and its projector, whose stream is not ported yet), built leaf by
-    leaf on `device` (default CUDA) from a seeded torch.Generator."""
+    leaf on `device` (default CUDA) from a seeded torch.Generator.
+    llm_init(g, cfg.llm, dtype), when given, builds the LLM subtree."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     return {
-        "llm": llm.init(g, cfg.llm, dtype),
+        "llm": (llm_init or llm.init)(g, cfg.llm, dtype),
         "sam": sam.init(g, sam_config(cfg), dtype),
         "msqp": msqp_init(g, cfg.msqp, cfg.llm.hidden_size, dtype),
         "ctp": [ctp_init(g, cfg.ctp, cfg.llm.hidden_size, dtype)],
         "tiny_xattn": tiny_xattn_init(g, cfg.msqp.sam_dim, dtype),
     }
+
+
+def init_quantized(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.bfloat16,
+                   device=None, act_quant: bool = False, sam_int8: bool = False,
+                   mlp_int4: bool = False, attn_int4: bool = False,
+                   head_int4: bool = False) -> Dict:
+    """`init`'s layout with a quantized LLM built one layer at a time on the
+    device (ops/quant.quantized_llm_init): act_quant marks the int8
+    projections W8A8, mlp_int4 / attn_int4 / head_int4 pack the MLPs, the
+    fused q/k/v and the lm_head as int4. sam_int8 quantizes the SAM encoder
+    blocks' projections (W8A8 with act_quant).
+
+    WalkGPT-7B's production format: act_quant, mlp_int4, attn_int4,
+    head_int4 and sam_int8 (with kv_quant_cache "int4_flat"); WalkGPT-1B's:
+    act_quant and sam_int8 (with "int8_flat")."""
+    def llm_init(g, llm_cfg, dt):
+        return quantized_llm_init(g, llm_cfg, dt, act_quant=act_quant, mlp_int4=mlp_int4,
+                                  attn_int4=attn_int4, head_int4=head_int4)
+    params = init(cfg, seed=seed, dtype=dtype, device=device, llm_init=llm_init)
+    if sam_int8:
+        params["sam"] = quantize_sam_encoder(params["sam"], act_quant=act_quant)
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -56,8 +85,9 @@ def encode_sam(params, cfg: WalkGPTConfig, images: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """images [B, S, S, 3] -> (feature maps [B, g, g, C], tokens [B, g*g, C]).
     sam_encode_chunk > 0 encodes sub-batches one after the other."""
-    if cfg.fast_windowed_attention:
-        raise NotImplementedError("fast_windowed_attention is not ported yet")
+    if cfg.fast_windowed_attention and not cfg.use_flash_attention:
+        raise NotImplementedError("fast_windowed_attention on the einsum attention "
+                                  "is not ported yet")
 
     def enc(im):
         return sam.encode_image(params["sam"], sam_config(cfg), im,
@@ -206,15 +236,20 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
     attention_mask [R, T] bool; row_image_idx [R]; pixel_hw [B, 2] valid
     (h, w) per image. Arrays or tensors; they are moved to `device`
     (default CUDA). With cfg.use_flash_attention the LLM prefill runs K1 and
-    the SAM encoder K2/K3."""
+    the SAM encoder K2/K3; a flat quantized cache runs K4 in every decode
+    step, and quantized weights K5-K7 (ops/int4.py)."""
     dev = resolve_device(device)
     images = torch.as_tensor(images, device=dev)
     input_ids = torch.as_tensor(input_ids, device=dev).long()
     attention_mask = torch.as_tensor(attention_mask, device=dev).bool()
     row_image_idx = torch.as_tensor(row_image_idx, device=dev).long()
     pixel_hw = torch.as_tensor(pixel_hw, device=dev)
-    if cfg.kv_quant_cache or cfg.decode_cache_grow or cfg.llm.fused_decode:
-        raise NotImplementedError("quantized / flat / growing KV caches are not ported yet")
+    if cfg.kv_quant_cache not in (False, "", "int8_flat", "int4_flat"):
+        raise NotImplementedError(f"kv_quant_cache={cfg.kv_quant_cache!r}: only the flat "
+                                  "quantized caches are ported")
+    if cfg.decode_cache_grow or cfg.llm.fused_decode:
+        raise NotImplementedError("the growing and the flat bf16 KV caches are not "
+                                  "ported yet")
     flash_fn = None
     if cfg.use_flash_attention:
         flash_fn = lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
@@ -224,7 +259,7 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
     sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask)
     res = greedy_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
                           max_new_tokens=max_new_tokens, eos_id=eos_id, flash_fn=flash_fn,
-                          prefill_chunk=cfg.prefill_chunk)
+                          kv_quant=cfg.kv_quant_cache or "", prefill_chunk=cfg.prefill_chunk)
     seg_valid, seg_rows, pred_embeddings = _seg_gather(params, cfg, res.tokens,
                                                        res.pred_hidden, max_segs)
     pred_canvas, score = decode_seg_masks(params, cfg, feats, pred_embeddings,

@@ -16,11 +16,14 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("flash_attention", "sam_window_attention", "sam_flash_attention")
+SOURCES = ("flash_attention", "sam_window_attention", "sam_flash_attention",
+           "decode_attention_q", "int4_matmul", "fused_mlp_int4", "fused_mlp_int8")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,3 +85,16 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         _libs[name] = ctypes.CDLL(str(path))
     return _libs[name]
+
+
+def launch(lib: str, fn_name: str, argtypes: Sequence, device: torch.device, *args) -> None:
+    """Call the C entry `fn_name` of csrc/<lib>.cu on `device`'s current
+    stream. `argtypes` are its ctypes argument types, the stream (its last
+    argument) included; raises if the entry returns a CUDA error."""
+    fn = getattr(load(lib), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")

@@ -1,4 +1,4 @@
-"""The three attention kernels of the main path, each beside its plain version.
+"""The four attention kernels of the main path, each beside its plain version.
 
 Every public function here dispatches on the device of its inputs: a CPU
 tensor runs the plain PyTorch version (`*_reference`, which the CPU tests hold
@@ -25,7 +25,15 @@ K3 sam_flash_attention (csrc/sam_flash_attention.cu)
     [2, 16, 4096, 80] bf16, about 172 GFLOP, bound by operations (about
     174 us at 989 TFLOP/s bf16).
 
-Design (all three, csrc/attention_tile.cuh): one block per 64-row query tile
+K4 decode_attention_q (csrc/decode_attention_q.cu)
+    Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention_q
+    (_decode_attn_q8_kernel, _decode_attn_q_kernel): one decode step of GQA
+    attention over the flat quantized cache (int8 rows, or packed int4 in
+    global-halves order), walked in DECODE_BLOCK-key blocks. 7B, 2 rows,
+    480 of 512 slots valid, packed int4: about 4.1 MB of k and v codes and
+    scales below valid_len, bound by bytes (about 1.2 us).
+
+Design (K1-K3, csrc/attention_tile.cuh): one block per 64-row query tile
 and (batch, head) or (window, head); key tiles of 64 stream through shared
 memory; the logits tile and its bias live only in registers and shared
 memory, with an fp32 online softmax, so no [N, N] tensor reaches device
@@ -42,6 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.nn import unpack4
 from . import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,15 +66,8 @@ _SIGNATURES = {
     "wg_sam_flash_attention_fwd": ("sam_flash_attention",
                                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _P, _F, _I, _P]),
+    "wg_decode_attention_q": ("decode_attention_q", [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
 }
-
-
-def _kernel(fn_name: str):
-    lib_name, argtypes = _SIGNATURES[fn_name]
-    fn = getattr(cuda_build.load(lib_name), fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_cuda(name: str, *xs: torch.Tensor) -> int:
@@ -92,11 +94,8 @@ def _strides(*xs: torch.Tensor):
 
 
 def _launch(fn_name: str, dev: torch.device, *args) -> None:
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _kernel(fn_name)(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
+    lib, argtypes = _SIGNATURES[fn_name]
+    cuda_build.launch(lib, fn_name, argtypes, dev, *args)
 
 
 def _softmax_rows(s: torch.Tensor, v: torch.Tensor, p_dtype: torch.dtype
@@ -274,4 +273,152 @@ def sam_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 sam_flash_attention.launches = 0
 
-KERNELS = (flash_attention, sam_window_attention_packed, sam_flash_attention)
+
+# ---------------------------------------------------------------------------
+# K4: decode attention over the flat quantized cache
+# ---------------------------------------------------------------------------
+
+# Length-block size of the decode-attention walk. It is part of the
+# numerics (alpha and p are rounded to bf16 per block), and callers round
+# the cache length up to a multiple of it (runtime/generate.py).
+DECODE_BLOCK = 256
+NEG_INF = -1e30
+
+
+def banded_q8(q: torch.Tensor, *, n_kv: int, head_dim: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-head quantization of q for the int8 scores product (the plain
+    math of the JAX banded_q8, without the TPU's band matrices):
+    qs = max(|q|max, 1e-20) * (1/127), q8 = round(q / qs).
+    q [B, H*D] -> (q8 int8 [B, n_kv, n_rep, D], qs f32 [B, n_kv, n_rep]),
+    query head kv*n_rep + r at [:, kv, r]."""
+    b, hd = q.shape
+    h = hd // head_dim
+    qf = q.float().reshape(b, n_kv, h // n_kv, head_dim)
+    qs = qf.abs().amax(-1, keepdim=True).clamp_min(1e-20) * (1.0 / 127.0)
+    return torch.round(qf / qs).to(torch.int8), qs[..., 0]
+
+
+def _cache_rows(c: torch.Tensor, n_kv: int, d: int, pack4: bool) -> torch.Tensor:
+    """One layer's cache values [B, L, width] -> int values [B, L, n_kv, D]
+    (fp32). Packed bytes hold flat dims (j, j + kd/2): lo plane, hi plane."""
+    if pack4:
+        c = torch.cat(unpack4(c, torch.float32), dim=-1)
+    return c.float().reshape(*c.shape[:2], n_kv, d)
+
+
+def _decode_blocks(l: int, block: int, valid_len: Optional[int]) -> Tuple[int, int]:
+    bl = min(block, l)
+    if l % bl:
+        raise ValueError(f"decode_attention_q: cache length {l} is not a multiple of {bl}")
+    nvb = l // bl if valid_len is None else min(-(-int(valid_len) // bl), l // bl)
+    return bl, nvb
+
+
+def decode_attention_q_reference(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
+                                 n_kv: int, head_dim: int, pack4: bool = False,
+                                 layer: int = 0, block: int = DECODE_BLOCK,
+                                 valid_len: Optional[int] = None, qdot_int8: bool = True,
+                                 pv_int8: bool = False) -> torch.Tensor:
+    """Plain version of K4, block by block as the TPU kernel walks the cache:
+    per block of `block` keys, scores (int q8.k times ks * (qs * scale), or
+    bf16 q.k times ks * scale), masked logits -1e30, the running max, alpha
+    = exp(m_old - m_new), l updated with the unrounded alpha, p*vs rounded
+    to bf16 for the value product (or, with pv_int8, quantized per kv head
+    per block), acc scaled by bf16(alpha); at the end acc / bf16(l).
+    Blocks at or past ceil(valid_len / block) are skipped. pv_int8 applies
+    with qdot_int8 only, as in the TPU kernels."""
+    b, hd = q.shape
+    d = head_dim
+    n_rep = hd // d // n_kv
+    l = k_cache.shape[2]
+    bl, nvb = _decode_blocks(l, block, valid_len)
+    scale = 1.0 / math.sqrt(d)
+    k = _cache_rows(k_cache[layer], n_kv, d, pack4)              # [B, L, n_kv, D]
+    v = _cache_rows(v_cache[layer], n_kv, d, pack4)
+    ks, vs = k_scale[layer].float(), v_scale[layer].float()      # [B, n_kv, L]
+    if qdot_int8:
+        q8, qs = banded_q8(q, n_kv=n_kv, head_dim=d)
+        qk, q_scale = q8.float(), (qs * scale)[..., None]         # [B, n_kv, n_rep, 1]
+    else:
+        qk = q.to(torch.bfloat16).float().reshape(b, n_kv, n_rep, d)
+        q_scale = scale
+    m = torch.full((b, n_kv, n_rep), NEG_INF, device=q.device)
+    lsum = torch.zeros((b, n_kv, n_rep), device=q.device)
+    acc = torch.zeros((b, n_kv, n_rep, d), device=q.device)
+    for jb in range(nvb):
+        keys = slice(jb * bl, (jb + 1) * bl)
+        valid = key_mask[:, None, None, keys]                      # [B, 1, 1, bl]
+        s = torch.einsum("bkrd,blkd->bkrl", qk, k[:, keys])
+        s = s * (ks[:, :, None, keys] * q_scale)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+        lsum = lsum * alpha + p.sum(-1)
+        m = m_new
+        pv = p * vs[:, :, None, keys]
+        if pv_int8 and qdot_int8:
+            psc = pv.amax(-1).clamp_min(1e-20) * (1.0 / 127.0)
+            y = torch.einsum("bkrl,blkd->bkrd", torch.round(pv / psc[..., None]),
+                             v[:, keys]) * psc[..., None]
+        else:
+            y = torch.einsum("bkrl,blkd->bkrd", pv.to(torch.bfloat16).float(), v[:, keys])
+        acc = acc * alpha.to(torch.bfloat16).float()[..., None] + y
+    out = acc / lsum.to(torch.bfloat16).float().clamp_min(1e-30)[..., None]
+    return out.reshape(b, hd).to(q.dtype)
+
+
+def decode_attention_q(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
+                       n_kv: int, head_dim: int, pack4: bool = False, layer: int = 0,
+                       block: int = DECODE_BLOCK, valid_len: Optional[int] = None,
+                       qdot_int8: bool = True, pv_int8: bool = False) -> torch.Tensor:
+    """K4: one decode step of attention over a quantized flat cache.
+
+    q: [B, H*D]; k_cache/v_cache: [layers, B, L, n_kv*D] int8, or with
+    pack4 [layers, B, L, n_kv*D/2] packed int4 (byte j holds flat dims j and
+    j + n_kv*D/2); k_scale/v_scale: [layers, B, n_kv, L] bf16 per (token,
+    kv head); key_mask: [B, L] bool with L a multiple of `block` and a valid
+    key in every row's first block; valid_len: no key at or past it is
+    valid (whole blocks past it are skipped). qdot_int8: int8 scores product
+    on per-head-quantized q; pv_int8: int8 value product. Returns [B, H*D]
+    in q's dtype."""
+    kw = dict(n_kv=n_kv, head_dim=head_dim, pack4=pack4, layer=layer, block=block,
+              valid_len=valid_len, qdot_int8=qdot_int8, pv_int8=pv_int8)
+    if q.device.type == "cpu":
+        return decode_attention_q_reference(q, k_cache, k_scale, v_cache, v_scale,
+                                            key_mask, **kw)
+    dt = _check_cuda("decode_attention_q", q)
+    b, hd = q.shape
+    d = head_dim
+    h = hd // d
+    _, cb, l, width = k_cache.shape
+    kd = n_kv * d
+    bl, nvb = _decode_blocks(l, block, valid_len)
+    if (hd % d or h % n_kv or cb != b or width != (kd // 2 if pack4 else kd)
+            or (pack4 and kd % 2) or d > 256 or h // n_kv > 8
+            or v_cache.shape != k_cache.shape or k_cache.dtype != torch.int8
+            or v_cache.dtype != torch.int8
+            or k_scale.shape != (k_cache.shape[0], b, n_kv, l) or v_scale.shape != k_scale.shape
+            or k_scale.dtype != torch.bfloat16 or v_scale.dtype != torch.bfloat16
+            or tuple(key_mask.shape) != (b, l) or key_mask.dtype != torch.bool
+            or bl > 1024):
+        raise ValueError(f"decode_attention_q: bad inputs q {tuple(q.shape)} {q.dtype}, "
+                         f"cache {tuple(k_cache.shape)} {k_cache.dtype}, scales "
+                         f"{tuple(k_scale.shape)} {k_scale.dtype}, mask {tuple(key_mask.shape)} "
+                         f"{key_mask.dtype}, n_kv={n_kv}, D={d}, pack4={pack4}")
+    bufs = [q, k_cache[layer], k_scale[layer], v_cache[layer], v_scale[layer], key_mask]
+    if any(x.device != q.device or not x.is_contiguous() for x in bufs):
+        raise ValueError("decode_attention_q: inputs must be contiguous on one device")
+    out = torch.empty((b, hd), dtype=q.dtype, device=q.device)
+    _launch("wg_decode_attention_q", q.device, *[x.data_ptr() for x in bufs], out.data_ptr(),
+            b, h, n_kv, d, l, bl, nvb, int(pack4), int(qdot_int8), int(pv_int8),
+            1.0 / math.sqrt(d), dt)
+    decode_attention_q.launches += 1
+    return out
+
+
+decode_attention_q.launches = 0
+
+KERNELS = (flash_attention, sam_window_attention_packed, sam_flash_attention,
+           decode_attention_q)

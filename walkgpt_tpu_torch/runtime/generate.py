@@ -1,5 +1,6 @@
 """Greedy decoding with a preallocated KV cache (PyTorch counterpart of
-walkgpt_tpu/runtime/generate.py: greedy_generate, _prefill, _pad_cache_len).
+walkgpt_tpu/runtime/generate.py: greedy_generate, _prefill, _pad_cache_len,
+_cache_len_axis).
 
 Prefill writes the cache for the right-padded prompt; then one step per
 token. Every row writes decode step s at the same slot t + s (t = padded
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from ..core.config import LLMConfig
 from ..models import llm
+from ..ops.flash_attention import DECODE_BLOCK
 
 
 class GenerateResult(NamedTuple):
@@ -27,10 +29,24 @@ class GenerateResult(NamedTuple):
     prefill_hidden: torch.Tensor  # [B, T, H] final-norm hidden states of the prompt
 
 
+def _cache_len_axis(name: str, layout_flat: bool) -> int:
+    """Length axis of a cache leaf: heads layout [layers, B, n_kv, T, D] -> 3;
+    flat values [layers, B, T, width] -> 2, flat scales [layers, B, n_kv, T]
+    -> 3."""
+    if layout_flat:
+        return 3 if name.endswith("_scale") else 2
+    return 3
+
+
 def _pad_cache_len(kv_cache, max_len: int):
-    """Grow every cache leaf's length axis (3) to max_len with zeros."""
-    return {name: F.pad(buf, (0, 0, 0, max_len - buf.shape[3]))
-            for name, buf in kv_cache.items()}
+    """Grow every cache leaf's length axis to max_len with zeros."""
+    flat = kv_cache["k"].ndim == 4
+    out = {}
+    for name, buf in kv_cache.items():
+        ax = _cache_len_axis(name, flat)
+        pads = [0, 0] * (buf.ndim - 1 - ax) + [0, max_len - buf.shape[ax]]
+        out[name] = F.pad(buf, pads)
+    return out
 
 
 def _prefill(params, cfg: LLMConfig, inputs_embeds, attention_mask, kv_cache,
@@ -54,14 +70,24 @@ def _prefill(params, cfg: LLMConfig, inputs_embeds, attention_mask, kv_cache,
 
 def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                     attention_mask: torch.Tensor, *, max_new_tokens: int,
-                    eos_id: int, pad_id: int = 0, flash_fn=None,
+                    eos_id: int, pad_id: int = 0, flash_fn=None, kv_quant="",
                     prefill_chunk: int = 0) -> GenerateResult:
     """inputs_embeds: [B, T, H] right-padded prompt embeddings;
-    attention_mask: [B, T] bool. The cache is in the embeddings' dtype."""
+    attention_mask: [B, T] bool. The cache is in the embeddings' dtype, or
+    with kv_quant "int8_flat" / "int4_flat" the flat quantized cache read by
+    the K4 kernel, its length rounded up to a multiple of DECODE_BLOCK (the
+    extra slots stay masked)."""
     b, t, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     max_len = t + max_new_tokens
-    kv_cache = llm.init_kv_cache(cfg, b, t, dtype=inputs_embeds.dtype, device=dev)
+    layout, quant = "heads", ""
+    if kv_quant in ("int8_flat", "int4_flat"):
+        max_len = -(-max_len // DECODE_BLOCK) * DECODE_BLOCK
+        layout, quant = "flat", kv_quant[:4]
+    elif kv_quant:
+        raise NotImplementedError(f"kv_quant={kv_quant!r} is not ported yet")
+    kv_cache = llm.init_kv_cache(cfg, b, t, dtype=inputs_embeds.dtype, device=dev,
+                                 quant=quant, layout=layout)
     prefill_hidden, kv_cache = _prefill(params, cfg, inputs_embeds, attention_mask,
                                         kv_cache, flash_fn, prefill_chunk)
     kv_cache = _pad_cache_len(kv_cache, max_len)
@@ -86,7 +112,7 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         x = llm.embed(params, token)[:, None].to(inputs_embeds.dtype)
         key_mask = prompt_valid | ((key_pos >= t) & (key_pos <= t + s))
         hidden, kv_cache = llm.decode_step(params, cfg, kv_cache, x, cache_len, key_mask,
-                                           write_slot=t + s)
+                                           write_slot=t + s, valid_len=t + s + 1)
         hid = hidden[:, 0]
         token = torch.where(done, pad_id, pick(hid))
         cache_len = cache_len + 1
