@@ -10,10 +10,13 @@ Phases (any failure raises and the script exits non-zero):
      (sam_flash_attention) against their plain versions at the shapes the
      WalkGPT-7B main path gives them; K4 (decode_attention_q), K5
      (int4_matmul_pallas), K6 (fused_mlp_int4) and K7 (fused_mlp_int8) at
-     the shapes of the quantized 7B and 1B paths; all in bf16, and again in
-     fp32 at small ragged shapes; kernel, plain-version and library times,
-     and the bound. The W8A8 int32 product on the card against the CPU's,
-     bit for bit.
+     the shapes of the quantized 7B and 1B paths (2b); K8
+     (decode_attention_q_chunk) at the speculative chunk of both, K8's
+     tokens against K4 at the same positions bit for bit, and K11
+     (decode_attention) at the dense 7B fused_decode step (2c); all in
+     bf16, and again in fp32 at small ragged shapes; kernel, plain-version
+     and library times, and the bound. The W8A8 int32 product on the card
+     against the CPU's, bit for bit.
   3. parity: demo_config in fp32 (TF32 off) through generate_and_segment
      with the kernels and with the einsum attention, same random weights:
      identical tokens, masks within 1e-3. Then demo_config in both quantized
@@ -21,7 +24,12 @@ Phases (any failure raises and the script exits non-zero):
      (kernels): identical tokens, lengths and [SEG] rows, every new kernel
      launched; masks within 1e-3 with float SAM blocks, and within 2% of
      their largest magnitude with the deployed W8A8 SAM blocks
-     (QUANT_MASK_REL says why).
+     (QUANT_MASK_REL says why). 3c: speculative decode (speculative_k=8)
+     at demo_config over the int4_flat cache (7B format, float SAM blocks),
+     the int8_flat cache and the heads fp32 and int8 caches (dense), the
+     card against the CPU: identical tokens, lengths and [SEG] rows, masks
+     within 1e-3 (the 1B format's W8A8 run is reported beside them);
+     greedy with fused_decode (K11) against the heads layout on the card.
   4. the slices at full width, random weights from --seed built on the card,
      two requests of 2 images and 2 prompt rows each, with launch counts per
      request, peak memory, and the warm request's phase times on the host
@@ -31,6 +39,10 @@ Phases (any failure raises and the script exits non-zero):
           lm_head, W8A8 o-proj and SAM blocks, the packed int4 flat cache;
        c. WalkGPT-1B (flagship_1b_config) in its production format: W8A8
           weights with the fused qkv8, W8A8 SAM blocks, the int8 flat cache.
+     b and c then run two requests with speculative_k=8 (K8 in every
+     verify iteration and layer, counts checked exactly) and time the
+     speculative schedule at force_accept 0 and 8; a then runs two
+     requests with fused_decode (K11 in every step and layer).
 Then one JSON line with every kernel's numbers and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
@@ -38,6 +50,7 @@ without a GPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -59,6 +72,7 @@ from walkgpt_tpu_torch.runtime import generate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 KERNELS = fa.KERNELS + int4.KERNELS
+SPEC_K = 8                  # drafts per verify iteration (the JAX sweep's draft_k)
 
 # the production formats (the JAX package's bench.py): WalkGPT-7B "int4x"
 # with the packed int4 flat cache, WalkGPT-1B W8A8 with the int8 flat cache
@@ -102,6 +116,10 @@ KERNEL_INFO = {
                        "walkgpt_tpu/ops/int4.py:105"),
     "fused_mlp_int8": ("walkgpt_tpu_torch/csrc/fused_mlp_int8.cu",
                        "walkgpt_tpu/ops/int4.py:351"),
+    "decode_attention_q_chunk": ("walkgpt_tpu_torch/csrc/decode_attention_q.cu",
+                                 "walkgpt_tpu/ops/flash_attention.py:1519"),
+    "decode_attention": ("walkgpt_tpu_torch/csrc/decode_attention.cu",
+                         "walkgpt_tpu/ops/flash_attention.py:1154"),
 }
 
 
@@ -388,6 +406,106 @@ def phase_quant_kernels(dev, seed):
     return results
 
 
+def chunk_inputs(dev, dtype, b, tc, h, n_kv, d, l, cl, pack4, gen):
+    """A speculative chunk over one layer of a flat quantized cache: q [B,
+    Tc, H*D], the cache (and its dequantized bf16 k, v), cache_len [B]."""
+    kq, ks, kd, vq, vs, vd = flat_cache(dev, gen, b, l, n_kv, d, pack4)
+    q = torch.randn(b, tc, h * d, generator=gen, device=dev).to(dtype)
+    return q, (kq, ks, vq, vs), (kd, vd), torch.tensor(cl, device=dev)
+
+
+def k8_case(dev, dtype, b, tc, h, n_kv, d, l, cl, pack4, gen):
+    q, cache, (kd, vd), cache_len = chunk_inputs(dev, dtype, b, tc, h, n_kv, d, l, cl, pack4, gen)
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=0)
+    run = lambda: fa.decode_attention_q_chunk(q, *cache, cache_len, **kw)
+    plain = lambda: fa.decode_attention_q_chunk_reference(q, *cache, cache_len, **kw)
+    rep = h // n_kv
+    kr, vr = kd.repeat_interleave(rep, 1).to(dtype), vd.repeat_interleave(rep, 1).to(dtype)
+    qh = q.view(b, tc, h, d).transpose(1, 2)
+    end = cache_len[:, None] + torch.arange(tc, device=dev)[None] + 1          # [B, Tc]
+    mask = torch.arange(l, device=dev)[None, None, None, :] < end[:, None, :, None]
+    library = lambda: F.scaled_dot_product_attention(qh, kr, vr, attn_mask=mask)
+    # the function needs the codes and scales of the keys below cache_len +
+    # Tc of each row, q, cache_len and the output; token t of a row attends
+    # cache_len + t + 1 keys
+    width = cache[0].shape[-1]
+    keys = sum(c + tc for c in cl)
+    nb = 2 * keys * (width + 2 * n_kv) + 2 * q.numel() * q.element_size() + 4 * b
+    pairs = sum(c * tc + tc * (tc + 1) // 2 for c in cl)
+    return run, plain, library, (nb, 4.0 * h * d * pairs, torch.int8)
+
+
+def k8_against_k4(dev, label, b, tc, h, n_kv, d, l, cl, pack4, gen):
+    """K8's token t against K4 at position cache_len + t over the same cache
+    (key_mask = slot < cache_len + t + 1, valid_len its row maximum): one
+    engine, so bit for bit."""
+    q, cache, _, cache_len = chunk_inputs(dev, torch.bfloat16, b, tc, h, n_kv, d, l, cl, pack4,
+                                          gen)
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=0)
+    out = fa.decode_attention_q_chunk(q, *cache, cache_len, **kw)
+    pos = torch.arange(l, device=dev)[None]
+    same = []
+    for t in range(tc):
+        end = cache_len[:, None] + t + 1
+        step = fa.decode_attention_q(q[:, t].contiguous(), *cache, pos < end,
+                                     valid_len=int(end.max()), **kw)
+        same.append(torch.equal(out[:, t], step))
+    log(f"  decode_attention_q_chunk {label}: token t equals decode_attention_q at position "
+        f"cache_len + t, bit for bit, for t < {tc}: {all(same)}")
+    if not all(same):
+        raise AssertionError(f"K8 and K4 disagree at positions {[t for t, s in enumerate(same) if not s]}")
+
+
+def k11_case(dev, dtype, b, h, n_kv, d, l, valid, gen):
+    k, v = (torch.randn(1, b, l, n_kv * d, generator=gen, device=dev).to(dtype) for _ in range(2))
+    q = torch.randn(b, h * d, generator=gen, device=dev).to(dtype)
+    mask = (torch.arange(l, device=dev)[None] < torch.tensor(valid, device=dev)[:, None])
+    run = lambda: fa.decode_attention(q, k, v, mask, n_kv=n_kv)
+    plain = lambda: fa.decode_attention_reference(q, k, v, mask, n_kv=n_kv)
+    rep = h // n_kv
+    heads = lambda x: x[0].view(b, l, n_kv, d).transpose(1, 2).repeat_interleave(rep, 1)
+    kh, vh = heads(k), heads(v)
+    library = lambda: F.scaled_dot_product_attention(q.view(b, h, 1, d), kh, vh,
+                                                     attn_mask=mask[:, None, None])
+    # the k and v rows of the valid keys, the mask, q and the output
+    nb = 2 * sum(valid) * n_kv * d * k.element_size() + mask.numel() + 2 * nbytes(q)
+    return run, plain, library, (nb, 4.0 * h * d * sum(valid), torch.bfloat16)
+
+
+def phase_decode_kernels(dev, seed):
+    log("== phase 2c: K8 and K11 against their plain versions, K8 against K4")
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    bf16, f32 = torch.bfloat16, torch.float32
+    check = lambda name, case, dtype, iters, label: check_kernel(
+        name, case, dtype, iters, 4 if iters else 1, label, relative=True)
+    # the speculative chunk of the quantized paths: 2 rows, Tc = SPEC_K + 1
+    # tokens, a 512-slot cache mid-request (cache_len 440 and 375)
+    tc, cl = SPEC_K + 1, [440, 375]
+    results = {
+        "decode_attention_q_chunk": check(
+            "decode_attention_q_chunk",
+            k8_case(dev, bf16, 2, tc, 32, 32, 128, 512, cl, True, gen), bf16, 200, "7B int4_flat"),
+        # the dense 7B fused_decode step: 480 of 512 slots valid
+        "decode_attention": check_kernel(
+            "decode_attention", k11_case(dev, bf16, 2, 32, 32, 128, 512, [480, 480], gen), bf16,
+            200, 4, "7B bf16 flat"),
+    }
+    check("decode_attention_q_chunk", k8_case(dev, bf16, 2, tc, 16, 16, 128, 512, cl, False, gen),
+          bf16, 200, "1B int8_flat")
+    k8_against_k4(dev, "7B int4_flat", 2, tc, 32, 32, 128, 512, cl, True, gen)
+    k8_against_k4(dev, "1B int8_flat", 2, tc, 16, 16, 128, 512, cl, False, gen)
+    k8_against_k4(dev, "ragged GQA odd n_kv int4", 2, 5, 6, 3, 40, 96, [60, 11], True, gen)
+    check("decode_attention_q_chunk",
+          k8_case(dev, f32, 2, 5, 6, 3, 40, 96, [60, 11], True, gen), f32, 0,
+          "ragged GQA odd n_kv int4")
+    check("decode_attention_q_chunk",
+          k8_case(dev, f32, 2, 16, 16, 2, 24, 64, [40, 5], False, gen), f32, 0,
+          "ragged n_rep 8, Tc 16, int8")
+    check_kernel("decode_attention", k11_case(dev, f32, 2, 6, 3, 40, 96, [90, 17], gen), f32, 0,
+                 1, "ragged GQA")
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the pipeline
 # ---------------------------------------------------------------------------
@@ -492,6 +610,87 @@ def phase_parity_quant(dev, seed):
         del params, cpu_params
 
 
+def phase_parity_spec(dev, seed):
+    """Speculative decode held against its own run on the CPU (on the card
+    the chunk's products take other kernels than a decode step's, so it is
+    not held against greedy there), float SAM blocks so that the masks hold
+    1e-3; then fused_decode against the heads layout, both on the card.
+    W8A8 LLM weights requantize every activation: a value on the edge of
+    two codes can land on either side on the card and the CPU and flip a
+    near-tied token (phase 3b's greedy run of the 1B format holds, but the
+    chunk's K7 sums 27 rows in another order), so the 1B format's
+    speculative run is reported, and the int8_flat cache is held with dense
+    weights."""
+    log("== phase 3c: demo_config fp32, speculative decode on the card against the CPU")
+    base = demo_config().replace(use_flash_attention=True)
+    for label, fmt, kv, held in (("7B format, float SAM, int4_flat", FORMAT_7B, "int4_flat", True),
+                                 ("dense, int8_flat cache", None, "int8_flat", True),
+                                 ("dense, heads fp32 cache", None, False, True),
+                                 ("dense, heads int8 cache", None, "int8", True),
+                                 ("1B format, float SAM, int8_flat", FORMAT_1B, "int8_flat", False)):
+        cfg = base.replace(kv_quant_cache=kv)
+        if fmt is None:
+            params = walkgpt.init(cfg, seed=seed, dtype=torch.float32, device=dev)
+        else:
+            params = walkgpt.init_quantized(cfg, seed=seed, dtype=torch.float32, device=dev,
+                                            **{**fmt, "sam_int8": False})
+        cpu_params = to_device(params, "cpu")
+        kw, cfg = demo_request(params, cfg, dev, seed + 4, speculative_k=SPEC_K)
+        for f in KERNELS:
+            f.launches = 0
+        card = walkgpt.generate_and_segment(params, cfg, device=dev, **kw)
+        launched = {f.__name__: f.launches for f in KERNELS if f.launches}
+        t0 = time.perf_counter()
+        cpu = walkgpt.generate_and_segment(cpu_params, cfg, device="cpu",
+                                           **{k: to_device(v, "cpu") for k, v in kw.items()})
+        cpu_s = time.perf_counter() - t0
+        same = all(torch.equal(getattr(card, n).cpu(), getattr(cpu, n))
+                   for n in ("tokens", "lengths", "seg_valid", "seg_rows"))
+        differ = (card.tokens.cpu() != cpu.tokens).nonzero().tolist()
+        mask_err = float((card.pred_masks.cpu() - cpu.pred_masks).abs().max())
+        need = {"decode_attention_q_chunk"} if kv in ("int4_flat", "int8_flat") else set()
+        log(f"  {label}{'' if held else ' (reported)'}: tokens/lengths/seg identical={same} "
+            f"tokens differing {len(differ)} of {card.tokens.numel()} (first at [row, step] "
+            f"{differ[0] if differ else None}) n_iters card {card.n_iters} cpu {cpu.n_iters} "
+            f"segs={int(card.seg_valid.sum())} mask max_abs={mask_err:.3e} kernel launches="
+            f"{launched} (CPU run {cpu_s:.1f} s)")
+        if held and not (same and card.n_iters == cpu.n_iters and mask_err <= 1e-3):
+            raise AssertionError(f"demo_config speculative {label}: the card and the CPU disagree")
+        if not (need <= set(launched) and "decode_attention_q" not in launched):
+            raise AssertionError(f"demo_config speculative {label}: kernels {launched}")
+        del params, cpu_params
+    params = walkgpt.init(base, seed=seed, dtype=torch.float32, device=dev)
+    kw, cfg = demo_request(params, base, dev, seed + 5)
+    heads = walkgpt.generate_and_segment(params, cfg, device=dev, **kw)
+    fa.decode_attention.launches = 0
+    cfg_f = cfg.replace(llm=dataclasses.replace(cfg.llm, fused_decode=True))
+    fused = walkgpt.generate_and_segment(params, cfg_f, device=dev, **kw)
+    same = torch.equal(heads.tokens, fused.tokens) and torch.equal(heads.seg_rows, fused.seg_rows)
+    mask_err = float((heads.pred_masks - fused.pred_masks).abs().max())
+    k11 = fa.decode_attention.launches
+    log(f"  greedy, fused_decode against the heads layout on the card: tokens and seg identical="
+        f"{same} mask max_abs={mask_err:.3e} decode_attention launches={k11}")
+    if not (same and mask_err <= 1e-3 and k11 == cfg.llm.num_layers * kw["max_new_tokens"]):
+        raise AssertionError("demo_config: fused_decode and the heads layout disagree")
+
+
+def demo_request(params, cfg, dev, seed, **extra):
+    """A demo_config request of 2 images and 3 prompt rows, 16 new tokens, no
+    EOS (all steps compared), and cfg with [SEG] set to the token a probe
+    run emits most, so the mask path runs on real [SEG] states."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = cfg.sam.img_size
+    images = torch.randn(2, s, s, 3, generator=gen, device=dev)
+    ids, mask = prompts(3, [40, 27, 33], 48, cfg.llm.vocab_size, gen, dev)
+    kw = dict(images=images, input_ids=ids, attention_mask=mask,
+              row_image_idx=torch.tensor([0, 1, 1], device=dev),
+              pixel_hw=torch.tensor([[s, s], [s * 3 // 4, s]], device=dev),
+              max_new_tokens=16, max_segs=8, eos_id=-1, **extra)
+    probe = walkgpt.generate_and_segment(params, cfg, device=dev, **kw).tokens
+    vals, counts = torch.unique(probe, return_counts=True)
+    return kw, cfg.replace(seg_token_id=int(vals[counts.argmax()]))
+
+
 def to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
@@ -500,28 +699,92 @@ def to_device(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
-def expected_launches(cfg, params, n_new):
+def expected_launches(cfg, params, n_new, n_iters=None):
     """Launches of each kernel per request: K1 per layer (prefill), K2/K3 per
-    windowed/global SAM block; per decode step and layer K4 (flat quantized
-    cache), K5 (fused int4 q/k/v), K6 or K7 (int4 or W8A8 MLP); K5 for the
-    int4 head once per token picked (n_new + 1). The prefill's rows (2 x 447)
-    are too many for the fused K5/K7 branches."""
+    windowed/global SAM block. Greedy (n_iters None): per decode step and
+    layer K4 (flat quantized cache) or K11 (fused_decode), K5 (fused int4
+    q/k/v), K6 or K7 (int4 or W8A8 MLP); K5 for the int4 head once per token
+    picked (n_new + 1). Speculative: per verify iteration and layer K8 (flat
+    quantized cache), K5 and K7 at the chunk's rows (K6 takes single-token
+    steps only); the head once per iteration and for the first token. The
+    prefill's rows (2 x 447) are too many for the fused K5/K7 branches."""
     n_layers = cfg.llm.num_layers
     layer = params["llm"]["layers"][0]
-    steps = n_layers * n_new
     head4 = "w_p4" in params["llm"]["lm_head"]
-    return {
+    qkv4, mlp4, w8a8 = ("qkv4" in layer["attn"], int4.mlp_is_int4(layer["mlp"]),
+                        int4.mlp_is_w8a8(layer["mlp"]))
+    flat_q = cfg.kv_quant_cache in ("int8_flat", "int4_flat")
+    counts = {
         "flash_attention": n_layers,
         "sam_window_attention_packed": cfg.sam.depth - len(cfg.sam.global_attn_indexes),
         "sam_flash_attention": len(cfg.sam.global_attn_indexes),
-        "decode_attention_q": steps if cfg.kv_quant_cache else 0,
-        "int4_matmul_pallas": steps * ("qkv4" in layer["attn"]) + (n_new + 1) * head4,
-        "fused_mlp_int4": steps * int4.mlp_is_int4(layer["mlp"]),
-        "fused_mlp_int8": steps * int4.mlp_is_w8a8(layer["mlp"]),
     }
+    if n_iters is None:
+        steps = n_layers * n_new
+        counts.update(decode_attention_q=steps * flat_q, decode_attention_q_chunk=0,
+                      decode_attention=steps * (cfg.llm.fused_decode and not cfg.kv_quant_cache),
+                      int4_matmul_pallas=steps * qkv4 + (n_new + 1) * head4,
+                      fused_mlp_int4=steps * mlp4, fused_mlp_int8=steps * w8a8)
+    else:
+        chunks = n_layers * n_iters
+        counts.update(decode_attention_q=0, decode_attention_q_chunk=chunks * flat_q,
+                      decode_attention=0,
+                      int4_matmul_pallas=chunks * qkv4 + (n_iters + 1) * head4,
+                      fused_mlp_int4=0, fused_mlp_int8=chunks * w8a8)
+    return counts
 
 
-def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params):
+def run_requests(params, cfg, kw, label, expect):
+    """Two requests of generate_and_segment; every launch count is set to 0
+    just before them and read just after, and each request's launches must
+    equal expect(out). Random weights never emit the real [SEG] id: from the
+    second request on, [SEG] is the token the first one emitted most, so the
+    warm request gathers real [SEG] states (generation is unchanged).
+    Returns (launches, outputs, host ms per request, cfg with that [SEG] id)."""
+    for f in KERNELS:
+        f.launches = 0
+    outs, e2e = [], []
+    for req in range(2):
+        before = {f.__name__: f.launches for f in KERNELS}
+        if req == 1:
+            torch.cuda.reset_peak_memory_stats()
+        out, ms = host_ms(lambda: walkgpt.generate_and_segment(params, cfg, **kw))
+        per = {f.__name__: f.launches - before[f.__name__] for f in KERNELS}
+        iters = f", n_iters {out.n_iters}" if out.n_iters is not None else ""
+        log(f"  {label} request {req + 1}: {ms:.1f} ms{iters}, kernel launches {per}")
+        want = expect(out)
+        if per != want:
+            raise AssertionError(f"{label}: launches per request {per}, expected {want}")
+        outs.append(out)
+        e2e.append(ms)
+        vals, counts = torch.unique(out.tokens, return_counts=True)
+        cfg = cfg.replace(seg_token_id=int(vals[counts.argmax()]))
+    launches = {f.__name__: f.launches for f in KERNELS}
+    log(f"  {label}: requests 1 and 2 give identical tokens: "
+        f"{torch.equal(outs[0].tokens, outs[1].tokens)}")
+    return launches, outs, e2e, cfg
+
+
+def check_outputs(label, out, cfg, n_new, hw):
+    s = cfg.sam.img_size
+    final = walkgpt.finalize_masks(out.pred_masks, hw, hw)
+    ok = (out.tokens.shape == (2, n_new)
+          and bool(((out.tokens >= 0) & (out.tokens < cfg.llm.vocab_size)).all())
+          and out.pred_masks.shape == (16, s, s) and bool(torch.isfinite(out.pred_masks).all())
+          and bool(torch.isfinite(out.mask_scores).all())
+          and final.shape == (16, *hw) and bool(torch.isfinite(final).all()))
+    log(f"  {label}: tokens[:, :12]={out.tokens[:, :12].tolist()} lengths={out.lengths.tolist()} "
+        f"segs={int(out.seg_valid.sum())} mask_scores[:4]={out.mask_scores[:4].tolist()}")
+    if not ok:
+        raise AssertionError(f"{label}: outputs out of range or not finite")
+
+
+def add(total, launches):
+    return {k: total.get(k, 0) + launches.get(k, 0) for k in KERNEL_INFO}
+
+
+def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=False,
+                fused=False):
     log(f"== phase 4: {label}, random weights, two requests")
     t0 = time.perf_counter()
     params = make_params(cfg)
@@ -543,47 +806,18 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params):
     log(f"  max_new_tokens={max_new_tokens} (the production budget of 512 is cut to keep "
         f"the run inside its time limit), max_segs=16, kv cache "
         f"{cfg.kv_quant_cache or 'bf16 heads layout'}")
-    expect = expected_launches(cfg, params, max_new_tokens)
-    for f in KERNELS:
-        f.launches = 0
-    outs, e2e = [], []
-    for req in range(2):
-        before = {f.__name__: f.launches for f in KERNELS}
-        if req == 1:
-            torch.cuda.reset_peak_memory_stats()
-        out, ms = host_ms(lambda: walkgpt.generate_and_segment(params, cfg, **kw))
-        per = {f.__name__: f.launches - before[f.__name__] for f in KERNELS}
-        log(f"  request {req + 1}: {ms:.1f} ms, kernel launches {per}")
-        if per != expect:
-            raise AssertionError(f"launches per request {per}, expected {expect}")
-        outs.append(out)
-        e2e.append(ms)
-        # random weights never emit the real [SEG] id: from the second
-        # request on, [SEG] is the token the first one emitted most, so the
-        # warm request gathers real [SEG] states (generation is unchanged)
-        vals, counts = torch.unique(out.tokens, return_counts=True)
-        cfg = cfg.replace(seg_token_id=int(vals[counts.argmax()]))
-    launches = {f.__name__: f.launches for f in KERNELS}
+    launches, outs, e2e, cfg = run_requests(
+        params, cfg, kw, "greedy", lambda out: expected_launches(cfg, params, max_new_tokens))
     peak = torch.cuda.max_memory_allocated()
-    out = outs[1]
-    final = walkgpt.finalize_masks(out.pred_masks, hw, hw)
-    ok = (out.tokens.shape == (2, max_new_tokens)
-          and bool(((out.tokens >= 0) & (out.tokens < cfg.llm.vocab_size)).all())
-          and out.pred_masks.shape == (16, s, s) and bool(torch.isfinite(out.pred_masks).all())
-          and bool(torch.isfinite(out.mask_scores).all())
-          and final.shape == (16, *hw) and bool(torch.isfinite(final).all()))
-    log(f"  requests 1 and 2 give identical tokens: {torch.equal(outs[0].tokens, outs[1].tokens)}")
-    log(f"  tokens[:, :12]={out.tokens[:, :12].tolist()} lengths={out.lengths.tolist()} "
-        f"segs={int(out.seg_valid.sum())} mask_scores[:4]={out.mask_scores[:4].tolist()}")
-    if not ok:
-        raise AssertionError(f"{label}: outputs out of range or not finite")
+    check_outputs("greedy", outs[1], cfg, max_new_tokens, hw)
     log(f"  warm request (2): end_to_end_ms={e2e[1]:.1f} "
         f"max_memory_allocated_GB={peak / 1e9:.2f}")
     # host-clock times first: once the profiler has run, launches stay slower
-    walls = replay(params, cfg, kw, host_ms)
+    walls = replay(params, cfg, kw, host_ms)[0]
     kernels = {}
-    _, request_dev = profiled(lambda: walkgpt.generate_and_segment(params, cfg, **kw), kernels)
-    devices = replay(params, cfg, kw, lambda fn: profiled(fn, {}))
+    devices = replay(params, cfg, kw, lambda fn: profiled(fn, kernels),
+                     prefill_timer=lambda fn: profiled(fn, {}))[0]
+    request_dev = sum(devices.values())
     log("  the warm request replayed step by step through the package's functions: "
         "wall ms on the host clock (synchronised), then device ms (kernels and copies, "
         "torch.profiler) in a second replay")
@@ -595,11 +829,71 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params):
     log(f"    decode per step: wall_ms={walls['decode'] / max_new_tokens:.2f} "
         f"device_ms={devices['decode'] / max_new_tokens:.2f} "
         f"bound_ms={step_bytes / PEAK_BYTES * 1e3:.2f} (weights, {step_bytes / 1e9:.2f} GB)")
-    log(f"  one more request under the profiler: device_ms={request_dev:.1f}, "
+    log(f"  the request's device_ms (the second replay's phases) {request_dev:.1f}, "
         f"device_busy={request_dev / e2e[1]:.3f} of the warm request's end_to_end_ms; "
         f"top 8 of its kernels by device time:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:9.1f} ms {ms / request_dev:6.1%}  {name[:110]}")
+    greedy_step = walls["decode"] / max_new_tokens
+    log(f"  greedy part: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if speculative:
+        launches = add(launches, phase_speculative(params, cfg, kw, greedy_step))
+    if fused:
+        launches = add(launches, phase_fused(params, cfg, kw, walls, devices))
+    log(f"  {'speculative' if speculative else 'fused_decode'} part: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_speculative(params, cfg, kw, greedy_step):
+    """Two requests with speculative_k=SPEC_K (prompt-lookup drafts; random
+    weights accept almost none), their decode replayed on the host clock and
+    under the profiler, then the schedule at force_accept 0 and SPEC_K
+    without EOS (every iteration emits exactly force_accept + 1 tokens)."""
+    n_new = kw["max_new_tokens"]
+    skw = {**kw, "speculative_k": SPEC_K}
+    launches, outs, e2e, cfg = run_requests(
+        params, cfg, skw, f"speculative_k={SPEC_K}",
+        lambda out: expected_launches(cfg, params, n_new, out.n_iters))
+    check_outputs("speculative", outs[1], cfg, n_new, (768, 1024))
+    walls, res = replay(params, cfg, kw, host_ms, speculative_k=SPEC_K)
+    devices = replay(params, cfg, kw, lambda fn: profiled(fn, {}), speculative_k=SPEC_K)[0]
+    it, emitted = res.n_iters, int(res.lengths.max())
+    log(f"  speculative warm request (2): end_to_end_ms={e2e[1]:.1f}; replayed decode: "
+        f"n_iters={it} emitted={res.lengths.tolist()} wall_ms={walls['decode']:.1f} "
+        f"device_ms={devices['decode']:.1f} device_busy={devices['decode'] / walls['decode']:.3f}")
+    log(f"    per iteration: wall_ms={walls['decode'] / it:.2f} "
+        f"device_ms={devices['decode'] / it:.2f}; per emitted token (longest row): "
+        f"wall_ms={walls['decode'] / emitted:.2f} against greedy's wall_ms per step "
+        f"{greedy_step:.2f}")
+    for accept in (0, SPEC_K):
+        res, wall = schedule(params, cfg, kw, accept, host_ms)
+        _, dev_ms = schedule(params, cfg, kw, accept, lambda fn: profiled(fn, {}))
+        wall, dev_ms = wall - walls["prefill"], dev_ms - devices["prefill"]
+        log(f"  force_accept={accept}: n_iters={res.n_iters} tokens per iteration "
+            f"{n_new / res.n_iters:.2f}; per emitted token wall_ms={wall / n_new:.2f} "
+            f"device_ms={dev_ms / n_new:.2f} (decode wall_ms={wall:.1f} device_ms={dev_ms:.1f})")
+        if res.n_iters != -(-n_new // (accept + 1)) or res.lengths.tolist() != [n_new] * 2:
+            raise AssertionError(f"force_accept={accept}: {res.n_iters} iterations, "
+                                 f"lengths {res.lengths.tolist()}")
+    return launches
+
+
+def phase_fused(params, cfg, kw, walls_heads, devices_heads):
+    """Two requests with fused_decode: the flat bf16 cache, K11 in every
+    decode step and layer; the decode step against the heads layout's."""
+    n_new = kw["max_new_tokens"]
+    cfg = cfg.replace(llm=dataclasses.replace(cfg.llm, fused_decode=True))
+    launches, outs, e2e, cfg = run_requests(
+        params, cfg, kw, "fused_decode", lambda out: expected_launches(cfg, params, n_new))
+    check_outputs("fused_decode", outs[1], cfg, n_new, (768, 1024))
+    walls = replay(params, cfg, kw, host_ms)[0]
+    devices = replay(params, cfg, kw, lambda fn: profiled(fn, {}))[0]
+    log(f"  fused_decode warm request (2): end_to_end_ms={e2e[1]:.1f}; decode per step: "
+        f"wall_ms={walls['decode'] / n_new:.2f} device_ms={devices['decode'] / n_new:.2f} "
+        f"device_busy={devices['decode'] / walls['decode']:.3f} (heads layout: wall_ms="
+        f"{walls_heads['decode'] / n_new:.2f} device_ms={devices_heads['decode'] / n_new:.2f})")
     return launches
 
 
@@ -615,10 +909,10 @@ def _leaves(tree):
 
 
 def profiled(fn, kernels):
-    """fn under torch.profiler: (out, ms the card spent in kernels and
-    copies); each kernel's device time is added to `kernels` by name."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    """fn under torch.profiler, tracing the card only (no host-side op
+    events to collect): (out, ms the card spent in kernels and copies);
+    each kernel's device time is added to `kernels` by name."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out, _ = host_ms(fn)
     device = 0.0
     for e in prof.events():
@@ -626,35 +920,41 @@ def profiled(fn, kernels):
             ms = e.time_range.elapsed_us() / 1e3
             kernels[e.name] = kernels.get(e.name, 0.0) + ms
             device += ms
+    if device <= 0.0:
+        raise AssertionError("the profiler saw no device time")
     return out, device
 
 
 @torch.inference_mode()
-def replay(params, cfg, kw, timer):
+def replay(params, cfg, kw, timer, speculative_k=0, prefill_timer=None):
     """The steps of generate_and_segment one by one; timer(fn) -> (out, ms)
-    times each. Returns {phase: ms}."""
+    times each (prefill_timer, when given, the standalone prefill, which
+    the decode's own run repeats). Returns ({phase: ms}, the decode's
+    GenerateResult): "decode" is the decode's run less the prefill."""
     flash_fn = lambda q, k, v, kv: fa.flash_attention(q, k, v, True, key_valid=kv)
     (feats, sam_tokens), enc = timer(lambda: walkgpt.encode_sam(params, cfg, kw["images"]))
-
-    def splice():
-        vis = walkgpt.visual_tokens(params, cfg, sam_tokens)[kw["row_image_idx"]]
-        return walkgpt.splice_visual(params, cfg, kw["input_ids"], vis,
-                                     attention_mask=kw["attention_mask"])
-    sp, spl = timer(splice)
+    sp, spl = timer(lambda: spliced(params, cfg, kw, sam_tokens))
     b, t, _ = sp.embeds.shape
-
     kv = cfg.kv_quant_cache or ""
+    layout, quant, _ = generate._cache_layout(cfg.llm, kv, t,
+                                              cfg.llm.fused_decode and not speculative_k)
 
     def prefill():
         cache = llm.init_kv_cache(cfg.llm, b, t, dtype=sp.embeds.dtype, device=sp.embeds.device,
-                                  quant=kv[:4], layout="flat" if kv else "heads")
+                                  quant=quant, layout=layout)
         return llm.forward(params["llm"], cfg.llm, sp.embeds, attention_mask=sp.attention_mask,
                            kv_cache=cache, flash_fn=flash_fn)
-    _, pre = timer(prefill)
-    res, gen = timer(lambda: generate.greedy_generate(
-        params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
-        max_new_tokens=kw["max_new_tokens"], eos_id=kw["eos_id"], flash_fn=flash_fn,
-        kv_quant=kv))
+    _, pre = (prefill_timer or timer)(prefill)
+    gen_kw = dict(max_new_tokens=kw["max_new_tokens"], eos_id=kw["eos_id"], flash_fn=flash_fn,
+                  kv_quant=kv)
+    if speculative_k:
+        hist = torch.where(kw["attention_mask"] & (kw["input_ids"] >= 0), kw["input_ids"], -2)
+        res, gen = timer(lambda: generate.speculative_generate(
+            params["llm"], cfg.llm, sp.embeds, sp.attention_mask, draft_k=speculative_k,
+            prompt_ids=hist, **gen_kw))
+    else:
+        res, gen = timer(lambda: generate.greedy_generate(
+            params["llm"], cfg.llm, sp.embeds, sp.attention_mask, **gen_kw))
 
     def masks():
         valid, rows, emb = walkgpt._seg_gather(params, cfg, res.tokens, res.pred_hidden,
@@ -663,7 +963,25 @@ def replay(params, cfg, kw, timer):
                                         kw["pixel_hw"])
     _, mask = timer(masks)
     return {"encode": enc, "msqp_splice": spl, "prefill": pre, "decode": gen - pre,
-            "mask_decode": mask}
+            "mask_decode": mask}, res
+
+
+def spliced(params, cfg, kw, sam_tokens):
+    vis = walkgpt.visual_tokens(params, cfg, sam_tokens)[kw["row_image_idx"]]
+    return walkgpt.splice_visual(params, cfg, kw["input_ids"], vis,
+                                 attention_mask=kw["attention_mask"])
+
+
+@torch.inference_mode()
+def schedule(params, cfg, kw, accept, timer):
+    """speculative_generate over the request's spliced prompt at a fixed
+    acceptance (force_accept), without EOS: timer's (GenerateResult, ms)."""
+    sp = spliced(params, cfg, kw, walkgpt.encode_sam(params, cfg, kw["images"])[1])
+    return timer(lambda: generate.speculative_generate(
+        params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
+        max_new_tokens=kw["max_new_tokens"], eos_id=-1, draft_k=SPEC_K, force_accept=accept,
+        flash_fn=lambda q, k, v, kv: fa.flash_attention(q, k, v, True, key_valid=kv),
+        kv_quant=cfg.kv_quant_cache or ""))
 
 
 def ptxas_summary(logs):
@@ -704,29 +1022,36 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     numbers.update(phase_quant_kernels(dev, args.seed))
     torch.cuda.empty_cache()
+    numbers.update(phase_decode_kernels(dev, args.seed))
+    torch.cuda.empty_cache()
     phase_parity(dev, args.seed)
     torch.cuda.empty_cache()
     phase_parity_quant(dev, args.seed)
+    torch.cuda.empty_cache()
+    phase_parity_spec(dev, args.seed)
     torch.cuda.empty_cache()
     quantized = lambda fmt: (lambda c: walkgpt.init_quantized(
         c, seed=args.seed, dtype=torch.bfloat16, device=dev, **fmt))
     # the production options of the JAX package's bench.py: the SAM window
     # attention's fast path (a no-op under the kernels) and tanh GELU
     prod = dict(fast_windowed_attention=True, fast_gelu=True)
+    # each path: its greedy requests, then speculative or fused_decode ones
     paths = (
         ("WalkGPT-7B, bf16", walkgpt_7b_config(),
-         lambda c: walkgpt.init(c, seed=args.seed, dtype=torch.bfloat16, device=dev)),
+         lambda c: walkgpt.init(c, seed=args.seed, dtype=torch.bfloat16, device=dev),
+         dict(fused=True)),
         ("WalkGPT-7B int4x + int4_flat + int8 SAM",
-         walkgpt_7b_config().replace(kv_quant_cache="int4_flat", **prod), quantized(FORMAT_7B)),
+         walkgpt_7b_config().replace(kv_quant_cache="int4_flat", **prod), quantized(FORMAT_7B),
+         dict(speculative=True)),
         ("WalkGPT-1B w8a8 + int8_flat + int8 SAM",
-         flagship_1b_config().replace(kv_quant_cache="int8_flat", **prod), quantized(FORMAT_1B)),
+         flagship_1b_config().replace(kv_quant_cache="int8_flat", **prod), quantized(FORMAT_1B),
+         dict(speculative=True)),
     )
     launches = dict.fromkeys(KERNEL_INFO, 0)
-    for label, cfg, make in paths:
+    for label, cfg, make, extra in paths:
         t0 = time.perf_counter()
-        for name, n in phase_slice(dev, args.seed, args.max_new_tokens, label, cfg,
-                                   make).items():
-            launches[name] += n
+        launches = add(launches, phase_slice(dev, args.seed, args.max_new_tokens, label, cfg,
+                                             make, **extra))
         torch.cuda.empty_cache()
         log(f"  {label}: phase {time.perf_counter() - t0:.1f} s")
     if min(launches.values()) <= 0:

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K7 against their plain versions, on the card.
+"""The CUDA kernels K1-K8 and K11 against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use) and
 skip elsewhere. They import nothing of JAX, so they run on a machine without
@@ -12,9 +12,11 @@ plain version round at the same points, so outputs agree to about one bf16
 rounding step of the output (atol 2e-2, mean-abs 2e-3). K4 and K6 round
 inside (p and alpha, the intermediate h) to bf16, and K7 requantizes its
 intermediate to int8, so a last-place difference before such a point moves
-one term by a bf16 step or one code: for K4-K7 the errors are taken
+one term by a bf16 step or one code: for K4-K8 the errors are taken
 relative to the output's largest magnitude (at least 1): 1e-3 in fp32, the
-bf16 bounds above in bf16.
+bf16 bounds above in bf16. K8's token t and K4 at the same position run one
+engine over the same cache: equal bit for bit. K11 (fp32 online softmax,
+p rounded to the cache's type) takes the K1-K3 bounds.
 """
 import pytest
 import torch
@@ -209,3 +211,82 @@ def test_quantized_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):                         # fp16: no kernel
         int4.fused_mlp_int8(p, torch.zeros(1, 1, 64, device=dev).half(), "silu")
     assert [f.launches for f in (fa.decode_attention_q, *int4.KERNELS)] == counts
+
+
+def _chunk_inputs(dev, g, dtype, b, tc, h, n_kv, d, l, pack4, cl):
+    kq, ks, vq, vs = _flat_cache(dev, g, b, l, n_kv, d, pack4)
+    q = torch.randn(b, tc, h * d, generator=g, device=dev).to(dtype)
+    return q, kq, ks, vq, vs, torch.tensor(cl, device=dev)
+
+
+K8_SHAPES = [  # h, n_kv, d, l, block, pack4, tc, cache_len per row
+    (4, 2, 16, 48, 16, False, 4, [30, 7]), (4, 4, 20, 64, 32, True, 1, [40, 63]),
+    (6, 3, 8, 24, 8, True, 5, [11, 0]), (16, 2, 16, 64, 16, True, 16, [33, 48]),
+    (32, 32, 128, 512, 256, True, 9, [440, 375]), (16, 16, 128, 512, 256, False, 9, [440, 375])]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,n_kv,d,l,block,pack4,tc,cl", K8_SHAPES)
+@pytest.mark.parametrize("qdot8", [True, False])
+def test_k8_kernel_matches_plain(dev, dtype, h, n_kv, d, l, block, pack4, tc, cl, qdot8):
+    g = torch.Generator(device=dev).manual_seed(h * d + l + tc)
+    q, kq, ks, vq, vs, cache_len = _chunk_inputs(dev, g, dtype, 2, tc, h, n_kv, d, l, pack4, cl)
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=1, block=block, qdot_int8=qdot8)
+    before = fa.decode_attention_q_chunk.launches
+    out = fa.decode_attention_q_chunk(q, kq, ks, vq, vs, cache_len, **kw)
+    torch.cuda.synchronize()
+    assert fa.decode_attention_q_chunk.launches == before + 1
+    _close_scaled(out, fa.decode_attention_q_chunk_reference(q, kq, ks, vq, vs, cache_len, **kw),
+                  dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,n_kv,d,l,block,pack4,tc,cl", K8_SHAPES)
+def test_k8_token_equals_k4_at_its_position(dev, dtype, h, n_kv, d, l, block, pack4, tc, cl):
+    g = torch.Generator(device=dev).manual_seed(h * d + l + tc + 1)
+    q, kq, ks, vq, vs, cache_len = _chunk_inputs(dev, g, dtype, 2, tc, h, n_kv, d, l, pack4, cl)
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=0, block=block)
+    out = fa.decode_attention_q_chunk(q, kq, ks, vq, vs, cache_len, **kw)
+    pos = torch.arange(l, device=dev)[None]
+    for t in range(tc):
+        end = cache_len[:, None] + t + 1
+        step = fa.decode_attention_q(q[:, t].contiguous(), kq, ks, vq, vs, pos < end,
+                                     valid_len=int(end.max()), **kw)
+        assert torch.equal(out[:, t], step), t
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,n_kv,d,l,block", [(4, 2, 8, 16, 8), (6, 3, 20, 96, 32),
+                                              (32, 32, 128, 512, 256), (16, 2, 64, 256, 64)])
+def test_k11_kernel_matches_plain(dev, dtype, h, n_kv, d, l, block):
+    g = torch.Generator(device=dev).manual_seed(h * d + l)
+    b = 2
+    q = torch.randn(b, h * d, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, b, l, n_kv * d, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, b, l, n_kv * d, generator=g, device=dev).to(dtype)
+    mask = torch.arange(l, device=dev)[None] < torch.tensor([[l * 15 // 16], [l // 3]], device=dev)
+    mask[0, 2] = False
+    before = fa.decode_attention.launches
+    out = fa.decode_attention(q, k, v, mask, n_kv=n_kv, layer=1, block=block)
+    torch.cuda.synchronize()
+    assert fa.decode_attention.launches == before + 1
+    _close(out, fa.decode_attention_reference(q, k, v, mask, n_kv=n_kv, layer=1, block=block),
+           dtype)
+
+
+def test_decode_wrappers_raise_instead_of_falling_back(dev):
+    counts = [f.launches for f in (fa.decode_attention_q_chunk, fa.decode_attention)]
+    kq = torch.zeros(1, 1, 256, 32, dtype=torch.int8, device=dev)
+    ks = torch.zeros(1, 1, 2, 256, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):                         # fp32 scales: no kernel
+        fa.decode_attention_q_chunk(torch.zeros(1, 3, 32, device=dev), kq, ks.float(), kq,
+                                    ks.float(), torch.zeros(1, dtype=torch.int32, device=dev),
+                                    n_kv=2, head_dim=16)
+    kc = torch.zeros(1, 1, 256, 32, device=dev)
+    mask = torch.ones(1, 256, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError):                         # q and cache dtypes differ
+        fa.decode_attention(torch.zeros(1, 32, device=dev).bfloat16(), kc, kc, mask, n_kv=2)
+    with pytest.raises(ValueError):                         # fp16: no kernel
+        fa.decode_attention(torch.zeros(1, 32, device=dev).half(), kc.half(), kc.half(), mask,
+                            n_kv=2)
+    assert [f.launches for f in (fa.decode_attention_q_chunk, fa.decode_attention)] == counts

@@ -126,9 +126,8 @@ class LLMConfig:
     mlp_bias: bool = False
     tie_embeddings: bool = False
     family: str = "llama"                  # "llama" | "mpt" | "stablelm"
-    # flat bf16 [B, L, Hkv*D] KV cache with a fused decode-attention kernel
-    # (K11) in the JAX package; not ported yet (the quantized flat caches
-    # are: WalkGPTConfig.kv_quant_cache).
+    # greedy decode over the flat [layers, B, L, Hkv*D] KV cache in the
+    # activation dtype, read by the decode-attention kernel K11.
     fused_decode: bool = False
     # explicit head_dim override. None = hidden_size // num_heads (set by the
     # JAX package's manual tensor parallelism for local head counts).
@@ -237,8 +236,8 @@ class WalkGPTConfig:
     fast_gelu: bool = False
     # quantized KV cache: False = full precision; "int8_flat" (int8 rows)
     # and "int4_flat" (packed int4 rows) are the flat quantized caches read
-    # by the decode-attention kernel K4. The heads-layout "int8"/True and
-    # "int4" of the JAX package are not ported yet.
+    # by the decode-attention kernels K4 (a step) and K8 (a speculative
+    # chunk); "int8"/True and "int4" the heads-layout quantized caches.
     kv_quant_cache: "bool | str" = False
     # SAM encoder sub-batch size for encode (0 = whole batch at once).
     sam_encode_chunk: int = 0
@@ -249,7 +248,8 @@ class WalkGPTConfig:
     # JAX decode-scan segmentation; the port decodes in a Python loop and
     # ignores it (tokens are identical by construction).
     decode_scan_segment: int = 256
-    # JAX growing-cache decode segments (not ported; must stay 0).
+    # JAX growing-cache decode segments (not ported; must stay 0: the JAX
+    # package measured it as a regression).
     decode_cache_grow: int = 0
 
     def replace(self, **kw) -> "WalkGPTConfig":

@@ -7,15 +7,17 @@ Inputs are embeddings, not ids (the multimodal splice happens in
 models/walkgpt.py). Full-sequence forwards take a `flash_fn` (the K1 kernel
 wrapper) for causal attention with a key mask.
 
-Two KV caches: the heads layout [layers, B, n_kv, L, D] in the activation
-dtype, read by the plain einsum attention, and the flat quantized layout
-(int8 rows [layers, B, L, n_kv*D] or packed int4 rows [.., n_kv*D/2], bf16
-scales [layers, B, n_kv, L]) read by the K4 kernel. ALiBi (MPT), LoRA, the
-heads-layout quantized cache and the flat bf16 cache of the JAX package are
-not ported yet.
+KV caches: the heads layout [layers, B, n_kv, L, D] in the activation dtype
+or quantized (int8 or int4 codes, bf16 scales), read by the plain einsum
+attention; the flat layout [layers, B, L, n_kv*D] in the activation dtype
+(LLMConfig.fused_decode), read by the K11 kernel; the flat quantized layout
+(int8 rows or packed int4 rows [.., n_kv*D/2], bf16 scales [layers, B,
+n_kv, L]) read by K4 in a decode step and K8 in a speculative chunk. ALiBi
+(MPT) and LoRA are not ported yet.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -25,7 +27,7 @@ from ..core import nn
 from ..core.config import LLMConfig
 from ..ops import int4
 from ..ops.attention import merge_heads, mha, split_heads
-from ..ops.flash_attention import decode_attention_q
+from ..ops.flash_attention import decode_attention, decode_attention_q, decode_attention_q_chunk
 
 Params = Dict
 
@@ -203,40 +205,47 @@ def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, dtype=torch.float32,
-                  device=None, quant: str = "", layout: str = "heads") -> Params:
+                  device=None, quant="", layout: str = "heads") -> Params:
     """Zeros. layout="heads": {"k", "v"} [layers, B, n_kv, max_len, D] in
-    dtype. layout="flat" with quant "int8" or "int4": values [layers, B,
-    max_len, n_kv*D] int8 (int4: [.., n_kv*D/2] packed in global halves) and
-    scales [layers, B, n_kv, max_len] bf16."""
+    dtype, or with quant "int8" (or True) / "int4" int8 codes with bf16
+    scales "k_scale"/"v_scale" [layers, B, n_kv, max_len] and "qmax" (127,
+    or 7 for int4: torch has no int4 type, so int4 codes are int8 values in
+    [-7, 7], equal to the JAX package's int4 values). layout="flat": {"k",
+    "v"} [layers, B, max_len, n_kv*D] in dtype (the fused_decode cache, read
+    by K11), or with quant "int8" / "int4" int8 rows (int4: [.., n_kv*D/2]
+    packed in global halves) and bf16 scales [layers, B, n_kv, max_len]
+    (read by K4 and K8)."""
+    if quant not in ("", False, True, "int8", "int4"):
+        raise ValueError(f"unknown KV cache quantization {quant!r}")
+    kd = cfg.num_kv_heads * cfg.head_dim
+    sshape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len)
     if layout == "flat":
-        if quant not in ("int8", "int4"):
-            raise NotImplementedError("only the quantized flat caches are ported "
-                                      f"(quant 'int8' or 'int4', got {quant!r})")
-        kd = cfg.num_kv_heads * cfg.head_dim
         shape = (cfg.num_layers, batch, max_len, kd // 2 if quant == "int4" else kd)
-        sshape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len)
-        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
-                "v": torch.zeros(shape, dtype=torch.int8, device=device),
-                "k_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device),
-                "v_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device)}
-    if quant:
-        raise NotImplementedError("the heads-layout quantized cache is not ported yet")
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    else:
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    if not quant:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+             "v": torch.zeros(shape, dtype=torch.int8, device=device),
+             "k_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+             "v_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device)}
+    if layout != "flat":
+        cache["qmax"] = 7 if quant == "int4" else 127
+    return cache
 
 
 def _cache_is_flat(kv_cache: Params) -> bool:
     return kv_cache["k"].ndim == 4
 
 
-def _quant_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., D] -> (int8 [..., D], bf16 scale [...]): symmetric per row, 127
-    levels; the scale is rounded to bf16 first and the division is by the
-    rounded scale, so the stored pair is self-consistent."""
+def _quant_rows(x: torch.Tensor, qmax: int = 127) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] -> (int8 codes [..., D] in [-qmax, qmax], bf16 scale [...]):
+    symmetric per row; the scale is rounded to bf16 first and the division
+    is by the rounded scale, so the stored pair is self-consistent."""
     xf = x.float()
-    scale = (xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 127.0).to(torch.bfloat16)
-    q = torch.clamp(torch.round(xf / scale.float()), -127, 127).to(torch.int8)
+    scale = (xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / float(qmax)).to(torch.bfloat16)
+    q = torch.clamp(torch.round(xf / scale.float()), -qmax, qmax).to(torch.int8)
     return q, scale[..., 0]
 
 
@@ -255,13 +264,93 @@ def _quant_pack4_flat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _quant_flat(kv_cache: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[..., n_kv, D] -> the cache's row format: (values [..., width],
-    scales [..., n_kv])."""
+    """[..., n_kv, D] -> the flat quantized cache's row format: (values
+    [..., width], scales [..., n_kv])."""
     n_kv, d = x.shape[-2:]
     if kv_cache["k"].shape[-1] == n_kv * d // 2:
         return _quant_pack4_flat(x)
     q, s = _quant_rows(x)
     return q.reshape(*x.shape[:-2], n_kv * d), s
+
+
+def _cache_format(kv_cache: Params, x: torch.Tensor):
+    """K or V [..., n_kv, D] in the cache's format: (values, scales or None)."""
+    if _cache_is_flat(kv_cache):
+        if "k_scale" in kv_cache:
+            return _quant_flat(kv_cache, x)
+        return x.reshape(*x.shape[:-2], -1), None
+    if "k_scale" in kv_cache:
+        return _quant_rows(x, kv_cache["qmax"])
+    return x, None
+
+
+def _cache_kv(kv_cache: Params, i: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer i's heads-layout K/V [B, n_kv, L, D] in `dtype`; a quantized
+    cache is dequantized (codes times scales in fp32)."""
+    k, v = kv_cache["k"][i], kv_cache["v"][i]
+    if "k_scale" in kv_cache:
+        k = k.float() * kv_cache["k_scale"][i][..., None].float()
+        v = v.float() * kv_cache["v_scale"][i][..., None].float()
+    return k.to(dtype), v.to(dtype)
+
+
+def _int8_kv_decode_attention(q: torch.Tensor, k_q: torch.Tensor, ks: torch.Tensor,
+                              v_q: torch.Tensor, vs: torch.Tensor,
+                              key_mask: torch.Tensor) -> torch.Tensor:
+    """One-token attention over a heads-layout quantized cache, the scales
+    folded outside the products: s = (q * scale) . k_q times ks, masked
+    logits -inf then a softmax, out = (p * vs in q's dtype) . v_q.
+    q: [B, H, 1, D]; k_q/v_q: [B, n_kv, L, D] codes; ks/vs: [B, n_kv, L];
+    key_mask: [B, L]. Returns [B, H, 1, D] in q's dtype."""
+    b, h, _, d = q.shape
+    n_kv = k_q.shape[1]
+    qg = (q * (1.0 / math.sqrt(d))).reshape(b, n_kv, h // n_kv, d)
+    s = torch.einsum("bkrd,bkld->bkrl", qg.float(), k_q.to(qg.dtype).float())
+    s = s * ks.float()[:, :, None, :]
+    s = torch.where(key_mask[:, None, None, :], s, -torch.inf)
+    pv = (torch.softmax(s, dim=-1) * vs.float()[:, :, None, :]).to(q.dtype)
+    out = torch.einsum("bkrl,bkld->bkrd", pv.float(), v_q.to(pv.dtype).float())
+    return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def _write_kv(kv_cache: Params, i: int, k: torch.Tensor, v: torch.Tensor, put) -> None:
+    """K and V rows [B, T, n_kv, D] into layer i in the cache's format.
+    put(buf, length_dim, val [B, T, ...]) writes each leaf; length_dim is
+    the length axis of buf[i]: 1 for flat values [B, L, width], 2 for heads
+    values [B, n_kv, L, D] and for scales [B, n_kv, L]."""
+    for name, x in (("k", k), ("v", v)):
+        vals, scales = _cache_format(kv_cache, x)
+        buf = kv_cache[name]
+        put(buf, 1 if _cache_is_flat(kv_cache) else 2, vals.to(buf.dtype))
+        if scales is not None:
+            put(kv_cache[name + "_scale"], 2, scales)
+
+
+def _chunk_slots(cache_len: torch.Tensor, t: int, length: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where a chunk of t tokens written at [cache_len, cache_len + t) lands
+    in a cache of `length` slots. The JAX package drops the writes past the
+    end (those chunk positions are never emitted); here each of them goes to
+    the last slot with the value that slot receives anyway, so no index
+    wraps, no write is lost and the host is not asked. Returns (slots [B,
+    t], src [B, t]): the chunk index whose value each write carries, or t
+    for the last slot's current content (a chunk wholly past the end)."""
+    j = torch.arange(t, device=cache_len.device)[None]
+    pos = cache_len[:, None] + j
+    last = length - 1 - cache_len[:, None]           # the chunk index of the last slot
+    src = torch.where(pos < length, j, torch.where(last >= 0, last, t))
+    return pos.clamp_max(length - 1), src
+
+
+def _put_chunk(buf: torch.Tensor, i: int, val: torch.Tensor, slots: torch.Tensor,
+               src: torch.Tensor, length_dim: int) -> None:
+    """val [B, T, ...] into layer i of buf at slots [B, T], write (b, t)
+    carrying val[b, src[b, t]] (src = T: the last slot's current value)."""
+    rows = torch.arange(val.shape[0], device=val.device)[:, None]
+    if length_dim == 1:
+        buf[i, rows, slots] = torch.cat([val, buf[i, :, -1][:, None]], 1)[rows, src]
+    else:
+        buf[i, rows, :, slots] = torch.cat([val, buf[i, :, :, -1][:, None]], 1)[rows, src]
 
 
 # ---------------------------------------------------------------------------
@@ -293,6 +382,12 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
         mask = mask & attention_mask[:, None, None, :]
     cos, sin = rope_tables(cfg, positions)
 
+    def put(buf, length_dim, val):
+        if length_dim == 1:
+            buf[i, :, :t] = val
+        else:
+            buf[i, :, :, :t] = val.transpose(1, 2)
+
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
         h, (k_new, v_new) = _attention(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg),
@@ -300,14 +395,8 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
                                        key_valid=attention_mask)
         x = x + h
         x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
-        if kv_cache is not None and _cache_is_flat(kv_cache):
-            for name, val in (("k", k_new), ("v", v_new)):
-                q, sc = _quant_flat(kv_cache, val.transpose(1, 2))    # [B, T, n_kv, D]
-                kv_cache[name][i, :, :t] = q
-                kv_cache[name + "_scale"][i, :, :, :t] = sc.transpose(1, 2)
-        elif kv_cache is not None:
-            kv_cache["k"][i, :, :, :t] = k_new
-            kv_cache["v"][i, :, :, :t] = v_new
+        if kv_cache is not None:
+            _write_kv(kv_cache, i, k_new.transpose(1, 2), v_new.transpose(1, 2), put)
     return _norm(params["final_norm"], x, cfg), kv_cache
 
 
@@ -315,7 +404,9 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
                 inputs_embeds: torch.Tensor, cache_len: torch.Tensor,
                 key_mask: torch.Tensor, write_slot: Optional[int] = None,
                 valid_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
-    """One decode step over the heads-layout cache or a flat quantized one.
+    """One decode step over any of the caches: heads layout (fp: einsum
+    attention; quantized: _int8_kv_decode_attention), flat fp (K11) or flat
+    quantized (K4).
 
     inputs_embeds: [B, 1, H]; cache_len: [B] int — logical position per row
     (drives rope; the K/V land at cache_len unless write_slot is given);
@@ -330,41 +421,91 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
     cos, sin = rope_tables(cfg, cache_len[:, None])
     rows = torch.arange(b, device=inputs_embeds.device)
     n_rep = cfg.num_heads // cfg.num_kv_heads
-    flat = _cache_is_flat(kv_cache)
-    if flat and "k_scale" not in kv_cache:
-        raise NotImplementedError("the flat bf16 cache (fused_decode) is not ported yet")
-    if not flat and "k_scale" in kv_cache:
-        raise NotImplementedError("the heads-layout quantized cache is not ported yet")
-    slot = cache_len if write_slot is None else write_slot
+    flat, quant = _cache_is_flat(kv_cache), "k_scale" in kv_cache
+
+    def put(buf, length_dim, val):                  # val [B, 1, ...]: one slot per row
+        val = val[:, 0]
+        if write_slot is not None:
+            if length_dim == 1:
+                buf[i, :, write_slot] = val
+            else:
+                buf[i, :, :, write_slot] = val
+        elif length_dim == 1:
+            buf[i, rows, cache_len] = val
+        else:
+            buf[i, rows, :, cache_len] = val
+
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
         q, k1, v1 = _qkv_rope(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg), cos, sin)
-        if flat:
-            for name, val in (("k", k1), ("v", v1)):
-                qv, sc = _quant_flat(kv_cache, val[:, :, 0])          # [B, width], [B, n_kv]
-                if write_slot is None:
-                    kv_cache[name][i, rows, cache_len] = qv
-                    kv_cache[name + "_scale"][i, rows, :, cache_len] = sc
-                else:
-                    kv_cache[name][i, :, slot] = qv
-                    kv_cache[name + "_scale"][i, :, :, slot] = sc
+        _write_kv(kv_cache, i, k1.transpose(1, 2), v1.transpose(1, 2), put)
+        qf = q[:, :, 0].reshape(b, cfg.num_heads * cfg.head_dim)
+        if flat and quant:
             att = decode_attention_q(
-                q[:, :, 0].reshape(b, cfg.num_heads * cfg.head_dim), kv_cache["k"],
-                kv_cache["k_scale"], kv_cache["v"], kv_cache["v_scale"], key_mask,
-                n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                qf, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"], kv_cache["v_scale"],
+                key_mask, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
                 pack4=kv_cache["k"].shape[-1] < cfg.num_kv_heads * cfg.head_dim,
-                layer=i, valid_len=valid_len)[:, None]
+                layer=i, valid_len=valid_len)
+        elif flat:
+            att = decode_attention(qf, kv_cache["k"], kv_cache["v"], key_mask,
+                                   n_kv=cfg.num_kv_heads, layer=i)
+        elif quant:
+            att = merge_heads(_int8_kv_decode_attention(
+                q, kv_cache["k"][i], kv_cache["k_scale"][i], kv_cache["v"][i],
+                kv_cache["v_scale"][i], key_mask))[:, 0]
         else:
-            if write_slot is not None:
-                kv_cache["k"][i, :, :, write_slot] = k1[:, :, 0]
-                kv_cache["v"][i, :, :, write_slot] = v1[:, :, 0]
-            else:
-                kv_cache["k"][i, rows, :, cache_len] = k1[:, :, 0]
-                kv_cache["v"][i, rows, :, cache_len] = v1[:, :, 0]
-            k_cache = kv_cache["k"][i].to(q.dtype)
-            v_cache = kv_cache["v"][i].to(q.dtype)
+            k_cache, v_cache = _cache_kv(kv_cache, i, q.dtype)
             att = merge_heads(mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
-                                  mask=key_mask[:, None, None, :]))
+                                  mask=key_mask[:, None, None, :]))[:, 0]
+        x = x + nn.linear(layer["attn"]["o"], att[:, None])
+        x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
+    return _norm(params["final_norm"], x, cfg), kv_cache
+
+
+def decode_chunk(params: Params, cfg: LLMConfig, kv_cache: Params,
+                 inputs_embeds: torch.Tensor, cache_len: torch.Tensor
+                 ) -> Tuple[torch.Tensor, Params]:
+    """T tokens against the cache in one pass: the verify step of
+    speculative decode (runtime/generate.speculative_generate).
+
+    inputs_embeds: [B, T, H]; cache_len: [B] int — the first write slot per
+    row (token t lands at cache_len + t; the cache is compact per row).
+    Token t attends slots [0, cache_len + t]. Heads-layout caches (fp or
+    quantized) run the einsum attention over the dequantized layer; the flat
+    quantized caches run K8, which reads each cache block once per chunk.
+    Writes past the cache's end are dropped (_chunk_slots). The cache is
+    updated in place. Returns (hidden [B, T, H], kv_cache)."""
+    _check_supported(cfg)
+    b, t, _ = inputs_embeds.shape
+    dev = inputs_embeds.device
+    flat, quant = _cache_is_flat(kv_cache), "k_scale" in kv_cache
+    if flat and not quant:
+        raise ValueError("chunk decode over a flat cache needs a quantized one "
+                         "(int8_flat / int4_flat)")
+    length = kv_cache["k"].shape[2 if flat else 3]
+    positions = cache_len[:, None] + torch.arange(t, device=dev)[None]      # [B, T]
+    slots, src = _chunk_slots(cache_len, t, length)
+    cos, sin = rope_tables(cfg, positions)
+    # [B, 1, T, L]: token t attends cache slots <= cache_len + t
+    mask = torch.arange(length, device=dev)[None, None, None, :] <= positions[:, None, :, None]
+    n_rep = cfg.num_heads // cfg.num_kv_heads
+
+    def put(buf, length_dim, val):
+        _put_chunk(buf, i, val, slots, src, length_dim)
+
+    x = inputs_embeds
+    for i, layer in enumerate(params["layers"]):
+        q, k1, v1 = _qkv_rope(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg), cos, sin)
+        _write_kv(kv_cache, i, k1.transpose(1, 2), v1.transpose(1, 2), put)
+        if flat:
+            att = decode_attention_q_chunk(
+                merge_heads(q), kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
+                kv_cache["v_scale"], cache_len, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
+                pack4=kv_cache["k"].shape[-1] < cfg.num_kv_heads * cfg.head_dim, layer=i)
+        else:
+            k_cache, v_cache = _cache_kv(kv_cache, i, q.dtype)
+            att = merge_heads(mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
+                                  mask=mask))
         x = x + nn.linear(layer["attn"]["o"], att)
         x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
     return _norm(params["final_norm"], x, cfg), kv_cache

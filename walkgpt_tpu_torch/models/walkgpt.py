@@ -9,10 +9,12 @@ walkgpt_tpu/models/walkgpt.py, SAM visual stream).
 The entry points (`init`, `init_quantized`, `generate_and_segment`) run on
 CUDA unless the caller passes another device. Besides dense weights, the
 quantized production formats run: W8A8 or packed-int4 LLM weights
-(`init_quantized`), int8 SAM encoder blocks, and the flat int8 / packed
-int4 KV caches (cfg.kv_quant_cache "int8_flat" / "int4_flat"). The CLIP
-visual stream, speculative decode, the teacher-forced forward and the
-training losses are not ported yet.
+(`init_quantized`), int8 SAM encoder blocks, and every KV cache but the
+growing one: the flat int8 / packed int4 caches (cfg.kv_quant_cache
+"int8_flat" / "int4_flat"), the heads-layout int8 / int4 caches ("int8" /
+True / "int4") and the flat bf16 cache (cfg.llm.fused_decode). Decode is
+greedy or speculative (`speculative_k`). The CLIP visual stream, the
+teacher-forced forward and the training losses are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from ..core.tree import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.quant import quantize_sam_encoder, quantized_llm_init
 from ..ops.resize import bilinear_resize
-from ..runtime.generate import greedy_generate
+from ..runtime.generate import GenerateResult, greedy_generate, speculative_generate
 from . import llm, sam
 from .projectors import ctp_apply, ctp_init, msqp_apply, msqp_init, tiny_xattn_init
 
@@ -164,6 +166,7 @@ class EvaluateOutput(NamedTuple):
     seg_valid: torch.Tensor       # [max_segs]
     seg_rows: torch.Tensor        # [max_segs]
     mask_scores: torch.Tensor     # [max_segs]
+    n_iters: Optional[int] = None  # speculative verify iterations (speculative_k > 0)
 
 
 def _mask_score(pred_canvas, pixel_valid):
@@ -223,13 +226,55 @@ def _seg_gather(params, cfg: WalkGPTConfig, tokens: torch.Tensor,
     return seg_valid, seg_rows, ctp_apply(params["ctp"][0], hid)
 
 
+class SegEmbeds(NamedTuple):
+    tokens: torch.Tensor          # [R, max_new]
+    lengths: torch.Tensor         # [R]
+    seg_valid: torch.Tensor       # [max_segs]
+    seg_rows: torch.Tensor        # [max_segs]
+    pred_embeddings: torch.Tensor  # [max_segs, C] CTP-projected [SEG] states
+
+
+def _as_inputs(dev, **arrays):
+    """Arrays or tensors -> tensors on dev (ids long, masks bool)."""
+    out = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
+    for k in ("input_ids", "row_image_idx"):
+        if k in out:
+            out[k] = out[k].long()
+    if "attention_mask" in out:
+        out["attention_mask"] = out["attention_mask"].bool()
+    return out
+
+
+def _generate(params, cfg: WalkGPTConfig, sam_tokens, input_ids, attention_mask,
+              row_image_idx, max_new_tokens: int, eos_id: int, speculative_k: int
+              ) -> GenerateResult:
+    """MSQP tokens -> splice -> greedy decode, or speculative decode with
+    `speculative_k` drafts per iteration whose lookup history is the
+    textual prompt (the <image> sentinel and pad positions excluded)."""
+    if cfg.decode_cache_grow:
+        raise NotImplementedError("the growing KV cache (decode_cache_grow) is not ported")
+    flash_fn = None
+    if cfg.use_flash_attention:
+        flash_fn = lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
+    vis_rows = visual_tokens(params, cfg, sam_tokens)[row_image_idx]
+    sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask)
+    kw = dict(max_new_tokens=max_new_tokens, eos_id=eos_id, flash_fn=flash_fn,
+              kv_quant=cfg.kv_quant_cache or "", prefill_chunk=cfg.prefill_chunk)
+    if speculative_k > 0:
+        hist_ids = torch.where(attention_mask & (input_ids >= 0), input_ids, -2)
+        return speculative_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
+                                    draft_k=speculative_k, prompt_ids=hist_ids, **kw)
+    return greedy_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask, **kw)
+
+
 @torch.inference_mode()
 def generate_and_segment(params, cfg: WalkGPTConfig, *,
                          images, input_ids, attention_mask, row_image_idx, pixel_hw,
                          max_new_tokens: int, max_segs: int, eos_id: int,
-                         device=None) -> EvaluateOutput:
+                         speculative_k: int = 0, device=None) -> EvaluateOutput:
     """The PAVE evaluate pipeline on the SAM visual stream: encode, splice,
-    greedy decode, [SEG] gather, CTP, mask decode.
+    greedy (or, with speculative_k > 0, speculative) decode, [SEG] gather,
+    CTP, mask decode.
 
     images [B, S, S, 3] (its dtype is the activation dtype of the encoder);
     input_ids [R, T] prompts with the <image> sentinel, right-padded;
@@ -237,35 +282,38 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
     (h, w) per image. Arrays or tensors; they are moved to `device`
     (default CUDA). With cfg.use_flash_attention the LLM prefill runs K1 and
     the SAM encoder K2/K3; a flat quantized cache runs K4 in every decode
-    step, and quantized weights K5-K7 (ops/int4.py)."""
+    step and K8 in every speculative chunk, the flat bf16 cache of
+    cfg.llm.fused_decode K11, and quantized weights K5-K7 (ops/int4.py)."""
     dev = resolve_device(device)
-    images = torch.as_tensor(images, device=dev)
-    input_ids = torch.as_tensor(input_ids, device=dev).long()
-    attention_mask = torch.as_tensor(attention_mask, device=dev).bool()
-    row_image_idx = torch.as_tensor(row_image_idx, device=dev).long()
-    pixel_hw = torch.as_tensor(pixel_hw, device=dev)
-    if cfg.kv_quant_cache not in (False, "", "int8_flat", "int4_flat"):
-        raise NotImplementedError(f"kv_quant_cache={cfg.kv_quant_cache!r}: only the flat "
-                                  "quantized caches are ported")
-    if cfg.decode_cache_grow or cfg.llm.fused_decode:
-        raise NotImplementedError("the growing and the flat bf16 KV caches are not "
-                                  "ported yet")
-    flash_fn = None
-    if cfg.use_flash_attention:
-        flash_fn = lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
-
-    feats, sam_tokens = encode_sam(params, cfg, images)
-    vis_rows = visual_tokens(params, cfg, sam_tokens)[row_image_idx]
-    sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask)
-    res = greedy_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
-                          max_new_tokens=max_new_tokens, eos_id=eos_id, flash_fn=flash_fn,
-                          kv_quant=cfg.kv_quant_cache or "", prefill_chunk=cfg.prefill_chunk)
+    x = _as_inputs(dev, images=images, input_ids=input_ids, attention_mask=attention_mask,
+                   row_image_idx=row_image_idx, pixel_hw=pixel_hw)
+    feats, sam_tokens = encode_sam(params, cfg, x["images"])
+    res = _generate(params, cfg, sam_tokens, x["input_ids"], x["attention_mask"],
+                    x["row_image_idx"], max_new_tokens, eos_id, speculative_k)
     seg_valid, seg_rows, pred_embeddings = _seg_gather(params, cfg, res.tokens,
                                                        res.pred_hidden, max_segs)
     pred_canvas, score = decode_seg_masks(params, cfg, feats, pred_embeddings,
-                                          row_image_idx[seg_rows], pixel_hw)
+                                          x["row_image_idx"][seg_rows], x["pixel_hw"])
     return EvaluateOutput(tokens=res.tokens, lengths=res.lengths, pred_masks=pred_canvas,
-                          seg_valid=seg_valid, seg_rows=seg_rows, mask_scores=score)
+                          seg_valid=seg_valid, seg_rows=seg_rows, mask_scores=score,
+                          n_iters=res.n_iters)
+
+
+@torch.inference_mode()
+def generate_seg_embeds(params, cfg: WalkGPTConfig, *, sam_tokens, input_ids,
+                        attention_mask, row_image_idx, max_new_tokens: int, max_segs: int,
+                        eos_id: int, speculative_k: int = 0, device=None) -> SegEmbeds:
+    """generate_and_segment without the encode and the mask decode: SAM
+    tokens [B, L, C] (encode_sam's second output) -> splice -> greedy or
+    speculative decode -> [SEG] gather -> CTP."""
+    dev = resolve_device(device)
+    x = _as_inputs(dev, sam_tokens=sam_tokens, input_ids=input_ids,
+                   attention_mask=attention_mask, row_image_idx=row_image_idx)
+    res = _generate(params, cfg, x["sam_tokens"], x["input_ids"], x["attention_mask"],
+                    x["row_image_idx"], max_new_tokens, eos_id, speculative_k)
+    seg_valid, seg_rows, emb = _seg_gather(params, cfg, res.tokens, res.pred_hidden, max_segs)
+    return SegEmbeds(tokens=res.tokens, lengths=res.lengths, seg_valid=seg_valid,
+                     seg_rows=seg_rows, pred_embeddings=emb)
 
 
 def finalize_masks(pred_canvas: torch.Tensor, input_hw: Tuple[int, int],

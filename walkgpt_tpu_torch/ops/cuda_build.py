@@ -23,7 +23,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flash_attention", "sam_window_attention", "sam_flash_attention",
-           "decode_attention_q", "int4_matmul", "fused_mlp_int4", "fused_mlp_int8")
+           "decode_attention_q", "decode_attention", "int4_matmul", "fused_mlp_int4",
+           "fused_mlp_int8")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
