@@ -43,6 +43,23 @@ Phases (any failure raises and the script exits non-zero):
      verify iteration and layer, counts checked exactly) and time the
      speculative schedule at force_accept 0 and 8; a then runs two
      requests with fused_decode (K11 in every step and layer).
+  2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
+     (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
+     against their plain backwards at the training step's shapes in bf16
+     and at ragged shapes in fp32 (fully masked rows, D = 80), with kernel,
+     plain and library (SDPA backward) times and the bound.
+  3d (after 3c): demo_config in fp32 with LoRA r=8, two train_steps and one
+     qlora_train_step (int8 attention, int4 MLP, int8 SAM blocks) on the card
+     and on the CPU: loss terms within LOSS_RTOL, trainable leaves within
+     LEAF_RTOL / LEAF_ATOL, frozen leaves bit-identical; the SAM encoder's
+     parameter gradients through K2b/K3b against the einsum path.
+  5. (after 4) WalkGPT-7B training, random weights, the batch of
+     train_cli.py's defaults (2 images at 1024^2, 2 rows of 512 tokens, 767
+     spliced, 16 [SEG], max_segs 32): the LoRA recipe in bf16 for 3 steps
+     (the last with remat), the QLoRA base for 2 steps, with loss terms,
+     gradient norm, wall and device ms, tokens/s, peak memory and launches
+     per step (held exactly); then one backward through the ViT-H encoder
+     with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4).
 Then one JSON line with every kernel's numbers and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
@@ -52,6 +69,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -62,10 +80,11 @@ import torch.nn.functional as F
 
 from walkgpt_tpu_torch.core.config import demo_config, flagship_1b_config, walkgpt_7b_config
 from walkgpt_tpu_torch.core.nn import int8_matmul, unpack4
-from walkgpt_tpu_torch.models import llm, walkgpt
+from walkgpt_tpu_torch.core.tree import leaves_with_path, map_with_path
+from walkgpt_tpu_torch.models import llm, sam_encoder, walkgpt
 from walkgpt_tpu_torch.ops import cuda_build, int4, quant
 from walkgpt_tpu_torch.ops import flash_attention as fa
-from walkgpt_tpu_torch.runtime import generate
+from walkgpt_tpu_torch.runtime import generate, lora, train
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, int8 tensor
 # cores, fp32 outside the tensor cores, HBM3
@@ -100,6 +119,17 @@ QUANT_FP32_REL = 1e-3
 # the runs with W8A8 SAM blocks take this limit; with float SAM blocks (the
 # LLM still quantized) phase 3b holds the masks to 1e-3.
 QUANT_MASK_REL = 2e-2
+# training, card against CPU in fp32: the loss terms within 1e-5 relative
+# (another summation order in every stage); the trainable leaves after the
+# steps within the JAX package's own tolerance between two of its steps
+# (tests/test_qlora.py:88), rtol 2e-4 / atol 2e-6, except that Adam divides
+# each gradient by its own magnitude: an element whose gradient is within
+# a few last-place steps of zero may move by any amount up to 2 lr (the
+# sign of its step), so at most LEAF_OUTLIERS of the elements may lie
+# outside that tolerance, and none by more than 2 lr
+LOSS_RTOL = 1e-5
+LEAF_RTOL, LEAF_ATOL = 2e-4, 2e-6
+LEAF_OUTLIERS = 1e-6
 
 KERNEL_INFO = {
     "flash_attention": ("walkgpt_tpu_torch/csrc/flash_attention.cu",
@@ -120,6 +150,12 @@ KERNEL_INFO = {
                                  "walkgpt_tpu/ops/flash_attention.py:1519"),
     "decode_attention": ("walkgpt_tpu_torch/csrc/decode_attention.cu",
                          "walkgpt_tpu/ops/flash_attention.py:1154"),
+    "flash_attention_bwd": ("walkgpt_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "walkgpt_tpu/ops/flash_attention.py:243"),
+    "sam_window_attention_packed_bwd": ("walkgpt_tpu_torch/csrc/sam_window_attention_bwd.cu",
+                                        "walkgpt_tpu/ops/flash_attention.py:984"),
+    "sam_flash_attention_bwd": ("walkgpt_tpu_torch/csrc/sam_flash_attention_bwd.cu",
+                                "walkgpt_tpu/ops/flash_attention.py:641"),
 }
 
 
@@ -507,6 +543,152 @@ def phase_decode_kernels(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the backward kernels at the training path's shapes
+# ---------------------------------------------------------------------------
+
+def _leaf_inputs(*xs):
+    return [x.detach().clone().requires_grad_() for x in xs]
+
+
+def _library_bwd(fn, inputs, g):
+    """A closure timing one PyTorch backward of fn's output (its graph built
+    once) with respect to inputs: the library yardstick of a backward."""
+    leaves = _leaf_inputs(*inputs)
+    out = fn(*leaves)
+    return lambda: torch.autograd.grad(out, leaves, g, retain_graph=True)
+
+
+def k1b_case(dev, dtype, b, h, n, d, lengths, gen, masked_prefix=0):
+    """K1b at [B, H, N, D], causal; row r's keys below masked_prefix (row 1
+    only) and at or past lengths[r] invalid."""
+    q, k, v, g = (torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype) for _ in range(4))
+    pos = torch.arange(n, device=dev)[None]
+    kv = pos < torch.tensor(lengths, device=dev)[:, None]
+    kv[1, :masked_prefix] = False
+    out, lse = fa.flash_attention(q, k, v, True, kv, return_lse=True)
+    args = (q, k, v, True, kv, out, lse, g)
+    mask = (pos[0][None, :] <= pos[0][:, None])[None, None] & kv[:, None, None, :]
+    library = _library_bwd(lambda a, bb, c: F.scaled_dot_product_attention(a, bb, c,
+                                                                           attn_mask=mask),
+                           (q, k, v), g)
+    pairs = int(mask.sum()) * h                # (query, valid key) pairs the data needs
+    nb = nbytes(q, k, v, kv, out, lse, g) + 3 * nbytes(q)
+    return (lambda: fa.flash_attention_bwd(*args), lambda: fa.flash_attention_bwd_reference(*args),
+            library, (nb, 10.0 * d * pairs, dtype))
+
+
+def k2b_case(dev, dtype, bw, h, d, ws, gen):
+    t, c = ws * ws, h * d
+    qkv = torch.randn(bw, t, 3 * c, generator=gen, device=dev).to(dtype)
+    rel = torch.randn(bw, t, 2 * h * ws, generator=gen, device=dev).to(dtype)
+    g = torch.randn(bw, t, c, generator=gen, device=dev).to(dtype)
+    out, lse = fa.sam_window_attention_packed(qkv, rel, h, d, ws, return_lse=True)
+    args = (qkv, rel, h, d, ws, out, lse, g)
+    heads = lambda x, w: x.reshape(bw, t, h, w).transpose(1, 2).contiguous()
+    key = torch.arange(t, device=dev)
+    bias = (heads(rel[..., :h * ws], ws)[..., key // ws]
+            + heads(rel[..., h * ws:], ws)[..., key % ws]).to(dtype)
+    library = _library_bwd(lambda a, bb, cc: F.scaled_dot_product_attention(a, bb, cc,
+                                                                            attn_mask=bias),
+                           [heads(qkv[..., i * c:(i + 1) * c], d) for i in range(3)], heads(g, d))
+    nb = nbytes(qkv, rel, out, lse, g) + nbytes(qkv, rel)
+    return (lambda: fa.sam_window_attention_packed_bwd(*args),
+            lambda: fa.sam_window_attention_packed_bwd_reference(*args), library,
+            (nb, 10.0 * d * t * t * bw * h, dtype))
+
+
+def k3b_case(dev, dtype, b, h, gh, gw, d, gen):
+    n = gh * gw
+    q, k, v, g = (torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype) for _ in range(4))
+    rel_h = torch.randn(b, h, n, gh, generator=gen, device=dev).to(dtype)
+    rel_w = torch.randn(b, h, n, gw, generator=gen, device=dev).to(dtype)
+    out, lse = fa.sam_flash_attention(q, k, v, rel_h, rel_w, (gh, gw), return_lse=True)
+    args = (q, k, v, rel_h, rel_w, (gh, gw), out, lse, g)
+    key = torch.arange(n, device=dev)
+    bias = rel_h[..., key // gw] + rel_w[..., key % gw]      # [B, H, N, N], built once
+    library = _library_bwd(lambda a, bb, c: F.scaled_dot_product_attention(a, bb, c,
+                                                                           attn_mask=bias),
+                           (q, k, v), g)
+    nb = nbytes(q, k, v, rel_h, rel_w, out, lse, g) + nbytes(q, k, v, rel_h, rel_w)
+    return (lambda: fa.sam_flash_attention_bwd(*args),
+            lambda: fa.sam_flash_attention_bwd_reference(*args), library,
+            (nb, 10.0 * d * n * n * b * h, dtype))
+
+
+def check_backward(name, case, dtype, iters, plain_iters, label):
+    """A backward kernel's gradients against its plain backward on the same
+    inputs, each gradient's error relative to its largest magnitude (at
+    least 1): the sums run over up to N terms in another order. fp32 within
+    FP32_ATOL, bf16 within BF16_MAX_ABS (max) and BF16_MEAN_ABS (mean).
+    Then (iters > 0) the wrapper's ms per call (its two launches and the
+    plain-torch delta), the plain backward's, the library's, and the bound
+    (bytes: every input read once, every output written once; operations:
+    five products of 2*D per (query, valid key) pair)."""
+    run, plain, library, (nb, ops, ops_type) = case
+    got = run()
+    torch.cuda.synchronize()
+    want, plain_ms = host_ms(plain)
+    worst, ok = 0.0, True
+    for i, (a, w) in enumerate(zip(got, want)):
+        scale = max(1.0, float(w.float().abs().max()))
+        max_err, mean_err = errors(a, w)
+        worst = max(worst, max_err)
+        good = bool(torch.isfinite(a.float()).all()) and (
+            max_err <= FP32_ATOL * scale if dtype == torch.float32 else
+            max_err <= BF16_MAX_ABS * scale and mean_err <= BF16_MEAN_ABS * scale)
+        ok &= good
+        limit = FP32_ATOL * scale if dtype == torch.float32 else BF16_MAX_ABS * scale
+        log(f"  {name} {label} {str(dtype)[6:]} gradient {i} {tuple(a.shape)}: "
+            f"max_abs={max_err:.3e} mean_abs={mean_err:.3e} (limit {limit:.3e}) "
+            f"-> {'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain backward in {dtype} ({label})")
+    if iters == 0:
+        return None
+    del want
+    ms = cuda_ms(run, iters)
+    if plain_iters > 1:
+        plain_ms = cuda_ms(plain, plain_iters - 1, warmup=0)
+    torch.cuda.empty_cache()
+    library_ms = cuda_ms(library, iters)
+    bound_ms, bound_by = bound(nb, ops, ops_type)
+    log(f"  {name} {label}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
+        f"({bound_by}; {nb / 1e6:.2f} MB, {ops / 1e9:.3f} G ops)")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_backward_kernels(dev, seed):
+    log("== phase 2d: K1b-K3b against their plain backwards")
+    gen = torch.Generator(device=dev).manual_seed(seed + 30)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # the training step's shapes: 2 rows of 767 spliced tokens (the second
+    # with 60 pad keys), 2 images of 25 windows of 14x14, the 64x64 grid
+    results = {
+        "flash_attention_bwd": check_backward(
+            "flash_attention_bwd", k1b_case(dev, bf16, 2, 32, 767, 128, [767, 707], gen), bf16,
+            20, 3, "7B training"),
+        "sam_window_attention_packed_bwd": check_backward(
+            "sam_window_attention_packed_bwd", k2b_case(dev, bf16, 50, 16, 80, 14, gen), bf16,
+            10, 3, "ViT-H windows"),
+        "sam_flash_attention_bwd": check_backward(
+            "sam_flash_attention_bwd", k3b_case(dev, bf16, 2, 16, 64, 64, 80, gen), bf16, 3, 1,
+            "ViT-H global"),
+    }
+    torch.cuda.empty_cache()
+    ragged = lambda name, case, label: check_backward(name, case, f32, 0, 1, label)
+    ragged("flash_attention_bwd", k1b_case(dev, f32, 2, 3, 70, 128, [70, 59], gen, 5),
+           "ragged, fully masked rows")
+    ragged("flash_attention_bwd", k1b_case(dev, f32, 2, 2, 37, 80, [37, 30], gen), "ragged D=80")
+    ragged("sam_window_attention_packed_bwd", k2b_case(dev, f32, 3, 2, 80, 14, gen), "ragged")
+    ragged("sam_window_attention_packed_bwd", k2b_case(dev, f32, 5, 3, 20, 3, gen), "ragged")
+    ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 2, 2, 5, 7, 20, gen), "ragged")
+    ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 1, 2, 16, 16, 80, gen), "ragged")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4: the pipeline
 # ---------------------------------------------------------------------------
 
@@ -714,11 +896,12 @@ def expected_launches(cfg, params, n_new, n_iters=None):
     qkv4, mlp4, w8a8 = ("qkv4" in layer["attn"], int4.mlp_is_int4(layer["mlp"]),
                         int4.mlp_is_w8a8(layer["mlp"]))
     flat_q = cfg.kv_quant_cache in ("int8_flat", "int4_flat")
-    counts = {
+    counts = dict.fromkeys(KERNEL_INFO, 0)          # no backward kernel in inference
+    counts.update({
         "flash_attention": n_layers,
         "sam_window_attention_packed": cfg.sam.depth - len(cfg.sam.global_attn_indexes),
         "sam_flash_attention": len(cfg.sam.global_attn_indexes),
-    }
+    })
     if n_iters is None:
         steps = n_layers * n_new
         counts.update(decode_attention_q=steps * flat_q, decode_attention_q_chunk=0,
@@ -897,6 +1080,292 @@ def phase_fused(params, cfg, kw, walls_heads, devices_heads):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 3d and 5: training
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, dev, gen, lengths, row_len, answer, segs, max_segs, hw, dtype):
+    """A training batch as train_cli.py's collate gives it: one image per
+    row, rows right-padded to row_len with the <image> sentinel at 1,
+    labels on each row's answer span (its last `answer` real tokens), which
+    holds `segs` [SEG] tokens, and random binary gt_masks [max_segs, S, S]
+    (the first sum(segs) real). Built here, without the JAX package."""
+    rows = len(lengths)
+    ids, mask = prompts(rows, lengths, row_len, cfg.llm.vocab_size, gen, dev)
+    labels = torch.full_like(ids, walkgpt.IGNORE_INDEX)
+    for r, n in enumerate(lengths):
+        span = torch.arange(n - answer, n, device=dev)
+        seg_pos = span[torch.randperm(answer, generator=gen, device=dev)[:segs]]
+        ids[r, seg_pos] = cfg.seg_token_id
+        labels[r, n - answer:n] = ids[r, n - answer:n]
+    s = cfg.sam.img_size
+    return dict(images=torch.randn(rows, s, s, 3, generator=gen, device=dev).to(dtype),
+                input_ids=ids, labels=labels, attention_mask=mask,
+                row_image_idx=torch.arange(rows, device=dev),
+                gt_masks=torch.rand(max_segs, s, s, generator=gen, device=dev) > 0.5,
+                pixel_hw=torch.tensor([hw] * rows, device=dev))
+
+
+def _leaf_errors(card, cpu):
+    """Per trainable leaf: elements of the card's leaf outside
+    LEAF_RTOL/LEAF_ATOL of the CPU's, and the largest difference."""
+    out, worst = 0, 0.0
+    for p, x in cpu.items():
+        a, b = card[p].cpu().float(), x.float()
+        out += int(((a - b).abs() > LEAF_ATOL + LEAF_RTOL * b.abs()).sum())
+        worst = max(worst, float((a - b).abs().max()))
+    return out, worst
+
+
+def _frozen_snapshot(params, trainable):
+    """{path: (tensor, fp32 checksum)} of the frozen tensor leaves."""
+    return {p: (x, float(x.float().sum())) for p, x in leaves_with_path(params).items()
+            if isinstance(x, torch.Tensor) and p not in trainable}
+
+
+def _frozen_same(snap, params):
+    now = leaves_with_path(params)
+    return all(now[p] is x and float(x.float().sum()) == c for p, (x, c) in snap.items())
+
+
+def phase_parity_train(dev, seed):
+    """demo_config in fp32: two train_steps and one qlora_train_step on the
+    card (K1, K1b and the SAM kernels) and on the CPU (plain versions), from
+    the same weights and batch; then the SAM encoder's parameter gradients,
+    kernel path (K2b, K3b) against einsum path, on the card.
+
+    InfoNCE's top-k refinement (nce_topk 8) keeps the 8 most attended SAM
+    tokens: a hard selection, discontinuous where the 8th and 9th weights
+    tie. On an H100 at this seed a 1e-5 difference of the SAM features
+    (another summation order) moves one token across it in the QLoRA step
+    (nce 1.3156 on the card, 1.3063 on the CPU). The steps compared here run
+    without it (nce_topk None); the loss with it is reported beside them, it
+    is held against JAX on the CPU (tests/test_torch_losses.py), and phase 5
+    trains with it."""
+    log("== phase 3d: demo_config fp32 training, the card against the CPU")
+    topk_cfg = demo_config().replace(use_flash_attention=True)
+    cfg = topk_cfg.replace(losses=dataclasses.replace(topk_cfg.losses, nce_topk=None))
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    params = walkgpt.init(cfg, seed=seed, dtype=torch.float32, device=dev)
+    params["llm"] = lora.init_lora(params["llm"], g, r=8, alpha=16.0)
+    batch = train_batch(cfg, dev, g, [60, 47], 64, 20, 4, 8, [256, 192], torch.float32)
+    kw = dict(model_cfg=cfg, max_segs=8)
+    runs = {}
+    for where in ("card", "cpu"):
+        on = dev if where == "card" else torch.device("cpu")
+        p = params if where == "card" else to_device(params, "cpu")
+        b = batch if where == "card" else to_device(batch, "cpu")
+        for f in KERNELS:
+            f.launches = 0
+        state, opt = train.init_state(p, train.TrainConfig(warmup_steps=1))
+        snap = _frozen_snapshot(p, opt.trainable)
+        metrics = []
+        for i in range(2):
+            state, m = train.train_step(state, b, opt=opt, remat=i == 1, device=on, **kw)
+            metrics.append({k: float(v) for k, v in m.items()})
+        qp = dict(p, llm=quant.quantize_llm(p["llm"], act_quant=False, mlp_int4=True,
+                                            quantize_lm_head=False),
+                  sam=quant.quantize_sam_encoder(p["sam"]))
+        qstate, qopt, frozen = train.init_qlora_state(qp, train.TrainConfig(warmup_steps=0))
+        qsnap = _frozen_snapshot(frozen, set())
+        qstate, qm = train.qlora_train_step(qstate, frozen, b, opt=qopt, device=on, **kw)
+        with torch.no_grad():
+            topk_nce = float(walkgpt.model_forward(
+                qp, topk_cfg, max_segs=8, **walkgpt._as_inputs(on, **b)).nce_loss)
+        runs[where] = dict(metrics=metrics + [{k: float(v) for k, v in qm.items()}],
+                           params=state.params, qparams=qstate.params, base=qp,
+                           topk_nce=topk_nce,
+                           frozen=_frozen_same(snap, state.params) and _frozen_same(qsnap, frozen),
+                           launches={f.__name__: f.launches for f in KERNELS if f.launches},
+                           trainable=opt.trainable)
+    card, cpu = runs["card"], runs["cpu"]
+    loss_ok = all(abs(c[k] - w[k]) <= LOSS_RTOL * abs(w[k])
+                  for c, w in zip(card["metrics"], cpu["metrics"]) for k in train.METRICS)
+    for step, (c, w) in enumerate(zip(card["metrics"], cpu["metrics"])):
+        log(f"  step {step + 1}{' (qlora)' if step == 2 else ''}: " + " ".join(
+            f"{k}={c[k]:.6f}/{w[k]:.6f}" for k in train.METRICS + ("grad_norm",)) + " (card/CPU)")
+    cp = {k: v for k, v in leaves_with_path(card["params"]).items() if k in card["trainable"]}
+    wp = {k: v for k, v in leaves_with_path(cpu["params"]).items() if k in cpu["trainable"]}
+    qc, qw = leaves_with_path(card["qparams"]), leaves_with_path(cpu["qparams"])
+    (dense_out, dense_worst), (q_out, q_worst) = _leaf_errors(cp, wp), _leaf_errors(qc, qw)
+    n_el = sum(x.numel() for x in wp.values())
+    nq_el = sum(x.numel() for x in qw.values())
+    bc, bw = leaves_with_path(card["base"]), leaves_with_path(cpu["base"])
+    base_same = bc.keys() == bw.keys() and all(
+        torch.equal(x.cpu(), bw[p]) if isinstance(x, torch.Tensor) else x == bw[p]
+        for p, x in bc.items())
+    lr2 = 2 * train.TrainConfig().lr
+    log(f"  trainable leaves after 2 steps: {len(wp)} leaves, {n_el} elements, {dense_out} "
+        f"outside rtol {LEAF_RTOL} / atol {LEAF_ATOL}, max_abs {dense_worst:.3e}; after the "
+        f"qlora step: {q_out} of {nq_el} outside, max_abs {q_worst:.3e} (limits: "
+        f"{LEAF_OUTLIERS:g} of the elements, max_abs {lr2:g}); QLoRA base (codes, scales) "
+        f"identical on the card and the CPU: {base_same}; frozen leaves bit-identical before "
+        f"and after: card {card['frozen']} CPU {cpu['frozen']}; kernel launches on the card "
+        f"{card['launches']}")
+    log(f"  reported: the QLoRA step's nce_loss with nce_topk 8: card {card['topk_nce']:.6f} "
+        f"CPU {cpu['topk_nce']:.6f}")
+    need = {"flash_attention", "flash_attention_bwd", "sam_window_attention_packed",
+            "sam_flash_attention"}
+    if not (loss_ok and dense_out <= LEAF_OUTLIERS * n_el and q_out <= LEAF_OUTLIERS * nq_el
+            and max(dense_worst, q_worst) <= lr2 and base_same and card["frozen"]
+            and cpu["frozen"] and need <= set(card["launches"]) and not cpu["launches"]):
+        raise AssertionError("demo_config training: the card and the CPU disagree")
+
+    # the SAM encoder's parameter gradients through K2b/K3b against the einsum path
+    enc = {k: v for k, v in params["sam"]["image_encoder"].items()}
+    x = batch["images"]
+    grads = {}
+    for flash in (True, False):
+        leaves = {p: t.detach().clone().requires_grad_()
+                  for p, t in leaves_with_path(enc).items()}
+        tree = map_with_path(lambda p, t: leaves.get(p, t), enc)
+        for f in KERNELS:
+            f.launches = 0
+        sam_encoder.apply(tree, cfg.sam, x, use_flash=flash).sum().backward()
+        grads[flash] = {p: t.grad for p, t in leaves.items()}
+        launched = {f.__name__: f.launches for f in KERNELS if f.launches}
+        if flash:
+            bwd = launched
+    worst = max(float((grads[True][p] - grads[False][p]).abs().max()
+                      / max(1.0, float(grads[False][p].abs().max()))) for p in grads[False])
+    log(f"  SAM encoder parameter gradients, kernel path against einsum path: max relative "
+        f"difference {worst:.3e} (limit 5e-4), kernel launches {bwd}")
+    if not (worst <= 5e-4 and bwd.get("sam_window_attention_packed_bwd")
+            and bwd.get("sam_flash_attention_bwd")):
+        raise AssertionError("demo_config SAM encoder: kernel and einsum gradients disagree")
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def train_launches(cfg, remat):
+    """Kernel launches of one train_step: per LLM layer K1 (twice with remat:
+    the backward pass recomputes the block) and K1b; per windowed / global
+    SAM block K2 / K3; the frozen encoder runs no backward."""
+    n = cfg.llm.num_layers
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    counts.update(flash_attention=n * (2 if remat else 1), flash_attention_bwd=n,
+                  sam_window_attention_packed=cfg.sam.depth - len(cfg.sam.global_attn_indexes),
+                  sam_flash_attention=len(cfg.sam.global_attn_indexes))
+    return counts
+
+
+def run_train_steps(label, cfg, state, batch, step_fn, remats, tokens, kernels):
+    """Steps on the host clock (synchronised), each with its loss terms,
+    gradient norm, peak memory and launches (held to train_launches); then
+    one more step without remat under the profiler, for the device time (its
+    result dropped), set against step 2's wall. Returns (the last state,
+    the state after step 2)."""
+    walls = []
+    for i, remat in enumerate(remats):
+        before = {f.__name__: f.launches for f in KERNELS}
+        torch.cuda.reset_peak_memory_stats()
+        (state, m), ms = host_ms(lambda: step_fn(state, batch, remat))
+        walls.append(ms)
+        per = {f.__name__: f.launches - before[f.__name__] for f in KERNELS}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  {label} step {i + 1}{' (remat)' if remat else ''}: "
+            + " ".join(f"{k}={float(v):.5f}" for k, v in m.items())
+            + f" wall_ms={ms:.1f} tokens_per_s={tokens / ms * 1e3:.1f} "
+            f"max_memory_allocated_GB={peak:.2f} launches {_nonzero(per)}")
+        if per != train_launches(cfg, remat) or not all(math.isfinite(float(v))
+                                                         for v in m.values()):
+            raise AssertionError(f"{label} step {i + 1}: launches {per} or metrics {m}")
+        if i == 1:
+            state2 = state
+    _, dev_ms = profiled(lambda: step_fn(state, batch, False), kernels)
+    log(f"  {label} step without remat under the profiler (not applied): device_ms={dev_ms:.1f}, "
+        f"device_busy={dev_ms / walls[1]:.3f} of step 2's wall; top 5 kernels by device time:")
+    for name, kms in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"    {kms:9.1f} ms {kms / dev_ms:6.1%}  {name[:100]}")
+    return state, state2
+
+
+def phase_train(dev, seed):
+    """WalkGPT-7B training at full width with random weights: the
+    reference's LoRA recipe in bf16 (3 steps, the last with remat), the
+    QLoRA base (2 steps), and one backward through the ViT-H encoder with
+    respect to its rel-pos tables. Every kernel count is set to 0 here and
+    read at the end."""
+    log("== phase 5: WalkGPT-7B training, random weights")
+    for f in KERNELS:
+        f.launches = 0
+    cfg = walkgpt_7b_config()
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    t0 = time.perf_counter()
+    params = walkgpt.init(cfg, seed=seed, dtype=torch.bfloat16, device=dev)
+    params["llm"] = lora.init_lora(params["llm"], g, r=8, alpha=16.0)
+    torch.cuda.synchronize()
+    log(f"  init on the card (LoRA r=8, alpha 16 on q and v): {time.perf_counter() - t0:.1f} s")
+    # train_cli.py's defaults: 2 images at 1024^2, rows of 512 tokens
+    # (--seq_multiple 256) spliced to 767, 8 [SEG] per row, --max_segs 32
+    batch = train_batch(cfg, dev, g, [480, 431], 512, 120, 8, 32, [1024, 768], torch.bfloat16)
+    tokens = batch["input_ids"].shape[0] * (512 - 1 + cfg.visual_tokens)
+    tc = train.TrainConfig(warmup_steps=1)
+    state, opt = train.init_state(params, tc)
+    snap = _frozen_snapshot(params, opt.trainable)
+    b0 = params["llm"]["layers"][0]["attn"]["q"]["lora_b"]
+    n_train = sum(x.numel() for p, x in leaves_with_path(params).items() if p in opt.trainable)
+    log(f"  trainable: {len(opt.trainable)} leaves, {n_train / 1e6:.1f} M parameters; "
+        f"batch: 2 rows x 767 spliced tokens, 16 [SEG], max_segs 32")
+    step = lambda st, b, remat: train.train_step(st, b, opt=opt, model_cfg=cfg, max_segs=32,
+                                                 remat=remat, device=dev)
+    state, state2 = run_train_steps("LoRA bf16", cfg, state, batch, step, (False, False, True),
+                                    tokens, {})
+    moved = float((state2.params["llm"]["layers"][0]["attn"]["q"]["lora_b"].float()
+                   - b0.float()).abs().max())
+    frozen = _frozen_same(snap, state.params)
+    log(f"  LoRA bf16: lora_b (layer 0, q) moved by max {moved:.3e} after step 2; frozen base "
+        f"unchanged (same tensors, same checksums): {frozen}")
+    if not (moved > 0 and frozen):
+        raise AssertionError("7B LoRA: lora_b did not move or the frozen base changed")
+
+    # one backward through the full ViT-H encoder, 1 image, to its rel-pos tables
+    enc = params["sam"]["image_encoder"]
+    rel = {p: t.detach().clone().requires_grad_() for p, t in leaves_with_path(enc).items()
+           if p.endswith(("rel_pos_h", "rel_pos_w"))}
+    before = {f.__name__: f.launches for f in KERNELS}
+    _, ms = host_ms(lambda: sam_encoder.apply(map_with_path(lambda p, t: rel.get(p, t), enc),
+                                              cfg.sam,
+                                              batch["images"][:1], use_flash=True
+                                              ).float().square().mean().backward())
+    per = {f.__name__: f.launches - before[f.__name__] for f in KERNELS}
+    finite = all(bool(torch.isfinite(t.grad).all()) and bool(t.grad.abs().max() > 0)
+                 for t in rel.values())
+    log(f"  ViT-H encoder backward to its {len(rel)} rel-pos tables (1 image): wall_ms={ms:.1f}, "
+        f"gradients finite and nonzero: {finite}, launches {_nonzero(per)}")
+    n_glob = len(cfg.sam.global_attn_indexes)
+    if not (finite and per["sam_window_attention_packed_bwd"] == cfg.sam.depth - n_glob
+            and per["sam_flash_attention_bwd"] == n_glob):
+        raise AssertionError(f"ViT-H encoder backward: launches {per}")
+    del params, state, state2, enc, rel, snap, b0
+    torch.cuda.empty_cache()
+
+    # QLoRA: int8 attention + packed int4 MLP, dense head, weight-only int8 SAM blocks
+    t0 = time.perf_counter()
+    qparams = walkgpt.init_quantized(cfg, seed=seed, dtype=torch.bfloat16, device=dev,
+                                     act_quant=False, mlp_int4=True, sam_int8=True,
+                                     quantize_lm_head=False)
+    qparams["llm"] = lora.init_lora(qparams["llm"], g, r=8, alpha=16.0)
+    torch.cuda.synchronize()
+    log(f"  QLoRA base built one layer at a time on the card: {time.perf_counter() - t0:.1f} s")
+    qstate, qopt, frozen = train.init_qlora_state(qparams, tc)
+    qsnap = _frozen_snapshot(frozen, set())
+    b0 = qstate.params["llm"]["layers"][0]["attn"]["q"]["lora_b"]
+    qstep = lambda st, b, remat: train.qlora_train_step(st, frozen, b, opt=qopt, model_cfg=cfg,
+                                                        max_segs=32, remat=remat, device=dev)
+    qstate, q2 = run_train_steps("QLoRA", cfg, qstate, batch, qstep, (False, False), tokens, {})
+    moved = float((q2.params["llm"]["layers"][0]["attn"]["q"]["lora_b"].float()
+                   - b0.float()).abs().max())
+    frozen_ok = _frozen_same(qsnap, frozen)
+    log(f"  QLoRA: lora_b (layer 0, q) moved by max {moved:.3e} after step 2; frozen base "
+        f"unchanged: {frozen_ok}")
+    if not (moved > 0 and frozen_ok):
+        raise AssertionError("7B QLoRA: lora_b did not move or the frozen base changed")
+    return {f.__name__: f.launches for f in KERNELS}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1024,11 +1493,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     numbers.update(phase_decode_kernels(dev, args.seed))
     torch.cuda.empty_cache()
+    numbers.update(phase_backward_kernels(dev, args.seed))
+    torch.cuda.empty_cache()
     phase_parity(dev, args.seed)
     torch.cuda.empty_cache()
     phase_parity_quant(dev, args.seed)
     torch.cuda.empty_cache()
     phase_parity_spec(dev, args.seed)
+    torch.cuda.empty_cache()
+    phase_parity_train(dev, args.seed)
     torch.cuda.empty_cache()
     quantized = lambda fmt: (lambda c: walkgpt.init_quantized(
         c, seed=args.seed, dtype=torch.bfloat16, device=dev, **fmt))
@@ -1054,6 +1527,9 @@ def main(argv=None) -> int:
                                              make, **extra))
         torch.cuda.empty_cache()
         log(f"  {label}: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = add(launches, phase_train(dev, args.seed))
+    log(f"  training: phase {time.perf_counter() - t0:.1f} s")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
 

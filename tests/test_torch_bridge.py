@@ -91,8 +91,8 @@ def test_port_imports_without_jax():
         "sys.meta_path.insert(0, Block())\n"
         "import walkgpt_tpu_torch\n"
         "from walkgpt_tpu_torch.models import walkgpt, sam, llm, projectors\n"
-        "from walkgpt_tpu_torch.runtime import generate\n"
-        "from walkgpt_tpu_torch.ops import flash_attention, cuda_build\n"
+        "from walkgpt_tpu_torch.runtime import generate, lora, train\n"
+        "from walkgpt_tpu_torch.ops import flash_attention, cuda_build, losses, quant\n"
         "assert not any(m.split('.')[0] in ('jax', 'walkgpt_tpu') for m in sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

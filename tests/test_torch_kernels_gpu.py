@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K8 and K11 against their plain versions, on the card.
+"""The CUDA kernels K1-K8, K11 and the backward kernels K1b-K3b against
+their plain versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use) and
 skip elsewhere. They import nothing of JAX, so they run on a machine without
@@ -16,7 +17,11 @@ one term by a bf16 step or one code: for K4-K8 the errors are taken
 relative to the output's largest magnitude (at least 1): 1e-3 in fp32, the
 bf16 bounds above in bf16. K8's token t and K4 at the same position run one
 engine over the same cache: equal bit for bit. K11 (fp32 online softmax,
-p rounded to the cache's type) takes the K1-K3 bounds.
+p rounded to the cache's type) takes the K1-K3 bounds. The backward kernels
+K1b-K3b sum over up to N terms per gradient in another order than the
+plain backward: fp32 atol = rtol = 1e-4; bf16 outputs relative to their
+largest magnitude (at least 1), 2e-2 max and 2e-3 mean, one bf16 rounding
+step of the gradient.
 """
 import pytest
 import torch
@@ -290,3 +295,114 @@ def test_decode_wrappers_raise_instead_of_falling_back(dev):
         fa.decode_attention(torch.zeros(1, 32, device=dev).half(), kc.half(), kc.half(), mask,
                             n_kv=2)
     assert [f.launches for f in (fa.decode_attention_q_chunk, fa.decode_attention)] == counts
+
+
+# ---------------------------------------------------------------------------
+# K1b-K3b: the backward kernels
+# ---------------------------------------------------------------------------
+
+def _close_grads(got, want, dtype):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a.float()).all()
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            _close_scaled(a, b, dtype)
+
+
+def _autograd(fn, inputs, g):
+    """The gradients of fn's output through its torch.autograd.Function."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,causal", [(37, 16, True), (130, 20, True), (70, 128, True),
+                                        (65, 64, False)])
+def test_k1b_kernel_matches_plain(dev, dtype, n, d, causal):
+    g = torch.Generator(device=dev).manual_seed(n * d + 1)
+    q, k, v, go = (torch.randn(2, 3, n, d, generator=g, device=dev).to(dtype) for _ in range(4))
+    pos = torch.arange(n, device=dev)[None]
+    # row 1: keys 0-4 and the last 11 invalid, so under the causal mask its
+    # queries 0-4 see no key at all (fully masked rows: no gradient)
+    kv = torch.stack([pos[0] < n, (pos[0] >= 5) & (pos[0] < n - 11)])
+    out, lse = fa.flash_attention(q, k, v, causal, kv, return_lse=True)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, causal, kv, out, lse, go)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    _close_grads(got, fa.flash_attention_bwd_reference(q, k, v, causal, kv, out, lse, go), dtype)
+    if causal:
+        assert not got[0][1, :, :5].any()
+    auto = _autograd(lambda a, b, c: fa.flash_attention(a, b, c, causal, kv), (q, k, v), go)
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))   # one kernel, deterministic
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ws,d,h", [(2, 16, 2), (3, 20, 3), (14, 80, 2)])
+def test_k2b_kernel_matches_plain(dev, dtype, ws, d, h):
+    g = torch.Generator(device=dev).manual_seed(ws * d + 2)
+    bw, t = 5, ws * ws
+    qkv = torch.randn(bw, t, 3 * h * d, generator=g, device=dev).to(dtype)
+    rel = torch.randn(bw, t, 2 * h * ws, generator=g, device=dev).to(dtype)
+    go = torch.randn(bw, t, h * d, generator=g, device=dev).to(dtype)
+    out, lse = fa.sam_window_attention_packed(qkv, rel, h, d, ws, return_lse=True)
+    before = fa.sam_window_attention_packed_bwd.launches
+    got = fa.sam_window_attention_packed_bwd(qkv, rel, h, d, ws, out, lse, go)
+    torch.cuda.synchronize()
+    assert fa.sam_window_attention_packed_bwd.launches == before + 1
+    want = fa.sam_window_attention_packed_bwd_reference(qkv, rel, h, d, ws, out, lse, go)
+    _close_grads(got, want, dtype)
+    auto = _autograd(lambda a, b: fa.sam_window_attention_packed(a, b, h, d, ws), (qkv, rel), go)
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gh,gw,d", [(4, 4, 16), (5, 7, 20), (16, 16, 80)])
+def test_k3b_kernel_matches_plain(dev, dtype, gh, gw, d):
+    g = torch.Generator(device=dev).manual_seed(gh * gw + d + 3)
+    b, h, n = 2, 2, gh * gw
+    qkv = torch.randn(b, n, 3 * h * d, generator=g, device=dev).to(dtype)
+    q, k, v = (x.reshape(b, n, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
+    rel_h = torch.randn(b, h, n, gh, generator=g, device=dev).to(dtype)
+    rel_w = torch.randn(b, h, n, gw, generator=g, device=dev).to(dtype)
+    go = torch.randn(b, h, n, d, generator=g, device=dev).to(dtype)
+    out, lse = fa.sam_flash_attention(q, k, v, rel_h, rel_w, (gh, gw), return_lse=True)
+    before = fa.sam_flash_attention_bwd.launches
+    got = fa.sam_flash_attention_bwd(q, k, v, rel_h, rel_w, (gh, gw), out, lse, go)
+    torch.cuda.synchronize()
+    assert fa.sam_flash_attention_bwd.launches == before + 1
+    want = fa.sam_flash_attention_bwd_reference(q, k, v, rel_h, rel_w, (gh, gw), out, lse, go)
+    _close_grads(got, want, dtype)
+    auto = _autograd(lambda *x: fa.sam_flash_attention(*x, (gh, gw)), (q, k, v, rel_h, rel_w), go)
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+def test_backward_wrappers_raise_instead_of_falling_back(dev):
+    q = torch.zeros(1, 1, 4, 16, device=dev)
+    lse = torch.zeros(1, 1, 4, device=dev)
+    before = [f.launches for f in fa.KERNELS]
+    with pytest.raises(ValueError):                         # fp16: no kernel
+        fa.flash_attention_bwd(q.half(), q.half(), q.half(), True, None, q.half(), lse, q.half())
+    with pytest.raises(ValueError):                         # g of another shape
+        fa.flash_attention_bwd(q, q, q, True, None, q, lse, q[:, :, :3])
+    with pytest.raises(ValueError):                         # T != ws * ws
+        qkv = torch.zeros(2, 5, 3 * 16, device=dev)
+        fa.sam_window_attention_packed_bwd(qkv, torch.zeros(2, 5, 4, device=dev), 1, 16, 2,
+                                           qkv[..., :16], torch.zeros(2, 5, 1, device=dev),
+                                           qkv[..., :16])
+    assert [f.launches for f in fa.KERNELS] == before
+
+
+def test_quantizers_give_the_cpus_codes_and_scales(dev):
+    """The quantizers divide by a 0-d tensor (core/nn.div_exact): a Python
+    divisor is a reciprocal multiplication on CUDA, whose scales differ from
+    the CPU's in the last bit."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    w = torch.randn(512, 384, generator=g, device=dev) * 0.02
+    for fn in (quant.quantize_weight, int4.quantize_weight4, int4.pack_down4):
+        card, cpu = fn(w), fn(w.cpu())
+        assert all(torch.equal(card[k].cpu(), cpu[k]) for k in cpu), fn.__name__
+    x = torch.randn(2, 9, 4, 16, generator=g, device=dev)
+    for fn in (llm._quant_rows, llm._quant_pack4_flat):
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(fn(x), fn(x.cpu()))), fn.__name__

@@ -99,6 +99,15 @@ def _promote(*xs: torch.Tensor):
     return tuple(x.to(dt) for x in xs)
 
 
+def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d rounded once, on every device. On CUDA, PyTorch divides by a
+    Python number as a multiplication by its reciprocal (two roundings), so
+    a quantizer's scales would differ in the last bit between the card and
+    the CPU (and the JAX package); a 0-d tensor divisor takes the true
+    division."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact int32 product of int8 matrices a [M, K] and b [K, N].
 

@@ -9,10 +9,15 @@ keep their type, and the bool markers of the quantized formats (the
 `"a8": True` of a W8A8 projection, a Python bool, or a 0-d bool array once
 it has passed through `jax.jit`) become Python bools, so `"a8" in p`
 dispatches as in the JAX package.
+
+Key paths are the JAX package's `parallel/sharding._path_str` strings: dict
+keys and list indices joined by "/" ("llm/layers/0/attn/q/lora_a");
+`map_with_path` and `leaves_with_path` walk a tree by them, None leaves
+skipped as JAX skips them.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -72,4 +77,23 @@ def tree_paths(tree: Any, prefix: str = "") -> dict:
         out[prefix.rstrip("/")] = tree
     else:
         out[prefix.rstrip("/")] = tuple(tree.shape)
+    return out
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:
+    """The tree with every leaf x replaced by fn(path, x); dicts, lists and
+    tuples keep their structure and None stays None (an empty subtree)."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(prefix.rstrip("/"), tree)
+
+
+def leaves_with_path(tree: Any) -> Dict[str, Any]:
+    """{path: leaf} for every leaf but None, in the tree's order."""
+    out: Dict[str, Any] = {}
+    map_with_path(out.__setitem__, tree)
     return out

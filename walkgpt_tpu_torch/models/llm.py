@@ -12,8 +12,13 @@ or quantized (int8 or int4 codes, bf16 scales), read by the plain einsum
 attention; the flat layout [layers, B, L, n_kv*D] in the activation dtype
 (LLMConfig.fused_decode), read by the K11 kernel; the flat quantized layout
 (int8 rows or packed int4 rows [.., n_kv*D/2], bf16 scales [layers, B,
-n_kv, L]) read by K4 in a decode step and K8 in a speculative chunk. ALiBi
-(MPT) and LoRA are not ported yet.
+n_kv, L]) read by K4 in a decode step and K8 in a speculative chunk.
+
+LoRA: a q/k/v projection with "lora_a" [in, r] and "lora_b" [r, out]
+leaves adds (x @ lora_a) @ lora_b * lora_scale in the activation dtype
+(runtime/lora.py makes and merges the adapters). `forward(remat=True)`
+recomputes each block in the backward pass (torch.utils.checkpoint). ALiBi
+(MPT) is not ported yet.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core import nn
 from ..core.config import LLMConfig
@@ -139,16 +145,35 @@ def _mlp(p, x, cfg: LLMConfig):
     return nn.linear(p["fc2"], nn.gelu_exact(nn.linear(p["fc1"], x)))
 
 
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = nn._promote(a, b)
+    return a @ b
+
+
+def _proj(p, x: torch.Tensor) -> torch.Tensor:
+    """nn.linear plus the LoRA term when the projection carries adapters.
+    The low-rank products promote as in the JAX package (a bf16 x meets fp32
+    adapters in fp32); the term is scaled in fp32 and rounded once to the
+    projection's dtype, so an fp32 lora_scale does not upcast a bf16
+    residual stream."""
+    y = nn.linear(p, x)
+    if "lora_a" in p:
+        t = _matmul(_matmul(x, p["lora_a"]), p["lora_b"])
+        y = y + (t.float() * p.get("lora_scale", 1.0)).to(y.dtype)
+    return y
+
+
 def _qkv_proj(p, x: torch.Tensor, cfg: LLMConfig):
     """q/k/v projections: one packed int4 product (K5 on decode rows) for
-    "qkv4", one W8A8 product for "qkv8", else three."""
+    "qkv4", one W8A8 product for "qkv8", else three (each with its LoRA
+    term, if any)."""
     if "qkv4" in p or "qkv8" in p:
         qkv = (int4.int4_matmul_pallas(x, p["qkv4"]["w_p4"], p["qkv4"]["w_scale"])
                if "qkv4" in p else nn.linear(p["qkv8"], x))
         hq = cfg.num_heads * cfg.head_dim
         kvd = cfg.num_kv_heads * cfg.head_dim
         return qkv[..., :hq], qkv[..., hq:hq + kvd], qkv[..., hq + kvd:]
-    return nn.linear(p["q"], x), nn.linear(p["k"], x), nn.linear(p["v"], x)
+    return _proj(p["q"], x), _proj(p["k"], x), _proj(p["v"], x)
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -244,7 +269,8 @@ def _quant_rows(x: torch.Tensor, qmax: int = 127) -> Tuple[torch.Tensor, torch.T
     symmetric per row; the scale is rounded to bf16 first and the division
     is by the rounded scale, so the stored pair is self-consistent."""
     xf = x.float()
-    scale = (xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / float(qmax)).to(torch.bfloat16)
+    scale = nn.div_exact(xf.abs().amax(-1, keepdim=True).clamp_min(1e-8), qmax)
+    scale = scale.to(torch.bfloat16)
     q = torch.clamp(torch.round(xf / scale.float()), -qmax, qmax).to(torch.int8)
     return q, scale[..., 0]
 
@@ -255,7 +281,8 @@ def _quant_pack4_flat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scale, packed in GLOBAL halves of the flattened row: byte j holds flat
     dims j (low nibble) and j + n_kv*D/2 (high nibble)."""
     xf = x.float()
-    scale = (xf.abs().amax(-1, keepdim=True).clamp_min(1e-8) / 7.0).to(torch.bfloat16)
+    scale = nn.div_exact(xf.abs().amax(-1, keepdim=True).clamp_min(1e-8), 7.0)
+    scale = scale.to(torch.bfloat16)
     q = torch.clamp(torch.round(xf / scale.float()), -7, 7).int()
     kd = x.shape[-2] * x.shape[-1]
     q = q.reshape(*x.shape[:-2], kd)
@@ -357,17 +384,28 @@ def _put_chunk(buf: torch.Tensor, i: int, val: torch.Tensor, slots: torch.Tensor
 # forward passes
 # ---------------------------------------------------------------------------
 
+def _block(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos, sin, mask, flash_fn,
+           key_valid):
+    h, kv = _attention(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg),
+                       cos=cos, sin=sin, mask=mask, flash_fn=flash_fn, key_valid=key_valid)
+    x = x + h
+    return x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg), kv
+
+
 def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
             attention_mask: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             kv_cache: Optional[Params] = None,
-            flash_fn=None) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Full-sequence (prefill) forward.
+            flash_fn=None, remat: bool = False) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Full-sequence (training / prefill) forward.
 
     inputs_embeds: [B, T, H]; attention_mask: [B, T] bool (True = real token).
     Positions default to cumsum(mask) - 1 per row. kv_cache, when given, is
     written IN PLACE at slots [0, T) of every layer (the port's caches are
-    mutable buffers). Returns (final-norm hidden states [B, T, H], kv_cache).
+    mutable buffers). remat=True keeps only each block's input for the
+    backward pass and recomputes the block there (torch.utils.checkpoint,
+    the JAX package's jax.checkpoint with nothing saveable). Returns
+    (final-norm hidden states [B, T, H], kv_cache).
     """
     _check_supported(cfg)
     b, t, _ = inputs_embeds.shape
@@ -390,11 +428,11 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
-        h, (k_new, v_new) = _attention(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg),
-                                       cos=cos, sin=sin, mask=mask, flash_fn=flash_fn,
-                                       key_valid=attention_mask)
-        x = x + h
-        x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
+        args = (layer, cfg, x, cos, sin, mask, flash_fn, attention_mask)
+        if remat:
+            x, (k_new, v_new) = checkpoint(_block, *args, use_reentrant=False)
+        else:
+            x, (k_new, v_new) = _block(*args)
         if kv_cache is not None:
             _write_kv(kv_cache, i, k_new.transpose(1, 2), v_new.transpose(1, 2), put)
     return _norm(params["final_norm"], x, cfg), kv_cache

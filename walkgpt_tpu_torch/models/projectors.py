@@ -5,12 +5,13 @@
     padded to a square with a learned pad token, projected to the LLM width.
   * CTP (calibrated text projector): LN -> Linear -> GELU -> Linear -> LN, a
     learned text-type vector, L2-normalised and scaled by exp(log_temp).
-  * TinyCrossAttn: its parameters only (the InfoNCE head is a training-slice
-    module), so the parameter tree matches the JAX package's.
+  * TinyCrossAttn: the one-query cross-attention that pools a [SEG]
+    embedding's SAM tokens for the InfoNCE loss (ops/losses.py).
 """
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -155,3 +156,18 @@ def ctp_apply(params, x: torch.Tensor, *, eps: float = 1e-12) -> torch.Tensor:
 def tiny_xattn_init(g, d: int = 256, dtype=torch.float32):
     return {name: nn.linear_init(g, d, d, bias=False, dtype=dtype)
             for name in ("wq", "wk", "wv", "out")}
+
+
+def tiny_xattn_apply(params, q_vec: torch.Tensor, kv: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q_vec: [M, d]; kv: [M, N, d] -> (pooled [M, d], attention [M, N]).
+    Logits in fp32, divided by sqrt(d); the probabilities cast to v's dtype
+    for the value product."""
+    d = kv.shape[-1]
+    q = nn.linear(params["wq"], q_vec)[:, None, :]
+    k = nn.linear(params["wk"], kv)
+    v = nn.linear(params["wv"], kv)
+    logits = torch.einsum("mqd,mnd->mqn", q.float(), k.float()) / math.sqrt(d)
+    attn = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("mqn,mnd->mqd", attn.to(v.dtype), v)[:, 0]
+    return nn.linear(params["out"], ctx), attn[:, 0]

@@ -13,18 +13,24 @@ quantized production formats run: W8A8 or packed-int4 LLM weights
 growing one: the flat int8 / packed int4 caches (cfg.kv_quant_cache
 "int8_flat" / "int4_flat"), the heads-layout int8 / int4 caches ("int8" /
 True / "int4") and the flat bf16 cache (cfg.llm.fused_decode). Decode is
-greedy or speculative (`speculative_k`). The CLIP visual stream, the
-teacher-forced forward and the training losses are not ported yet.
+greedy or speculative (`speculative_k`).
+
+Training: `model_forward` is the teacher-forced forward with the losses
+(token CE, mask BCE and dice, InfoNCE) that runtime/train.py differentiates;
+the LLM's attention runs K1 with its backward K1b. The CLIP visual stream is
+not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core.config import WalkGPTConfig
-from ..core.tree import resolve_device
+from ..core.tree import leaves_with_path, resolve_device
 from ..ops.flash_attention import flash_attention
+from ..ops.losses import cross_entropy_with_smoothing, infonce_loss
 from ..ops.quant import quantize_sam_encoder, quantized_llm_init
 from ..ops.resize import bilinear_resize
 from ..runtime.generate import GenerateResult, greedy_generate, speculative_generate
@@ -32,6 +38,7 @@ from . import llm, sam
 from .projectors import ctp_apply, ctp_init, msqp_apply, msqp_init, tiny_xattn_init
 
 IMAGE_TOKEN_INDEX = -200
+IGNORE_INDEX = -100
 
 
 def sam_config(cfg: WalkGPTConfig) -> sam.SamConfig:
@@ -60,19 +67,23 @@ def init(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.float32, device=None,
 def init_quantized(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.bfloat16,
                    device=None, act_quant: bool = False, sam_int8: bool = False,
                    mlp_int4: bool = False, attn_int4: bool = False,
-                   head_int4: bool = False) -> Dict:
+                   attn_int4_proj: bool = False, head_int4: bool = False,
+                   quantize_lm_head: bool = True) -> Dict:
     """`init`'s layout with a quantized LLM built one layer at a time on the
     device (ops/quant.quantized_llm_init): act_quant marks the int8
     projections W8A8, mlp_int4 / attn_int4 / head_int4 pack the MLPs, the
-    fused q/k/v and the lm_head as int4. sam_int8 quantizes the SAM encoder
-    blocks' projections (W8A8 with act_quant).
+    fused q/k/v and the lm_head as int4, attn_int4_proj each attention
+    projection on its own; quantize_lm_head=False keeps a dense head.
+    sam_int8 quantizes the SAM encoder blocks' projections (W8A8 with
+    act_quant).
 
     WalkGPT-7B's production format: act_quant, mlp_int4, attn_int4,
     head_int4 and sam_int8 (with kv_quant_cache "int4_flat"); WalkGPT-1B's:
     act_quant and sam_int8 (with "int8_flat")."""
     def llm_init(g, llm_cfg, dt):
         return quantized_llm_init(g, llm_cfg, dt, act_quant=act_quant, mlp_int4=mlp_int4,
-                                  attn_int4=attn_int4, head_int4=head_int4)
+                                  attn_int4=attn_int4, attn_int4_proj=attn_int4_proj,
+                                  head_int4=head_int4, quantize_lm_head=quantize_lm_head)
     params = init(cfg, seed=seed, dtype=dtype, device=device, llm_init=llm_init)
     if sam_int8:
         params["sam"] = quantize_sam_encoder(params["sam"], act_quant=act_quant)
@@ -119,14 +130,18 @@ class Spliced(NamedTuple):
     embeds: torch.Tensor          # [R, T-1+V, H]
     attention_mask: torch.Tensor  # [R, T-1+V] bool
     image_pos: torch.Tensor       # [R] index of the <image> sentinel
+    labels: Optional[torch.Tensor] = None   # [R, T-1+V] when labels are given
 
 
 def splice_visual(params, cfg: WalkGPTConfig, input_ids: torch.Tensor,
                   vis_tokens: torch.Tensor,
-                  attention_mask: Optional[torch.Tensor] = None) -> Spliced:
+                  attention_mask: Optional[torch.Tensor] = None,
+                  labels: Optional[torch.Tensor] = None) -> Spliced:
     """Replace each row's <image> sentinel by the V visual tokens (+V-1 net
     growth). Rows without a sentinel get the block appended at their first
-    pad slot with attention masked off (text-only rows)."""
+    pad slot with attention masked off (text-only rows). labels [R, T],
+    when given, follow the tokens; inside the visual block they are
+    IGNORE_INDEX."""
     r, t = input_ids.shape
     v = cfg.visual_tokens
     out_len = t - 1 + v
@@ -152,7 +167,168 @@ def splice_visual(params, cfg: WalkGPTConfig, input_ids: torch.Tensor,
     embeds = torch.where(inside[..., None], g_vis, g_tok)
     attn_tok = torch.gather(attention_mask, 1, tok_idx)
     attn = torch.where(inside, has_img[:, None], attn_tok)
-    return Spliced(embeds=embeds, attention_mask=attn, image_pos=pos)
+    labels_out = None
+    if labels is not None:
+        labels_out = torch.where(inside, IGNORE_INDEX, torch.gather(labels, 1, tok_idx))
+    return Spliced(embeds=embeds, attention_mask=attn, image_pos=pos, labels=labels_out)
+
+
+def seg_timeline_mask(input_ids: torch.Tensor, seg_token_id, cfg: WalkGPTConfig
+                      ) -> torch.Tensor:
+    """The [SEG] mask on the spliced timeline: [SEG] over input_ids[:, 1:],
+    one False appended, V-1 False prepended. Indexing the hidden states with
+    it gives, per [SEG], the state at the position before it: the state
+    that predicted the [SEG] token."""
+    sids = seg_token_id if isinstance(seg_token_id, (list, tuple)) else (seg_token_id,)
+    r = input_ids.shape[0]
+    m = torch.zeros_like(input_ids[:, 1:], dtype=torch.bool)
+    for sid in sids:
+        m = m | (input_ids[:, 1:] == sid)
+    dev = input_ids.device
+    return torch.cat([torch.zeros((r, cfg.visual_tokens - 1), dtype=torch.bool, device=dev), m,
+                      torch.zeros((r, 1), dtype=torch.bool, device=dev)], dim=1)
+
+
+def _seg_ids(cfg: WalkGPTConfig) -> tuple:
+    """The [SEG] token ids (cfg.seg_token_id is one id or a list of them)."""
+    sid = cfg.seg_token_id
+    return tuple(sid) if isinstance(sid, (list, tuple)) else (sid,)
+
+
+def _first_true(flat: torch.Tensor, size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(indices of the first `size` True entries of the bool vector `flat`,
+    padded with 0; valid [size]), as jnp.nonzero(size=, fill_value=0) gives
+    them, without asking the host how many there are: each True entry's
+    rank is its running count, and the first `size` ranks are scattered to
+    their slots (the rest into a spare slot that is dropped)."""
+    rank = flat.long().cumsum(0) - 1
+    slot = torch.where(flat & (rank < size), rank, size)
+    idx = torch.zeros(size + 1, dtype=torch.long, device=flat.device)
+    idx.scatter_(0, slot, torch.arange(flat.numel(), device=flat.device))
+    return idx[:size], torch.arange(size, device=flat.device) < flat.sum()
+
+
+# ---------------------------------------------------------------------------
+# training / teacher-forced forward
+# ---------------------------------------------------------------------------
+
+class ForwardOutput(NamedTuple):
+    loss: torch.Tensor
+    ce_loss: torch.Tensor
+    mask_bce_loss: torch.Tensor
+    mask_dice_loss: torch.Tensor
+    nce_loss: torch.Tensor
+    mask_loss: torch.Tensor
+    pred_masks: torch.Tensor      # [max_segs, S, S] logits on the img_size canvas
+    seg_valid: torch.Tensor       # [max_segs]
+    seg_rows: torch.Tensor        # [max_segs] conversation row of each [SEG]
+    mask_scores: torch.Tensor     # [max_segs]
+
+
+def model_forward(params, cfg: WalkGPTConfig, *, images: torch.Tensor,
+                  input_ids: torch.Tensor, labels: torch.Tensor,
+                  attention_mask: torch.Tensor, row_image_idx: torch.Tensor,
+                  gt_masks: torch.Tensor, pixel_hw: torch.Tensor, max_segs: int,
+                  remat: bool = False) -> ForwardOutput:
+    """The teacher-forced forward and the losses, with static shapes.
+
+    images [B, S, S, 3]; input_ids, labels [R, T] (with the <image>
+    sentinel; labels IGNORE_INDEX where not trained); attention_mask [R, T]
+    bool; row_image_idx [R]; gt_masks [max_segs, S, S] on the canvas;
+    pixel_hw [B, 2] valid (h, w) per image; all on the parameters' device.
+    With cfg.use_flash_attention the LLM runs K1 (backward K1b) and the SAM
+    encoder K2/K3. The encoder runs without gradients unless one of its
+    leaves requires them: the JAX step differentiates it and then drops
+    those gradients (optax set_to_zero never reads them), so its compiled
+    step computes no more than this. remat recomputes each LLM block in the
+    backward pass."""
+    flash_fn = None
+    if cfg.use_flash_attention:
+        flash_fn = lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
+    r, _ = input_ids.shape
+    lw = cfg.losses
+
+    # 1. SAM encode once per image, expanded per conversation row
+    encoder_grads = any(isinstance(x, torch.Tensor) and x.requires_grad
+                        for x in leaves_with_path(params["sam"]["image_encoder"]).values())
+    with contextlib.nullcontext() if encoder_grads else torch.no_grad():
+        feats, sam_tokens = encode_sam(params, cfg, images)
+    vis_rows = visual_tokens(params, cfg, sam_tokens)[row_image_idx]
+    sam_tokens_rows = sam_tokens[row_image_idx]
+
+    # 2. splice + LLM forward
+    sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask,
+                       labels=labels)
+    hidden, _ = llm.forward(params["llm"], cfg.llm, sp.embeds,
+                            attention_mask=sp.attention_mask, flash_fn=flash_fn, remat=remat)
+    logits = llm.lm_logits(params["llm"], cfg.llm, hidden)
+
+    # 3. token CE on the shifted, label-smoothed targets
+    ce = cross_entropy_with_smoothing(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                                      sp.labels[:, 1:].reshape(-1), ignore_index=IGNORE_INDEX,
+                                      label_smoothing=lw.label_smoothing)
+
+    # 4. [SEG] gather on the spliced timeline
+    seg_mask = seg_timeline_mask(input_ids, cfg.seg_token_id, cfg)
+    seg_idx, seg_valid = _first_true(seg_mask.reshape(-1), max_segs)
+    seg_rows = seg_idx // seg_mask.shape[1]
+    pred_embeddings = ctp_apply(params["ctp"][0], hidden.reshape(-1, hidden.shape[-1])[seg_idx])
+
+    # 5. InfoNCE region alignment; rows with no image sentinel, no [SEG] and
+    #    no trained label are padding rows and leave the negative pool
+    row_nce_ok = (input_ids == IMAGE_TOKEN_INDEX).any(dim=1) | (labels != IGNORE_INDEX).any(dim=1)
+    for sid in _seg_ids(cfg):
+        row_nce_ok = row_nce_ok | (input_ids == sid).any(dim=1)
+    nce = infonce_loss(pred_embeddings, sam_tokens_rows, seg_rows, params["tiny_xattn"],
+                       temperature=lw.nce_tau, top_k=lw.nce_topk, exclude_same_row=r > 1,
+                       valid=seg_valid, row_valid=row_nce_ok)
+
+    # 6. SAM mask decoding per [SEG] against its own image's features
+    img_of_seg = row_image_idx[seg_rows]
+    low_res, _ = sam.decode_masks(params["sam"], sam_config(cfg), feats[img_of_seg],
+                                  text_embeds=pred_embeddings[:, None], multimask_output=False)
+    img_size = cfg.sam.img_size
+    pred_canvas = bilinear_resize(low_res[:, 0][..., None], (img_size, img_size))[..., 0]
+
+    # 7. mask losses on the canvas, restricted to each image's valid region
+    hw = pixel_hw[img_of_seg]
+    dev = images.device
+    yy = torch.arange(img_size, device=dev)[None, :, None]
+    xx = torch.arange(img_size, device=dev)[None, None, :]
+    pixel_valid = (yy < hw[:, 0, None, None]) & (xx < hw[:, 1, None, None])
+    num_masks = seg_valid.sum().float()
+    bce = _masked_bce(pred_canvas, gt_masks, pixel_valid, seg_valid, num_masks)
+    dice = _masked_dice(pred_canvas, gt_masks, pixel_valid, seg_valid, num_masks,
+                        scale=lw.dice_scale)
+
+    ce_loss, bce_loss, dice_loss, nce_loss = lw.ce * ce, lw.bce * bce, lw.dice * dice, lw.nce * nce
+    mask_loss = bce_loss + dice_loss
+    return ForwardOutput(loss=ce_loss + mask_loss + nce_loss, ce_loss=ce_loss,
+                         mask_bce_loss=bce_loss, mask_dice_loss=dice_loss, nce_loss=nce_loss,
+                         mask_loss=mask_loss, pred_masks=pred_canvas, seg_valid=seg_valid,
+                         seg_rows=seg_rows,
+                         mask_scores=_mask_score(pred_canvas.detach(), pixel_valid))
+
+
+def _masked_bce(pred, gt, pixel_valid, seg_valid, num_masks):
+    """Per-mask BCE with logits averaged over the valid pixels, summed over
+    the valid masks, over (num_masks + 1e-8)."""
+    x, tgt, pv = pred.float(), gt.float(), pixel_valid.float()
+    per_elem = x.clamp_min(0) - x * tgt + torch.log1p(torch.exp(-x.abs()))
+    per_mask = (per_elem * pv).flatten(1).sum(-1) / pv.flatten(1).sum(-1).clamp_min(1.0)
+    return (per_mask * seg_valid.float()).sum() / (num_masks + 1e-8)
+
+
+def _masked_dice(pred, gt, pixel_valid, seg_valid, num_masks, *, scale=1000.0, eps=1e-6):
+    """Scale-stabilised dice over the valid pixels, per valid mask, over
+    (num_masks + 1e-8)."""
+    pv = pixel_valid.float()
+    p = (torch.sigmoid(pred.float()) * pv).flatten(1)
+    tgt = (gt.float() * pv).flatten(1)
+    numerator = 2.0 * (p / scale * tgt).sum(-1)
+    denominator = (p / scale).sum(-1) + (tgt / scale).sum(-1)
+    loss = (1.0 - (numerator + eps) / (denominator + eps)) * seg_valid.float()
+    return loss.sum() / (num_masks + 1e-8)
 
 
 # ---------------------------------------------------------------------------
@@ -211,16 +387,10 @@ def _seg_gather(params, cfg: WalkGPTConfig, tokens: torch.Tensor,
     seg_rows [max_segs], CTP embeddings [max_segs, C]). Always max_segs
     entries: the first max_segs [SEG] positions in row-major order, padded
     with index 0; seg_valid marks the real ones."""
-    sids = cfg.seg_token_id if isinstance(cfg.seg_token_id, (list, tuple)) \
-        else (cfg.seg_token_id,)
     seg_mask = torch.zeros_like(tokens, dtype=torch.bool)
-    for sid in sids:
+    for sid in _seg_ids(cfg):
         seg_mask = seg_mask | (tokens == sid)
-    flat = seg_mask.reshape(-1)
-    found = torch.nonzero(flat)[:max_segs, 0]
-    seg_idx = torch.zeros(max_segs, dtype=torch.long, device=tokens.device)
-    seg_idx[:found.numel()] = found
-    seg_valid = torch.arange(max_segs, device=tokens.device) < flat.sum()
+    seg_idx, seg_valid = _first_true(seg_mask.reshape(-1), max_segs)
     seg_rows = seg_idx // tokens.shape[1]
     hid = pred_hidden.reshape(-1, pred_hidden.shape[-1])[seg_idx]
     return seg_valid, seg_rows, ctp_apply(params["ctp"][0], hid)
@@ -237,7 +407,7 @@ class SegEmbeds(NamedTuple):
 def _as_inputs(dev, **arrays):
     """Arrays or tensors -> tensors on dev (ids long, masks bool)."""
     out = {k: torch.as_tensor(v, device=dev) for k, v in arrays.items()}
-    for k in ("input_ids", "row_image_idx"):
+    for k in ("input_ids", "row_image_idx", "labels"):
         if k in out:
             out[k] = out[k].long()
     if "attention_mask" in out:

@@ -25,6 +25,20 @@ K3 sam_flash_attention (csrc/sam_flash_attention.cu)
     [2, 16, 4096, 80] bf16, about 172 GFLOP, bound by operations (about
     174 us at 989 TFLOP/s bf16).
 
+K1b flash_attention_bwd (csrc/flash_attention_bwd.cu), K2b
+sam_window_attention_packed_bwd (csrc/sam_window_attention_bwd.cu), K3b
+sam_flash_attention_bwd (csrc/sam_flash_attention_bwd.cu)
+    Replace the JAX custom_vjp backwards of K1-K3 (_flash_bwd,
+    _win_packed_vjp_bwd, _sam_flash_bwd). Each is launched from the
+    backward of its forward's torch.autograd.Function, which saves out and
+    lse (on CPU tensors the Function runs the plain forward and the plain
+    backward, *_bwd_reference, which repeats the TPU backward's arithmetic).
+    One two-pass engine (csrc/attention_bwd.cuh): a dq pass per 64-query
+    tile, which also sums K2b/K3b's rel-pos gradients, and a dk/dv pass per
+    64-key tile, both recomputing p from lse; no atomics. 7B training
+    [2, 32, 767, 128] bf16 (K1b): about 101 MB, bound by bytes (30 us);
+    ViT-H global (K3b): about 430 GFLOP, bound by operations (434 us).
+
 K4 decode_attention_q (csrc/decode_attention_q.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention_q
     (_decode_attn_q8_kernel, _decode_attn_q_kernel): one decode step of GQA
@@ -85,6 +99,11 @@ _SIGNATURES = {
     "wg_decode_attention_q": ("decode_attention_q", [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
     "wg_decode_attention_q_chunk": ("decode_attention_q", [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
     "wg_decode_attention": ("decode_attention", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+    "wg_flash_attention_bwd": ("flash_attention_bwd", [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
+    "wg_sam_window_attention_bwd": ("sam_window_attention_bwd",
+                                    [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
+    "wg_sam_flash_attention_bwd": ("sam_flash_attention_bwd",
+                                   [_P] * 13 + [_I] * 6 + [_F, _I, _P]),
 }
 
 
@@ -127,9 +146,26 @@ def _softmax_rows(s: torch.Tensor, v: torch.Tensor, p_dtype: torch.dtype
     return o / l, (m + torch.log(l))[..., 0]
 
 
+def _delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(g * out) over the head dim, in fp32: plain torch beside
+    every backward kernel, as in the JAX package."""
+    return (g.float() * out.float()).sum(-1)
+
+
 # ---------------------------------------------------------------------------
-# K1: causal prefill attention
+# K1 / K1b: causal prefill attention and its backward
 # ---------------------------------------------------------------------------
+
+def _k1_mask(q: torch.Tensor, causal: bool, key_valid: Optional[torch.Tensor]) -> torch.Tensor:
+    b, n = q.shape[0], q.shape[2]
+    mask = torch.ones((b, 1, 1, n), dtype=torch.bool, device=q.device)
+    if key_valid is not None:
+        mask = key_valid.bool()[:, None, None, :]
+    if causal:
+        pos = torch.arange(n, device=q.device)
+        mask = mask & (pos[None, :] <= pos[:, None])
+    return mask
+
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               causal: bool = True,
@@ -138,40 +174,49 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Plain version of K1. q, k, v: [B, H, N, D]; key_valid: [B, N] bool.
     q, k, v upcast to fp32, q scaled after the upcast, masked logits -1e30.
     Returns (out [B, H, N, D] in q's dtype, lse [B, H, N] fp32)."""
-    b, h, n, d = q.shape
+    d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float() * (1.0 / math.sqrt(d)), k.float())
-    mask = torch.ones((b, 1, 1, n), dtype=torch.bool, device=q.device)
-    if key_valid is not None:
-        mask = key_valid.bool()[:, None, None, :]
-    if causal:
-        pos = torch.arange(n, device=q.device)
-        mask = mask & (pos[None, :] <= pos[:, None])
-    s = torch.where(mask, s, -1e30)
+    s = torch.where(_k1_mask(q, causal, key_valid), s, -1e30)
     o, lse = _softmax_rows(s, v, torch.float32)
     return o.to(q.dtype), lse
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, key_valid: Optional[torch.Tensor] = None,
-                    *, return_lse: bool = False):
-    """K1: self-attention over [B, H, N, D] with an optional causal mask and
-    key mask key_valid [B, N] (True = attend). Returns out [B, H, N, D]
-    (and lse [B, H, N] fp32 when return_lse)."""
+def flash_attention_bwd_reference(q, k, v, causal: bool, key_valid, out, lse, g
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K1b, the arithmetic of the JAX _flash_bwd: q, k, v
+    and g upcast to fp32; s = (q * scale) . k; p = exp(s - lse), exactly 0
+    at masked positions (a fully masked row, whose s and lse are both about
+    -1e30, gets no gradient); ds = p * (g . v - delta); dq = ds . k * scale,
+    dk = ds^T . q * scale, dv = p^T . g, each in its input's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf * scale, kf)
+    p = torch.where(_k1_mask(q, causal, key_valid), torch.exp(s - lse[..., None]), 0.0)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, vf) - _delta(g, out)[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _key_valid_u8(name: str, key_valid, b: int, n: int, dev) -> torch.Tensor:
+    if key_valid is None:
+        return torch.ones((b, n), dtype=torch.uint8, device=dev)
+    if tuple(key_valid.shape) != (b, n):
+        raise ValueError(f"{name}: key_valid must be [{b}, {n}]")
+    return key_valid.to(device=dev, dtype=torch.uint8).contiguous()
+
+
+def _flash_fwd(q, k, v, causal: bool, key_valid) -> Tuple[torch.Tensor, torch.Tensor]:
     if q.device.type == "cpu":
-        out, lse = flash_attention_reference(q, k, v, causal, key_valid)
-        return (out, lse) if return_lse else out
+        return flash_attention_reference(q, k, v, causal, key_valid)
     dt = _check_cuda("flash_attention", q, k, v)
     b, h, n, d = q.shape
     if k.shape != q.shape or v.shape != q.shape or d > 128:
         raise ValueError(f"flash_attention: q, k, v must share a [B, H, N, D<=128] "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     q, k, v = _rows(q), _rows(k), _rows(v)
-    if key_valid is None:
-        kv = torch.ones((b, n), dtype=torch.uint8, device=q.device)
-    else:
-        if tuple(key_valid.shape) != (b, n):
-            raise ValueError(f"flash_attention: key_valid must be [{b}, {n}]")
-        kv = key_valid.to(device=q.device, dtype=torch.uint8).contiguous()
+    kv = _key_valid_u8("flash_attention", key_valid, b, n, q.device)
     out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     _launch("wg_flash_attention_fwd", q.device,
@@ -179,6 +224,62 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), lse.data_ptr(), b, h, n, d, _strides(q, k, v),
             int(causal), 1.0 / math.sqrt(d), dt)
     flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, causal: bool, key_valid, out, lse, g
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1b: (dq, dk, dv) of flash_attention for the output gradient g, from
+    the forward's out and lse. Two launches (a dq pass per 64-query tile,
+    a dk/dv pass per 64-key tile) that recompute p from lse."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, causal, key_valid, out, lse, g)
+    name = "flash_attention_bwd"
+    dt = _check_cuda(name, q, k, v, g)
+    b, h, n, d = q.shape
+    if (k.shape != q.shape or v.shape != q.shape or g.shape != q.shape or d > 128
+            or tuple(lse.shape) != (b, h, n)):
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, g {tuple(g.shape)}, lse {tuple(lse.shape)}")
+    kv = _key_valid_u8(name, key_valid, b, n, q.device)
+    q, k, v, g = (x.contiguous() for x in (q, k, v, g))
+    lse, delta = lse.float().contiguous(), _delta(g, out).contiguous()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    _launch("wg_flash_attention_bwd", q.device,
+            *[x.data_ptr() for x in (q, k, v, kv, g, lse, delta, dq, dk, dv)],
+            b, h, n, d, int(causal), 1.0 / math.sqrt(d), dt)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K1b backward (the plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, key_valid):
+        out, lse = _flash_fwd(q, k, v, causal, key_valid)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, key_valid, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, key_valid, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, ctx.causal, key_valid, out, lse, g), None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, key_valid: Optional[torch.Tensor] = None,
+                    *, return_lse: bool = False):
+    """K1: self-attention over [B, H, N, D] with an optional causal mask and
+    key mask key_valid [B, N] (True = attend). Returns out [B, H, N, D]
+    (and lse [B, H, N] fp32, not differentiable, when return_lse).
+    Differentiable in q, k and v: the backward is K1b."""
+    out, lse = _FlashAttention.apply(q, k, v, causal, key_valid)
     return (out, lse) if return_lse else out
 
 
@@ -186,45 +287,82 @@ flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2: packed windowed attention (SAM ViT windowed blocks)
+# K2 / K2b: packed windowed attention (SAM ViT windowed blocks) and its backward
 # ---------------------------------------------------------------------------
+
+def _win_heads(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[BW, T, H*w] lanes -> [BW, H, T, w]."""
+    return x.reshape(x.shape[0], x.shape[1], h, w).transpose(1, 2)
+
+
+def _win_merge(x: torch.Tensor) -> torch.Tensor:
+    """[BW, H, T, w] -> [BW, T, H*w] lanes."""
+    return x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1)
+
+
+def _win_logits(qkv, rel, h: int, d: int, ws: int):
+    """(s [BW, H, T, T] fp32 with the bias, q, k, v [BW, H, T, D]): q*scale
+    rounded to qkv's dtype before the product, bias rel_h[k // ws] +
+    rel_w[k % ws]."""
+    c = h * d
+    q, k, v = (_win_heads(qkv[..., i * c:(i + 1) * c], h, d) for i in range(3))
+    rh, rw = _win_heads(rel[..., :h * ws], h, ws), _win_heads(rel[..., h * ws:], h, ws)
+    scale = torch.tensor(1.0 / math.sqrt(d), dtype=qkv.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(), k.float())
+    key = torch.arange(qkv.shape[1], device=qkv.device)
+    return s + (rh.float()[..., key // ws] + rw.float()[..., key % ws]), q, k, v
+
 
 def sam_window_attention_packed_reference(qkv: torch.Tensor, rel: torch.Tensor,
                                           num_heads: int, head_dim: int, window: int
                                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2. qkv [BW, T, 3*H*D], rel [BW, T, 2*H*ws].
     Returns (out [BW, T, H*D] in qkv's dtype, lse [BW, T, H] fp32)."""
-    bw, t, _ = qkv.shape
-    h, d, ws = num_heads, head_dim, window
-    c = h * d
-    heads = lambda x, w: x.reshape(bw, t, h, w).transpose(1, 2)   # [BW, H, T, w]
-    q, k, v = heads(qkv[..., :c], d), heads(qkv[..., c:2 * c], d), heads(qkv[..., 2 * c:], d)
-    rh, rw = heads(rel[..., :h * ws], ws), heads(rel[..., h * ws:], ws)
-    scale = torch.tensor(1.0 / math.sqrt(d), dtype=qkv.dtype)
-    s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(), k.float())
-    key = torch.arange(t, device=qkv.device)
-    s = s + (rh.float()[..., key // ws] + rw.float()[..., key % ws])
+    s, _, _, v = _win_logits(qkv, rel, num_heads, head_dim, window)
     o, lse = _softmax_rows(s, v, qkv.dtype)
-    return o.transpose(1, 2).reshape(bw, t, c).to(qkv.dtype), lse.transpose(1, 2)
+    return _win_merge(o).to(qkv.dtype), lse.transpose(1, 2)
 
 
-def sam_window_attention_packed(qkv: torch.Tensor, rel: torch.Tensor, num_heads: int,
-                                head_dim: int, window: int, *, return_lse: bool = False):
-    """K2: whole-window attention with decomposed rel-pos bias over the packed
-    layout. qkv: [BW, T, 3*H*D] unsplit; rel: [BW, T, 2*H*ws], lanes
-    [h*ws:(h+1)*ws] = rel_h of head h, [(H+h)*ws:...] = rel_w. Returns merged
-    heads [BW, T, H*D] (and lse [BW, T, H] fp32 when return_lse)."""
-    if qkv.device.type == "cpu":
-        out, lse = sam_window_attention_packed_reference(qkv, rel, num_heads,
-                                                         head_dim, window)
-        return (out, lse) if return_lse else out
-    dt = _check_cuda("sam_window_attention_packed", qkv, rel)
-    bw, t, _ = qkv.shape
+def sam_window_attention_packed_bwd_reference(qkv, rel, num_heads: int, head_dim: int,
+                                              window: int, out, lse, g
+                                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2b, the arithmetic of the JAX _win_packed_bwd_kernel:
+    s formed as the forward forms it, p = exp(s - lse) in fp32 (the forward
+    rounds p for its value product; this does not), ds = p * (g . v -
+    delta); dq = ds . k * scale, dk = ds^T . q * scale, dv = p^T . g;
+    drel_h[q, r] = sum of ds over the keys of window row r, drel_w[q, c]
+    over window column c. Returns (dqkv [BW, T, 3*H*D], drel [BW, T,
+    2*H*ws]) in the inputs' dtypes."""
     h, d, ws = num_heads, head_dim, window
+    s, q, k, v = _win_logits(qkv, rel, h, d, ws)
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])
+    gh = _win_heads(g, h, d)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gh.float(), v.float())
+              - _delta(gh, _win_heads(out, h, d))[..., None])
+    scale = 1.0 / math.sqrt(d)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gh.float())
+    ds5 = ds.reshape(*ds.shape[:3], ws, ws)
+    dqkv = torch.cat([_win_merge(x) for x in (dq, dk, dv)], dim=-1).to(qkv.dtype)
+    drel = torch.cat([_win_merge(ds5.sum(-1)), _win_merge(ds5.sum(-2))], dim=-1)
+    return dqkv, drel.to(rel.dtype)
+
+
+def _check_window(name: str, qkv, rel, h: int, d: int, ws: int) -> None:
+    bw, t, _ = qkv.shape
     if (t != ws * ws or qkv.shape[-1] != 3 * h * d or tuple(rel.shape) != (bw, t, 2 * h * ws)
             or d > 128):
-        raise ValueError(f"sam_window_attention_packed: bad shapes qkv {tuple(qkv.shape)}, "
+        raise ValueError(f"{name}: bad shapes qkv {tuple(qkv.shape)}, "
                          f"rel {tuple(rel.shape)} for H={h}, D={d}, ws={ws}")
+
+
+def _window_fwd(qkv, rel, h: int, d: int, ws: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if qkv.device.type == "cpu":
+        return sam_window_attention_packed_reference(qkv, rel, h, d, ws)
+    dt = _check_cuda("sam_window_attention_packed", qkv, rel)
+    _check_window("sam_window_attention_packed", qkv, rel, h, d, ws)
+    bw, t, _ = qkv.shape
     qkv, rel = qkv.contiguous(), rel.contiguous()
     out = torch.empty((bw, t, h * d), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((bw, t, h), dtype=torch.float32, device=qkv.device)
@@ -232,6 +370,64 @@ def sam_window_attention_packed(qkv: torch.Tensor, rel: torch.Tensor, num_heads:
             qkv.data_ptr(), rel.data_ptr(), out.data_ptr(), lse.data_ptr(),
             bw, t, h, d, ws, 1.0 / math.sqrt(d), dt)
     sam_window_attention_packed.launches += 1
+    return out, lse
+
+
+def sam_window_attention_packed_bwd(qkv, rel, num_heads: int, head_dim: int, window: int,
+                                    out, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2b: (dqkv [BW, T, 3*H*D], drel [BW, T, 2*H*ws]) of
+    sam_window_attention_packed for the output gradient g [BW, T, H*D], in
+    the packed layouts. Two launches: a dq + drel pass over 64-query tiles
+    and a dk/dv pass over 64-key tiles of each (window, head)."""
+    h, d, ws = num_heads, head_dim, window
+    if qkv.device.type == "cpu":
+        return sam_window_attention_packed_bwd_reference(qkv, rel, h, d, ws, out, lse, g)
+    name = "sam_window_attention_packed_bwd"
+    dt = _check_cuda(name, qkv, rel, g)
+    _check_window(name, qkv, rel, h, d, ws)
+    bw, t, _ = qkv.shape
+    if tuple(g.shape) != (bw, t, h * d) or tuple(lse.shape) != (bw, t, h):
+        raise ValueError(f"{name}: bad g {tuple(g.shape)} or lse {tuple(lse.shape)}")
+    qkv, rel, g = qkv.contiguous(), rel.contiguous(), g.contiguous()
+    lse = lse.float().contiguous()
+    delta = _delta(g.reshape(bw, t, h, d), out.reshape(bw, t, h, d)).contiguous()
+    dqkv, drel = torch.empty_like(qkv), torch.empty_like(rel)
+    _launch("wg_sam_window_attention_bwd", qkv.device,
+            *[x.data_ptr() for x in (qkv, rel, g, lse, delta, dqkv, drel)],
+            bw, t, h, d, ws, 1.0 / math.sqrt(d), dt)
+    sam_window_attention_packed_bwd.launches += 1
+    return dqkv, drel
+
+
+sam_window_attention_packed_bwd.launches = 0
+
+
+class _SamWindowAttention(torch.autograd.Function):
+    """K2 forward, K2b backward (the plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, qkv, rel, h, d, ws):
+        out, lse = _window_fwd(qkv, rel, h, d, ws)
+        ctx.dims = (h, d, ws)
+        ctx.save_for_backward(qkv, rel, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        qkv, rel, out, lse = ctx.saved_tensors
+        return (*sam_window_attention_packed_bwd(qkv, rel, *ctx.dims, out, lse, g),
+                None, None, None)
+
+
+def sam_window_attention_packed(qkv: torch.Tensor, rel: torch.Tensor, num_heads: int,
+                                head_dim: int, window: int, *, return_lse: bool = False):
+    """K2: whole-window attention with decomposed rel-pos bias over the packed
+    layout. qkv: [BW, T, 3*H*D] unsplit; rel: [BW, T, 2*H*ws], lanes
+    [h*ws:(h+1)*ws] = rel_h of head h, [(H+h)*ws:...] = rel_w. Returns merged
+    heads [BW, T, H*D] (and lse [BW, T, H] fp32 when return_lse).
+    Differentiable in qkv and rel: the backward is K2b."""
+    out, lse = _SamWindowAttention.apply(qkv, rel, num_heads, head_dim, window)
     return (out, lse) if return_lse else out
 
 
@@ -239,8 +435,19 @@ sam_window_attention_packed.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3: global attention with decomposed rel-pos bias (SAM ViT global blocks)
+# K3 / K3b: global attention with decomposed rel-pos bias (SAM ViT global
+# blocks) and its backward
 # ---------------------------------------------------------------------------
+
+def _sam_logits(q, k, rel_h, rel_w, grid_hw: Tuple[int, int]) -> torch.Tensor:
+    """s [B, H, N, N] fp32: (q * scale rounded to q's dtype) . k, then
+    (s + rel_w[k % gw]) + rel_h[k // gw]."""
+    gh, gw = grid_hw
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(), k.float())
+    key = torch.arange(q.shape[2], device=q.device)
+    return (s + rel_w.float()[..., key % gw]) + rel_h.float()[..., key // gw]
+
 
 def sam_flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   rel_h: torch.Tensor, rel_w: torch.Tensor,
@@ -249,34 +456,48 @@ def sam_flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     """Plain version of K3. q/k/v [B, H, N, D], N = gh*gw; rel_h [B, H, N, gh];
     rel_w [B, H, N, gw]. Materialises the [B, H, N, N] logits (fp32).
     Returns (out [B, H, N, D] in q's dtype, lse [B, H, N] fp32)."""
-    gh, gw = grid_hw
-    n, d = q.shape[2], q.shape[3]
-    scale = torch.tensor(1.0 / math.sqrt(d), dtype=q.dtype)
-    s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(), k.float())
-    key = torch.arange(n, device=q.device)
-    s = (s + rel_w.float()[..., key % gw]) + rel_h.float()[..., key // gw]
-    o, lse = _softmax_rows(s, v, q.dtype)
+    o, lse = _softmax_rows(_sam_logits(q, k, rel_h, rel_w, grid_hw), v, q.dtype)
     return o.to(q.dtype), lse
 
 
-def sam_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        rel_h: torch.Tensor, rel_w: torch.Tensor,
-                        grid_hw: Tuple[int, int], *, return_lse: bool = False):
-    """K3: SAM global attention with decomposed rel-pos bias.
-    q/k/v: [B, H, N, D] with N = gh*gw; rel_h: [B, H, N, gh]; rel_w:
-    [B, H, N, gw] (the per-axis projections of q on the rel-pos tables).
-    Returns out [B, H, N, D] (and lse [B, H, N] fp32 when return_lse)."""
-    if q.device.type == "cpu":
-        out, lse = sam_flash_attention_reference(q, k, v, rel_h, rel_w, grid_hw)
-        return (out, lse) if return_lse else out
-    dt = _check_cuda("sam_flash_attention", q, k, v, rel_h, rel_w)
+def sam_flash_attention_bwd_reference(q, k, v, rel_h, rel_w, grid_hw: Tuple[int, int],
+                                      out, lse, g):
+    """Plain version of K3b, the arithmetic of the JAX _sam_dq_kernel and
+    _sam_dkv_kernel: s formed as the forward forms it, p = exp(s - lse) in
+    fp32, ds = p * (g . v - delta); dq = ds . k * scale, dk = ds^T . q *
+    scale, dv = p^T . g; drel_h[q, r] = sum of ds over the keys of grid row
+    r, drel_w[q, c] over grid column c. Returns (dq, dk, dv, drel_h,
+    drel_w) in the inputs' dtypes."""
+    gh, gw = grid_hw
+    p = torch.exp(_sam_logits(q, k, rel_h, rel_w, grid_hw) - lse[..., None])
+    gf = g.float()
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, v.float()) - _delta(g, out)[..., None])
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    ds5 = ds.reshape(*ds.shape[:3], gh, gw)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds5.sum(-1).to(rel_h.dtype),
+            ds5.sum(-2).to(rel_w.dtype))
+
+
+def _check_global(name: str, q, k, v, rel_h, rel_w, grid_hw) -> None:
     b, h, n, d = q.shape
     gh, gw = grid_hw
     if (n != gh * gw or k.shape != q.shape or v.shape != q.shape or d > 128
             or tuple(rel_h.shape) != (b, h, n, gh) or tuple(rel_w.shape) != (b, h, n, gw)):
-        raise ValueError(f"sam_flash_attention: bad shapes q {tuple(q.shape)}, "
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, "
                          f"rel_h {tuple(rel_h.shape)}, rel_w {tuple(rel_w.shape)}, "
                          f"grid {grid_hw}")
+
+
+def _sam_fwd(q, k, v, rel_h, rel_w, grid_hw) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return sam_flash_attention_reference(q, k, v, rel_h, rel_w, grid_hw)
+    dt = _check_cuda("sam_flash_attention", q, k, v, rel_h, rel_w)
+    _check_global("sam_flash_attention", q, k, v, rel_h, rel_w, grid_hw)
+    b, h, n, d = q.shape
+    gh, gw = grid_hw
     q, k, v = _rows(q), _rows(k), _rows(v)
     rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
     out = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
@@ -286,6 +507,62 @@ def sam_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), lse.data_ptr(), b, h, n, d, gh, gw, _strides(q, k, v),
             1.0 / math.sqrt(d), dt)
     sam_flash_attention.launches += 1
+    return out, lse
+
+
+def sam_flash_attention_bwd(q, k, v, rel_h, rel_w, grid_hw: Tuple[int, int], out, lse, g):
+    """K3b: (dq, dk, dv, drel_h, drel_w) of sam_flash_attention for the
+    output gradient g. Two launches: a dq pass per 64-query tile that also
+    sums drel_h and drel_w, and a dk/dv pass per 64-key tile."""
+    if q.device.type == "cpu":
+        return sam_flash_attention_bwd_reference(q, k, v, rel_h, rel_w, grid_hw, out, lse, g)
+    name = "sam_flash_attention_bwd"
+    dt = _check_cuda(name, q, k, v, rel_h, rel_w, g)
+    _check_global(name, q, k, v, rel_h, rel_w, grid_hw)
+    b, h, n, d = q.shape
+    gh, gw = grid_hw
+    if g.shape != q.shape or tuple(lse.shape) != (b, h, n):
+        raise ValueError(f"{name}: bad g {tuple(g.shape)} or lse {tuple(lse.shape)}")
+    q, k, v, g, rel_h, rel_w = (x.contiguous() for x in (q, k, v, g, rel_h, rel_w))
+    lse, delta = lse.float().contiguous(), _delta(g, out).contiguous()
+    grads = [torch.empty_like(x) for x in (q, k, v, rel_h, rel_w)]
+    _launch("wg_sam_flash_attention_bwd", q.device,
+            *[x.data_ptr() for x in (q, k, v, rel_h, rel_w, g, lse, delta, *grads)],
+            b, h, n, d, gh, gw, 1.0 / math.sqrt(d), dt)
+    sam_flash_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+sam_flash_attention_bwd.launches = 0
+
+
+class _SamFlashAttention(torch.autograd.Function):
+    """K3 forward, K3b backward (the plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, grid_hw):
+        out, lse = _sam_fwd(q, k, v, rel_h, rel_w, grid_hw)
+        ctx.grid_hw = grid_hw
+        ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, rel_h, rel_w, out, lse = ctx.saved_tensors
+        return (*sam_flash_attention_bwd(q, k, v, rel_h, rel_w, ctx.grid_hw, out, lse, g),
+                None)
+
+
+def sam_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        rel_h: torch.Tensor, rel_w: torch.Tensor,
+                        grid_hw: Tuple[int, int], *, return_lse: bool = False):
+    """K3: SAM global attention with decomposed rel-pos bias.
+    q/k/v: [B, H, N, D] with N = gh*gw; rel_h: [B, H, N, gh]; rel_w:
+    [B, H, N, gw] (the per-axis projections of q on the rel-pos tables).
+    Returns out [B, H, N, D] (and lse [B, H, N] fp32 when return_lse).
+    Differentiable in q, k, v, rel_h and rel_w: the backward is K3b."""
+    out, lse = _SamFlashAttention.apply(q, k, v, rel_h, rel_w, tuple(grid_hw))
     return (out, lse) if return_lse else out
 
 
@@ -599,4 +876,5 @@ def decode_attention(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0
 decode_attention.launches = 0
 
 KERNELS = (flash_attention, sam_window_attention_packed, sam_flash_attention,
-           decode_attention_q, decode_attention_q_chunk, decode_attention)
+           decode_attention_q, decode_attention_q_chunk, decode_attention,
+           flash_attention_bwd, sam_window_attention_packed_bwd, sam_flash_attention_bwd)

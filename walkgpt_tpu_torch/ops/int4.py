@@ -40,7 +40,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..core.nn import gelu_exact, int4_matmul, int8_matmul, unpack4
+from ..core.nn import div_exact, gelu_exact, int4_matmul, int8_matmul, unpack4
 from . import cuda_build
 
 DEFAULT_MLP_TILE = 256
@@ -63,7 +63,7 @@ def _pack_nibbles(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
 
 
 def _quant4(wf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = (wf.abs().amax(0) / 7.0).clamp_min(1e-12)
+    scale = div_exact(wf.abs().amax(0), 7.0).clamp_min(1e-12)
     return torch.clamp(torch.round(wf / scale), -7, 7).int(), scale
 
 

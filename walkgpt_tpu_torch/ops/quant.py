@@ -4,9 +4,11 @@
 A projection {w[, b]} becomes {"w_q": int8 [in, out], "w_scale": f32 [out]}
 (+ b), with `"a8": True` for W8A8 (dynamic per-token int8 activations,
 core.nn.linear). The int4 formats come from ops/int4.py: "qkv4" (q/k/v
-concatenated and packed), packed MLPs ("w_p4" gate/up, tile-local "w_p4t"
+concatenated and packed), per-projection packed attention (the QLoRA base,
+convert_attn_int4_proj), packed MLPs ("w_p4" gate/up, tile-local "w_p4t"
 down) and the packed lm_head. Key paths, shapes and dtypes are the JAX
-package's, so either package runs the other's quantized tree.
+package's, so either package runs the other's quantized tree. Every
+converter keeps a projection's other leaves (its bias, LoRA adapters).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from . import int4 as int4_lib
 def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(in, out) float -> symmetric per-out-channel int8 + f32 scale."""
     wf = w.float()
-    scale = (wf.abs().amax(0) / 127.0).clamp_min(1e-12)
+    scale = nn.div_exact(wf.abs().amax(0), 127.0).clamp_min(1e-12)
     q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
     return {"w_q": q, "w_scale": scale}
 
@@ -83,6 +85,23 @@ def convert_attn_int4(attn: Dict, act_quant: bool = True) -> Dict:
     return out
 
 
+def convert_attn_int4_proj(attn: Dict) -> Dict:
+    """Per-projection packed int4 attention: each unbiased q/k/v/o with an
+    even in-width becomes {"w_p4", "w_scale"} plus its other leaves (LoRA
+    adapters stay, so the QLoRA base trains them: nn.linear's dual dot,
+    llm._proj's low-rank term); biased or odd ones weight-only int8."""
+    out = {}
+    for k, v in attn.items():
+        if _is_proj(v) and "b" not in v and v["w"].shape[0] % 2 == 0:
+            extra = {kk: vv for kk, vv in v.items() if kk != "w"}
+            out[k] = dict(int4_lib.quantize_weight4(v["w"]), **extra)
+        elif _is_proj(v):
+            out[k] = convert_proj(v)
+        else:
+            out[k] = v
+    return out
+
+
 def convert_attn_qkv8(attn: Dict, act_quant: bool = True) -> Dict:
     """q/k/v -> ONE int8 projection "qkv8" (one activation quantize, one
     int8 product). Biases or LoRA leaves keep per-projection int8."""
@@ -96,9 +115,11 @@ def convert_attn_qkv8(attn: Dict, act_quant: bool = True) -> Dict:
 
 
 def _convert_layer(layer: Dict, *, act_quant: bool, mlp_int4: bool,
-                   attn_int4: bool) -> Dict:
+                   attn_int4: bool, attn_int4_proj: bool = False) -> Dict:
     out = dict(layer)
-    if attn_int4:
+    if attn_int4_proj:
+        out["attn"] = convert_attn_int4_proj(layer["attn"])
+    elif attn_int4:
         out["attn"] = convert_attn_int4(layer["attn"], act_quant)
     elif act_quant:
         out["attn"] = convert_attn_qkv8(layer["attn"], act_quant)
@@ -134,36 +155,47 @@ def quantize_sam_encoder(sam_params: Dict, act_quant: bool = False) -> Dict:
     return p
 
 
-def quantize_llm(llm_params: Dict, *, act_quant: bool = False, mlp_int4: bool = False,
-                 attn_int4: bool = False, head_int4: bool = False) -> Dict:
+def quantize_llm(llm_params: Dict, *, quantize_embeddings: bool = False,
+                 act_quant: bool = False, mlp_int4: bool = False, attn_int4: bool = False,
+                 attn_int4_proj: bool = False, head_int4: bool = False,
+                 quantize_lm_head: bool = True) -> Dict:
     """Quantize every 2-D projection of an LLM tree: attention q/k/v/o, MLP
-    and lm_head as int8 (W8A8 with act_quant), or the MLP / fused q/k/v /
-    head as packed int4. The embedding table stays as it is."""
+    and lm_head as int8 (W8A8 with act_quant), or the MLP / fused q/k/v
+    (attn_int4) / separate q/k/v/o (attn_int4_proj) / head as packed int4.
+    quantize_lm_head=False keeps the head dense: it is trained in the QLoRA
+    recipe. quantize_embeddings converts the embedding table's dict (a tree
+    format only: the embedding lookup reads a dense table)."""
     p = dict(llm_params)
     p["layers"] = [_convert_layer(layer, act_quant=act_quant, mlp_int4=mlp_int4,
-                                  attn_int4=attn_int4)
+                                  attn_int4=attn_int4, attn_int4_proj=attn_int4_proj)
                    for layer in llm_params["layers"]]
-    if "lm_head" in p and _is_proj(p["lm_head"]):
+    if "lm_head" in p and _is_proj(p["lm_head"]) and quantize_lm_head:
         p["lm_head"] = _convert_head(p["lm_head"], act_quant=act_quant,
                                      head_int4=head_int4)
+    if quantize_embeddings and _is_proj(p.get("embed_tokens", {})):
+        p["embed_tokens"] = convert_proj(p["embed_tokens"])
     return p
 
 
 def quantized_llm_init(g: torch.Generator, cfg, dtype=torch.bfloat16, *,
                        act_quant: bool = False, mlp_int4: bool = False,
-                       attn_int4: bool = False, head_int4: bool = False) -> Dict:
+                       attn_int4: bool = False, attn_int4_proj: bool = False,
+                       head_int4: bool = False, quantize_lm_head: bool = True) -> Dict:
     """Random-init a quantized LLM on the generator's device one layer at a
     time: each layer's float weights exist only until they are quantized,
-    so a 7B tree is never held in bf16."""
+    so a 7B tree is never held in bf16. quantize_lm_head=False keeps a
+    dense head (the QLoRA base, whose head is trained)."""
     # the draws follow llm.init's order, so the same generator state gives
     # quantize_llm(llm.init(...)) exactly
     embed = nn.embedding_init(g, cfg.vocab_size, cfg.hidden_size, dtype=dtype)
     layers = [_convert_layer(llm_mod.init_layer(g, cfg, dtype), act_quant=act_quant,
-                             mlp_int4=mlp_int4, attn_int4=attn_int4)
+                             mlp_int4=mlp_int4, attn_int4=attn_int4,
+                             attn_int4_proj=attn_int4_proj)
               for _ in range(cfg.num_layers)]
     params = {"embed_tokens": embed, "layers": layers,
               "final_norm": llm_mod._norm_init(g, cfg, dtype)}
     if not cfg.tie_embeddings:
         head = nn.linear_init(g, cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype)
-        params["lm_head"] = _convert_head(head, act_quant=act_quant, head_int4=head_int4)
+        params["lm_head"] = (_convert_head(head, act_quant=act_quant, head_int4=head_int4)
+                             if quantize_lm_head else head)
     return params
