@@ -22,7 +22,8 @@ Phases (any failure raises and the script exits non-zero):
      identical tokens, masks within 1e-3. Then demo_config in both quantized
      formats, the same request on the CPU (plain versions) and on the card
      (kernels): identical tokens, lengths and [SEG] rows, every new kernel
-     launched; masks within 1e-3 with float SAM blocks, and within 2% of
+     launched (the 7B format also with fused_layer: K12, no K4 or K6);
+     masks within 1e-3 with float SAM blocks, and within 2% of
      their largest magnitude with the deployed W8A8 SAM blocks
      (QUANT_MASK_REL says why). 3c: speculative decode (speculative_k=8)
      at demo_config over the int4_flat cache (7B format, float SAM blocks),
@@ -42,7 +43,17 @@ Phases (any failure raises and the script exits non-zero):
      b and c then run two requests with speculative_k=8 (K8 in every
      verify iteration and layer, counts checked exactly) and time the
      speculative schedule at force_accept 0 and 8; a then runs two
-     requests with fused_decode (K11 in every step and layer).
+     requests with fused_decode (K11 in every step and layer); b then two
+     with fused_layer (K12 in every greedy step and layer, K4 and K6 never),
+     its decode step beside the unfused one.
+  2e (after 2d): K12 (fused_layer_tail) at the 7B int4x decode step and at
+     an int8_flat gelu shape, K13a (quantize_tokens, bit for bit) and K13b
+     (w8a8_gemm) at the four products of a ViT-H block, against their plain
+     versions, with times (K12's beside the unfused sequence K4, a8 o-proj,
+     rms_norm, K6; K13b's beside torch._int_mm on the same codes).
+  4d (after 4): WalkGPT-1B's W8A8 SAM blocks (one windowed, one global) on
+     the encoder's own activations: K13a's codes against nn.linear's, K13b
+     against nn.linear's W8A8 path.
   2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
      (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
      against their plain backwards at the training step's shapes in bf16
@@ -79,10 +90,11 @@ import torch
 import torch.nn.functional as F
 
 from walkgpt_tpu_torch.core.config import demo_config, flagship_1b_config, walkgpt_7b_config
+from walkgpt_tpu_torch.core import nn
 from walkgpt_tpu_torch.core.nn import int8_matmul, unpack4
 from walkgpt_tpu_torch.core.tree import leaves_with_path, map_with_path
 from walkgpt_tpu_torch.models import llm, sam_encoder, walkgpt
-from walkgpt_tpu_torch.ops import cuda_build, int4, quant
+from walkgpt_tpu_torch.ops import cuda_build, fused_layer, int4, int8_gemm, quant
 from walkgpt_tpu_torch.ops import flash_attention as fa
 from walkgpt_tpu_torch.runtime import generate, lora, train
 
@@ -90,7 +102,7 @@ from walkgpt_tpu_torch.runtime import generate, lora, train
 # cores, fp32 outside the tensor cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-KERNELS = fa.KERNELS + int4.KERNELS
+KERNELS = fa.KERNELS + int4.KERNELS + fused_layer.KERNELS + int8_gemm.KERNELS
 SPEC_K = 8                  # drafts per verify iteration (the JAX sweep's draft_k)
 
 # the production formats (the JAX package's bench.py): WalkGPT-7B "int4x"
@@ -130,6 +142,20 @@ QUANT_MASK_REL = 2e-2
 LOSS_RTOL = 1e-5
 LEAF_RTOL, LEAF_ATOL = 2e-4, 2e-6
 LEAF_OUTLIERS = 1e-6
+# K12 rounds x2, the normed row and the MLP's intermediate to bf16 inside, in
+# fp32 models too, so its output takes the bf16 bounds relative to its
+# largest magnitude whatever x's dtype. Its attention rows take K4's fp32
+# bound (QUANT_FP32_REL); their o-proj codes, computed from the kernel's and
+# the plain version's rows (sums in another order), may differ by one where
+# a row lands on the edge of a code: at most K12_CODE_FLIPS of them.
+K12_CODE_FLIPS = 1e-2
+# K13b against nn.linear's W8A8 path on the same codes: K13b adds the bias
+# and applies the activation in fp32 and rounds to bf16 once; nn.linear and
+# nn.mlp round the product, then the bias sum, then (fc1) the activation,
+# whose slope reaches 1.13. A rounding to bf16 moves a value by up to 2^-8
+# of it, so the two may differ by about (1 + 3 * 1.13) * 2^-8 = 1.7% of the
+# product's largest magnitude: held to 2% (max) and 0.1% (mean).
+W8A8_BLOCK_REL, W8A8_BLOCK_MEAN = 2e-2, 1e-3
 
 KERNEL_INFO = {
     "flash_attention": ("walkgpt_tpu_torch/csrc/flash_attention.cu",
@@ -156,6 +182,11 @@ KERNEL_INFO = {
                                         "walkgpt_tpu/ops/flash_attention.py:984"),
     "sam_flash_attention_bwd": ("walkgpt_tpu_torch/csrc/sam_flash_attention_bwd.cu",
                                 "walkgpt_tpu/ops/flash_attention.py:641"),
+    "fused_layer_tail": ("walkgpt_tpu_torch/csrc/fused_layer.cu",
+                         "walkgpt_tpu/ops/fused_layer.py:67"),
+    "quantize_tokens": ("walkgpt_tpu_torch/csrc/int8_gemm.cu",
+                        "walkgpt_tpu/ops/int8_gemm.py:66"),
+    "w8a8_gemm": ("walkgpt_tpu_torch/csrc/int8_gemm.cu", "walkgpt_tpu/ops/int8_gemm.py:136"),
 }
 
 
@@ -278,17 +309,28 @@ def check_kernel(name, case, dtype, iters, plain_iters, label="", relative=False
     if iters == 0:
         return None
     del ref, ref_lse
+    return dict(max_abs_err=max_err, **measure(f"{name} {label}", run, plain, library,
+                                               (nb, ops, ops_type), iters, plain_iters,
+                                               plain_ms))
+
+
+def measure(title, run, plain, library, cost, iters, plain_iters, plain_ms):
+    """Kernel, plain and library ms per call (CUDA events; library None
+    where no one PyTorch call computes the function) and the bound, logged
+    under `title`. plain_ms: the plain version's first (host-clock) call,
+    kept when plain_iters <= 1."""
+    nb, ops, ops_type = cost
     ms = cuda_ms(run, iters)
     if plain_iters > 1:
         plain_ms = cuda_ms(plain, plain_iters - 1, warmup=0)
     torch.cuda.empty_cache()
-    library_ms = cuda_ms(library, iters)
+    library_ms = cuda_ms(library, iters) if library is not None else None
     bound_ms, bound_by = bound(nb, ops, ops_type)
-    log(f"  {name} {label}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-        f"({bound_by}; {nb / 1e6:.2f} MB, {ops / 1e9:.3f} G ops)")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    lib = f"{library_ms:.4f}" if library_ms is not None else "none"
+    log(f"  {title}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib} "
+        f"bound_ms={bound_ms:.4f} ({bound_by}; {nb / 1e6:.2f} MB, {ops / 1e9:.3f} G ops)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def phase_kernels(dev, seed):
@@ -646,17 +688,8 @@ def check_backward(name, case, dtype, iters, plain_iters, label):
     if iters == 0:
         return None
     del want
-    ms = cuda_ms(run, iters)
-    if plain_iters > 1:
-        plain_ms = cuda_ms(plain, plain_iters - 1, warmup=0)
-    torch.cuda.empty_cache()
-    library_ms = cuda_ms(library, iters)
-    bound_ms, bound_by = bound(nb, ops, ops_type)
-    log(f"  {name} {label}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} "
-        f"({bound_by}; {nb / 1e6:.2f} MB, {ops / 1e9:.3f} G ops)")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    return dict(max_abs_err=worst, **measure(f"{name} {label}", run, plain, library,
+                                             (nb, ops, ops_type), iters, plain_iters, plain_ms))
 
 
 def phase_backward_kernels(dev, seed):
@@ -685,6 +718,157 @@ def phase_backward_kernels(dev, seed):
     ragged("sam_window_attention_packed_bwd", k2b_case(dev, f32, 5, 3, 20, 3, gen), "ragged")
     ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 2, 2, 5, 7, 20, gen), "ragged")
     ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 1, 2, 16, 16, 80, gen), "ragged")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the fused decode-layer tail (K12) and the W8A8 GEMM (K13a/b)
+# ---------------------------------------------------------------------------
+
+def int4_mlp(dev, gen, h, i_dim, act):
+    """A random int4 MLP in the packed format: gate/up/down (silu) or
+    fc1/fc2 (gelu)."""
+    ws = {n: torch.randn(*shape, generator=gen, device=dev) * 0.02 for n, shape in
+          (("gate", (h, i_dim)), ("up", (h, i_dim)), ("down", (i_dim, h)))}
+    p = quant.convert_mlp_int4({n: {"w": w} for n, w in ws.items()})
+    return p if act == "silu" else {"fc1": p["gate"], "fc2": p["down"]}
+
+
+def check_k12(dev, gen, label, b, h, d, l, valid, pack4, i_dim, act, dtype, iters):
+    """K12 against its plain version at one layer of a decode step (MHA, h
+    heads of d, a flat quantized cache of l slots, `valid` of them valid):
+    the output within the bf16 bounds of its largest magnitude, the
+    attention rows (row 0 of the wrapper's scratch [attention rows, x2, y,
+    partials], of which the result is row 2) within QUANT_FP32_REL of K4's
+    plain version on the same q, their o-proj codes within one and at most
+    K12_CODE_FLIPS of them moved. Then (iters > 0) kernel, plain and the
+    unfused sequence's ms (K4, nn.linear's a8 o-proj, rms_norm, K6: no one
+    PyTorch call computes the tail, so library_ms is None), and the bound."""
+    kq, ks, _, vq, vs, _ = flat_cache(dev, gen, b, l, h, d, pack4)
+    hd = h * d
+    q = torch.randn(b, hd, generator=gen, device=dev).to(dtype)
+    mask = (torch.arange(l, device=dev)[None].expand(b, l) < valid).contiguous()
+    x = (torch.randn(b, hd, generator=gen, device=dev) * 0.5).to(dtype)
+    o = quant.convert_proj({"w": torch.randn(hd, hd, generator=gen, device=dev) * 0.02}, True)
+    pn = (1.0 + 0.1 * torch.randn(hd, generator=gen, device=dev)).to(dtype)
+    mlp = int4_mlp(dev, gen, hd, i_dim, act)
+    q8, qs = fa.banded_q8(q, n_kv=h, head_dim=d)
+    kw = dict(n_kv=h, head_dim=d, pack4=pack4, layer=0, act=act, norm_eps=1e-6, valid_len=valid)
+    cache = (kq, ks, vq, vs)
+    run = lambda: fused_layer.fused_layer_tail(x, q8, qs, *cache, mask, o, pn, mlp, **kw)
+    plain = lambda: fused_layer.fused_layer_tail_reference(x, q8, qs, *cache, mask, o, pn, mlp,
+                                                           **kw)
+    y = run()
+    torch.cuda.synchronize()
+    ref, plain_ms = host_ms(plain)
+    scale = max(1.0, float(ref.abs().max()))
+    max_err, mean_err = errors(y, ref)
+    att = fa.decode_attention_q_reference(q.float(), *cache, mask, n_kv=h, head_dim=d,
+                                          pack4=pack4, layer=0, valid_len=valid)
+    att_k = y._base[0]
+    att_err = float((att_k - att).abs().max()) / max(1.0, float(att.abs().max()))
+
+    def codes(a):
+        sr = a.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+        return torch.clamp(torch.round(a / sr), -127, 127)
+    moved = (codes(att_k) - codes(att)).abs()
+    ok = (max_err <= BF16_MAX_ABS * scale and mean_err <= BF16_MEAN_ABS * scale
+          and att_err <= QUANT_FP32_REL and float(moved.max()) <= 1
+          and float((moved > 0).float().mean()) <= K12_CODE_FLIPS)
+    log(f"  fused_layer_tail {label} {str(dtype)[6:]} check max_abs={max_err:.3e} "
+        f"mean_abs={mean_err:.3e} (output scale {scale:.3g}); attention rows max_rel="
+        f"{att_err:.3e}; o-proj codes moved {int((moved > 0).sum())} of {moved.numel()} "
+        f"(max {int(moved.max())}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fused_layer_tail disagrees with its plain version ({label})")
+    if iters == 0:
+        return None
+
+    def unfused():
+        a = fa.decode_attention_q(q, *cache, mask, n_kv=h, head_dim=d, pack4=pack4, layer=0,
+                                  valid_len=valid)
+        x2 = x + nn.linear(o, a)
+        return x2 + int4.fused_mlp_int4(mlp, nn.rms_norm({"scale": pn}, x2, eps=1e-6), act)
+    width = kq.shape[-1]
+    nb = (nbytes(x, q8, qs, o["w_q"], o["w_scale"], pn, *_leaves(mlp))
+          + 2 * b * valid * (width + 2 * h) + b * valid + 4 * b * hd)
+    n_mat = 3 if act == "silu" else 2
+    ops = 4.0 * b * hd * valid + 2.0 * b * hd * hd + 2.0 * n_mat * b * hd * i_dim
+    res = measure(f"fused_layer_tail {label}", run, plain, None, (nb, ops, torch.bfloat16),
+                  iters, 4, plain_ms)
+    res["unfused_ms"] = cuda_ms(unfused, iters)
+    log(f"  fused_layer_tail {label}: the unfused sequence on the card (K4, a8 o-proj, "
+        f"rms_norm, K6) unfused_ms={res['unfused_ms']:.4f}")
+    return dict(max_abs_err=max_err, **res)
+
+
+def check_k13(dev, gen, label, m, k, n, bias, act, dtype, iters):
+    """K13a bit for bit and K13b against their plain versions at one
+    product [m, k] x [k, n] of a ViT-H block (random x and weights in the
+    W8A8 format); K13b within one bf16 step (fp32: rtol 1e-6) of the output
+    (erff / tanhf last places). Then (iters > 0) both kernels' numbers: K13a
+    has no one-call library counterpart, K13b's is torch._int_mm on the same
+    codes (the int32 product only, no quantize, scales, bias or activation)."""
+    x = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    w = quant.convert_proj({"w": torch.randn(k, n, generator=gen, device=dev) * 0.02}, True)
+    b = torch.randn(n, generator=gen, device=dev) * 0.1 if bias else None
+    qrun = lambda: int8_gemm.quantize_tokens(x)
+    qplain = lambda: int8_gemm.quantize_tokens_reference(x)
+    grun = lambda: int8_gemm.w8a8_gemm(x, w["w_q"], w["w_scale"], b, act=act)
+    gplain = lambda: int8_gemm.w8a8_gemm_reference(x, w["w_q"], w["w_scale"], b, act=act)
+    (xq, sx), y = qrun(), grun()
+    torch.cuda.synchronize()
+    (wq, ws), qplain_ms = host_ms(qplain)
+    want, gplain_ms = host_ms(gplain)
+    same = torch.equal(xq, wq) and torch.equal(sx, ws)
+    max_err, mean_err = errors(y, want)
+    scale = float(want.float().abs().max())
+    tol = (1e-6 if dtype == torch.float32 else 2.0 ** -8) * scale
+    ok = same and max_err <= tol
+    log(f"  quantize_tokens / w8a8_gemm {label} {str(dtype)[6:]}: codes and scales identical="
+        f"{same}; output max_abs={max_err:.3e} mean_abs={mean_err:.3e} (limit {tol:.3e}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"K13a/K13b disagree with their plain versions ({label})")
+    if iters == 0:
+        return None, None
+    del want
+    library = lambda: torch._int_mm(xq, w["w_q"])
+    qcost = (nbytes(x) + m * k + 4 * m, 4.0 * m * k, torch.float32)
+    gcost = (nbytes(x, w["w_q"], w["w_scale"], *([b] if bias else [])) + m * n * x.element_size(),
+             2.0 * m * k * n, torch.int8)
+    return (dict(max_abs_err=0.0, **measure(f"quantize_tokens {label}", qrun, qplain, None,
+                                            qcost, iters, 4, qplain_ms)),
+            dict(max_abs_err=max_err, **measure(f"w8a8_gemm {label}", grun, gplain, library,
+                                                gcost, iters, 4, gplain_ms)))
+
+
+def phase_tail_gemm_kernels(dev, seed):
+    log("== phase 2e: K12, K13a and K13b against their plain versions")
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # K12 at the 7B int4x decode step of phase 4b: 2 rows, 32 heads of 128, a
+    # 512-slot int4_flat cache with 480 valid, I 11008, silu; then the
+    # int8_flat cache with the gelu MLP at a narrow shape
+    results = {"fused_layer_tail": check_k12(dev, gen, "7B int4x", 2, 32, 128, 512, 480, True,
+                                             11008, "silu", bf16, 100)}
+    check_k12(dev, gen, "int8_flat gelu", 2, 8, 128, 256, 200, False, 2816, "gelu", bf16, 20)
+    check_k12(dev, gen, "ragged", 3, 5, 24, 64, 40, True, 384, "silu", f32, 0)
+    check_k12(dev, gen, "ragged int8 gelu", 2, 2, 8, 16, 16, False, 96, "gelu", f32, 0)
+    torch.cuda.empty_cache()
+    # the four products of a ViT-H block for 2 images at 1024^2: a windowed
+    # block's qkv and proj take 2 x 25 windows of 14 x 14 (the 64 x 64 grid
+    # padded to 70 x 70): 9800 rows; the MLP (and a global block) 8192 rows
+    for label, m, k, n, bias, act in (("ViT-H qkv", 9800, 1280, 3840, True, None),
+                                      ("ViT-H proj", 9800, 1280, 1280, False, None),
+                                      ("ViT-H fc1", 8192, 1280, 5120, True, "gelu_exact"),
+                                      ("ViT-H fc2", 8192, 5120, 1280, False, None)):
+        qres, gres = check_k13(dev, gen, label, m, k, n, bias, act, bf16, 20)
+        if label == "ViT-H fc1":
+            results.update(quantize_tokens=qres, w8a8_gemm=gres)
+        torch.cuda.empty_cache()
+    check_k13(dev, gen, "ragged", 37, 96, 20, True, "gelu_tanh", f32, 0)
+    check_k13(dev, gen, "ragged bf16", 130, 256, 388, True, "gelu_tanh", bf16, 0)
     return results
 
 
@@ -747,10 +931,12 @@ def phase_parity_quant(dev, seed):
     to 1e-3), which isolates what the W8A8 SAM codes move."""
     log("== phase 3b: demo_config fp32 in both quantized formats, the CPU against the card")
     base = demo_config().replace(use_flash_attention=True)
-    for label, fmt, kv, sam8 in (("7B format", FORMAT_7B, "int4_flat", True),
-                                 ("7B format, float SAM", FORMAT_7B, "int4_flat", False),
-                                 ("1B format", FORMAT_1B, "int8_flat", True),
-                                 ("1B format, float SAM", FORMAT_1B, "int8_flat", False)):
+    for label, fmt, kv, sam8, fuse in (
+            ("7B format", FORMAT_7B, "int4_flat", True, False),
+            ("7B format, float SAM", FORMAT_7B, "int4_flat", False, False),
+            ("7B format, float SAM, fused_layer", FORMAT_7B, "int4_flat", False, True),
+            ("1B format", FORMAT_1B, "int8_flat", True, False),
+            ("1B format, float SAM", FORMAT_1B, "int8_flat", False, False)):
         cfg = base.replace(kv_quant_cache=kv)
         params = walkgpt.init_quantized(cfg, seed=seed, dtype=torch.float32, device=dev,
                                         **{**fmt, "sam_int8": sam8})
@@ -762,7 +948,7 @@ def phase_parity_quant(dev, seed):
         kw = dict(images=images, input_ids=ids, attention_mask=mask,
                   row_image_idx=torch.tensor([0, 1, 1], device=dev),
                   pixel_hw=torch.tensor([[s, s], [s * 3 // 4, s]], device=dev),
-                  max_new_tokens=16, max_segs=8, eos_id=-1)
+                  max_new_tokens=16, max_segs=8, eos_id=-1, fused_layer=fuse)
         probe = walkgpt.generate_and_segment(params, cfg, device=dev, **kw).tokens
         vals, counts = torch.unique(probe, return_counts=True)
         cfg = cfg.replace(seg_token_id=int(vals[counts.argmax()]))
@@ -782,6 +968,10 @@ def phase_parity_quant(dev, seed):
                            - walkgpt.encode_sam(cpu_params, cfg, images.cpu())[0]).abs().max())
         need = {"decode_attention_q"} | ({"int4_matmul_pallas", "fused_mlp_int4"}
                                          if kv == "int4_flat" else {"fused_mlp_int8"})
+        if fuse:        # K12 in every step and layer, in place of K4 and K6
+            need = {"int4_matmul_pallas", "fused_layer_tail"}
+            if {"decode_attention_q", "fused_mlp_int4"} & set(launched):
+                raise AssertionError(f"demo_config {label}: K4 or K6 ran: {launched}")
         limit = QUANT_MASK_REL * mask_scale if sam8 else 1e-3
         log(f"  {label}: tokens/lengths/seg identical={same} segs={int(card.seg_valid.sum())} "
             f"mask max_abs={mask_err:.3e} (mask scale {mask_scale:.3e}, limit {limit:.3e}) "
@@ -881,21 +1071,26 @@ def to_device(tree, dev):
     return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
 
 
-def expected_launches(cfg, params, n_new, n_iters=None):
+def expected_launches(cfg, params, n_new, n_iters=None, fuse=False):
     """Launches of each kernel per request: K1 per layer (prefill), K2/K3 per
     windowed/global SAM block. Greedy (n_iters None): per decode step and
     layer K4 (flat quantized cache) or K11 (fused_decode), K5 (fused int4
     q/k/v), K6 or K7 (int4 or W8A8 MLP); K5 for the int4 head once per token
-    picked (n_new + 1). Speculative: per verify iteration and layer K8 (flat
-    quantized cache), K5 and K7 at the chunk's rows (K6 takes single-token
-    steps only); the head once per iteration and for the first token. The
-    prefill's rows (2 x 447) are too many for the fused K5/K7 branches."""
+    picked (n_new + 1). With fuse (generate_and_segment's fused_layer) over
+    a flat quantized cache, a layer that layer_tail_supported accepts (every
+    layer of the int4x format) runs K12 in place of K4 and K6, and K5 still
+    takes its fused q/k/v. Speculative: per verify iteration and layer K8
+    (flat quantized cache), K5 and K7 at the chunk's rows (K6 takes
+    single-token steps only); the head once per iteration and for the first
+    token. The prefill's rows (2 x 447) are too many for the fused K5/K7
+    branches. K13a/K13b run in no request."""
     n_layers = cfg.llm.num_layers
     layer = params["llm"]["layers"][0]
     head4 = "w_p4" in params["llm"]["lm_head"]
     qkv4, mlp4, w8a8 = ("qkv4" in layer["attn"], int4.mlp_is_int4(layer["mlp"]),
                         int4.mlp_is_w8a8(layer["mlp"]))
     flat_q = cfg.kv_quant_cache in ("int8_flat", "int4_flat")
+    tail = fuse and flat_q and fused_layer.layer_tail_supported(layer, cfg.llm)
     counts = dict.fromkeys(KERNEL_INFO, 0)          # no backward kernel in inference
     counts.update({
         "flash_attention": n_layers,
@@ -904,10 +1099,11 @@ def expected_launches(cfg, params, n_new, n_iters=None):
     })
     if n_iters is None:
         steps = n_layers * n_new
-        counts.update(decode_attention_q=steps * flat_q, decode_attention_q_chunk=0,
+        counts.update(decode_attention_q=steps * flat_q * (not tail), decode_attention_q_chunk=0,
                       decode_attention=steps * (cfg.llm.fused_decode and not cfg.kv_quant_cache),
                       int4_matmul_pallas=steps * qkv4 + (n_new + 1) * head4,
-                      fused_mlp_int4=steps * mlp4, fused_mlp_int8=steps * w8a8)
+                      fused_mlp_int4=steps * mlp4 * (not tail), fused_mlp_int8=steps * w8a8,
+                      fused_layer_tail=steps * tail)
     else:
         chunks = n_layers * n_iters
         counts.update(decode_attention_q=0, decode_attention_q_chunk=chunks * flat_q,
@@ -967,7 +1163,7 @@ def add(total, launches):
 
 
 def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=False,
-                fused=False):
+                fused=False, fused_layer_tail=False):
     log(f"== phase 4: {label}, random weights, two requests")
     t0 = time.perf_counter()
     params = make_params(cfg)
@@ -1026,6 +1222,11 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
         launches = add(launches, phase_fused(params, cfg, kw, walls, devices))
     log(f"  {'speculative' if speculative else 'fused_decode'} part: "
         f"{time.perf_counter() - t0:.1f} s")
+    if fused_layer_tail:
+        t0 = time.perf_counter()
+        launches = add(launches, phase_fused_layer(params, cfg, kw, walls, devices,
+                                                   outs[1].tokens, e2e[1]))
+        log(f"  fused_layer part: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1077,6 +1278,100 @@ def phase_fused(params, cfg, kw, walls_heads, devices_heads):
         f"wall_ms={walls['decode'] / n_new:.2f} device_ms={devices['decode'] / n_new:.2f} "
         f"device_busy={devices['decode'] / walls['decode']:.3f} (heads layout: wall_ms="
         f"{walls_heads['decode'] / n_new:.2f} device_ms={devices_heads['decode'] / n_new:.2f})")
+    return launches
+
+
+def phase_fused_layer(params, cfg, kw, walls_unfused, devices_unfused, tokens_unfused,
+                      e2e_unfused):
+    """Two requests with fused_layer: K12 in every greedy step and layer (K4
+    and K6 never), launch counts held exactly; the decode step's wall,
+    device ms and busy share beside the unfused step of the same run."""
+    n_new = kw["max_new_tokens"]
+    fkw = {**kw, "fused_layer": True}
+    launches, outs, e2e, cfg = run_requests(
+        params, cfg, fkw, "fused_layer",
+        lambda out: expected_launches(cfg, params, n_new, fuse=True))
+    check_outputs("fused_layer", outs[1], cfg, n_new, (768, 1024))
+    walls = replay(params, cfg, kw, host_ms, fused_layer=True)[0]
+    kernels = {}
+    devices = replay(params, cfg, kw, lambda fn: profiled(fn, kernels), fused_layer=True)[0]
+    same = torch.equal(outs[1].tokens, tokens_unfused)
+    log(f"  fused_layer warm request (2): end_to_end_ms={e2e[1]:.1f} (unfused {e2e_unfused:.1f}); "
+        f"tokens identical to the unfused greedy request's: {same}")
+    log(f"    decode per step: fused wall_ms={walls['decode'] / n_new:.2f} "
+        f"device_ms={devices['decode'] / n_new:.2f} "
+        f"device_busy={devices['decode'] / walls['decode']:.3f}; unfused wall_ms="
+        f"{walls_unfused['decode'] / n_new:.2f} device_ms={devices_unfused['decode'] / n_new:.2f} "
+        f"device_busy={devices_unfused['decode'] / walls_unfused['decode']:.3f}")
+    request_dev = sum(devices.values())
+    log(f"  the fused request's device_ms {request_dev:.1f}; top 5 of its kernels by device time:")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"    {ms:9.1f} ms {ms / request_dev:6.1%}  {name[:110]}")
+    return launches
+
+
+def phase_w8a8_blocks(dev, seed):
+    """WalkGPT-1B's W8A8 SAM blocks through K13a and K13b: the quantized
+    parameters of the first windowed and the first global ViT-H block (random
+    weights from the seed, the 1B format's quantizer), the encoder's own
+    activations for 2 images at 1024^2 (blocks run in order up to the global
+    one). Each of the two blocks' four products (qkv, proj, fc1 with its
+    exact gelu, fc2): K13a's codes and scales equal nn.linear's (bit for
+    bit), and K13b's output is nn.linear's W8A8 path within W8A8_BLOCK_REL
+    (max) and W8A8_BLOCK_MEAN (mean) of its largest magnitude. Every launch
+    count is set to 0 here and read at the end."""
+    log("== phase 4d: WalkGPT-1B W8A8 ViT-H blocks through K13a and K13b")
+    cfg = flagship_1b_config().sam
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+    enc = quant.quantize_sam_encoder(
+        {"image_encoder": sam_encoder.init(g, cfg, dtype=torch.bfloat16)},
+        act_quant=True)["image_encoder"]
+    images = torch.randn(2, cfg.img_size, cfg.img_size, 3, generator=g, device=dev)
+    glob = cfg.global_attn_indexes[0]
+    linear = nn.linear
+    products = []
+
+    def record(p, x):
+        y = linear(p, x)
+        products.append((p, x, y))
+        return y
+    for f in KERNELS:
+        f.launches = 0
+    with torch.inference_mode():
+        x = nn.conv2d(enc["patch_embed"], images.to(torch.bfloat16),
+                      stride=(cfg.patch_size, cfg.patch_size), padding="VALID")
+        x = x + enc["pos_embed"].to(x.dtype)
+        for i, blk in enumerate(enc["blocks"][:glob + 1]):
+            if i in (0, glob):
+                nn.linear = record
+            try:
+                x = sam_encoder._block(blk, x, cfg, 0 if i == glob else cfg.window_size, True)
+            finally:
+                nn.linear = linear
+        if len(products) != 8:
+            raise AssertionError(f"expected 8 W8A8 products, recorded {len(products)}")
+        names = ("qkv", "proj", "fc1", "fc2")
+        ok = True
+        for j, (p, xin, y) in enumerate(products):
+            label = f"{'windowed' if j < 4 else 'global'} block {names[j % 4]}"
+            act = "gelu_exact" if names[j % 4] == "fc1" else None
+            want = nn.gelu_exact(y) if act else y
+            xq, sx = int8_gemm.quantize_tokens(xin)
+            wq, ws = nn.quantize_a8(xin)
+            got = int8_gemm.w8a8_gemm(xin, p["w_q"], p["w_scale"], p.get("b"), act=act)
+            scale = float(want.float().abs().max())
+            max_err, mean_err = errors(got, want)
+            same = torch.equal(xq, wq) and torch.equal(sx, ws)
+            good = (same and max_err <= W8A8_BLOCK_REL * scale
+                    and mean_err <= W8A8_BLOCK_MEAN * scale)
+            ok &= good
+            log(f"  {label} x {tuple(xin.shape)} @ {tuple(p['w_q'].shape)}: K13a codes equal "
+                f"nn.linear's={same}; K13b against nn.linear max_rel={max_err / scale:.3e} "
+                f"mean_rel={mean_err / scale:.3e} -> {'ok' if good else 'FAIL'}")
+    launches = {f.__name__: f.launches for f in KERNELS}
+    log(f"  launches: {_nonzero(launches)}")
+    if not (ok and launches["quantize_tokens"] == 8 and launches["w8a8_gemm"] == 8):
+        raise AssertionError("W8A8 ViT-H blocks: K13a/K13b disagree with nn.linear")
     return launches
 
 
@@ -1395,7 +1690,7 @@ def profiled(fn, kernels):
 
 
 @torch.inference_mode()
-def replay(params, cfg, kw, timer, speculative_k=0, prefill_timer=None):
+def replay(params, cfg, kw, timer, speculative_k=0, prefill_timer=None, fused_layer=False):
     """The steps of generate_and_segment one by one; timer(fn) -> (out, ms)
     times each (prefill_timer, when given, the standalone prefill, which
     the decode's own run repeats). Returns ({phase: ms}, the decode's
@@ -1423,7 +1718,8 @@ def replay(params, cfg, kw, timer, speculative_k=0, prefill_timer=None):
             prompt_ids=hist, **gen_kw))
     else:
         res, gen = timer(lambda: generate.greedy_generate(
-            params["llm"], cfg.llm, sp.embeds, sp.attention_mask, **gen_kw))
+            params["llm"], cfg.llm, sp.embeds, sp.attention_mask, fused_layer=fused_layer,
+            **gen_kw))
 
     def masks():
         valid, rows, emb = walkgpt._seg_gather(params, cfg, res.tokens, res.pred_hidden,
@@ -1495,6 +1791,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     numbers.update(phase_backward_kernels(dev, args.seed))
     torch.cuda.empty_cache()
+    numbers.update(phase_tail_gemm_kernels(dev, args.seed))
+    torch.cuda.empty_cache()
     phase_parity(dev, args.seed)
     torch.cuda.empty_cache()
     phase_parity_quant(dev, args.seed)
@@ -1515,7 +1813,7 @@ def main(argv=None) -> int:
          dict(fused=True)),
         ("WalkGPT-7B int4x + int4_flat + int8 SAM",
          walkgpt_7b_config().replace(kv_quant_cache="int4_flat", **prod), quantized(FORMAT_7B),
-         dict(speculative=True)),
+         dict(speculative=True, fused_layer_tail=True)),
         ("WalkGPT-1B w8a8 + int8_flat + int8 SAM",
          flagship_1b_config().replace(kv_quant_cache="int8_flat", **prod), quantized(FORMAT_1B),
          dict(speculative=True)),
@@ -1527,6 +1825,10 @@ def main(argv=None) -> int:
                                              make, **extra))
         torch.cuda.empty_cache()
         log(f"  {label}: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = add(launches, phase_w8a8_blocks(dev, args.seed))
+    torch.cuda.empty_cache()
+    log(f"  W8A8 blocks: phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = add(launches, phase_train(dev, args.seed))
     log(f"  training: phase {time.perf_counter() - t0:.1f} s")

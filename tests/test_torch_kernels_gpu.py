@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K8, K11 and the backward kernels K1b-K3b against
-their plain versions, on the card.
+"""The CUDA kernels K1-K8, K11, K12, K13a/b and the backward kernels K1b-K3b
+against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use) and
 skip elsewhere. They import nothing of JAX, so they run on a machine without
@@ -21,7 +21,14 @@ p rounded to the cache's type) takes the K1-K3 bounds. The backward kernels
 K1b-K3b sum over up to N terms per gradient in another order than the
 plain backward: fp32 atol = rtol = 1e-4; bf16 outputs relative to their
 largest magnitude (at least 1), 2e-2 max and 2e-3 mean, one bf16 rounding
-step of the gradient.
+step of the gradient. K12 rounds x2, the normed row and the MLP's
+intermediate to bf16 inside, in fp32 models too: its output takes the bf16
+bounds relative to its largest magnitude, whatever x's dtype, and its
+attention rows K4's fp32 bound. K13a's codes and scales are the plain
+version's bit for bit (same fp32 division, same rounding to x's dtype, same
+half-to-even round); K13b's int32 sums are exact and its epilogue is the
+plain version's operation for operation, so its outputs agree to erff /
+tanhf last places: rtol 1e-6 in fp32, one bf16 step (2^-8) in bf16.
 """
 import pytest
 import torch
@@ -29,7 +36,7 @@ import torch
 from walkgpt_tpu_torch.core.nn import int8_matmul
 from walkgpt_tpu_torch.models import llm
 from walkgpt_tpu_torch.ops import flash_attention as fa
-from walkgpt_tpu_torch.ops import int4, quant
+from walkgpt_tpu_torch.ops import fused_layer, int4, int8_gemm, quant
 
 pytestmark = pytest.mark.cuda
 
@@ -406,3 +413,91 @@ def test_quantizers_give_the_cpus_codes_and_scales(dev):
     x = torch.randn(2, 9, 4, 16, generator=g, device=dev)
     for fn in (llm._quant_rows, llm._quant_pack4_flat):
         assert all(torch.equal(a.cpu(), b) for a, b in zip(fn(x), fn(x.cpu()))), fn.__name__
+
+
+@pytest.mark.parametrize("b,h,d,l,block,valid,pack4,i_dim,act,x_dtype,pn_dtype", [
+    (2, 2, 8, 16, 8, 7, True, 96, "silu", torch.bfloat16, torch.float32),
+    (3, 4, 20, 96, 32, None, False, 160, "gelu", torch.float32, torch.float32),
+    (2, 5, 24, 64, 64, 40, True, 384, "silu", torch.float32, torch.bfloat16),
+    (2, 32, 128, 512, 256, 480, True, 11008, "silu", torch.bfloat16, torch.bfloat16)])
+def test_k12_kernel_matches_plain(dev, b, h, d, l, block, valid, pack4, i_dim, act, x_dtype,
+                                  pn_dtype):
+    g = torch.Generator(device=dev).manual_seed(h * d + i_dim)
+    hd = h * d
+    kq, ks, vq, vs = _flat_cache(dev, g, b, l, h, d, pack4)
+    q = torch.randn(b, hd, generator=g, device=dev)
+    lens = torch.tensor([[valid or l]] + [[l // 2 + 1]] * (b - 1), device=dev)
+    mask = torch.arange(l, device=dev)[None] < lens
+    x = (torch.randn(b, hd, generator=g, device=dev) * 0.5).to(x_dtype)
+    o = quant.convert_proj({"w": torch.randn(hd, hd, generator=g, device=dev) * 0.05}, True)
+    pn = (1.0 + 0.1 * torch.randn(hd, generator=g, device=dev)).to(pn_dtype)
+    mlp = _mlp(dev, g, hd, i_dim, act, "int4")
+    q8, qs = fa.banded_q8(q, n_kv=h, head_dim=d)
+    kw = dict(n_kv=h, head_dim=d, pack4=pack4, layer=1, act=act, norm_eps=1e-6, block=block,
+              valid_len=valid)
+    before = fused_layer.fused_layer_tail.launches
+    y = fused_layer.fused_layer_tail(x, q8, qs, kq, ks, vq, vs, mask, o, pn, mlp, **kw)
+    torch.cuda.synchronize()
+    assert fused_layer.fused_layer_tail.launches == before + 1
+    assert y.dtype == torch.float32 and tuple(y.shape) == (b, hd)
+    _close_scaled(y, fused_layer.fused_layer_tail_reference(x, q8, qs, kq, ks, vq, vs, mask, o,
+                                                            pn, mlp, **kw), torch.bfloat16)
+    # the wrapper's result is row 2 of its scratch [attention rows, x2, y, partials]
+    att = fa.decode_attention_q_reference(q, kq, ks, vq, vs, mask, n_kv=h, head_dim=d,
+                                          pack4=pack4, layer=1, block=block, valid_len=valid)
+    _close_scaled(y._base[0], att, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 64), (37, 256), (3, 43, 384), (9800, 1280)])
+def test_k13a_kernel_matches_plain_bit_for_bit(dev, dtype, shape):
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = (torch.randn(*shape, generator=g, device=dev) * 3).to(dtype)
+    x[..., 0, :5] = 0.0                                      # a row's head of zeros
+    before = int8_gemm.quantize_tokens.launches
+    xq, sx = int8_gemm.quantize_tokens(x)
+    torch.cuda.synchronize()
+    assert int8_gemm.quantize_tokens.launches == before + 1
+    want_q, want_s = int8_gemm.quantize_tokens_reference(x)
+    assert xq.shape == want_q.shape and sx.shape == want_s.shape
+    assert torch.equal(xq, want_q) and torch.equal(sx, want_s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,bias,act", [
+    (1, 64, 128, False, None), (37, 256, 384, True, "gelu_exact"), (130, 96, 20, True, "gelu_tanh"),
+    (9800, 1280, 3840, True, None), (8192, 1280, 5120, True, "gelu_exact"),
+    (8192, 5120, 1280, True, None)])
+def test_k13b_kernel_matches_plain(dev, dtype, m, k, n, bias, act):
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = quant.convert_proj({"w": torch.randn(k, n, generator=g, device=dev) * 0.05}, True)
+    b = torch.randn(n, generator=g, device=dev) * 0.1 if bias else None
+    before = int8_gemm.w8a8_gemm.launches
+    y = int8_gemm.w8a8_gemm(x, w["w_q"], w["w_scale"], b, act=act)
+    torch.cuda.synchronize()
+    assert int8_gemm.w8a8_gemm.launches == before + 1
+    want = int8_gemm.w8a8_gemm_reference(x, w["w_q"], w["w_scale"], b, act=act)
+    assert y.dtype == dtype and y.shape == want.shape
+    scale = float(want.float().abs().max())
+    rtol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=1e-6 * scale)
+
+
+def test_k12_k13_wrappers_raise_instead_of_falling_back(dev):
+    before = [f.launches for f in int8_gemm.KERNELS + fused_layer.KERNELS]
+    with pytest.raises(ValueError):                         # K % 4 != 0
+        int8_gemm.quantize_tokens(torch.zeros(3, 6, device=dev))
+    with pytest.raises(ValueError):                         # fp16: no kernel
+        int8_gemm.w8a8_gemm(torch.zeros(3, 8, device=dev).half(),
+                            torch.zeros(8, 4, dtype=torch.int8, device=dev),
+                            torch.ones(4, device=dev))
+    kq, ks, vq, vs = _flat_cache(dev, torch.Generator(device=dev).manual_seed(0), 2, 16, 1, 8,
+                                 True)
+    q8 = torch.zeros(2, 1, 2, 8, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="MHA"):            # GQA: no kernel
+        fused_layer.fused_layer_tail(
+            torch.zeros(2, 16, device=dev), q8, torch.ones(2, 1, 2, device=dev), kq, ks, vq, vs,
+            torch.ones(2, 16, dtype=torch.bool, device=dev), {}, torch.ones(16, device=dev), {},
+            n_kv=1, head_dim=8, pack4=True, layer=0, act="silu", norm_eps=1e-6)
+    assert [f.launches for f in int8_gemm.KERNELS + fused_layer.KERNELS] == before

@@ -147,6 +147,21 @@ def int4_matmul(x: torch.Tensor, p: torch.Tensor, s: torch.Tensor) -> torch.Tens
     return (x[..., :k2] @ lo + x[..., k2:] @ hi) * s.to(x.dtype)
 
 
+def quantize_a8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-token int8 quantizer of the "a8" format (W8A8) on x [..., K]:
+    inv = 127 / max(|x|max, 1e-8) in fp32, rounded to x's dtype; codes
+    clip(round(x * inv), -127, 127) with the product in x's dtype (a bf16 x
+    * inv rounds to bf16 before the round to int) and half to even; sx =
+    1 / inv in fp32. Returns (int8 [..., K], fp32 [..., 1])."""
+    # a Python number over a tensor is computed as a reciprocal times the
+    # number; dividing a 0-d tensor rounds once, as the JAX package does
+    one = torch.ones((), device=x.device)
+    inv = (127.0 * one / x.abs().amax(-1, keepdim=True).float().clamp_min(1e-8))
+    inv = inv.to(x.dtype)
+    xq = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+    return xq, one / inv.float()
+
+
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     """`x @ w (+ b)` and the JAX package's quantized formats
     (`walkgpt_tpu/core/nn.py:103-143`, `ops/quant.py`, `ops/int4.py`):
@@ -158,13 +173,7 @@ def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
     - "w_p4" (packed int4, half pairs): the dual dot
       x[:, :K/2] @ lo + x[:, K/2:] @ hi in x's dtype, times the scale."""
     if "a8" in p:
-        # a Python number over a tensor is computed as a reciprocal times the
-        # number; dividing a 0-d tensor rounds once, as the JAX package does
-        one = torch.ones((), device=x.device)
-        inv = (127.0 * one / x.abs().amax(-1, keepdim=True).float().clamp_min(1e-8))
-        inv = inv.to(x.dtype)
-        sx = one / inv.float()
-        xq = torch.clamp(torch.round(x * inv), -127, 127).to(torch.int8)
+        xq, sx = quantize_a8(x)
         y = int8_matmul(xq.reshape(-1, xq.shape[-1]), p["w_q"])
         y = y.reshape(*x.shape[:-1], y.shape[-1])
         y = (y.float() * sx * p["w_scale"]).to(x.dtype)

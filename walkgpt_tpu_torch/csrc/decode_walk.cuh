@@ -1,5 +1,6 @@
-// The decode-attention engine shared by K4 and K8 (decode_attention_q.cu)
-// and K11 (decode_attention.cu).
+// The decode-attention engine shared by K4 and K8 (decode_attention_q.cu),
+// K11 (decode_attention.cu) and the attention phase of K12 (fused_layer.cu,
+// which calls walk_block from its own cooperative kernel).
 //
 // A block of 256 threads takes one (row, kv head) and up to `qg` of its
 // query rows: the n_rep query heads of that kv head for each of the Tc
@@ -11,7 +12,8 @@
 // per token. The rounding points are those of the TPU kernels the engine
 // replaces, per `bl`-key block:
 //   * scores: Q_INT8: q quantized per (token, head), qs = max(|q|max, 1e-20)
-//     * (1/127), q8 = round(q / qs), an exact integer q8 . k, then
+//     * (1/127), q8 = round(q / qs) (or q8 and qs given: K12's banded_q8
+//     input), an exact integer q8 . k, then
 //     s * (ks * (qs * scale)); Q_BF16: bf16(q) . k in fp32, then
 //     s * (ks * scale); Q_F32 (K11): (q * scale) . k in fp32, no scales;
 //   * invalid keys get the finite -1e30 and p = 0;
@@ -47,6 +49,8 @@ enum QMode { Q_INT8 = 0, Q_BF16 = 1, Q_F32 = 2 };
 
 struct DecodeArgs {
   const void* q;                 // [B, Tc, H*D] in T
+  const int8_t* q8;              // Q_INT8 only: q already quantized [B, Tc, H*D] with
+  const float* qsc;              // its scales [B, Tc, H], or both null
   const void* k;                 // the layer's cache values [B, L, width]
   const void* v;
   const __nv_bfloat16* ks;       // [B, n_kv, L] per (token, kv head), or null
@@ -95,17 +99,17 @@ inline size_t decode_smem(int qg, int D, int bl, size_t staged_size) {
   return sizeof(float) * (size_t(qg) * (3 * D + bl + 5) + DW_KT) + staged_size * DW_KT * D;
 }
 
+// One block's walk: row b, kv head kv, query rows [g0, g0 + qg) of that kv
+// head, with decode_smem(...) bytes of shared memory at smem (all DW_NT
+// threads of the block call it).
 // T: q/out type; S: cache value type (int8_t codes with bf16 scales, or the
 // fp cache's own type); QM: the scores' q (QMode); PV8: int8 value product.
 template <typename T, typename S, int QM, bool PV8>
-__global__ void __launch_bounds__(DW_NT) decode_walk(DecodeArgs a) {
+__device__ void walk_block(const DecodeArgs& a, int b, int kv, int g0, float* smem) {
   constexpr bool QUANT = std::is_same<S, int8_t>::value;
   using C = staged_t<S>;
   using PR = typename std::conditional<QUANT, __nv_bfloat16, S>::type;  // p_v's rounding
-  extern __shared__ __align__(16) float smem[];
   const int n_rep = a.H / a.n_kv, D = a.D, bl = a.bl, qg = a.qg;
-  const int b = blockIdx.x / a.n_kv, kv = blockIdx.x - b * a.n_kv;
-  const int g0 = blockIdx.y * qg;
   const int nq = min(qg, a.Tc * n_rep - g0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int kd = a.n_kv * D, width = QUANT && a.pack4 ? kd / 2 : kd, half = kd / 2;
@@ -132,20 +136,24 @@ __global__ void __launch_bounds__(DW_NT) decode_walk(DecodeArgs a) {
   };
   const int nvb = a.cache_len ? min((cl + a.Tc + bl - 1) / bl, a.L / bl) : a.nvb;
 
+  __syncthreads();                   // the block's previous walk is done with smem
   const T* qb = static_cast<const T*>(a.q);
   for (int qi = warp; qi < nq; qi += DW_NW) {
     const T* qr = qb + q_off(qi);
     float qs = 1.f;
-    if (QM == Q_INT8) {
+    if (QM == Q_INT8 && a.q8) {
+      qs = a.qsc[q_off(qi) / D];
+    } else if (QM == Q_INT8) {
       float mx = 0.f;
       for (int d = lane; d < D; d += 32) mx = fmaxf(mx, fabsf(to_f(qr[d])));
       mx = warp_max(mx);
       qs = fmaxf(mx, 1e-20f) * (1.0f / 127.0f);
     }
     for (int d = lane; d < D; d += 32) {
-      const float x = to_f(qr[d]);
-      qv[qi * D + d] = QM == Q_INT8 ? rintf(x / qs)
-                     : QM == Q_BF16 ? round_to<__nv_bfloat16>(x) : x * a.scale;
+      qv[qi * D + d] = QM == Q_INT8 && a.q8 ? float(a.q8[q_off(qi) + d])
+                     : QM == Q_INT8 ? rintf(to_f(qr[d]) / qs)
+                     : QM == Q_BF16 ? round_to<__nv_bfloat16>(to_f(qr[d]))
+                     : to_f(qr[d]) * a.scale;
       acc[qi * D + d] = 0.f;
     }
     if (lane == 0) {
@@ -266,6 +274,13 @@ __global__ void __launch_bounds__(DW_NT) decode_walk(DecodeArgs a) {
     const float l = st[4 * qi + 2];
     ob[q_off(qi) + d] = from_f<T>(acc[i] / fmaxf(QUANT ? round_to<__nv_bfloat16>(l) : l, 1e-30f));
   }
+}
+
+template <typename T, typename S, int QM, bool PV8>
+__global__ void __launch_bounds__(DW_NT) decode_walk(DecodeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x / a.n_kv;
+  walk_block<T, S, QM, PV8>(a, b, blockIdx.x - b * a.n_kv, blockIdx.y * a.qg, smem);
 }
 
 // Launch over grid (B * n_kv, query groups): as many query rows per block as

@@ -12,7 +12,10 @@ or quantized (int8 or int4 codes, bf16 scales), read by the plain einsum
 attention; the flat layout [layers, B, L, n_kv*D] in the activation dtype
 (LLMConfig.fused_decode), read by the K11 kernel; the flat quantized layout
 (int8 rows or packed int4 rows [.., n_kv*D/2], bf16 scales [layers, B,
-n_kv, L]) read by K4 in a decode step and K8 in a speculative chunk.
+n_kv, L]) read by K4 in a decode step and K8 in a speculative chunk, or,
+with decode_step(fused_layer=True) on a layer of the int4x format, by K12,
+which runs that layer's attention, o-proj, residual, norm and MLP in one
+launch.
 
 LoRA: a q/k/v projection with "lora_a" [in, r] and "lora_b" [r, out]
 leaves adds (x @ lora_a) @ lora_b * lora_scale in the activation dtype
@@ -33,7 +36,9 @@ from ..core import nn
 from ..core.config import LLMConfig
 from ..ops import int4
 from ..ops.attention import merge_heads, mha, split_heads
-from ..ops.flash_attention import decode_attention, decode_attention_q, decode_attention_q_chunk
+from ..ops.flash_attention import (banded_q8, decode_attention, decode_attention_q,
+                                   decode_attention_q_chunk)
+from ..ops.fused_layer import fused_layer_tail, layer_tail_supported
 
 Params = Dict
 
@@ -441,10 +446,17 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
 def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
                 inputs_embeds: torch.Tensor, cache_len: torch.Tensor,
                 key_mask: torch.Tensor, write_slot: Optional[int] = None,
-                valid_len: Optional[int] = None) -> Tuple[torch.Tensor, Params]:
+                valid_len: Optional[int] = None,
+                fused_layer: bool = False) -> Tuple[torch.Tensor, Params]:
     """One decode step over any of the caches: heads layout (fp: einsum
     attention; quantized: _int8_kv_decode_attention), flat fp (K11) or flat
     quantized (K4).
+
+    fused_layer (the JAX package's WALKGPT_FUSED_LAYER): over a flat
+    quantized cache, each layer that ops/fused_layer.layer_tail_supported
+    accepts (W8A8 o-proj, int4 MLP, RMSNorm, MHA) runs its attention,
+    o-proj, residual, post-norm and MLP as one K12 launch; other layers and
+    caches take the unfused path.
 
     inputs_embeds: [B, 1, H]; cache_len: [B] int — logical position per row
     (drives rope; the K/V land at cache_len unless write_slot is given);
@@ -478,11 +490,20 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
         q, k1, v1 = _qkv_rope(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg), cos, sin)
         _write_kv(kv_cache, i, k1.transpose(1, 2), v1.transpose(1, 2), put)
         qf = q[:, :, 0].reshape(b, cfg.num_heads * cfg.head_dim)
+        pack4 = kv_cache["k"].shape[-1] < cfg.num_kv_heads * cfg.head_dim
+        if flat and quant and fused_layer and layer_tail_supported(layer, cfg):
+            q8, qs = banded_q8(qf, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim)
+            y = fused_layer_tail(
+                x[:, 0], q8, qs, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
+                kv_cache["v_scale"], key_mask, layer["attn"]["o"], layer["post_norm"]["scale"],
+                layer["mlp"], n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim, pack4=pack4,
+                layer=i, act=cfg.act, norm_eps=cfg.norm_eps, valid_len=valid_len)
+            x = y.to(x.dtype)[:, None]
+            continue
         if flat and quant:
             att = decode_attention_q(
                 qf, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"], kv_cache["v_scale"],
-                key_mask, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim,
-                pack4=kv_cache["k"].shape[-1] < cfg.num_kv_heads * cfg.head_dim,
+                key_mask, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim, pack4=pack4,
                 layer=i, valid_len=valid_len)
         elif flat:
             att = decode_attention(qf, kv_cache["k"], kv_cache["v"], key_mask,

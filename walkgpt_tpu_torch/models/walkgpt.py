@@ -416,11 +416,12 @@ def _as_inputs(dev, **arrays):
 
 
 def _generate(params, cfg: WalkGPTConfig, sam_tokens, input_ids, attention_mask,
-              row_image_idx, max_new_tokens: int, eos_id: int, speculative_k: int
-              ) -> GenerateResult:
-    """MSQP tokens -> splice -> greedy decode, or speculative decode with
-    `speculative_k` drafts per iteration whose lookup history is the
-    textual prompt (the <image> sentinel and pad positions excluded)."""
+              row_image_idx, max_new_tokens: int, eos_id: int, speculative_k: int,
+              fused_layer: bool = False) -> GenerateResult:
+    """MSQP tokens -> splice -> greedy decode (with fused_layer, K12 in its
+    steps), or speculative decode with `speculative_k` drafts per iteration
+    whose lookup history is the textual prompt (the <image> sentinel and
+    pad positions excluded)."""
     if cfg.decode_cache_grow:
         raise NotImplementedError("the growing KV cache (decode_cache_grow) is not ported")
     flash_fn = None
@@ -434,14 +435,16 @@ def _generate(params, cfg: WalkGPTConfig, sam_tokens, input_ids, attention_mask,
         hist_ids = torch.where(attention_mask & (input_ids >= 0), input_ids, -2)
         return speculative_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
                                     draft_k=speculative_k, prompt_ids=hist_ids, **kw)
-    return greedy_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask, **kw)
+    return greedy_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
+                           fused_layer=fused_layer, **kw)
 
 
 @torch.inference_mode()
 def generate_and_segment(params, cfg: WalkGPTConfig, *,
                          images, input_ids, attention_mask, row_image_idx, pixel_hw,
                          max_new_tokens: int, max_segs: int, eos_id: int,
-                         speculative_k: int = 0, device=None) -> EvaluateOutput:
+                         speculative_k: int = 0, fused_layer: bool = False,
+                         device=None) -> EvaluateOutput:
     """The PAVE evaluate pipeline on the SAM visual stream: encode, splice,
     greedy (or, with speculative_k > 0, speculative) decode, [SEG] gather,
     CTP, mask decode.
@@ -453,13 +456,18 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
     (default CUDA). With cfg.use_flash_attention the LLM prefill runs K1 and
     the SAM encoder K2/K3; a flat quantized cache runs K4 in every decode
     step and K8 in every speculative chunk, the flat bf16 cache of
-    cfg.llm.fused_decode K11, and quantized weights K5-K7 (ops/int4.py)."""
+    cfg.llm.fused_decode K11, and quantized weights K5-K7 (ops/int4.py).
+    fused_layer (the JAX package's WALKGPT_FUSED_LAYER): each greedy step
+    runs K12 (attention, o-proj, residual, post-norm and MLP in one launch)
+    on the layers of the int4x format over a flat quantized cache
+    (llm.decode_step); the speculative chunks never fuse, as in the JAX
+    package, so with speculative_k > 0 it changes nothing."""
     dev = resolve_device(device)
     x = _as_inputs(dev, images=images, input_ids=input_ids, attention_mask=attention_mask,
                    row_image_idx=row_image_idx, pixel_hw=pixel_hw)
     feats, sam_tokens = encode_sam(params, cfg, x["images"])
     res = _generate(params, cfg, sam_tokens, x["input_ids"], x["attention_mask"],
-                    x["row_image_idx"], max_new_tokens, eos_id, speculative_k)
+                    x["row_image_idx"], max_new_tokens, eos_id, speculative_k, fused_layer)
     seg_valid, seg_rows, pred_embeddings = _seg_gather(params, cfg, res.tokens,
                                                        res.pred_hidden, max_segs)
     pred_canvas, score = decode_seg_masks(params, cfg, feats, pred_embeddings,

@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("flash_attention", "sam_window_attention", "sam_flash_attention",
            "decode_attention_q", "decode_attention", "int4_matmul", "fused_mlp_int4",
            "fused_mlp_int8", "flash_attention_bwd", "sam_window_attention_bwd",
-           "sam_flash_attention_bwd")
+           "sam_flash_attention_bwd", "int8_gemm", "fused_layer")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -627,31 +627,42 @@ def _decode_blocks(l: int, block: int, valid_len: Optional[int]) -> Tuple[int, i
 def _quant_walk(q, k_cache, k_scale, v_cache, v_scale, valid, nvb: int, *, n_kv: int,
                 head_dim: int, pack4: bool, layer: int, bl: int, qdot_int8: bool,
                 pv_int8: bool = False) -> torch.Tensor:
-    """The block walk of K4 and K8 (plain), in order over the first nvb
-    blocks of `bl` keys: per block, scores (int q8.k times ks * (qs * scale),
-    or bf16 q.k times ks * scale), logits of invalid keys -1e30, the running
-    max, alpha = exp(m_old - m_new), l updated with the unrounded alpha, p*vs
-    rounded to bf16 for the value product (or, with pv_int8, quantized per
-    query row per block), acc scaled by bf16(alpha); at the end acc /
-    bf16(l). q [B, T, H*D]; valid(keys) -> bool [B, T, len(keys)]. A block
-    with no valid key for a query row leaves its state exactly as it was.
-    Returns [B, T, H*D] in q's dtype."""
+    """The block walk of K4 and K8 (plain) for q [B, T, H*D]: the scores
+    take int q8.k times ks * (qs * scale) (banded_q8_chunk's codes), or bf16
+    q.k times ks * scale; then _walk_blocks. Returns [B, T, H*D] in q's
+    dtype."""
     b, tq, hd = q.shape
-    d = head_dim
-    n_rep = hd // d // n_kv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(head_dim)
+    if qdot_int8:
+        q8, qs = banded_q8_chunk(q, n_kv=n_kv, head_dim=head_dim)
+        qk, q_scale = q8.float(), (qs * scale)[..., None]         # [B, T, n_kv, n_rep, 1]
+    else:
+        qk, q_scale = banded_q_chunk(q, n_kv=n_kv, head_dim=head_dim).float(), scale
+    out = _walk_blocks(qk, q_scale, k_cache, k_scale, v_cache, v_scale, valid, nvb,
+                       pack4=pack4, layer=layer, bl=bl, pv_int8=pv_int8 and qdot_int8)
+    return out.reshape(b, tq, hd).to(q.dtype)
+
+
+def _walk_blocks(qk, q_scale, k_cache, k_scale, v_cache, v_scale, valid, nvb: int, *,
+                 pack4: bool, layer: int, bl: int, pv_int8: bool = False) -> torch.Tensor:
+    """The walk in order over the first nvb blocks of `bl` keys: per block,
+    scores qk.k times ks * q_scale, logits of invalid keys -1e30, the
+    running max, alpha = exp(m_old - m_new), l updated with the unrounded
+    alpha, p*vs rounded to bf16 for the value product (or, with pv_int8,
+    quantized per query row per block), acc scaled by bf16(alpha); at the
+    end acc / bf16(l). qk [B, T, n_kv, n_rep, D] fp32 (q's codes or bf16
+    values); q_scale broadcasting to [B, T, n_kv, n_rep, 1]; valid(keys) ->
+    bool [B, T, len(keys)]. A block with no valid key for a query row
+    leaves its state exactly as it was. Returns fp32 [B, T, n_kv, n_rep, D]."""
+    b, tq, n_kv, n_rep, d = qk.shape
+    dev = qk.device
     k = _cache_rows(k_cache[layer], n_kv, d, pack4)              # [B, L, n_kv, D]
     v = _cache_rows(v_cache[layer], n_kv, d, pack4)
     ks = k_scale[layer].float()[:, None, :, None]                 # [B, 1, n_kv, 1, L]
     vs = v_scale[layer].float()[:, None, :, None]
-    if qdot_int8:
-        q8, qs = banded_q8_chunk(q, n_kv=n_kv, head_dim=d)
-        qk, q_scale = q8.float(), (qs * scale)[..., None]         # [B, T, n_kv, n_rep, 1]
-    else:
-        qk, q_scale = banded_q_chunk(q, n_kv=n_kv, head_dim=d).float(), scale
-    m = torch.full((b, tq, n_kv, n_rep), NEG_INF, device=q.device)
-    lsum = torch.zeros((b, tq, n_kv, n_rep), device=q.device)
-    acc = torch.zeros((b, tq, n_kv, n_rep, d), device=q.device)
+    m = torch.full((b, tq, n_kv, n_rep), NEG_INF, device=dev)
+    lsum = torch.zeros((b, tq, n_kv, n_rep), device=dev)
+    acc = torch.zeros((b, tq, n_kv, n_rep, d), device=dev)
     for jb in range(nvb):
         keys = slice(jb * bl, (jb + 1) * bl)
         ok = valid(keys)[:, :, None, None, :]                     # [B, T, 1, 1, bl]
@@ -663,15 +674,14 @@ def _quant_walk(q, k_cache, k_scale, v_cache, v_scale, valid, nvb: int, *, n_kv:
         lsum = lsum * alpha + p.sum(-1)
         m = m_new
         pv = p * vs[..., keys]
-        if pv_int8 and qdot_int8:
+        if pv_int8:
             psc = pv.amax(-1).clamp_min(1e-20) * (1.0 / 127.0)
             y = torch.einsum("btkrl,blkd->btkrd", torch.round(pv / psc[..., None]),
                              v[:, keys]) * psc[..., None]
         else:
             y = torch.einsum("btkrl,blkd->btkrd", pv.to(torch.bfloat16).float(), v[:, keys])
         acc = acc * alpha.to(torch.bfloat16).float()[..., None] + y
-    out = acc / lsum.to(torch.bfloat16).float().clamp_min(1e-30)[..., None]
-    return out.reshape(b, tq, hd).to(q.dtype)
+    return acc / lsum.to(torch.bfloat16).float().clamp_min(1e-30)[..., None]
 
 
 def _check_quant_cache(name: str, b: int, n_kv: int, d: int, l: int, pack4: bool,

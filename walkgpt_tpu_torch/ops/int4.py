@@ -267,22 +267,26 @@ int4_matmul_pallas.launches = 0
 # K6: one-launch int4 MLP
 # ---------------------------------------------------------------------------
 
-def fused_mlp_int4_reference(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """Plain version of K6. g = (x lo + x hi) * gs in fp32, act, times
-    (x Wu) * us; h rounded to bf16; per tile t: (h_lo Wd_lo + h_hi Wd_hi) *
-    ds; the tiles summed in order; cast to x's dtype."""
+def mlp4_tile_parts(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """The tile partials of K6's arithmetic (also K12's MLP phase): g = (x
+    lo + x hi) * gs in fp32, act, times (x Wu) * us; h rounded to bf16; per
+    tile t: (h_lo Wd_lo + h_hi Wd_hi) * ds. x [M, H] -> fp32 [n_tiles, M, H]."""
     first, up, down, gelu = _mlp_parts(mlp_params, act)
-    shape = x.shape
-    xf = x.reshape(-1, shape[-1])
-
-    a = _act(_int4_scaled(xf, first["w_p4"], first["w_scale"]), gelu)
+    a = _act(_int4_scaled(x, first["w_p4"], first["w_scale"]), gelu)
     if up is not None:
-        a = a * _int4_scaled(xf, up["w_p4"], up["w_scale"])
+        a = a * _int4_scaled(x, up["w_p4"], up["w_scale"])
     h = a.to(torch.bfloat16).float()
     lo, hi, tile = _down_tiles(down, torch.float32)
     hb = h.reshape(h.shape[0], lo.shape[0], tile)
-    parts = (torch.einsum("mnt,nth->nmh", hb[:, :, :tile // 2], lo)
-             + torch.einsum("mnt,nth->nmh", hb[:, :, tile // 2:], hi)) * down["w_scale"]
+    return (torch.einsum("mnt,nth->nmh", hb[:, :, :tile // 2], lo)
+            + torch.einsum("mnt,nth->nmh", hb[:, :, tile // 2:], hi)) * down["w_scale"]
+
+
+def fused_mlp_int4_reference(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """Plain version of K6: mlp4_tile_parts, the tiles summed in order, cast
+    to x's dtype."""
+    shape = x.shape
+    parts = mlp4_tile_parts(mlp_params, x.reshape(-1, shape[-1]), act)
     return _sum_tiles(parts).to(x.dtype).reshape(shape)
 
 

@@ -3,8 +3,10 @@ counterpart of walkgpt_tpu/runtime/generate.py: greedy_generate,
 speculative_generate, _ngram_propose, _prefill, _pad_cache_len,
 _cache_len_axis).
 
-Prefill writes the cache for the right-padded prompt. Greedy decode then
-runs one step per token: every row writes decode step s at the same slot t
+Prefill writes the cache for the right-padded prompt (K1). Greedy decode
+then runs one llm.decode_step per token (over the flat quantized caches K4
+per layer, or with fused_layer K12 per layer of the int4x format; K11 over
+the flat bf16 cache): every row writes decode step s at the same slot t
 + s (t = padded prompt length); the pad gap [len_r, t) of a shorter row
 holds zeros and stays masked; rope positions are each row's own logical
 positions. Speculative decode instead keeps the cache compact per row and
@@ -116,13 +118,15 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                     attention_mask: torch.Tensor, *, max_new_tokens: int,
                     eos_id: int, pad_id: int = 0,
                     logits_mask: Optional[torch.Tensor] = None, flash_fn=None,
-                    kv_quant="", prefill_chunk: int = 0) -> GenerateResult:
+                    kv_quant="", prefill_chunk: int = 0,
+                    fused_layer: bool = False) -> GenerateResult:
     """inputs_embeds: [B, T, H] right-padded prompt embeddings;
     attention_mask: [B, T] bool; logits_mask: optional [V] bool of allowed
     tokens, applied at every step. The cache is in the embeddings' dtype
     (heads layout; flat, read by K11, with cfg.fused_decode), or quantized:
     kv_quant "int8_flat" / "int4_flat" (the flat quantized cache read by
-    K4) or "int8" / True / "int4" (heads layout)."""
+    K4) or "int8" / True / "int4" (heads layout). fused_layer: every
+    decode_step takes K12 on the layers it supports (llm.decode_step)."""
     b, t, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     prefill_hidden, kv_cache, max_len = _prefilled_cache(
@@ -147,7 +151,8 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         x = llm.embed(params, token)[:, None].to(inputs_embeds.dtype)
         key_mask = prompt_valid | ((key_pos >= t) & (key_pos <= t + s))
         hidden, kv_cache = llm.decode_step(params, cfg, kv_cache, x, cache_len, key_mask,
-                                           write_slot=t + s, valid_len=t + s + 1)
+                                           write_slot=t + s, valid_len=t + s + 1,
+                                           fused_layer=fused_layer)
         hid = hidden[:, 0]
         token = torch.where(done, pad_id, pick(hid))
         cache_len = cache_len + 1
