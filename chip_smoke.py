@@ -29,8 +29,15 @@ Phases (any failure raises and the script exits non-zero):
      at demo_config over the int4_flat cache (7B format, float SAM blocks),
      the int8_flat cache and the heads fp32 and int8 caches (dense), the
      card against the CPU: identical tokens, lengths and [SEG] rows, masks
-     within 1e-3 (the 1B format's W8A8 run is reported beside them);
-     greedy with fused_decode (K11) against the heads layout on the card.
+     within 1e-3 (the 1B format's W8A8 run is reported beside them, with
+     the first int8 code on which it parts from the CPU, held to lie on a
+     rounding edge); greedy with fused_decode (K11) against the heads layout
+     on the card. 3e (after 3c): the continuous-batching server
+     (runtime/serving.py) at demo_config over heads fp32, heads int8 and
+     int8_flat pools (dense) and an int4_flat pool (7B format): six spliced
+     requests through 2 slots, the card against the CPU (Finished order,
+     tokens, budgets, [SEG] rows within 1e-4, masks within 1e-3), each
+     request against greedy_generate of it alone.
   4. the slices at full width, random weights from --seed built on the card,
      two requests of 2 images and 2 prompt rows each, with launch counts per
      request, peak memory, and the warm request's phase times on the host
@@ -45,7 +52,12 @@ Phases (any failure raises and the script exits non-zero):
      speculative schedule at force_accept 0 and 8; a then runs two
      requests with fused_decode (K11 in every step and layer); b then two
      with fused_layer (K12 in every greedy step and layer, K4 and K6 never),
-     its decode step beside the unfused one.
+     its decode step beside the unfused one, then serves eight PAVE
+     questions (llava_v1 prompts, byte tokenizer, 3 images encoded once)
+     through the continuous batcher (4 slots, int4_flat pool, PAVE-like
+     budgets), launches per admit and per segment held exactly, the two
+     longest requests against greedy_generate alone, beside the same
+     requests in greedy_generate waves of 4.
   2e (after 2d): K12 (fused_layer_tail) at the 7B int4x decode step and at
      an int8_flat gelu shape, K13a (quantize_tokens, bit for bit) and K13b
      (w8a8_gemm) at the four products of a ViT-H block, against their plain
@@ -53,7 +65,14 @@ Phases (any failure raises and the script exits non-zero):
      rms_norm, K6; K13b's beside torch._int_mm on the same codes).
   4d (after 4): WalkGPT-1B's W8A8 SAM blocks (one windowed, one global) on
      the encoder's own activations: K13a's codes against nn.linear's, K13b
-     against nn.linear's W8A8 path.
+     against nn.linear's W8A8 path. 4e: K10 (sam_window_attention) on the
+     first windowed ViT-H block's own activations against the block's K2
+     path, and one backward through K10b against K2b's.
+  2f (after 2e): K10 and K10b (split-layout window attention) against their
+     plain versions at the ViT-H windowed shapes in bf16 and at ragged
+     shapes in fp32 (and a bf16 q with fp32 rel tables), against K2/K2b on
+     the same values repacked (bit for bit), with kernel, plain and library
+     (SDPA with the expanded bias, and its backward) times and the bound.
   2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
      (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
      against their plain backwards at the training step's shapes in bf16
@@ -86,6 +105,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -93,10 +113,12 @@ from walkgpt_tpu_torch.core.config import demo_config, flagship_1b_config, walkg
 from walkgpt_tpu_torch.core import nn
 from walkgpt_tpu_torch.core.nn import int8_matmul, unpack4
 from walkgpt_tpu_torch.core.tree import leaves_with_path, map_with_path
-from walkgpt_tpu_torch.models import llm, sam_encoder, walkgpt
-from walkgpt_tpu_torch.ops import cuda_build, fused_layer, int4, int8_gemm, quant
+from walkgpt_tpu_torch.data import conversation, tokenizer
+from walkgpt_tpu_torch.models import llm, sam, sam_encoder, walkgpt
+from walkgpt_tpu_torch.models.projectors import ctp_apply
+from walkgpt_tpu_torch.ops import attention, cuda_build, fused_layer, int4, int8_gemm, quant
 from walkgpt_tpu_torch.ops import flash_attention as fa
-from walkgpt_tpu_torch.runtime import generate, lora, train
+from walkgpt_tpu_torch.runtime import generate, lora, serving, train
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, int8 tensor
 # cores, fp32 outside the tensor cores, HBM3
@@ -156,6 +178,17 @@ K12_CODE_FLIPS = 1e-2
 # of it, so the two may differ by about (1 + 3 * 1.13) * 2^-8 = 1.7% of the
 # product's largest magnitude: held to 2% (max) and 0.1% (mean).
 W8A8_BLOCK_REL, W8A8_BLOCK_MEAN = 2e-2, 1e-3
+# serving over the flat quantized pools, card against CPU in fp32: the
+# cache rows are int8 or int4 codes (15 levels) and K4 quantizes each query
+# head to int8 codes and rounds p and alpha to bf16 inside, so an fp32
+# last-place difference upstream that meets a code or a bf16 edge moves a
+# cache row or an attention row by a code or a bf16 step, and the [SEG]
+# hidden states (the final norm's output) by up to about 1% of their
+# largest magnitude from there on (phase 3e: 4.4e-3 over int8_flat and
+# 2.7e-2 over int4_flat at a scale of 3.2-3.4, tokens identical, masks
+# within 5.1e-5): held within 1e-2 of that magnitude; the heads-layout
+# pools hold 1e-4.
+SERVE_FLAT_HIDDEN_REL = 1e-2
 
 KERNEL_INFO = {
     "flash_attention": ("walkgpt_tpu_torch/csrc/flash_attention.cu",
@@ -187,6 +220,10 @@ KERNEL_INFO = {
     "quantize_tokens": ("walkgpt_tpu_torch/csrc/int8_gemm.cu",
                         "walkgpt_tpu/ops/int8_gemm.py:66"),
     "w8a8_gemm": ("walkgpt_tpu_torch/csrc/int8_gemm.cu", "walkgpt_tpu/ops/int8_gemm.py:136"),
+    "sam_window_attention": ("walkgpt_tpu_torch/csrc/sam_window_attention_split.cu",
+                             "walkgpt_tpu/ops/flash_attention.py:777"),
+    "sam_window_attention_bwd": ("walkgpt_tpu_torch/csrc/sam_window_attention_split_bwd.cu",
+                                 "walkgpt_tpu/ops/flash_attention.py:800"),
 }
 
 
@@ -722,6 +759,112 @@ def phase_backward_kernels(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 2f: K10 and K10b, windowed attention over the split-head layout
+# ---------------------------------------------------------------------------
+
+def _merge(x):
+    """[BW, H, T, w] -> [BW, T, H*w] lanes (K2's packed layout)."""
+    return x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1)
+
+
+def k10_inputs(dev, dtype, rel_dtype, bw, h, d, ws, gen):
+    t = ws * ws
+    q, k, v, g = (torch.randn(bw, h, t, d, generator=gen, device=dev).to(dtype)
+                  for _ in range(4))
+    rel_h, rel_w = (torch.randn(bw, h, t, ws, generator=gen, device=dev).to(rel_dtype)
+                    for _ in range(2))
+    return q, k, v, rel_h, rel_w, g
+
+
+def _bias(rel_h, rel_w, ws, dtype):
+    """The expanded [BW, H, T, T] rel-pos bias, built once for the library call."""
+    key = torch.arange(ws * ws, device=rel_h.device)
+    return (rel_h.float()[..., key // ws] + rel_w.float()[..., key % ws]).to(dtype)
+
+
+def k10_case(inputs, ws):
+    q, k, v, rel_h, rel_w, _ = inputs
+    bw, h, t, d = q.shape
+    run = lambda: fa.sam_window_attention(q, k, v, rel_h, rel_w, ws, return_lse=True)
+    plain = lambda: fa.sam_window_attention_reference(q, k, v, rel_h, rel_w, ws)
+    bias = _bias(rel_h, rel_w, ws, q.dtype)
+    library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    out_bytes = nbytes(q) + bw * h * t * 4
+    return run, plain, library, (nbytes(q, k, v, rel_h, rel_w) + out_bytes,
+                                 4.0 * d * t * t * bw * h, q.dtype)
+
+
+def k10b_case(inputs, ws):
+    q, k, v, rel_h, rel_w, g = inputs
+    bw, h, t, d = q.shape
+    out, lse = fa.sam_window_attention(q, k, v, rel_h, rel_w, ws, return_lse=True)
+    args = (q, k, v, rel_h, rel_w, ws, out, lse, g)
+    bias = _bias(rel_h, rel_w, ws, q.dtype)
+    library = _library_bwd(lambda a, b, c: F.scaled_dot_product_attention(a, b, c,
+                                                                          attn_mask=bias),
+                           (q, k, v), g)
+    nb = nbytes(q, k, v, rel_h, rel_w, out, lse, g) + nbytes(q, k, v, rel_h, rel_w)
+    return (lambda: fa.sam_window_attention_bwd(*args),
+            lambda: fa.sam_window_attention_bwd_reference(*args), library,
+            (nb, 10.0 * d * t * t * bw * h, q.dtype))
+
+
+def k10_against_k2(inputs, ws, label):
+    """K10 and K10b against K2 and K2b on the same values repacked into the
+    packed layout: one engine, the same logits, so equal bit for bit (held
+    to the bf16 bounds and the equality reported otherwise)."""
+    q, k, v, rel_h, rel_w, g = inputs
+    h, d = q.shape[1], q.shape[3]
+    out, lse = fa.sam_window_attention(q, k, v, rel_h, rel_w, ws, return_lse=True)
+    qkv, rel = torch.cat([_merge(x) for x in (q, k, v)], -1), torch.cat([_merge(rel_h),
+                                                                         _merge(rel_w)], -1)
+    pout, plse = fa.sam_window_attention_packed(qkv, rel, h, d, ws, return_lse=True)
+    grads = fa.sam_window_attention_bwd(q, k, v, rel_h, rel_w, ws, out, lse, g)
+    pgrads = fa.sam_window_attention_packed_bwd(qkv, rel, h, d, ws, pout, plse, _merge(g))
+    got = (_merge(out), lse, torch.cat([_merge(x) for x in grads[:3]], -1),
+           torch.cat([_merge(x) for x in grads[3:]], -1))
+    want = (pout, plse.transpose(1, 2), *pgrads)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    worst = max(errors(a, b)[0] / max(1.0, float(b.float().abs().max()))
+                for a, b in zip(got, want))
+    log(f"  K10/K10b against K2/K2b on repacked values ({label}): out, lse, dqkv and drel "
+        f"bit for bit: {same} (largest difference relative to its output {worst:.3e})")
+    if not (same or worst <= BF16_MAX_ABS):
+        raise AssertionError(f"K10 disagrees with K2 on repacked values ({label})")
+    return same
+
+
+def phase_window_split_kernels(dev, seed):
+    log("== phase 2f: K10 and K10b (split-layout window attention) against their plain "
+        "versions and against K2/K2b")
+    gen = torch.Generator(device=dev).manual_seed(seed + 40)
+    bf16, f32 = torch.bfloat16, torch.float32
+    # the ViT-H windowed block for two 1024^2 images: 2 x 25 windows of 14 x 14
+    vit = k10_inputs(dev, bf16, bf16, 50, 16, 80, 14, gen)
+    results = {
+        "sam_window_attention": check_kernel(
+            "sam_window_attention", k10_case(vit, 14), bf16, 20, 3, "ViT-H windows"),
+        "sam_window_attention_bwd": check_backward(
+            "sam_window_attention_bwd", k10b_case(vit, 14), bf16, 10, 3, "ViT-H windows"),
+    }
+    same = k10_against_k2(vit, 14, "ViT-H windows, bf16")
+    del vit
+    torch.cuda.empty_cache()
+    # ragged fp32 shapes (BW*H odd, D = 16 and 80, ws = 3 and 5), then a bf16 q
+    # with fp32 rel tables (which the JAX kernel takes too)
+    for dtype, rdt, bw, h, d, ws in ((f32, f32, 3, 1, 16, 3), (f32, f32, 5, 3, 80, 5),
+                                     (bf16, f32, 3, 3, 80, 5)):
+        label = f"ragged ws={ws} D={d} BW*H={bw * h}" + (", fp32 rel" if rdt != dtype else "")
+        inputs = k10_inputs(dev, dtype, rdt, bw, h, d, ws, gen)
+        check_kernel("sam_window_attention", k10_case(inputs, ws), dtype, 0, 1, label)
+        check_backward("sam_window_attention_bwd", k10b_case(inputs, ws), dtype, 0, 1, label)
+        if rdt == dtype:
+            same &= k10_against_k2(inputs, ws, label)
+    log(f"  K10/K10b equal K2/K2b bit for bit in every case: {same}")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 2e: the fused decode-layer tail (K12) and the W8A8 GEMM (K13a/b)
 # ---------------------------------------------------------------------------
 
@@ -989,10 +1132,11 @@ def phase_parity_spec(dev, seed):
     1e-3; then fused_decode against the heads layout, both on the card.
     W8A8 LLM weights requantize every activation: a value on the edge of
     two codes can land on either side on the card and the CPU and flip a
-    near-tied token (phase 3b's greedy run of the 1B format holds, but the
-    chunk's K7 sums 27 rows in another order), so the 1B format's
-    speculative run is reported, and the int8_flat cache is held with dense
-    weights."""
+    near-tied token (phase 3b's greedy run of the 1B format holds; this
+    request's speculative run parts at the prefill's first W8A8 product),
+    so the 1B format's speculative run is reported, with the first code on
+    which the card parts from the CPU, which must lie on a rounding edge
+    (w8a8_edge), and the int8_flat cache is held with dense weights."""
     log("== phase 3c: demo_config fp32, speculative decode on the card against the CPU")
     base = demo_config().replace(use_flash_attention=True)
     for label, fmt, kv, held in (("7B format, float SAM, int4_flat", FORMAT_7B, "int4_flat", True),
@@ -1008,13 +1152,15 @@ def phase_parity_spec(dev, seed):
                                             **{**fmt, "sam_int8": False})
         cpu_params = to_device(params, "cpu")
         kw, cfg = demo_request(params, cfg, dev, seed + 4, speculative_k=SPEC_K)
+        cpu_kw = {k: to_device(v, "cpu") for k, v in kw.items()}
         for f in KERNELS:
             f.launches = 0
-        card = walkgpt.generate_and_segment(params, cfg, device=dev, **kw)
+        with _Quantizers() as card_codes:
+            card = walkgpt.generate_and_segment(params, cfg, device=dev, **kw)
         launched = {f.__name__: f.launches for f in KERNELS if f.launches}
         t0 = time.perf_counter()
-        cpu = walkgpt.generate_and_segment(cpu_params, cfg, device="cpu",
-                                           **{k: to_device(v, "cpu") for k, v in kw.items()})
+        with _Quantizers() as cpu_codes:
+            cpu = walkgpt.generate_and_segment(cpu_params, cfg, device="cpu", **cpu_kw)
         cpu_s = time.perf_counter() - t0
         same = all(torch.equal(getattr(card, n).cpu(), getattr(cpu, n))
                    for n in ("tokens", "lengths", "seg_valid", "seg_rows"))
@@ -1028,6 +1174,8 @@ def phase_parity_spec(dev, seed):
             f"{launched} (CPU run {cpu_s:.1f} s)")
         if held and not (same and card.n_iters == cpu.n_iters and mask_err <= 1e-3):
             raise AssertionError(f"demo_config speculative {label}: the card and the CPU disagree")
+        if not held and not same:
+            w8a8_edge(params, cfg, dev, kw, card_codes.records, cpu_codes.records)
         if not (need <= set(launched) and "decode_attention_q" not in launched):
             raise AssertionError(f"demo_config speculative {label}: kernels {launched}")
         del params, cpu_params
@@ -1044,6 +1192,260 @@ def phase_parity_spec(dev, seed):
         f"{same} mask max_abs={mask_err:.3e} decode_attention launches={k11}")
     if not (same and mask_err <= 1e-3 and k11 == cfg.llm.num_layers * kw["max_new_tokens"]):
         raise AssertionError("demo_config: fused_decode and the heads layout disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 3c's W8A8 report: where the card and the CPU first part
+# ---------------------------------------------------------------------------
+
+class _Quantizers:
+    """Records, in call order, every int8 code of the W8A8 path's quantizers
+    with the value it was rounded from: nn.quantize_a8 (every W8A8 product),
+    int4.quantize_rows (K7's plain activation and per-tile requantize),
+    fa.banded_q8_chunk (K8's plain per-head q) and llm._quant_rows (the
+    int8_flat cache rows). With plain=True the kernels of the path (K1-K3,
+    K7, K8) take their plain versions on CUDA tensors, so that every code is
+    seen on the card as on the CPU. A context manager; records are on the
+    host."""
+
+    def __init__(self, plain=False):
+        self.plain, self.records, self._saved = plain, [], []
+
+    def _patch(self, mod, name, fn):
+        self._saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, fn)
+
+    def _add(self, name, pre, codes):
+        self.records.append((name, pre.detach().float().cpu(), codes.detach().cpu()))
+
+    def __enter__(self):
+        a8, rows, band, cache = nn.quantize_a8, int4.quantize_rows, fa.banded_q8_chunk, llm._quant_rows
+
+        def q_a8(x):
+            xq, sx = a8(x)
+            one = torch.ones((), device=x.device)
+            inv = (127.0 * one / x.abs().amax(-1, keepdim=True).float().clamp_min(1e-8)).to(x.dtype)
+            self._add("nn.quantize_a8", x * inv, xq)
+            return xq, sx
+
+        def q_rows(x):
+            xq, sx = rows(x)
+            self._add("int4.quantize_rows", x.float() * (torch.ones((), device=x.device) / sx), xq)
+            return xq, sx
+
+        def q_band(q, *, n_kv, head_dim):
+            q8, qs = band(q, n_kv=n_kv, head_dim=head_dim)
+            b, tc, hd = q.shape
+            qf = q.float().reshape(b, tc, n_kv, hd // head_dim // n_kv, head_dim)
+            self._add("fa.banded_q8_chunk", qf / qs[..., None], q8)
+            return q8, qs
+
+        def q_cache(x, qmax=127):
+            q, scale = cache(x, qmax)
+            self._add("llm._quant_rows", x.float() / scale.float()[..., None], q)
+            return q, scale
+        self._patch(nn, "quantize_a8", q_a8)
+        self._patch(int4, "quantize_rows", q_rows)
+        self._patch(fa, "banded_q8_chunk", q_band)
+        self._patch(llm, "_quant_rows", q_cache)
+        if self.plain:
+            mlp8 = int4.fused_mlp_int8_reference
+            self._patch(fa, "_flash_fwd", fa.flash_attention_reference)
+            self._patch(fa, "_window_fwd", fa.sam_window_attention_packed_reference)
+            self._patch(fa, "_sam_fwd", fa.sam_flash_attention_reference)
+            self._patch(llm, "decode_attention_q_chunk", fa.decode_attention_q_chunk_reference)
+            self._patch(int4, "fused_mlp_int8", lambda p, x, act: (
+                None if x[..., 0].numel() > int4.FUSED_MLP_MAX_ROWS else mlp8(p, x, act)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        return False
+
+
+def first_code_difference(card, cpu):
+    """The first int8 code, in call order, on which two runs' records differ:
+    None when every code of the shorter run agrees, else a dict with the
+    quantizer, the call's index and shape, the element, the values before
+    rounding on the card and the CPU, the nearest .5 boundary and the
+    CPU value's distance from it, and that call's largest card-vs-CPU
+    difference of values before rounding (its fp32 drift), also in units of
+    the fp32 spacing at the boundary."""
+    for i, ((name, pre_a, codes_a), (name_b, pre_b, codes_b)) in enumerate(zip(card, cpu)):
+        if name != name_b or codes_a.shape != codes_b.shape:
+            return dict(quantizer=f"{name} / {name_b}", call=i, shape=tuple(codes_a.shape),
+                        diverged="the call sequences differ")
+        diff = (codes_a != codes_b).nonzero()
+        if not len(diff):
+            continue
+        idx = tuple(diff[0].tolist())
+        a, b = float(pre_a[idx]), float(pre_b[idx])
+        edge = math.floor(min(a, b)) + 0.5
+        drift = float((pre_a - pre_b).abs().max())
+        ulp = 2.0 ** (math.frexp(abs(edge))[1] - 24)        # fp32 spacing at the boundary
+        return dict(quantizer=name, call=i, calls=len(cpu), shape=tuple(codes_a.shape),
+                    element=idx, n_differ=len(diff), card_pre=a, cpu_pre=b,
+                    card_code=int(codes_a[idx]), cpu_code=int(codes_b[idx]), boundary=edge,
+                    distance=abs(b - edge), drift=drift, drift_ulps=drift / ulp)
+    return None
+
+
+def spliced_requests(params, cfg, ids, mask, images, row_image_idx):
+    """Each prompt row's spliced timeline (its valid part) as a [T, H]
+    request for the continuous batcher, and the image features
+    ([B, g, g, C]) for its masks."""
+    feats, sam_tokens = walkgpt.encode_sam(params, cfg, images)
+    vis = walkgpt.visual_tokens(params, cfg, sam_tokens)[row_image_idx]
+    sp = walkgpt.splice_visual(params, cfg, ids, vis, attention_mask=mask)
+    lens = sp.attention_mask.sum(-1).tolist()
+    return [sp.embeds[r, :n] for r, n in enumerate(lens)], feats
+
+
+def seg_masks(params, cfg, finished, feats, image_of):
+    """Each Finished request's [SEG] hidden states -> CTP -> the SAM mask
+    decoder on its image's features: {request id: low-res mask logits}."""
+    out = {}
+    dev = feats.device
+    for f in finished:
+        n = f.seg_hidden.shape[0]
+        if not n:
+            continue
+        hid = torch.from_numpy(f.seg_hidden).to(dev, params["llm"]["embed_tokens"]["w"].dtype)
+        emb = ctp_apply(params["ctp"][0], hid)
+        img = feats[image_of[f.request_id]]
+        low, _ = sam.decode_masks(params["sam"], walkgpt.sam_config(cfg),
+                                  img.expand(n, *img.shape), text_embeds=emb[:, None],
+                                  multimask_output=False)
+        out[f.request_id] = low
+    return out
+
+
+def alone(req):
+    """One request's timeline [T, H] as greedy_generate's batch of one
+    ([1, T, H] embeds, [1, T] mask), unpadded as tests/test_serving.py
+    passes it. Its decode then writes token s at slot T + s, as the
+    batcher's slot does: K4 rounds alpha and p to bf16 per DECODE_BLOCK
+    block of the cache, so the same keys at other slots (a prompt padded
+    to the bucket puts greedy_generate's decode keys in a later block)
+    give another rounding, not the same function."""
+    return req[None], torch.ones((1, req.shape[0]), dtype=torch.bool, device=req.device)
+
+
+def phase_serving_parity(dev, seed):
+    """The continuous-batching server at demo_config in fp32 over four slot
+    pools: the fp32 and int8 heads layouts and the int8_flat cache (dense
+    weights), and the int4_flat cache (the 7B format, float SAM blocks).
+    Six spliced requests (3 prompt rows, each twice) through 2 slots with
+    per-request budgets, the card against the CPU: the same Finished order,
+    tokens and budgets, [SEG] hidden states within 1e-4 (within
+    SERVE_FLAT_HIDDEN_REL of their scale over the flat pools), masks (CTP ->
+    sam.decode_masks) within 1e-3; and on the card each request against
+    greedy_generate of that request alone (alone() says why unpadded) on the
+    same cache format."""
+    log("== phase 3e: demo_config fp32 serving (continuous batcher), the card against the CPU")
+    base = demo_config().replace(use_flash_attention=True)
+    budgets = [16, 9, 12, 5, 16, 11]
+    flash_fn = lambda q, k, v, kv: fa.flash_attention(q, k, v, True, key_valid=kv)
+    for label, fmt, kv in (("dense, heads fp32 pool", None, ""),
+                           ("dense, heads int8 pool", None, "int8"),
+                           ("dense, int8_flat pool", None, "int8_flat"),
+                           ("7B format, float SAM, int4_flat pool", FORMAT_7B, "int4_flat")):
+        cfg = base.replace(kv_quant_cache=kv or False)
+        if fmt is None:
+            params = walkgpt.init(cfg, seed=seed, dtype=torch.float32, device=dev)
+        else:
+            params = walkgpt.init_quantized(cfg, seed=seed, dtype=torch.float32, device=dev,
+                                            **{**fmt, "sam_int8": False})
+        cpu_params = to_device(params, "cpu")
+        gen = torch.Generator(device=dev).manual_seed(seed + 10)
+        s = cfg.sam.img_size
+        images = torch.randn(2, s, s, 3, generator=gen, device=dev)
+        ids, mask = prompts(3, [40, 27, 33], 48, cfg.llm.vocab_size, gen, dev)
+        rows = torch.tensor([0, 1, 1], device=dev)
+        image_of = [0, 1, 1, 0, 1, 1]
+        kw = dict(batch_size=2, prompt_len=320, max_new_tokens=16, segment=4, eos_id=-1,
+                  max_segs_per_answer=8, kv_quant=kv)
+        runs = {}
+        for where, p in (("card", params), ("cpu", cpu_params)):
+            on = torch.device(where if where == "cpu" else dev)
+            reqs, feats = spliced_requests(p, cfg, ids.to(on), mask.to(on), images.to(on),
+                                           rows.to(on))
+            reqs = reqs * 2
+            if where == "card":           # [SEG]: the token a probe run emits most
+                probe = serving.ContinuousBatcher(p["llm"], cfg.llm, flash_fn=flash_fn,
+                                                  device=on, **kw).run(reqs, budgets)
+                vals, counts = torch.unique(torch.tensor(sum((f.tokens for f in probe), [])),
+                                            return_counts=True)
+                seg = int(vals[counts.argmax()])
+                for f in KERNELS:
+                    f.launches = 0
+            batcher = serving.ContinuousBatcher(p["llm"], cfg.llm, flash_fn=flash_fn,
+                                                seg_token_ids=(seg,), device=on, **kw)
+            fin = batcher.run(reqs, budgets)
+            if where == "card":
+                launched = {f.__name__: f.launches for f in KERNELS if f.launches}
+                alone_ok = True
+                for f in fin:                # each request alone through greedy_generate
+                    embeds, m = alone(reqs[f.request_id])
+                    res = generate.greedy_generate(p["llm"], cfg.llm, embeds, m,
+                                                   max_new_tokens=budgets[f.request_id],
+                                                   eos_id=-1, flash_fn=flash_fn, kv_quant=kv)
+                    alone_ok &= f.tokens == res.tokens[0, :int(res.lengths[0])].tolist()
+            runs[where] = (fin, seg_masks(p, cfg, fin, feats, image_of))
+        (card, card_masks), (cpu, cpu_masks) = runs["card"], runs["cpu"]
+        order = [f.request_id for f in card] == [f.request_id for f in cpu]
+        same = order and all(a.tokens == b.tokens and len(a.tokens) == budgets[a.request_id]
+                             for a, b in zip(card, cpu))
+        hid_err = max([float(abs(a.seg_hidden - b.seg_hidden).max()) for a, b in zip(card, cpu)
+                       if a.seg_hidden.shape == b.seg_hidden.shape and a.seg_hidden.size] or [0.0])
+        hid_scale = max([float(abs(b.seg_hidden).max()) for b in cpu if b.seg_hidden.size] or [0.0])
+        hid_limit = SERVE_FLAT_HIDDEN_REL * max(1.0, hid_scale) if kv.endswith("flat") else 1e-4
+        hid_same = all(a.seg_hidden.shape == b.seg_hidden.shape for a, b in zip(card, cpu))
+        mask_err = max([float((card_masks[r].cpu() - cpu_masks[r]).abs().max())
+                        for r in cpu_masks] or [0.0])
+        n_seg = sum(f.seg_hidden.shape[0] for f in card)
+        need = {"flash_attention"} | ({"decode_attention_q"} if kv.endswith("flat") else set()) \
+            | ({"int4_matmul_pallas", "fused_mlp_int4"} if fmt else set())
+        log(f"  {label}: completion order {[f.request_id for f in card]} identical={order}; "
+            f"tokens and budgets identical={same}; [SEG] rows {n_seg} (shapes identical="
+            f"{hid_same}) max_abs={hid_err:.3e} (scale {hid_scale:.3g}, limit {hid_limit:.3e}); "
+            f"masks of {len(cpu_masks)} requests max_abs="
+            f"{mask_err:.3e}; each request equals greedy_generate alone on the card: {alone_ok}; "
+            f"kernel launches {launched}")
+        if not (same and hid_same and n_seg and hid_err <= hid_limit and mask_err <= 1e-3
+                and alone_ok
+                and need <= set(launched)):
+            raise AssertionError(f"demo_config serving {label}: the card and the CPU disagree")
+        del params, cpu_params
+
+
+def w8a8_edge(params, cfg, dev, kw, card_records, cpu_records):
+    """Where a W8A8 run on the card first parts from the CPU's: the first int8
+    code, in call order, on which the two differ (the codes the kernels
+    quantize inside, K7's and K8's, are seen by running the plain versions on
+    the card when the others all agree). Reported with its values before
+    rounding; raises unless they straddle the code's .5 boundary within the
+    call's card-vs-CPU fp32 drift and that drift is below a thousandth of a
+    code step, i.e. unless it is a rounding edge."""
+    seen = {name for name, _, _ in card_records}
+    where = "kernels on the card"
+    first = first_code_difference(card_records, [r for r in cpu_records if r[0] in seen])
+    if first is None:
+        with _Quantizers(plain=True) as plain:
+            walkgpt.generate_and_segment(params, cfg, device=dev, **kw)
+        where = "plain versions on the card"
+        first = first_code_difference(plain.records, cpu_records)
+    edge = first is not None and "diverged" not in first and (
+        min(first["card_pre"], first["cpu_pre"]) < first["boundary"]
+        < max(first["card_pre"], first["cpu_pre"])
+        and first["distance"] <= first["drift"] <= 1e-3)
+    log(f"    where the card ({where}) first parts from the CPU: {json.dumps(first)}; a "
+        f"rounding edge (values straddle the .5 boundary within the call's fp32 drift, "
+        f"drift below 1e-3 of a code step): {edge}")
+    if not edge:
+        raise AssertionError("W8A8 speculative decode: the card parts from the CPU at a code "
+                             "that is not on a rounding edge")
 
 
 def demo_request(params, cfg, dev, seed, **extra):
@@ -1163,7 +1565,7 @@ def add(total, launches):
 
 
 def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=False,
-                fused=False, fused_layer_tail=False):
+                fused=False, fused_layer_tail=False, serve=False):
     log(f"== phase 4: {label}, random weights, two requests")
     t0 = time.perf_counter()
     params = make_params(cfg)
@@ -1227,6 +1629,10 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
         launches = add(launches, phase_fused_layer(params, cfg, kw, walls, devices,
                                                    outs[1].tokens, e2e[1]))
         log(f"  fused_layer part: {time.perf_counter() - t0:.1f} s")
+    if serve:
+        t0 = time.perf_counter()
+        launches = add(launches, phase_serving(dev, seed, params, cfg))
+        log(f"  serving part: {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1234,7 +1640,9 @@ def phase_speculative(params, cfg, kw, greedy_step):
     """Two requests with speculative_k=SPEC_K (prompt-lookup drafts; random
     weights accept almost none), their decode replayed on the host clock and
     under the profiler, then the schedule at force_accept 0 and SPEC_K
-    without EOS (every iteration emits exactly force_accept + 1 tokens)."""
+    without EOS (every iteration emits exactly force_accept + 1 tokens), on
+    the host clock, and at SPEC_K under the profiler too (at 0 each
+    iteration is a greedy step)."""
     n_new = kw["max_new_tokens"]
     skw = {**kw, "speculative_k": SPEC_K}
     launches, outs, e2e, cfg = run_requests(
@@ -1253,11 +1661,15 @@ def phase_speculative(params, cfg, kw, greedy_step):
         f"{greedy_step:.2f}")
     for accept in (0, SPEC_K):
         res, wall = schedule(params, cfg, kw, accept, host_ms)
-        _, dev_ms = schedule(params, cfg, kw, accept, lambda fn: profiled(fn, {}))
-        wall, dev_ms = wall - walls["prefill"], dev_ms - devices["prefill"]
+        wall = wall - walls["prefill"]
+        device = "not measured (one draft per iteration: greedy's step, above)"
+        if accept:
+            dev_ms = schedule(params, cfg, kw, accept, lambda fn: profiled(fn, {}))[1]
+            dev_ms -= devices["prefill"]
+            device = f"{dev_ms / n_new:.2f} (decode device_ms={dev_ms:.1f})"
         log(f"  force_accept={accept}: n_iters={res.n_iters} tokens per iteration "
             f"{n_new / res.n_iters:.2f}; per emitted token wall_ms={wall / n_new:.2f} "
-            f"device_ms={dev_ms / n_new:.2f} (decode wall_ms={wall:.1f} device_ms={dev_ms:.1f})")
+            f"(decode wall_ms={wall:.1f}) device_ms={device}")
         if res.n_iters != -(-n_new // (accept + 1)) or res.lengths.tolist() != [n_new] * 2:
             raise AssertionError(f"force_accept={accept}: {res.n_iters} iterations, "
                                  f"lengths {res.lengths.tolist()}")
@@ -1307,6 +1719,201 @@ def phase_fused_layer(params, cfg, kw, walls_unfused, devices_unfused, tokens_un
     log(f"  the fused request's device_ms {request_dev:.1f}; top 5 of its kernels by device time:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
         log(f"    {ms:9.1f} ms {ms / request_dev:6.1%}  {name[:110]}")
+    return launches
+
+
+PAVE_QUESTIONS = (
+    "Which nearby features seem pedestrian-friendly, and which could make movement unsafe?",
+    "Is the sidewalk ahead clear of obstacles?",
+    "Where is the nearest crosswalk, and how far away is it?",
+    "Describe the walking surface in front of me.",
+    "Are any vehicles parked on the sidewalk?",
+    "Which objects should a wheelchair user avoid here?",
+    "How far is the curb ramp on the left?",
+    "Is it safe to cross the street here?")
+
+
+def pave_like_budgets(rng, n, cap):
+    """Answer lengths of the PAVE grammar (the JAX package's
+    benchmarks/bench_serving.py): about 60 template tokens and 24 per
+    object, 1 to 8 objects, capped."""
+    return [int(min(60 + 24 * rng.randint(1, 9), cap)) for _ in range(n)]
+
+
+def pave_prompt_ids(tok):
+    """The llava_v1 prompt of each PAVE question, <image> wrapped in
+    <im_start> / <im_end> as bench.py builds it, through the port's copy of
+    the byte tokenizer."""
+    out = []
+    for question in PAVE_QUESTIONS:
+        conv = conversation.conv_templates["llava_v1"].copy()
+        conv.messages = []
+        conv.append_message(conv.roles[0], "<image>\n" + question)
+        conv.append_message(conv.roles[1], None)
+        prompt = conv.get_prompt().replace("<image>", "<im_start><image><im_end>")
+        out.append(tokenizer.tokenizer_image_token(prompt, tok))
+    return out
+
+
+def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=128, segment=32):
+    """The continuous-batching server at full width: eight text requests
+    (PAVE questions in the llava_v1 template, each paired with one of
+    n_images random 1024^2 images, every image encoded once), MSQP and
+    splice, then the batcher over an int4_flat pool of `slots` slots with
+    PAVE-like budgets; launch counts per admit and per segment held exactly.
+    The two requests with the largest budgets against greedy_generate of
+    each alone; every [SEG] row through CTP, decode_masks and
+    finalize_masks. Then the same requests through greedy_generate in waves
+    of `slots`, each wave paying its largest budget. Returns the launches of
+    the serving run (encode to masks)."""
+    log(f"  serving part: the continuous batcher, {slots} slots, int4_flat pool, 8 requests")
+    tok = tokenizer.ByteTokenizer(model_max_length=4096)
+    tokenizer.setup_walkgpt_tokens(tok)
+    ids = pave_prompt_ids(tok)
+    budgets = pave_like_budgets(np.random.RandomState(1), len(ids), max_new)
+    spliced_len = max(len(x) for x in ids) - 1 + cfg.visual_tokens
+    prompt_len = -(-spliced_len // 256) * 256
+    log(f"  budgets {budgets} (PAVE-like, capped at max_new_tokens={max_new}: the production "
+        f"budget of 512 is cut to keep the run inside its time limit); llava_v1 prompts of "
+        f"{min(map(len, ids))}-{max(map(len, ids))} byte-tokenizer ids, spliced to at most "
+        f"{spliced_len} tokens: prompt_len {prompt_len}")
+    s = cfg.sam.img_size
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    images = torch.randn(n_images, s, s, 3, generator=gen, device=dev).to(torch.bfloat16)
+    flash_fn = lambda q, k, v, kv: fa.flash_attention(q, k, v, True, key_valid=kv)
+    n_layers = cfg.llm.num_layers
+    for f in KERNELS:
+        f.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        encoded = [walkgpt.encode_sam(params, cfg, images[i:i + 1]) for i in range(n_images)]
+        reqs = []
+        for r, row in enumerate(ids):
+            vis = walkgpt.visual_tokens(params, cfg, encoded[r % n_images][1])
+            reqs.append(walkgpt.splice_visual(params, cfg, torch.tensor([row], device=dev),
+                                              vis).embeds[0])
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    per = {f.__name__: f.launches for f in KERNELS}
+    log(f"  {n_images} images encoded once each, 8 requests spliced: wall_ms={enc_ms:.1f}, "
+        f"launches {_nonzero(per)}")
+    n_glob = len(cfg.sam.global_attn_indexes)
+    if (per["sam_window_attention_packed"] != n_images * (cfg.sam.depth - n_glob)
+            or per["sam_flash_attention"] != n_images * n_glob):
+        raise AssertionError(f"serving: image encode launches {per}")
+    gkw = dict(max_new_tokens=max_new, eos_id=2, flash_fn=flash_fn, kv_quant="int4_flat")
+
+    # the waves: greedy_generate over `slots` requests at a time, right-padded
+    # to prompt_len, each wave paying its largest budget; their tokens give
+    # the [SEG] id (random weights never emit the real one)
+    wave_ms, wave_tokens, emitted = 0.0, [], 0
+    for w0 in range(0, len(reqs), slots):
+        batch = reqs[w0:w0 + slots]
+        embeds = torch.zeros((len(batch), prompt_len, batch[0].shape[-1]), dtype=batch[0].dtype,
+                             device=dev)
+        mask = torch.zeros((len(batch), prompt_len), dtype=torch.bool, device=dev)
+        for r, e in enumerate(batch):
+            embeds[r, :e.shape[0]], mask[r, :e.shape[0]] = e, True
+        n_wave = max(budgets[w0:w0 + slots])
+        with torch.inference_mode():
+            res, ms = host_ms(lambda: generate.greedy_generate(
+                params["llm"], cfg.llm, embeds, mask, **{**gkw, "max_new_tokens": n_wave}))
+        wave_ms += ms
+        for r in range(len(batch)):
+            n = min(int(res.lengths[r]), budgets[w0 + r])
+            wave_tokens.append(res.tokens[r, :n])
+            emitted += n
+    vals, counts = torch.unique(torch.cat(wave_tokens), return_counts=True)
+    seg = int(vals[counts.argmax()])
+    log(f"  waves of {slots} through greedy_generate: wall_ms={wave_ms:.1f}, "
+        f"{emitted} tokens within the budgets, {emitted / wave_ms * 1e3:.1f} tokens/s; "
+        f"[SEG] := {seg}, the token the waves emit most")
+
+    batcher = serving.ContinuousBatcher(
+        params["llm"], cfg.llm, batch_size=slots, prompt_len=prompt_len, max_new_tokens=max_new,
+        segment=segment, eos_id=2, flash_fn=flash_fn, seg_token_ids=(seg,),
+        max_segs_per_answer=16, kv_quant="int4_flat", device=dev)
+    calls = {"admit": [], "segment": []}
+    expect = {"admit": dict(flash_attention=n_layers, int4_matmul_pallas=1),
+              "segment": dict(decode_attention_q=segment * n_layers,
+                              int4_matmul_pallas=segment * (n_layers + 1),
+                              fused_mlp_int4=segment * n_layers)}
+    admit, decode = batcher._admit_row, batcher._decode_segment
+
+    def counted(kind, fn, timer):
+        def call(*a):
+            before = {f.__name__: f.launches for f in KERNELS}
+            out, ms = timer(lambda: fn(*a))
+            launched = {f.__name__: f.launches - before[f.__name__] for f in KERNELS}
+            calls[kind].append((ms, _nonzero(launched)))
+            return out
+        return call
+    batcher._admit_row = counted("admit", admit, host_ms)
+    batcher._decode_segment = counted("segment", decode, host_ms)
+    fin, wall = host_ms(lambda: batcher.run(reqs, budgets))
+    launches = {f.__name__: f.launches for f in KERNELS}
+    bad = [(kind, l) for kind in calls for _, l in calls[kind] if l != expect[kind]]
+    seg_walls = [ms for ms, _ in calls["segment"]]
+    n_tok = sum(len(f.tokens) for f in fin)
+    log(f"  continuous batcher: wall_ms={wall:.1f} for {len(fin)} requests, {n_tok} tokens, "
+        f"{n_tok / wall * 1e3:.1f} tokens/s over the pool; {len(calls['admit'])} admits "
+        f"(wall_ms mean {np.mean([ms for ms, _ in calls['admit']]):.1f}), "
+        f"{len(seg_walls)} segments of {segment} steps (wall_ms mean {np.mean(seg_walls):.1f}, "
+        f"per step {np.mean(seg_walls) / segment:.2f}); completion order "
+        f"{[f.request_id for f in fin]}; launches per admit and per segment as expected: "
+        f"{not bad}")
+    if bad:
+        raise AssertionError(f"serving: launches per call {bad[:2]}, expected {expect}")
+    # the device time of a segment: the first `slots` requests again, two
+    # full segments each under the profiler (the same pool, every slot busy)
+    seg_dev = []
+    batcher._admit_row = admit
+    batcher._decode_segment = lambda *a: (lambda r: (seg_dev.append(r[1]), r[0])[1])(
+        profiled(lambda: decode(*a), {}))
+    again = batcher.run(reqs[:slots], [2 * segment] * slots)
+    batcher._decode_segment = decode
+    first = {f.request_id: f.tokens for f in fin}
+    same = all(f.tokens == first[f.request_id][:2 * segment] for f in again)
+    log(f"  {len(seg_dev)} segments of the first {slots} requests again, under the profiler "
+        f"(tokens the first run's: {same}): device_ms per segment mean {np.mean(seg_dev):.1f}, "
+        f"per step {np.mean(seg_dev) / segment:.2f}; device_busy "
+        f"{np.mean(seg_dev) / np.mean(seg_walls):.3f} of the first run's mean segment wall")
+
+    ok = len(fin) == len(reqs) and all(len(f.tokens) <= budgets[f.request_id] for f in fin)
+    top2 = sorted(range(len(reqs)), key=lambda r: -budgets[r])[:2]
+    by_id = {f.request_id: f for f in fin}
+    for r in top2:
+        embeds, m = alone(reqs[r])
+        with torch.inference_mode():
+            res = generate.greedy_generate(params["llm"], cfg.llm, embeds, m,
+                                           **{**gkw, "max_new_tokens": budgets[r]})
+        same = res.tokens[0, :int(res.lengths[0])].tolist() == by_id[r].tokens
+        ok &= same
+        log(f"  request {r} (budget {budgets[r]}): {len(by_id[r].tokens)} tokens, identical to "
+            f"greedy_generate of it alone: {same}")
+    hw = (768, 1024)
+    masks_ok, n_seg = True, 0
+    feats = torch.cat([e[0] for e in encoded])
+    with torch.inference_mode():
+        for f in fin:
+            n = f.seg_hidden.shape[0]
+            n_seg += n
+            if not n:
+                continue
+            emb = ctp_apply(params["ctp"][0], torch.from_numpy(f.seg_hidden).to(
+                dev, params["llm"]["embed_tokens"]["w"].dtype))
+            img = torch.full((n,), f.request_id % n_images, device=dev)
+            canvas, scores = walkgpt.decode_seg_masks(params, cfg, feats, emb, img,
+                                                      torch.tensor([hw] * n_images, device=dev))
+            final = walkgpt.finalize_masks(canvas, hw, hw)
+            masks_ok &= (final.shape == (n, *hw) and bool(torch.isfinite(final).all())
+                         and bool(torch.isfinite(scores).all()))
+    log(f"  {n_seg} [SEG] rows through CTP, decode_seg_masks and finalize_masks: finite masks "
+        f"of shape (n, {hw[0]}, {hw[1]}): {masks_ok}; batcher {n_tok / wall * 1e3:.1f} tokens/s "
+        f"against the waves' {emitted / wave_ms * 1e3:.1f} (no gain is claimed: these are the "
+        f"numbers a later benchmark cell starts from)")
+    if not (ok and masks_ok and n_seg):
+        raise AssertionError("serving at full width: requests, tokens or masks wrong")
     return launches
 
 
@@ -1372,6 +1979,78 @@ def phase_w8a8_blocks(dev, seed):
     log(f"  launches: {_nonzero(launches)}")
     if not (ok and launches["quantize_tokens"] == 8 and launches["w8a8_gemm"] == 8):
         raise AssertionError("W8A8 ViT-H blocks: K13a/K13b disagree with nn.linear")
+    return launches
+
+
+def phase_window_blocks(dev, seed):
+    """K10 on the ViT-H encoder's own activations (the JAX package's
+    benchmarks/profile_sam.py:105-118 with the port): the first windowed
+    block of the dense WalkGPT-7B encoder (random weights from the seed,
+    rel-pos tables drawn at 0.1 instead of init's zeros so that the bias is
+    real) for 2 images at 1024^2: ln1, window partition, qkv, heads split
+    out as strided views, sam_encoder._rel_projections, then K10, against
+    the block's own K2 path (its packed rel projections) and K10's plain
+    version; then one backward through K10b with respect to q, k, v and the
+    rel tables against K2b's on the same leaves. Every launch count is set
+    to 0 here and read at the end."""
+    log("== phase 4e: K10 and K10b on a ViT-H windowed block's own activations")
+    cfg = walkgpt_7b_config().sam
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    ws, h = cfg.window_size, cfg.num_heads
+    c = cfg.embed_dim
+    d = c // h
+    enc = sam_encoder.init(g, cfg, dtype=torch.bfloat16)
+    blk = enc["blocks"][0]
+    for name in ("rel_pos_h", "rel_pos_w"):
+        blk[name] = 0.1 * torch.randn(blk[name].shape, generator=g, device=dev).bfloat16()
+    images = torch.randn(2, cfg.img_size, cfg.img_size, 3, generator=g, device=dev)
+    for f in KERNELS:
+        f.launches = 0
+    with torch.no_grad():
+        x = nn.conv2d(enc["patch_embed"], images.bfloat16(),
+                      stride=(cfg.patch_size, cfg.patch_size), padding="VALID")
+        x = x + enc["pos_embed"].to(x.dtype)
+        xw, _ = attention.window_partition(nn.layer_norm(blk["ln1"], x), ws)
+        bw = xw.shape[0]
+        qkv = nn.linear(blk["qkv"], xw.reshape(bw, ws * ws, c))
+    q, k, v = (attention.split_heads(t, h) for t in qkv.split(c, dim=-1))
+    rel_h, rel_w = sam_encoder._rel_projections(q, blk["rel_pos_h"], blk["rel_pos_w"], ws, ws)
+    rel = sam_encoder._rel_projections_packed(qkv[:, :, :c], blk["rel_pos_h"],
+                                              blk["rel_pos_w"], ws, h)
+    out, lse = fa.sam_window_attention(q, k, v, rel_h, rel_w, ws, return_lse=True)
+    block_out, block_lse = fa.sam_window_attention_packed(qkv, rel, h, d, ws, return_lse=True)
+    plain, plain_lse = fa.sam_window_attention_reference(q, k, v, rel_h, rel_w, ws)
+    same = torch.equal(_merge(out), block_out) and torch.equal(lse, block_lse.transpose(1, 2))
+    rel_same = torch.equal(torch.cat([_merge(rel_h), _merge(rel_w)], -1), rel)
+    block_err = errors(_merge(out), block_out)
+    plain_err = errors(out, plain)
+    ok = (block_err[0] <= BF16_MAX_ABS and block_err[1] <= BF16_MEAN_ABS
+          and plain_err[0] <= BF16_MAX_ABS and plain_err[1] <= BF16_MEAN_ABS
+          and errors(lse, plain_lse)[0] <= 1e-2 and bool(torch.isfinite(out.float()).all()))
+    log(f"  q/k/v {tuple(q.shape)} bf16 (strided views of the qkv projection), rel "
+        f"{tuple(rel_h.shape)}: K10 against the block's K2 path max_abs={block_err[0]:.3e} "
+        f"mean_abs={block_err[1]:.3e} (bit for bit: {same}; the two rel projections equal: "
+        f"{rel_same}); against its plain version max_abs={plain_err[0]:.3e} "
+        f"mean_abs={plain_err[1]:.3e} -> {'ok' if ok else 'FAIL'}")
+    # one backward of each path, on the same leaves
+    go = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+    leaves = [t.detach().clone().requires_grad_() for t in (qkv, rel_h, rel_w)]
+    lq, lk, lv = (attention.split_heads(t, h) for t in leaves[0].split(c, dim=-1))
+    split_out = fa.sam_window_attention(lq, lk, lv, leaves[1], leaves[2], ws)
+    split_grads = torch.autograd.grad(split_out, leaves, go)
+    packed_rel = torch.cat([_merge(leaves[1]), _merge(leaves[2])], -1)
+    packed_out = fa.sam_window_attention_packed(leaves[0], packed_rel, h, d, ws)
+    packed_grads = torch.autograd.grad(packed_out, leaves, _merge(go))
+    grads_same = all(torch.equal(a, b) for a, b in zip(split_grads, packed_grads))
+    worst = max(errors(a, b)[0] / max(1.0, float(b.float().abs().max()))
+                for a, b in zip(split_grads, packed_grads))
+    launches = {f.__name__: f.launches for f in KERNELS}
+    log(f"  backward to qkv, rel_h and rel_w through K10b against K2b: bit for bit "
+        f"{grads_same} (largest difference relative to its gradient {worst:.3e}); launches "
+        f"{_nonzero(launches)}")
+    if not (ok and (grads_same or worst <= BF16_MAX_ABS)
+            and launches["sam_window_attention"] == 2 and launches["sam_window_attention_bwd"] == 1):
+        raise AssertionError("ViT-H windowed block: K10/K10b disagree with the K2 path")
     return launches
 
 
@@ -1793,11 +2472,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     numbers.update(phase_tail_gemm_kernels(dev, args.seed))
     torch.cuda.empty_cache()
+    numbers.update(phase_window_split_kernels(dev, args.seed))
+    torch.cuda.empty_cache()
     phase_parity(dev, args.seed)
     torch.cuda.empty_cache()
     phase_parity_quant(dev, args.seed)
     torch.cuda.empty_cache()
     phase_parity_spec(dev, args.seed)
+    torch.cuda.empty_cache()
+    phase_serving_parity(dev, args.seed)
     torch.cuda.empty_cache()
     phase_parity_train(dev, args.seed)
     torch.cuda.empty_cache()
@@ -1813,7 +2496,7 @@ def main(argv=None) -> int:
          dict(fused=True)),
         ("WalkGPT-7B int4x + int4_flat + int8 SAM",
          walkgpt_7b_config().replace(kv_quant_cache="int4_flat", **prod), quantized(FORMAT_7B),
-         dict(speculative=True, fused_layer_tail=True)),
+         dict(speculative=True, fused_layer_tail=True, serve=True)),
         ("WalkGPT-1B w8a8 + int8_flat + int8 SAM",
          flagship_1b_config().replace(kv_quant_cache="int8_flat", **prod), quantized(FORMAT_1B),
          dict(speculative=True)),
@@ -1829,6 +2512,10 @@ def main(argv=None) -> int:
     launches = add(launches, phase_w8a8_blocks(dev, args.seed))
     torch.cuda.empty_cache()
     log(f"  W8A8 blocks: phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = add(launches, phase_window_blocks(dev, args.seed))
+    torch.cuda.empty_cache()
+    log(f"  ViT-H windowed block through K10/K10b: phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = add(launches, phase_train(dev, args.seed))
     log(f"  training: phase {time.perf_counter() - t0:.1f} s")

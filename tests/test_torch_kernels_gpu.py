@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K8, K11, K12, K13a/b and the backward kernels K1b-K3b
+"""The CUDA kernels K1-K8, K10-K13a/b and the backward kernels K1b-K3b, K10b
 against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (they build csrc/ on first use) and
@@ -29,6 +29,9 @@ version's bit for bit (same fp32 division, same rounding to x's dtype, same
 half-to-even round); K13b's int32 sums are exact and its epilogue is the
 plain version's operation for operation, so its outputs agree to erff /
 tanhf last places: rtol 1e-6 in fp32, one bf16 step (2^-8) in bf16.
+K10 and K10b take K2's and K2b's bounds (a bf16 output of either, or a
+bf16 q with fp32 rel tables, the bf16 ones); K10 runs K2's engine with the
+same logits, so on repacked values its out and lse equal K2's bit for bit.
 """
 import pytest
 import torch
@@ -200,6 +203,7 @@ def test_k6_k7_kernels_match_plain(dev, dtype, fmt, m, h, i_dim, act):
 
 
 @pytest.mark.parametrize("m,k,n", [(2, 4096, 4096), (2, 2048, 6144), (9800, 1280, 3840),
+                                   (27, 32, 512),
                                    (3, 20, 12)])
 def test_int8_product_on_the_card_is_exact(dev, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m + k + n)
@@ -400,6 +404,81 @@ def test_backward_wrappers_raise_instead_of_falling_back(dev):
                                            qkv[..., :16])
     assert [f.launches for f in fa.KERNELS] == before
 
+
+
+# ---------------------------------------------------------------------------
+# K10 / K10b: windowed attention over the split-head layout
+# ---------------------------------------------------------------------------
+
+def _k10_inputs(dev, dtype, rel_dtype, bw, h, ws, d, seed):
+    """q, k, v as strided head views of one projection (as the encoder's
+    split_heads gives them), rel_h, rel_w in rel_dtype, the cotangent."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = ws * ws
+    qkv = torch.randn(bw, t, 3 * h * d, generator=g, device=dev).to(dtype)
+    q, k, v = (x.reshape(bw, t, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
+    rel_h, rel_w = (torch.randn(bw, h, t, ws, generator=g, device=dev).to(rel_dtype)
+                    for _ in range(2))
+    go = torch.randn(bw, h, t, d, generator=g, device=dev).to(dtype)
+    return q, k, v, rel_h, rel_w, go
+
+
+K10_CASES = [(torch.float32, torch.float32, 3, 2, 3, 16), (torch.float32, torch.float32, 5, 3, 5, 80),
+             (torch.bfloat16, torch.bfloat16, 4, 2, 14, 80),
+             (torch.bfloat16, torch.float32, 3, 3, 5, 20)]
+
+
+@pytest.mark.parametrize("dtype,rel_dtype,bw,h,ws,d", K10_CASES)
+def test_k10_kernel_matches_plain_and_k2(dev, dtype, rel_dtype, bw, h, ws, d):
+    q, k, v, rel_h, rel_w, _ = _k10_inputs(dev, dtype, rel_dtype, bw, h, ws, d, ws * d + 4)
+    before = fa.sam_window_attention.launches
+    out, lse = fa.sam_window_attention(q, k, v, rel_h, rel_w, ws, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.sam_window_attention.launches == before + 1
+    ref, ref_lse = fa.sam_window_attention_reference(q, k, v, rel_h, rel_w, ws)
+    _close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    if rel_dtype == dtype:      # K2 on the same values, repacked: one engine, bit for bit
+        merge = lambda x: x.transpose(1, 2).reshape(bw, ws * ws, -1)
+        packed, packed_lse = fa.sam_window_attention_packed(
+            torch.cat([merge(x) for x in (q, k, v)], -1), torch.cat([merge(rel_h), merge(rel_w)], -1),
+            h, d, ws, return_lse=True)
+        assert torch.equal(merge(out), packed) and torch.equal(lse, packed_lse.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype,rel_dtype,bw,h,ws,d", K10_CASES)
+def test_k10b_kernel_matches_plain(dev, dtype, rel_dtype, bw, h, ws, d):
+    q, k, v, rel_h, rel_w, go = _k10_inputs(dev, dtype, rel_dtype, bw, h, ws, d, ws * d + 5)
+    out, lse = fa.sam_window_attention(q, k, v, rel_h, rel_w, ws, return_lse=True)
+    before = fa.sam_window_attention_bwd.launches
+    got = fa.sam_window_attention_bwd(q, k, v, rel_h, rel_w, ws, out, lse, go)
+    torch.cuda.synchronize()
+    assert fa.sam_window_attention_bwd.launches == before + 1
+    want = fa.sam_window_attention_bwd_reference(q, k, v, rel_h, rel_w, ws, out, lse, go)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.isfinite(a.float()).all()
+        if a.dtype == torch.float32 and dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            _close_scaled(a, b, torch.bfloat16)
+    auto = _autograd(lambda *x: fa.sam_window_attention(*x, ws), (q, k, v, rel_h, rel_w), go)
+    assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+def test_k10_wrappers_raise_instead_of_falling_back(dev):
+    q = torch.zeros(1, 1, 9, 16, device=dev)
+    rel = torch.zeros(1, 1, 9, 3, device=dev)
+    lse = torch.zeros(1, 1, 9, device=dev)
+    before = [f.launches for f in fa.KERNELS]
+    with pytest.raises(ValueError):                         # fp16: no kernel
+        fa.sam_window_attention(q.half(), q.half(), q.half(), rel.half(), rel.half(), 3)
+    with pytest.raises(ValueError):                         # T != ws * ws
+        fa.sam_window_attention(q, q, q, rel, rel, 2)
+    with pytest.raises(ValueError):                         # rel on the CPU
+        fa.sam_window_attention(q, q, q, rel.cpu(), rel.cpu(), 3)
+    with pytest.raises(ValueError):                         # rel in bf16 with fp32 q
+        fa.sam_window_attention_bwd(q, q, q, rel.bfloat16(), rel.bfloat16(), 3, q, lse, q)
+    assert [f.launches for f in fa.KERNELS] == before
 
 def test_quantizers_give_the_cpus_codes_and_scales(dev):
     """The quantizers divide by a 0-d tensor (core/nn.div_exact): a Python

@@ -284,3 +284,102 @@ def test_generate_seg_embeds_matches_jax(slice_setup):
                                           np.asarray(getattr(want, name)), err_msg=name)
         np.testing.assert_allclose(got.pred_embeddings.numpy(), np.asarray(want.pred_embeddings),
                                    atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# WalkGPT-1B's W8A8 format at demo_config: where the port and JAX part
+# ---------------------------------------------------------------------------
+
+def _jax_a8_recorder(monkeypatch, records):
+    """Record, in call order, every W8A8 activation code of the JAX
+    package's nn.linear with the value it is rounded from (the quantize of
+    walkgpt_tpu/core/nn.py:103-123, recomputed), through an ordered debug
+    callback so that the calls inside jit and the speculative while loop are
+    seen at run time."""
+    from walkgpt_tpu.core import nn as jnn
+    linear = jnn.linear
+
+    def add(pre, codes):
+        records.append(("nn.quantize_a8", torch.tensor(np.asarray(pre, np.float32)),
+                        torch.tensor(np.asarray(codes))))
+
+    def recorded(p, x, amax_reduce=None):
+        if "a8" in p:
+            ax = jnp.max(jnp.abs(x), axis=-1, keepdims=True)
+            inv = (127.0 / jnp.maximum(ax.astype(jnp.float32), 1e-8)).astype(x.dtype)
+            pre = x * inv
+            jax.debug.callback(add, pre, jnp.clip(jnp.round(pre), -127, 127).astype(jnp.int8),
+                               ordered=True)
+        return linear(p, x, amax_reduce)
+    monkeypatch.setattr(jnn, "linear", recorded)
+
+
+def test_w8a8_speculative_at_demo_config_parts_from_jax_only_at_a_rounding_edge(monkeypatch):
+    """demo_config in WalkGPT-1B's W8A8 format over the int8_flat cache with
+    speculative_k=8 (the request of chip_smoke.py's phase 3c), the port on
+    the CPU against JAX on the CPU, same weights and inputs: SAM encode,
+    MSQP, splice, then speculative_generate. W8A8 requantizes every
+    activation: of the ~10^7 codes of this request a few lie so close to a
+    .5 boundary that the two frameworks' fp32 sums (another order) put them
+    on either side, and one code moves the hidden states by about 1e-2, so
+    tokens can part where two logits are near-tied. The runs must either
+    agree on every W8A8 code and then give identical tokens, lengths,
+    n_iters and [SEG] rows, or part first at a code whose values before
+    rounding straddle its .5 boundary within the call's fp32 drift, that
+    drift a small fraction of a code step (no other cause). The card
+    against the CPU parts the same way (chip_smoke.py phase 3c reports
+    where)."""
+    import chip_smoke
+    jc = jcfg.demo_config().replace(kv_quant_cache="int8_flat")
+    tc = tcfg.demo_config().replace(kv_quant_cache="int8_flat")
+    pt = twalk.init_quantized(tc, seed=0, dtype=torch.float32, device="cpu", act_quant=True)
+    pj = jax.tree_util.tree_map(lambda x: jnp.asarray(x.numpy()) if torch.is_tensor(x) else x,
+                                pt)
+    rng = np.random.RandomState(4)
+    ids, mask = np.zeros((3, 48), np.int64), np.zeros((3, 48), bool)
+    for r, n in enumerate([40, 27, 33]):
+        ids[r, :n] = rng.randint(3, 32000, n)
+        ids[r, :2] = [1, -200]
+        mask[r, :n] = True
+    images = rng.randn(2, 256, 256, 3).astype(np.float32)
+    rows = np.array([0, 1, 1])
+    hist = np.where(mask & (ids >= 0), ids, -2)
+    kw = dict(max_new_tokens=16, eos_id=-1, kv_quant="int8_flat", draft_k=8)
+
+    def jax_pipeline(p, images, ids, mask, rows, hist):
+        _, tokens = jwalk.encode_sam(p, jc, images)
+        sp = jwalk.splice_visual(p, jc, ids, jwalk.visual_tokens(p, jc, tokens)[rows],
+                                 attention_mask=mask)
+        return jgen.speculative_generate(p["llm"], jc.llm, sp.embeds, sp.attention_mask,
+                                         prompt_ids=hist, **kw)
+    jrec = []
+    _jax_a8_recorder(monkeypatch, jrec)
+    want = jax.jit(jax_pipeline)(pj, *(jnp.asarray(x) for x in (
+        images, ids.astype(np.int32), mask, rows, hist.astype(np.int32))))
+    jax.effects_barrier()
+
+    with chip_smoke._Quantizers() as rec:
+        _, tokens = twalk.encode_sam(pt, tc, _t(images))
+        sp = twalk.splice_visual(pt, tc, _t(ids), twalk.visual_tokens(pt, tc, tokens)[_t(rows)],
+                                 attention_mask=_t(mask))
+        got = tgen.speculative_generate(pt["llm"], tc.llm, sp.embeds, sp.attention_mask,
+                                        prompt_ids=_t(hist), **kw)
+    trec = [r for r in rec.records if r[0] == "nn.quantize_a8"]
+    assert len(trec) > 100 and len(jrec) > 100
+    first = chip_smoke.first_code_difference(trec, jrec)
+    if first is None:
+        np.testing.assert_array_equal(got.tokens.numpy(), np.asarray(want.tokens))
+        np.testing.assert_array_equal(got.lengths.numpy(), np.asarray(want.lengths))
+        assert got.n_iters == int(want.n_iters)
+        seg = int(np.bincount(got.tokens.numpy().ravel()).argmax())
+        np.testing.assert_array_equal(np.nonzero(got.tokens.numpy() == seg),
+                                      np.nonzero(np.asarray(want.tokens) == seg))
+        return
+    assert "diverged" not in first, first                   # the same calls up to there
+    a, b, edge = first["card_pre"], first["cpu_pre"], first["boundary"]
+    assert min(a, b) < edge < max(a, b), first              # the two sides straddle it
+    assert first["distance"] <= first["drift"], first       # within the call's drift
+    # the values before rounding agree to within a thousandth of a code step:
+    # the fp32 noise of the encoder, MSQP and splice ahead (their features
+    # agree to about 1e-5), nothing that moves a code by itself
+    assert first["drift"] <= 1e-3, first

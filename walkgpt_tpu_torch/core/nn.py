@@ -114,14 +114,15 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     The JAX package leaves this product to XLA; here it is a library call
     too: `a.int() @ b.int()` on the CPU, and on CUDA `torch._int_mm`
     (cuBLASLt), which takes no fewer than 17 rows and K, N in multiples of
-    8 — short or ragged operands are zero-padded (exact) and the result
-    sliced. A float product of int8 values is not exact at K = 4096
-    (127^2 * 4096 > 2^24)."""
+    8, and at a short K (K7's 32-wide tiles) refuses a row count that is
+    not a multiple of 8 — short or ragged operands are zero-padded (exact)
+    and the result sliced. A float product of int8 values is not exact at
+    K = 4096 (127^2 * 4096 > 2^24)."""
     if a.device.type != "cuda":
         return a.int() @ b.int()
     m, k = a.shape
     n = b.shape[1]
-    pad_m = 32 - m if m <= 16 else 0
+    pad_m = 32 - m if m <= 16 else -m % 8
     pad_k, pad_n = -k % 8, -n % 8
     if pad_m or pad_k:
         a = F.pad(a, (0, pad_k, 0, pad_m))

@@ -472,6 +472,11 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
     rows = torch.arange(b, device=inputs_embeds.device)
     n_rep = cfg.num_heads // cfg.num_kv_heads
     flat, quant = _cache_is_flat(kv_cache), "k_scale" in kv_cache
+    # per-row slots: a row at or past the cache's end (the continuous
+    # batcher's rows that run past their budget within a segment, whose
+    # outputs are dropped) writes the last slot, which it alone reads; the
+    # JAX package drops that write. No index leaves the buffer.
+    slot = cache_len.clamp_max(kv_cache["k"].shape[2 if flat else 3] - 1)
 
     def put(buf, length_dim, val):                  # val [B, 1, ...]: one slot per row
         val = val[:, 0]
@@ -481,9 +486,9 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
             else:
                 buf[i, :, :, write_slot] = val
         elif length_dim == 1:
-            buf[i, rows, cache_len] = val
+            buf[i, rows, slot] = val
         else:
-            buf[i, rows, :, cache_len] = val
+            buf[i, rows, :, slot] = val
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):

@@ -25,6 +25,14 @@ K3 sam_flash_attention (csrc/sam_flash_attention.cu)
     [2, 16, 4096, 80] bf16, about 172 GFLOP, bound by operations (about
     174 us at 989 TFLOP/s bf16).
 
+K10 sam_window_attention (csrc/sam_window_attention_split.cu)
+    Replaces walkgpt_tpu/ops/flash_attention.py:sam_window_attention
+    (_win_fwd_kernel): K2's function over the split-head layout, q/k/v
+    [BW, H, T, D] and rel_h/rel_w [BW, H, T, ws] (in q's dtype or fp32), on
+    K2's engine, so on the same values its output is K2's bit for bit. No
+    model path calls it (the encoder's windowed blocks take K2). ViT-H, 2
+    images: [50, 16, 196, 80] bf16, about 110 MB, bound by bytes (33 us).
+
 K1b flash_attention_bwd (csrc/flash_attention_bwd.cu), K2b
 sam_window_attention_packed_bwd (csrc/sam_window_attention_bwd.cu), K3b
 sam_flash_attention_bwd (csrc/sam_flash_attention_bwd.cu)
@@ -33,6 +41,8 @@ sam_flash_attention_bwd (csrc/sam_flash_attention_bwd.cu)
     backward of its forward's torch.autograd.Function, which saves out and
     lse (on CPU tensors the Function runs the plain forward and the plain
     backward, *_bwd_reference, which repeats the TPU backward's arithmetic).
+    K10b sam_window_attention_bwd (csrc/sam_window_attention_split_bwd.cu)
+    is K10's, replacing _win_vjp_bwd, on K2b's engine.
     One two-pass engine (csrc/attention_bwd.cuh): a dq pass per 64-query
     tile, which also sums K2b/K3b's rel-pos gradients, and a dk/dv pass per
     64-key tile, both recomputing p from lse; no atomics. 7B training
@@ -104,6 +114,10 @@ _SIGNATURES = {
                                     [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
     "wg_sam_flash_attention_bwd": ("sam_flash_attention_bwd",
                                    [_P] * 13 + [_I] * 6 + [_F, _I, _P]),
+    "wg_sam_window_split_fwd": ("sam_window_attention_split",
+                                [_P] * 7 + [_I] * 5 + [_P, _F, _I, _I, _P]),
+    "wg_sam_window_split_bwd": ("sam_window_attention_split_bwd",
+                                [_P] * 13 + [_I] * 5 + [_F, _I, _I, _P]),
 }
 
 
@@ -300,53 +314,49 @@ def _win_merge(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(x.shape[0], x.shape[2], -1)
 
 
-def _win_logits(qkv, rel, h: int, d: int, ws: int):
-    """(s [BW, H, T, T] fp32 with the bias, q, k, v [BW, H, T, D]): q*scale
-    rounded to qkv's dtype before the product, bias rel_h[k // ws] +
-    rel_w[k % ws]."""
+def _win_split_logits(q, k, rel_h, rel_w, ws: int) -> torch.Tensor:
+    """s [BW, H, T, T] fp32 with the bias, from the split layout: q*scale
+    rounded to q's dtype before the product, bias rel_h[k // ws] +
+    rel_w[k % ws] formed in fp32. The plain versions of K2 and K10 both
+    take their logits here."""
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(), k.float())
+    key = torch.arange(q.shape[2], device=q.device)
+    return s + (rel_h.float()[..., key // ws] + rel_w.float()[..., key % ws])
+
+
+def _win_split_heads(qkv, rel, h: int, d: int, ws: int):
+    """K2's packed layout -> K10's split one: (q, k, v [BW, H, T, D],
+    rel_h, rel_w [BW, H, T, ws])."""
     c = h * d
     q, k, v = (_win_heads(qkv[..., i * c:(i + 1) * c], h, d) for i in range(3))
-    rh, rw = _win_heads(rel[..., :h * ws], h, ws), _win_heads(rel[..., h * ws:], h, ws)
-    scale = torch.tensor(1.0 / math.sqrt(d), dtype=qkv.dtype)
-    s = torch.einsum("bhqd,bhkd->bhqk", (q * scale).float(), k.float())
-    key = torch.arange(qkv.shape[1], device=qkv.device)
-    return s + (rh.float()[..., key // ws] + rw.float()[..., key % ws]), q, k, v
+    return q, k, v, _win_heads(rel[..., :h * ws], h, ws), _win_heads(rel[..., h * ws:], h, ws)
 
 
 def sam_window_attention_packed_reference(qkv: torch.Tensor, rel: torch.Tensor,
                                           num_heads: int, head_dim: int, window: int
                                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2. qkv [BW, T, 3*H*D], rel [BW, T, 2*H*ws].
-    Returns (out [BW, T, H*D] in qkv's dtype, lse [BW, T, H] fp32)."""
-    s, _, _, v = _win_logits(qkv, rel, num_heads, head_dim, window)
-    o, lse = _softmax_rows(s, v, qkv.dtype)
-    return _win_merge(o).to(qkv.dtype), lse.transpose(1, 2)
+    """Plain version of K2: K10's plain version on the heads split out of
+    the packed layout. qkv [BW, T, 3*H*D], rel [BW, T, 2*H*ws]. Returns
+    (out [BW, T, H*D] in qkv's dtype, lse [BW, T, H] fp32)."""
+    o, lse = sam_window_attention_reference(
+        *_win_split_heads(qkv, rel, num_heads, head_dim, window), window)
+    return _win_merge(o), lse.transpose(1, 2)
 
 
 def sam_window_attention_packed_bwd_reference(qkv, rel, num_heads: int, head_dim: int,
                                               window: int, out, lse, g
                                               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2b, the arithmetic of the JAX _win_packed_bwd_kernel:
-    s formed as the forward forms it, p = exp(s - lse) in fp32 (the forward
-    rounds p for its value product; this does not), ds = p * (g . v -
-    delta); dq = ds . k * scale, dk = ds^T . q * scale, dv = p^T . g;
-    drel_h[q, r] = sum of ds over the keys of window row r, drel_w[q, c]
-    over window column c. Returns (dqkv [BW, T, 3*H*D], drel [BW, T,
+    """Plain version of K2b, the arithmetic of the JAX _win_packed_bwd_kernel,
+    which is K10b's (sam_window_attention_bwd_reference) on the heads split
+    out of the packed layouts. Returns (dqkv [BW, T, 3*H*D], drel [BW, T,
     2*H*ws]) in the inputs' dtypes."""
     h, d, ws = num_heads, head_dim, window
-    s, q, k, v = _win_logits(qkv, rel, h, d, ws)
-    p = torch.exp(s - lse.transpose(1, 2)[..., None])
-    gh = _win_heads(g, h, d)
-    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gh.float(), v.float())
-              - _delta(gh, _win_heads(out, h, d))[..., None])
-    scale = 1.0 / math.sqrt(d)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, gh.float())
-    ds5 = ds.reshape(*ds.shape[:3], ws, ws)
-    dqkv = torch.cat([_win_merge(x) for x in (dq, dk, dv)], dim=-1).to(qkv.dtype)
-    drel = torch.cat([_win_merge(ds5.sum(-1)), _win_merge(ds5.sum(-2))], dim=-1)
-    return dqkv, drel.to(rel.dtype)
+    grads = sam_window_attention_bwd_reference(
+        *_win_split_heads(qkv, rel, h, d, ws), ws, _win_heads(out, h, d),
+        lse.transpose(1, 2), _win_heads(g, h, d))
+    return (torch.cat([_win_merge(x) for x in grads[:3]], dim=-1),
+            torch.cat([_win_merge(x) for x in grads[3:]], dim=-1))
 
 
 def _check_window(name: str, qkv, rel, h: int, d: int, ws: int) -> None:
@@ -432,6 +442,141 @@ def sam_window_attention_packed(qkv: torch.Tensor, rel: torch.Tensor, num_heads:
 
 
 sam_window_attention_packed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K10 / K10b: windowed attention over the split-head layout and its backward
+# ---------------------------------------------------------------------------
+
+def sam_window_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   rel_h: torch.Tensor, rel_w: torch.Tensor, window: int
+                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K10 (the JAX _win_fwd_kernel). q, k, v [BW, H, T,
+    D] with T = window**2; rel_h, rel_w [BW, H, T, window] in q's dtype or
+    fp32. Returns (out [BW, H, T, D] in q's dtype, lse [BW, H, T] fp32)."""
+    s = _win_split_logits(q, k, rel_h, rel_w, window)
+    o, lse = _softmax_rows(s, v, v.dtype)
+    return o.to(q.dtype), lse
+
+
+def sam_window_attention_bwd_reference(q, k, v, rel_h, rel_w, window: int, out, lse, g):
+    """Plain version of K10b, the arithmetic of the JAX _win_bwd_kernel: s
+    formed as the forward forms it, p = exp(s - lse) in fp32 (the forward
+    rounds p for its value product; this does not), ds = p * (g . v -
+    delta); dq = ds . k * scale, dk = ds^T . q * scale (q unscaled, fp32),
+    dv = p^T . g; drel_h[q, r] = sum of ds over the keys of window row r,
+    drel_w[q, c] over window column c. Returns (dq, dk, dv, drel_h,
+    drel_w) in the inputs' dtypes."""
+    ws = window
+    p = torch.exp(_win_split_logits(q, k, rel_h, rel_w, ws) - lse[..., None])
+    gf = g.float()
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", gf, v.float()) - _delta(g, out)[..., None])
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, gf)
+    ds5 = ds.reshape(*ds.shape[:3], ws, ws)
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds5.sum(-1).to(rel_h.dtype),
+            ds5.sum(-2).to(rel_w.dtype))
+
+
+def _check_split_window(name: str, q, k, v, rel_h, rel_w, ws: int) -> int:
+    """Shapes, devices and the rel tables' dtype (q's, or fp32) of K10 /
+    K10b; returns the rel dtype's code."""
+    bw, h, t, d = q.shape
+    if (t != ws * ws or k.shape != q.shape or v.shape != q.shape or d > 128
+            or tuple(rel_h.shape) != (bw, h, t, ws) or rel_w.shape != rel_h.shape):
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, rel_h {tuple(rel_h.shape)}, "
+                         f"rel_w {tuple(rel_w.shape)} for window {ws}")
+    if (rel_h.device != q.device or rel_w.device != q.device or rel_w.dtype != rel_h.dtype
+            or rel_h.dtype not in (q.dtype, torch.float32)):
+        raise ValueError(f"{name}: rel_h and rel_w must lie on q's device in q's dtype or "
+                         f"float32, got {rel_h.device} {rel_h.dtype}, {rel_w.device} "
+                         f"{rel_w.dtype} for q {q.device} {q.dtype}")
+    return _DTYPES[rel_h.dtype]
+
+
+def _window_split_fwd(q, k, v, rel_h, rel_w, ws: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return sam_window_attention_reference(q, k, v, rel_h, rel_w, ws)
+    name = "sam_window_attention"
+    dt = _check_cuda(name, q, k, v)
+    rdt = _check_split_window(name, q, k, v, rel_h, rel_w, ws)
+    bw, h, t, d = q.shape
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    rel_h, rel_w = rel_h.contiguous(), rel_w.contiguous()
+    out = torch.empty((bw, h, t, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bw, h, t), dtype=torch.float32, device=q.device)
+    _launch("wg_sam_window_split_fwd", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), bw, h, t, d, ws, _strides(q, k, v),
+            1.0 / math.sqrt(d), dt, rdt)
+    sam_window_attention.launches += 1
+    return out, lse
+
+
+def sam_window_attention_bwd(q, k, v, rel_h, rel_w, window: int, out, lse, g):
+    """K10b: (dq, dk, dv, drel_h, drel_w) of sam_window_attention for the
+    output gradient g, from the forward's out and lse. Two launches: a dq
+    pass per 64-query tile that also sums drel_h and drel_w, and a dk/dv
+    pass per 64-key tile of each (window, head)."""
+    ws = window
+    if q.device.type == "cpu":
+        return sam_window_attention_bwd_reference(q, k, v, rel_h, rel_w, ws, out, lse, g)
+    name = "sam_window_attention_bwd"
+    dt = _check_cuda(name, q, k, v, g)
+    rdt = _check_split_window(name, q, k, v, rel_h, rel_w, ws)
+    bw, h, t, d = q.shape
+    if g.shape != q.shape or tuple(lse.shape) != (bw, h, t):
+        raise ValueError(f"{name}: bad g {tuple(g.shape)} or lse {tuple(lse.shape)}")
+    q, k, v, g, rel_h, rel_w = (x.contiguous() for x in (q, k, v, g, rel_h, rel_w))
+    lse, delta = lse.float().contiguous(), _delta(g, out).contiguous()
+    grads = [torch.empty_like(x) for x in (q, k, v, rel_h, rel_w)]
+    _launch("wg_sam_window_split_bwd", q.device,
+            *[x.data_ptr() for x in (q, k, v, rel_h, rel_w, g, lse, delta, *grads)],
+            bw, h, t, d, ws, 1.0 / math.sqrt(d), dt, rdt)
+    sam_window_attention_bwd.launches += 1
+    return tuple(grads)
+
+
+sam_window_attention_bwd.launches = 0
+
+
+class _SamWindowSplit(torch.autograd.Function):
+    """K10 forward, K10b backward (the plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, window):
+        out, lse = _window_split_fwd(q, k, v, rel_h, rel_w, window)
+        ctx.window = window
+        ctx.save_for_backward(q, k, v, rel_h, rel_w, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, _g_lse):
+        q, k, v, rel_h, rel_w, out, lse = ctx.saved_tensors
+        return (*sam_window_attention_bwd(q, k, v, rel_h, rel_w, ctx.window, out, lse, g),
+                None)
+
+
+def sam_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         rel_h: torch.Tensor, rel_w: torch.Tensor, window: int, *,
+                         return_lse: bool = False):
+    """K10: whole-window attention with the decomposed rel-pos bias over the
+    split-head layout (K2's function, heads split out). q/k/v: [BW, H, T,
+    D] with BW = batch * windows and T = window**2; rel_h, rel_w: [BW, H,
+    T, window], the per-axis rel-pos projections, in q's dtype or fp32.
+    Zero-padded window tokens are attended, as in the reference. Returns
+    out [BW, H, T, D] (and lse [BW, H, T] fp32 when return_lse).
+    Differentiable in q, k, v, rel_h and rel_w: the backward is K10b. No
+    model path calls it: the encoder's windowed blocks take K2."""
+    out, lse = _SamWindowSplit.apply(q, k, v, rel_h, rel_w, int(window))
+    return (out, lse) if return_lse else out
+
+
+sam_window_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -887,4 +1032,5 @@ decode_attention.launches = 0
 
 KERNELS = (flash_attention, sam_window_attention_packed, sam_flash_attention,
            decode_attention_q, decode_attention_q_chunk, decode_attention,
-           flash_attention_bwd, sam_window_attention_packed_bwd, sam_flash_attention_bwd)
+           flash_attention_bwd, sam_window_attention_packed_bwd, sam_flash_attention_bwd,
+           sam_window_attention, sam_window_attention_bwd)
