@@ -14,9 +14,12 @@ Phases (any failure raises and the script exits non-zero):
      (decode_attention_q_chunk) at the speculative chunk of both, K8's
      tokens against K4 at the same positions bit for bit, and K11
      (decode_attention) at the dense 7B fused_decode step (2c); all in
-     bf16, and again in fp32 at small ragged shapes; kernel, plain-version
-     and library times, and the bound. The W8A8 int32 product on the card
-     against the CPU's, bit for bit.
+     bf16, and again in fp32 at small ragged shapes (K3 also in bf16 there:
+     head views at D = 20, key tiles that cut grid rows, a 16 x 16 grid,
+     whole grid rows per key tile at D = 40 and at gw = 128, contiguous and
+     as head views; the route each dtype takes is logged); kernel,
+     plain-version and library times, and the bound. The W8A8 int32
+     product on the card against the CPU's, bit for bit.
   3. parity: demo_config in fp32 (TF32 off) through generate_and_segment
      with the kernels and with the einsum attention, same random weights:
      identical tokens, masks within 1e-3. Then demo_config in both quantized
@@ -56,7 +59,10 @@ Phases (any failure raises and the script exits non-zero):
      questions (llava_v1 prompts, byte tokenizer, 3 images encoded once)
      through the continuous batcher (4 slots, int4_flat pool, PAVE-like
      budgets), launches per admit and per segment held exactly, the two
-     longest requests against greedy_generate alone, beside the same
+     longest requests token for token against the same request decoded
+     alone with the batcher's arithmetic (alone_in_pool), and against
+     greedy_generate alone (reported, not held: it decodes at a batch of
+     one, whose products round otherwise), beside the same
      requests in greedy_generate waves of 4.
   2e (after 2d): K12 (fused_layer_tail) at the 7B int4x decode step and at
      an int8_flat gelu shape, K13a (quantize_tokens, bit for bit) and K13b
@@ -76,8 +82,11 @@ Phases (any failure raises and the script exits non-zero):
   2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
      (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
      against their plain backwards at the training step's shapes in bf16
-     and at ragged shapes in fp32 (fully masked rows, D = 80), with kernel,
-     plain and library (SDPA backward) times and the bound.
+     and at ragged shapes in fp32 (fully masked rows, D = 80), K3b also in
+     bf16 at K3's ragged shapes and twice on the ViT-H inputs (bit-identical
+     gradients), with kernel, plain and library (SDPA backward) times and
+     the bound; K3b's dq, dk and dv against float64 products of its own p
+     and ds, SPLIT_GAIN times closer than p and ds rounded to bf16 alone.
   3d (after 3c): demo_config in fp32 with LoRA r=8, two train_steps and one
      qlora_train_step (int8 attention, int4 MLP, int8 SAM blocks) on the card
      and on the CPU: loss terms within LOSS_RTOL, trainable leaves within
@@ -89,7 +98,9 @@ Phases (any failure raises and the script exits non-zero):
      (the last with remat), the QLoRA base for 2 steps, with loss terms,
      gradient norm, wall and device ms, tokens/s, peak memory and launches
      per step (held exactly); then one backward through the ViT-H encoder
-     with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4).
+     with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4),
+     and the same backward warm under the profiler (device ms, K3's and
+     K3b's share).
 Then one JSON line with every kernel's numbers and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
@@ -139,6 +150,10 @@ FORMAT_1B = dict(act_quant=True, sam_int8=True)
 # of order one (2^-8 relative), more where an fp32 sum straddles a rounding
 # boundary of p.
 BF16_MAX_ABS, BF16_MEAN_ABS = 3e-2, 3e-3
+# K3b's dq, dk and dv against float64 products of its own fp32 p and ds
+# (all rounded to bf16): the kernel's mean error stays this many times under
+# that of rounding p and ds to bf16 alone (k3b_split_check)
+SPLIT_GAIN = 8
 FP32_ATOL = 1e-4
 # K4-K7 round inside (K4's p and alpha and K6's intermediate to bf16, K7's
 # intermediate to int8 codes), so a last-place difference before such a
@@ -196,7 +211,9 @@ KERNEL_INFO = {
     "sam_window_attention_packed": ("walkgpt_tpu_torch/csrc/sam_window_attention.cu",
                                     "walkgpt_tpu/ops/flash_attention.py:958"),
     "sam_flash_attention": ("walkgpt_tpu_torch/csrc/sam_flash_attention.cu",
-                            "walkgpt_tpu/ops/flash_attention.py:372"),
+                            "walkgpt_tpu/ops/flash_attention.py:372",
+                            ["walkgpt_tpu_torch/csrc/attention_mma.cuh",
+                             "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "decode_attention_q": ("walkgpt_tpu_torch/csrc/decode_attention_q.cu",
                            "walkgpt_tpu/ops/flash_attention.py:1327"),
     "int4_matmul_pallas": ("walkgpt_tpu_torch/csrc/int4_matmul.cu",
@@ -214,7 +231,10 @@ KERNEL_INFO = {
     "sam_window_attention_packed_bwd": ("walkgpt_tpu_torch/csrc/sam_window_attention_bwd.cu",
                                         "walkgpt_tpu/ops/flash_attention.py:984"),
     "sam_flash_attention_bwd": ("walkgpt_tpu_torch/csrc/sam_flash_attention_bwd.cu",
-                                "walkgpt_tpu/ops/flash_attention.py:641"),
+                                "walkgpt_tpu/ops/flash_attention.py:641",
+                                ["walkgpt_tpu_torch/csrc/attention_mma_bwd.cuh",
+                                 "walkgpt_tpu_torch/csrc/attention_mma.cuh",
+                                 "walkgpt_tpu_torch/csrc/attention_bwd.cuh"]),
     "fused_layer_tail": ("walkgpt_tpu_torch/csrc/fused_layer.cu",
                          "walkgpt_tpu/ops/fused_layer.py:67"),
     "quantize_tokens": ("walkgpt_tpu_torch/csrc/int8_gemm.cu",
@@ -303,9 +323,24 @@ def k2_case(dev, dtype, bw, h, d, ws, gen):
     return run, plain, library, cost
 
 
-def k3_case(dev, dtype, b, h, gh, gw, d, gen):
+def k3_route(dtype) -> str:
+    """K3/K3b's route for a dtype: bf16 on the tensor cores, fp32 on the
+    CUDA cores (the tensor cores have no exact fp32 product)."""
+    return ("tensor cores, attention_mma*.cuh" if dtype == torch.bfloat16
+            else "CUDA cores, attention_tile.cuh / attention_bwd.cuh")
+
+
+def k3_case(dev, dtype, b, h, gh, gw, d, gen, strided=False):
+    """strided: q, k, v as head views of one [B, N, 3 H D] projection, as the
+    encoder passes them (row stride 3 H D; at D = 20 the rows start 8-byte
+    aligned and the kernel takes its 2-byte loads)."""
     n = gh * gw
-    q, k, v = (torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype) for _ in range(3))
+    if strided:
+        qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=dev).to(dtype)
+        q, k, v = (x.reshape(b, n, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
     rel_h = torch.randn(b, h, n, gh, generator=gen, device=dev).to(dtype)
     rel_w = torch.randn(b, h, n, gw, generator=gen, device=dev).to(dtype)
     run = lambda: fa.sam_flash_attention(q, k, v, rel_h, rel_w, (gh, gw), return_lse=True)
@@ -389,13 +424,25 @@ def phase_kernels(dev, seed):
     }
     torch.cuda.empty_cache()
     f32 = torch.float32
-    ragged = lambda name, case: check_kernel(name, case, f32, 0, 1, "ragged")
+    ragged = lambda name, case, dtype=f32, label="ragged": check_kernel(name, case, dtype, 0, 1,
+                                                                        label)
     ragged("flash_attention", k1_case(dev, f32, 2, 3, 70, 128, [70, 59], gen))
     ragged("flash_attention", k1_case(dev, f32, 2, 2, 37, 20, [37, 30], gen))
     ragged("sam_window_attention_packed", k2_case(dev, f32, 3, 2, 80, 14, gen))
     ragged("sam_window_attention_packed", k2_case(dev, f32, 5, 3, 20, 3, gen))
     ragged("sam_flash_attention", k3_case(dev, f32, 2, 2, 5, 7, 20, gen))
     ragged("sam_flash_attention", k3_case(dev, f32, 1, 2, 16, 16, 80, gen))
+    # K3's bf16 route at the edges of its tiles: head views at D = 20
+    # (unaligned rows), key tiles that cut grid rows (gw = 40), a 16 x 16 grid;
+    # whole grid rows per key tile off the production instantiation (gw = 64
+    # at D = 40, gw = 128), contiguous and as head views
+    for (gh, gw, d), strided in (((5, 7, 20), True), ((12, 40, 64), False), ((16, 16, 80), False),
+                                 ((16, 64, 40), False), ((16, 64, 40), True),
+                                 ((8, 128, 64), False), ((8, 128, 64), True)):
+        ragged("sam_flash_attention", k3_case(dev, bf16, 2, 2, gh, gw, d, gen, strided), bf16,
+               f"ragged {gh}x{gw} D={d}{' head views' if strided else ''}")
+    for dtype in (bf16, f32):
+        log(f"  sam_flash_attention {str(dtype)[6:]} route: {k3_route(dtype)}")
     return results
 
 
@@ -676,9 +723,16 @@ def k2b_case(dev, dtype, bw, h, d, ws, gen):
             (nb, 10.0 * d * t * t * bw * h, dtype))
 
 
-def k3b_case(dev, dtype, b, h, gh, gw, d, gen):
+def k3b_case(dev, dtype, b, h, gh, gw, d, gen, strided=False):
+    """strided: q, k, v as head views of one projection (k3_case's)."""
     n = gh * gw
-    q, k, v, g = (torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype) for _ in range(4))
+    if strided:
+        qkv = torch.randn(b, n, 3 * h * d, generator=gen, device=dev).to(dtype)
+        q, k, v = (x.reshape(b, n, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+    g = torch.randn(b, h, n, d, generator=gen, device=dev).to(dtype)
     rel_h = torch.randn(b, h, n, gh, generator=gen, device=dev).to(dtype)
     rel_w = torch.randn(b, h, n, gw, generator=gen, device=dev).to(dtype)
     out, lse = fa.sam_flash_attention(q, k, v, rel_h, rel_w, (gh, gw), return_lse=True)
@@ -755,7 +809,90 @@ def phase_backward_kernels(dev, seed):
     ragged("sam_window_attention_packed_bwd", k2b_case(dev, f32, 5, 3, 20, 3, gen), "ragged")
     ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 2, 2, 5, 7, 20, gen), "ragged")
     ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 1, 2, 16, 16, 80, gen), "ragged")
+    for (gh, gw, d), strided in (((5, 7, 20), False), ((12, 40, 64), False), ((16, 16, 80), False),
+                                 ((16, 64, 40), False), ((16, 64, 40), True),
+                                 ((8, 128, 64), False), ((8, 128, 64), True)):
+        check_backward("sam_flash_attention_bwd",
+                       k3b_case(dev, bf16, 2, 2, gh, gw, d, gen, strided), bf16, 0, 1,
+                       f"ragged {gh}x{gw} D={d}{' head views' if strided else ''}")
+    for dtype in (bf16, f32):
+        log(f"  sam_flash_attention_bwd {str(dtype)[6:]} route: {k3_route(dtype)}")
+    k3b_deterministic(dev, gen)
+    for gh, gw, d in ((64, 64, 80), (12, 40, 64)):
+        k3b_split_check(dev, gh, gw, d, gen)
     return results
+
+
+def k3b_deterministic(dev, gen):
+    """K3b twice on the ViT-H inputs: bit-identical gradients (one owner per
+    element, a fixed order, no atomics)."""
+    run = k3b_case(dev, torch.bfloat16, 2, 16, 64, 64, 80, gen)[0]
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"  sam_flash_attention_bwd ViT-H bf16 twice: bit-identical -> {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("sam_flash_attention_bwd gave different gradients on a second run")
+
+
+def k3b_products(q, k, v, rel_h, rel_w, grid_hw, out, lse, g, single):
+    """dq, dk and dv from K3b's own fp32 p and ds (s and dp from the bf16
+    operands, p = exp(s - lse), ds = p (dp - delta)) with every product in
+    float64. single: p and ds rounded to bf16 alone first (FlashAttention's
+    scheme, which the kernel's hi + lo split replaces)."""
+    gh, gw = grid_hw
+    d = q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    key = torch.arange(q.shape[2], device=q.device)
+    qs = (q * torch.tensor(scale, dtype=q.dtype)).double()       # q * scale, in bf16
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.double()).float()
+    s = (s + rel_w.float()[..., key % gw]) + rel_h.float()[..., key // gw]
+    p = torch.exp(s - lse[..., None])
+    del s
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.double(), v.double()).float()
+    ds = p * (dp - fa._delta(g, out)[..., None])
+    del dp
+    if single:
+        p, ds = p.to(q.dtype), ds.to(q.dtype)
+    p, ds = p.double(), ds.double()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g.double())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.double()) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.double()) * scale
+    return dq, dk, dv
+
+
+def k3b_split_check(dev, gh, gw, d, gen):
+    """K3b's dq, dk and dv against the same products in float64, each
+    rounded to bf16 as the kernel writes it, beside p and ds rounded to
+    bf16 alone: the kernel's hi + lo split keeps about 16 bits of p and ds,
+    so its mean error must stay SPLIT_GAIN times under the single-bf16
+    scheme's (rounding p and ds to bf16 alone fails this)."""
+    n = gh * gw
+    q, k, v, g = (torch.randn(1, 2, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    rel_h = torch.randn(1, 2, n, gh, generator=gen, device=dev).to(torch.bfloat16)
+    rel_w = torch.randn(1, 2, n, gw, generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = fa.sam_flash_attention(q, k, v, rel_h, rel_w, (gh, gw), return_lse=True)
+    args = (q, k, v, rel_h, rel_w, (gh, gw), out, lse, g)
+    got = fa.sam_flash_attention_bwd(*args)
+    exact = k3b_products(*args, single=False)
+    single = k3b_products(*args, single=True)
+    ok = True
+    for name, a, e, si in zip(("dq", "dk", "dv"), got, exact, single):
+        e = e.to(torch.bfloat16).float()
+        err_kernel = float((a.float() - e).abs().mean())
+        err_single = float((si.to(torch.bfloat16).float() - e).abs().mean())
+        good = err_kernel * SPLIT_GAIN <= err_single
+        ok &= good
+        log(f"  sam_flash_attention_bwd split products {gh}x{gw} D={d} {name}: mean_abs against "
+            f"float64 products {err_kernel:.3e}, p and ds in bf16 alone {err_single:.3e} "
+            f"(ratio {err_single / err_kernel if err_kernel else math.inf:.1f}, at least "
+            f"{SPLIT_GAIN}) -> "
+            f"{'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("sam_flash_attention_bwd: the split products are not closer than "
+                             "bf16 alone")
 
 
 # ---------------------------------------------------------------------------
@@ -1332,6 +1469,43 @@ def alone(req):
     return req[None], torch.ones((1, req.shape[0]), dtype=torch.bool, device=req.device)
 
 
+@torch.inference_mode()
+def alone_in_pool(params, cfg, req, prompt_len, max_len, slots, budget, eos_id, flash_fn):
+    """One request [T, H] decoded greedily with the continuous batcher's
+    arithmetic and none of its bookkeeping (slots, segments, admits,
+    harvests): the prompt right-padded to prompt_len and prefilled at that
+    row count, batch 1, into an int4_flat cache of max_len slots; then
+    `slots` copies of the request decode together, as a full pool does, so
+    every product runs at the batcher's shapes; each token's K/V lands at
+    the request's own length. Returns the first copy's tokens, up to
+    `budget` or EOS (included), and the prefill's hidden states [T, H]."""
+    t, h = req.shape
+    dev = req.device
+    embeds = torch.zeros((1, prompt_len, h), dtype=req.dtype, device=dev)
+    mask = torch.zeros((1, prompt_len), dtype=torch.bool, device=dev)
+    embeds[0, :t], mask[0, :t] = req, True
+    cache = llm.init_kv_cache(cfg, 1, max_len, dtype=req.dtype, device=dev, quant="int4",
+                              layout="flat")
+    hidden, cache = llm.forward(params, cfg, embeds, attention_mask=mask, kv_cache=cache,
+                                flash_fn=flash_fn)
+    pool = {name: buf.repeat_interleave(slots, dim=1) if torch.is_tensor(buf) else buf
+            for name, buf in cache.items()}                  # axis 1 is the batch
+    pick = lambda hid: llm.lm_logits(params, cfg, hid).float().argmax(-1)
+    tok = pick(hidden[:, t - 1]).expand(slots)
+    clen = torch.full((slots,), t, dtype=torch.long, device=dev)
+    key_pos = torch.arange(max_len, device=dev)[None]
+    out = []
+    for _ in range(budget):
+        out.append(int(tok[0]))
+        if out[-1] == eos_id:
+            break
+        x = llm.embed(params, tok)[:, None].to(req.dtype)
+        hid, pool = llm.decode_step(params, cfg, pool, x, clen, key_pos <= clen[:, None])
+        tok = pick(hid[:, 0])
+        clen = clen + 1
+    return out, hidden[0, :t]
+
+
 def phase_serving_parity(dev, seed):
     """The continuous-batching server at demo_config in fp32 over four slot
     pools: the fp32 and int8 heads layouts and the int8_flat cache (dense
@@ -1761,11 +1935,12 @@ def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=128, segm
     n_images random 1024^2 images, every image encoded once), MSQP and
     splice, then the batcher over an int4_flat pool of `slots` slots with
     PAVE-like budgets; launch counts per admit and per segment held exactly.
-    The two requests with the largest budgets against greedy_generate of
-    each alone; every [SEG] row through CTP, decode_masks and
-    finalize_masks. Then the same requests through greedy_generate in waves
-    of `slots`, each wave paying its largest budget. Returns the launches of
-    the serving run (encode to masks)."""
+    The two requests with the largest budgets token for token against
+    alone_in_pool (the batcher's arithmetic, none of its bookkeeping), and
+    reported beside greedy_generate of each alone; every [SEG] row through
+    CTP, decode_masks and finalize_masks. Then the same requests through
+    greedy_generate in waves of `slots`, each wave paying its largest
+    budget. Returns the launches of the serving run (encode to masks)."""
     log(f"  serving part: the continuous batcher, {slots} slots, int4_flat pool, 8 requests")
     tok = tokenizer.ByteTokenizer(model_max_length=4096)
     tokenizer.setup_walkgpt_tokens(tok)
@@ -1882,15 +2057,43 @@ def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=128, segm
     ok = len(fin) == len(reqs) and all(len(f.tokens) <= budgets[f.request_id] for f in fin)
     top2 = sorted(range(len(reqs)), key=lambda r: -budgets[r])[:2]
     by_id = {f.request_id: f for f in fin}
+    max_len = -(-(prompt_len + max_new) // fa.DECODE_BLOCK) * fa.DECODE_BLOCK
     for r in top2:
+        want, pre_p = alone_in_pool(params["llm"], cfg.llm, reqs[r], prompt_len, max_len, slots,
+                                    budgets[r], 2, flash_fn)
+        same = by_id[r].tokens == want
+        ok &= same
+        # greedy_generate of the request alone: a prefill at its T rows (no
+        # bucket) and a decode at a batch of one
         embeds, m = alone(reqs[r])
         with torch.inference_mode():
             res = generate.greedy_generate(params["llm"], cfg.llm, embeds, m,
                                            **{**gkw, "max_new_tokens": budgets[r]})
-        same = res.tokens[0, :int(res.lengths[0])].tolist() == by_id[r].tokens
-        ok &= same
+        a = res.tokens[0, :int(res.lengths[0])].tolist()
+        pre_t = res.prefill_hidden[0]
+        note = (f"; its prefill's hidden states differ from the bucketed prefill's in "
+                f"{int((pre_t != pre_p).sum())} of {pre_t.numel()} values")
+        if a != want:
+            at = next((i for i, (x, y) in enumerate(zip(a, want)) if x != y),
+                      min(len(a), len(want)))
+            # the bucketed prefill decoded at a batch of one: where the
+            # batch's size alone parts the request from the batcher
+            one = alone_in_pool(params["llm"], cfg.llm, reqs[r], prompt_len, max_len, 1,
+                                budgets[r], 2, flash_fn)[0]
+            at1 = next((i for i, (x, y) in enumerate(zip(one, want)) if x != y), None)
+            if at < min(len(a), len(want)):
+                with torch.inference_mode():
+                    lg = llm.lm_logits(params["llm"], cfg.llm,
+                                       res.pred_hidden[0, at:at + 1])[0].float()
+                note += (f"; they part at step {at} (greedy_generate's token {a[at]} at logit "
+                         f"{float(lg[a[at]])}, the batcher's {want[at]} at "
+                         f"{float(lg[want[at]])} there)")
+            note += (f"; the bucketed prefill decoded at a batch of 1 parts from the batcher at "
+                     f"step {at1}")
         log(f"  request {r} (budget {budgets[r]}): {len(by_id[r].tokens)} tokens, identical to "
-            f"greedy_generate of it alone: {same}")
+            f"the request decoded alone at the batcher's shapes (alone_in_pool): {same}; "
+            f"greedy_generate of it alone (reported, not held: another batch size): "
+            f"identical {a == want}{note}")
     hw = (768, 1024)
     masks_ok, n_seg = True, 0
     feats = torch.cat([e[0] for e in encoded])
@@ -2313,6 +2516,23 @@ def phase_train(dev, seed):
     if not (finite and per["sam_window_attention_packed_bwd"] == cfg.sam.depth - n_glob
             and per["sam_flash_attention_bwd"] == n_glob):
         raise AssertionError(f"ViT-H encoder backward: launches {per}")
+    # the same call again, warm, under the profiler: its device time and
+    # the share of K3 (forward) and K3b in it
+    for t in rel.values():
+        t.grad = None
+    kernels = {}
+    _, dev_ms = profiled(lambda: sam_encoder.apply(
+        map_with_path(lambda p, t: rel.get(p, t), enc), cfg.sam, batch["images"][:1],
+        use_flash=True).float().square().mean().backward(), kernels)
+    k3_ms = sum(v for n, v in kernels.items() if "attention_mma_kernel" in n)
+    k3b_ms = sum(v for n, v in kernels.items() if "bwd_mma_kernel" in n)
+    log(f"  the same backward warm under the profiler: device_ms={dev_ms:.1f}, K3 (forward) "
+        f"{k3_ms:.1f} ms ({k3_ms / dev_ms:.1%}), K3b {k3b_ms:.1f} ms ({k3b_ms / dev_ms:.1%}); "
+        f"top 5 kernels:")
+    for name, k_ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"    {k_ms:9.2f} ms {k_ms / dev_ms:6.1%}  {name[:110]}")
+    if not (k3_ms > 0 and k3b_ms > 0):
+        raise AssertionError("ViT-H encoder backward: the profiler saw no K3 or K3b time")
     del params, state, state2, enc, rel, snap, b0
     torch.cuda.empty_cache()
 
@@ -2523,9 +2743,10 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
 
     kernels = []
-    for name, (source, replaces) in KERNEL_INFO.items():
+    for name, (source, replaces, *headers) in KERNEL_INFO.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name], **numbers[name]})
+                        "replaces": replaces, "launches": launches[name], **numbers[name],
+                        **({"headers": headers[0]} if headers else {})})
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

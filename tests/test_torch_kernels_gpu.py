@@ -32,6 +32,10 @@ tanhf last places: rtol 1e-6 in fp32, one bf16 step (2^-8) in bf16.
 K10 and K10b take K2's and K2b's bounds (a bf16 output of either, or a
 bf16 q with fp32 rel tables, the bf16 ones); K10 runs K2's engine with the
 same logits, so on repacked values its out and lse equal K2's bit for bit.
+K3 and K3b take their route by dtype: fp32 the CUDA-core engines, bf16 the
+tensor-core ones (bf16 products with fp32 sums at the same rounding points;
+K3b's dv, dk and dq take p and ds split into two bf16 parts, about 16
+bits), both within the bounds above; K3b is deterministic in both.
 """
 import pytest
 import torch
@@ -92,11 +96,20 @@ def test_k2_kernel_matches_plain(dev, dtype, ws, d, h):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
+# K3 and K3b: each dtype takes its own route (fp32 the CUDA-core engine,
+# bf16 the tensor-core one); (12, 40, 64) has key tiles that cut grid rows,
+# (64, 64, 80) is the production grid (one key tile per grid row), (16, 64,
+# 40) and (8, 128, 64) whole grid rows per key tile off the production
+# instantiation (D % 16 != 0; gw = 128), all four at one image
+K3_SHAPES = [(4, 4, 16), (5, 7, 20), (16, 16, 80), (12, 40, 64), (64, 64, 80), (16, 64, 40),
+             (8, 128, 64)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("gh,gw,d", [(4, 4, 16), (5, 7, 20), (16, 16, 80)])
+@pytest.mark.parametrize("gh,gw,d", K3_SHAPES)
 def test_k3_kernel_matches_plain(dev, dtype, gh, gw, d):
     g = torch.Generator(device=dev).manual_seed(gh * gw + d)
-    b, h, n = 2, 2, gh * gw
+    b, h, n = 2 if gh * gw <= 256 else 1, 2, gh * gw
     # q, k, v as strided head views of one projection, as the encoder passes them
     qkv = torch.randn(b, n, 3 * h * d, generator=g, device=dev).to(dtype)
     q, k, v = (x.reshape(b, n, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
@@ -369,10 +382,10 @@ def test_k2b_kernel_matches_plain(dev, dtype, ws, d, h):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("gh,gw,d", [(4, 4, 16), (5, 7, 20), (16, 16, 80)])
+@pytest.mark.parametrize("gh,gw,d", K3_SHAPES)
 def test_k3b_kernel_matches_plain(dev, dtype, gh, gw, d):
     g = torch.Generator(device=dev).manual_seed(gh * gw + d + 3)
-    b, h, n = 2, 2, gh * gw
+    b, h, n = 2 if gh * gw <= 256 else 1, 2, gh * gw
     qkv = torch.randn(b, n, 3 * h * d, generator=g, device=dev).to(dtype)
     q, k, v = (x.reshape(b, n, h, d).transpose(1, 2) for x in qkv.split(h * d, dim=-1))
     rel_h = torch.randn(b, h, n, gh, generator=g, device=dev).to(dtype)
@@ -387,6 +400,65 @@ def test_k3b_kernel_matches_plain(dev, dtype, gh, gw, d):
     _close_grads(got, want, dtype)
     auto = _autograd(lambda *x: fa.sam_flash_attention(*x, (gh, gw)), (q, k, v, rel_h, rel_w), go)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gh,gw,d", [(12, 40, 64), (64, 64, 80)])
+def test_k3b_is_deterministic(dev, dtype, gh, gw, d):
+    """Two K3b calls on the same inputs give the same bits: every gradient
+    element is summed by one owner in a fixed order (no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(gh * gw + d + 4)
+    n = gh * gw
+    q, k, v, go = (torch.randn(1, 2, n, d, generator=g, device=dev).to(dtype) for _ in range(4))
+    rel_h = torch.randn(1, 2, n, gh, generator=g, device=dev).to(dtype)
+    rel_w = torch.randn(1, 2, n, gw, generator=g, device=dev).to(dtype)
+    out, lse = fa.sam_flash_attention(q, k, v, rel_h, rel_w, (gh, gw), return_lse=True)
+    first = fa.sam_flash_attention_bwd(q, k, v, rel_h, rel_w, (gh, gw), out, lse, go)
+    second = fa.sam_flash_attention_bwd(q, k, v, rel_h, rel_w, (gh, gw), out, lse, go)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _k3b_products(q, k, v, rel_h, rel_w, gw, out, lse, g, single):
+    """dq, dk, dv from K3b's fp32 p and ds (s and dp from the bf16
+    operands) with float64 products; single: p and ds rounded to bf16
+    alone first."""
+    d, key = q.shape[-1], torch.arange(q.shape[2], device=q.device)
+    scale = d ** -0.5
+    qs = (q * torch.tensor(scale, dtype=q.dtype)).double()
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.double()).float()
+    p = torch.exp((s + rel_w.float()[..., key % gw]) + rel_h.float()[..., key // gw]
+                  - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.double(), v.double()).float()
+    ds = p * (dp - fa._delta(g, out)[..., None])
+    if single:
+        p, ds = p.to(q.dtype), ds.to(q.dtype)
+    p, ds = p.double(), ds.double()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.double()) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.double()) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", p, g.double()))
+
+
+@pytest.mark.parametrize("gh,gw,d", [(12, 40, 64), (64, 64, 80)])
+def test_k3b_split_products_beat_bf16_alone(dev, gh, gw, d):
+    """K3b's bf16 dq, dk and dv against float64 products of its own p and
+    ds, all rounded to bf16: the hi + lo split keeps about 16 bits of p and
+    ds, so the kernel's mean error stays 8 times under that of rounding p
+    and ds to bf16 alone (chip_smoke.py's SPLIT_GAIN)."""
+    g = torch.Generator(device=dev).manual_seed(gh * gw + d + 5)
+    n = gh * gw
+    q, k, v, go = (torch.randn(1, 2, n, d, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    rel_h = torch.randn(1, 2, n, gh, generator=g, device=dev).to(torch.bfloat16)
+    rel_w = torch.randn(1, 2, n, gw, generator=g, device=dev).to(torch.bfloat16)
+    out, lse = fa.sam_flash_attention(q, k, v, rel_h, rel_w, (gh, gw), return_lse=True)
+    got = fa.sam_flash_attention_bwd(q, k, v, rel_h, rel_w, (gh, gw), out, lse, go)
+    args = (q, k, v, rel_h, rel_w, gw, out, lse, go)
+    for a, e, si in zip(got, _k3b_products(*args, False), _k3b_products(*args, True)):
+        e = e.to(torch.bfloat16).float()
+        err_kernel = (a.float() - e).abs().mean()
+        err_single = (si.to(torch.bfloat16).float() - e).abs().mean()
+        assert err_kernel * 8 <= err_single, (float(err_kernel), float(err_single))
 
 
 def test_backward_wrappers_raise_instead_of_falling_back(dev):

@@ -10,6 +10,32 @@
 // q, k, v: [B, H, N, D] with any batch/head/row strides and unit stride on D;
 // rel_h: [B, H, N, gh], rel_w: [B, H, N, gw] contiguous; out [B, H, N, D]
 // contiguous; lse [B, H, N] fp32.
+// Bound on an H100: ViT-H, 2 images, [2, 16, 4096, 80] bf16: two products
+// of 2*D flops per (query, key) pair, about 172 GFLOP (174 us at the bf16
+// tensor-core rate) against about 70 MB of traffic (21 us): bound by
+// operations.
+// Two routes, chosen by dtype:
+//   * bf16 (the encoder's path) runs on the tensor cores (attention_mma.cuh):
+//     blocks of 4 warps over a 64-query tile, 16 rows a warp, key tiles of
+//     64 double-buffered by cp.async; q.k and p.v are bf16 mma.sync
+//     m16n8k16 with fp32 sums, D padded to a multiple of 16 with zeros; p
+//     goes from the logits' registers into p.v as the A operand. The bias
+//     is added to the fp32 logits in the TPU kernel's order. At the
+//     production shapes (16-byte aligned rows, D % 16 == 0, N % 64 == 0,
+//     gw = 64) an instantiation without bounds checks runs: the tile's
+//     rel_w rows are staged once in shared memory and rel_h (one value a
+//     row and key tile) is read from device memory; elsewhere both rel
+//     tables are staged while gh + gw <= 256 and read from device memory
+//     beyond. Shared memory at D = 80: Q 11 KB, K and V twice 44 KB, rel_w
+//     9 KB, 64 KB; 161 registers: 3 blocks (12 warps) an SM. Rows whose
+//     start is not 16-byte aligned (or D % 8 != 0, as in a D = 20 head
+//     view) are loaded with 2-byte loads, in the kernel: no copy is made.
+//   * fp32 (the demo_config parity runs, which need the einsum path's exact
+//     products) stays on the CUDA-core engine of attention_tile.cuh: the
+//     tensor cores have no exact fp32 product.
+#include <type_traits>
+
+#include "attention_mma.cuh"
 #include "attention_tile.cuh"
 
 namespace {
@@ -78,6 +104,94 @@ struct GlobalProb {
   __device__ void lse(int r, float x) const { lp[q0 + r] = x; }
 };
 
+// The bf16 route's problem on the tensor-core engine. FAST: the production
+// shapes' instantiation (see launch_global below).
+template <bool FAST_>
+struct GlobalMma {
+  using bf16 = tc::bf16;
+  static constexpr bool FAST = FAST_;
+  struct Args {
+    const bf16* q;
+    const bf16* k;
+    const bf16* v;
+    const bf16* rel_h;
+    const bf16* rel_w;
+    bf16* out;
+    float* lse_out;
+    int H, N, D, gh, gw;
+    int64_t sqb, sqh, sqn, skb, skh, skn, svb, svh, svn;
+    float scale;
+    bool vec, rel_vec;
+  };
+  static size_t extra_bytes(const Args& a) {
+    return FAST ? tc::rel_stage_bytes_fast() : tc::rel_stage_bytes(a.gh, a.gw);
+  }
+
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  int64_t sq, sk, sv;
+  bool vec;
+  int D, nq, nk, nkt;
+  bf16 qscale;
+  tc::RelRows rel;
+  bf16* op;
+  float* lp;
+
+  __device__ GlobalMma(const Args& a, int qtile, int bh, char* extra) {
+    const int b = bh / a.H, h = bh - b * a.H;
+    const int q0 = qtile * tc::BQ;
+    D = a.D;
+    nq = min(tc::BQ, a.N - q0);
+    nk = a.N;
+    nkt = (a.N + tc::BK - 1) / tc::BK;
+    sq = a.sqn;
+    sk = a.skn;
+    sv = a.svn;
+    q = a.q + b * a.sqb + h * a.sqh + q0 * a.sqn;
+    k = a.k + b * a.skb + h * a.skh;
+    v = a.v + b * a.svb + h * a.svh;
+    vec = a.vec;
+    qscale = __float2bfloat16_rn(a.scale);
+    rel.stage<FAST>(a.rel_h + int64_t(bh) * a.N * a.gh, a.rel_w + int64_t(bh) * a.N * a.gw, q0, a.N,
+              a.gh, a.gw, a.rel_vec, extra);
+    op = a.out + (int64_t(bh) * a.N + q0) * a.D;
+    lp = a.lse_out + int64_t(bh) * a.N + q0;
+  }
+  __device__ void add_bias(float (&s)[tc::NT][4], int k0, int row) const {
+    rel.add<FAST>(s, k0, row, nq, nk);
+  }
+  __device__ void out(int r, int d, float x) const { op[r * D + d] = __float2bfloat16_rn(x); }
+  __device__ void lse(int r, float x) const { lp[r] = x; }
+};
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+int launch_global(const void* q, const void* k, const void* v, const void* rel_h,
+                  const void* rel_w, void* out, void* lse, int B, int H, int N, int D, int gh,
+                  int gw, const int64_t* s, float scale, cudaStream_t st) {
+  using bf16 = tc::bf16;
+  bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  for (int i = 0; i < 9; ++i) vec = vec && s[i] % 8 == 0;
+  const bool rel_vec = gh % 8 == 0 && gw % 8 == 0 && aligned16(rel_h) && aligned16(rel_w);
+  const dim3 grid((N + tc::BQ - 1) / tc::BQ, B * H);
+  // FAST: aligned rows, D a multiple of 16, whole tiles, and one key tile
+  // per grid row (gw = 64, ViT-H's) with the rel rows staged: no bounds
+  // checks and constant strides
+  const bool fast = vec && rel_vec && D % 16 == 0 && N % tc::BQ == 0 && gw == tc::BK &&
+                    tc::rel_staged(gh, gw);
+  auto go = [&](auto fast_tag) {
+    using P = GlobalMma<decltype(fast_tag)::value>;
+    typename P::Args a{
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const bf16*>(rel_h), static_cast<const bf16*>(rel_w), static_cast<bf16*>(out),
+        static_cast<float*>(lse), H, N, D, gh, gw,
+        s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale, vec, rel_vec};
+    return int(tc::launch_fwd<P>(a, D, grid, st));
+  };
+  return fast ? go(std::true_type{}) : go(std::false_type{});
+}
+
 template <typename T>
 int run(const void* q, const void* k, const void* v, const void* rel_h, const void* rel_w,
         void* out, void* lse, int B, int H, int N, int D, int gh, int gw, const int64_t* s,
@@ -94,7 +208,8 @@ int run(const void* q, const void* k, const void* v, const void* rel_h, const vo
 }  // namespace
 
 // strides: int64[9] = (q: batch, head, row), (k: ...), (v: ...), in elements.
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32 (CUDA-core engine), 1 = bfloat16 (tensor-core engine).
+// Returns cudaGetLastError() after the launch.
 extern "C" int wg_sam_flash_attention_fwd(const void* q, const void* k, const void* v,
                                           const void* rel_h, const void* rel_w, void* out,
                                           void* lse, int B, int H, int N, int D, int gh,
@@ -105,7 +220,6 @@ extern "C" int wg_sam_flash_attention_fwd(const void* q, const void* k, const vo
     return run<float>(q, k, v, rel_h, rel_w, out, lse, B, H, N, D, gh, gw, strides, scale,
                       st);
   if (dtype == 1)
-    return run<__nv_bfloat16>(q, k, v, rel_h, rel_w, out, lse, B, H, N, D, gh, gw, strides,
-                              scale, st);
+    return launch_global(q, k, v, rel_h, rel_w, out, lse, B, H, N, D, gh, gw, strides, scale, st);
   return int(cudaErrorInvalidValue);
 }

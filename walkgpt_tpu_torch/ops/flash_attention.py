@@ -23,7 +23,10 @@ K3 sam_flash_attention (csrc/sam_flash_attention.cu)
     (_sam_fwd_kernel): global attention over the 64x64 grid with the
     decomposed rel-pos bias built per key tile. ViT-H, 2 images:
     [2, 16, 4096, 80] bf16, about 172 GFLOP, bound by operations (about
-    174 us at 989 TFLOP/s bf16).
+    174 us at 989 TFLOP/s bf16). bf16 runs on the tensor cores
+    (csrc/attention_mma.cuh: mma.sync products, cp.async double-buffered
+    key tiles); fp32 stays on the CUDA-core engine below, which the fp32
+    parity runs need (the tensor cores have no exact fp32 product).
 
 K10 sam_window_attention (csrc/sam_window_attention_split.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:sam_window_attention
@@ -48,6 +51,10 @@ sam_flash_attention_bwd (csrc/sam_flash_attention_bwd.cu)
     64-key tile, both recomputing p from lse; no atomics. 7B training
     [2, 32, 767, 128] bf16 (K1b): about 101 MB, bound by bytes (30 us);
     ViT-H global (K3b): about 430 GFLOP, bound by operations (434 us).
+    K3b's bf16 route runs the same two passes, in one launch, on the
+    tensor cores (csrc/attention_mma_bwd.cuh): s and dp as bf16 products,
+    dv, dk and dq with p and ds split into two bf16 parts (hi + lo, about 16
+    significant bits), deterministic as before.
 
 K4 decode_attention_q (csrc/decode_attention_q.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention_q
@@ -78,9 +85,12 @@ and (batch, head) or (window, head); key tiles of 64 stream through shared
 memory; the logits tile and its bias live only in registers and shared
 memory, with an fp32 online softmax, so no [N, N] tensor reaches device
 memory — the part of each bound that is bytes is met by reading each input
-once per query tile. The products run on the CUDA cores in fp32, so this
-first version is far from the tensor-core bound of K3 (and of K1/K2 once the
-bytes are met); wgmma/TMA tiles are later work.
+once per query tile. K1, K2 and K10 (and their backwards) run their
+products on the CUDA cores in fp32, far from the tensor-core bound; K3 and
+K3b moved in bf16 to the tensor-core engines (csrc/attention_mma.cuh,
+attention_mma_bwd.cuh: the same tiles, each warp 16 rows, mma.sync bf16
+products with fp32 sums), which keep the problem-object style so that
+K1/K2/K10 can move onto them later; wgmma/TMA tiles are later work.
 """
 from __future__ import annotations
 
@@ -162,8 +172,10 @@ def _softmax_rows(s: torch.Tensor, v: torch.Tensor, p_dtype: torch.dtype
 
 def _delta(g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(g * out) over the head dim, in fp32: plain torch beside
-    every backward kernel, as in the JAX package."""
-    return (g.float() * out.float()).sum(-1)
+    every backward kernel, as in the JAX package. The products of two bf16
+    values are exact in fp32, so multiplying an fp32 copy of g in place by
+    out gives the same values as casting both, with one pass less."""
+    return g.to(torch.float32, copy=True).mul_(out).sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +649,10 @@ def _check_global(name: str, q, k, v, rel_h, rel_w, grid_hw) -> None:
 
 
 def _sam_fwd(q, k, v, rel_h, rel_w, grid_hw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3. q, k, v may be strided head views (unit stride on D): the kernel
+    takes any batch, head and row stride, and where a row does not start
+    16-byte aligned (or D % 8 != 0) it loads with 2-byte loads; no copy is
+    made."""
     if q.device.type == "cpu":
         return sam_flash_attention_reference(q, k, v, rel_h, rel_w, grid_hw)
     dt = _check_cuda("sam_flash_attention", q, k, v, rel_h, rel_w)
@@ -657,8 +673,10 @@ def _sam_fwd(q, k, v, rel_h, rel_w, grid_hw) -> Tuple[torch.Tensor, torch.Tensor
 
 def sam_flash_attention_bwd(q, k, v, rel_h, rel_w, grid_hw: Tuple[int, int], out, lse, g):
     """K3b: (dq, dk, dv, drel_h, drel_w) of sam_flash_attention for the
-    output gradient g. Two launches: a dq pass per 64-query tile that also
-    sums drel_h and drel_w, and a dk/dv pass per 64-key tile."""
+    output gradient g. Two passes: a dq pass per 64-query tile that also
+    sums drel_h and drel_w, and a dk/dv pass per 64-key tile (bf16: one
+    launch of both on the tensor cores; fp32: two launches on the CUDA
+    cores); the same bits on every run."""
     if q.device.type == "cpu":
         return sam_flash_attention_bwd_reference(q, k, v, rel_h, rel_w, grid_hw, out, lse, g)
     name = "sam_flash_attention_bwd"

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""K3 and K3b against two edited builds of their own sources, on one GPU.
+
+    python3 walkgpt_tpu_torch/tools/k3_variants.py
+
+Copies `walkgpt_tpu_torch/csrc` twice into `build/variants/` and edits each
+copy, then builds K3 (`sam_flash_attention.cu`) and K3b
+(`sam_flash_attention_bwd.cu`) from every copy in parallel:
+  * general: the launchers never choose the production instantiation (FAST,
+    no bounds checks and constant strides), so every shape runs the
+    general one;
+  * nolo: `mma_ab2` drops its two lo products, so K3b's dv, dk and dq take
+    p and ds rounded to bf16 alone.
+Then, on bf16 inputs:
+  1. K3 and K3b at ViT-H's global attention, [2, 16, 4096, 80], in the
+     package's build and in `general`, interleaved (package, general,
+     general, package, package, general), ms per call by CUDA events; both
+     builds must give the same bits;
+  2. chip_smoke.py's split-product check (k3b_split_check) on each build at
+     the 64 x 64 grid (D = 80) and the 12 x 40 grid (D = 64): the package's
+     and `general` must pass it and `nolo` must fail it.
+Exits non-zero if any of these does not hold. Needs nvcc and a CUDA GPU.
+"""
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as cs  # noqa: E402
+from walkgpt_tpu_torch.ops import cuda_build  # noqa: E402
+
+NAMES = ("sam_flash_attention", "sam_flash_attention_bwd")
+EDITS = {
+    "general": [(f, "const bool fast = vec", "const bool fast = false && vec")
+                for f in ("sam_flash_attention.cu", "sam_flash_attention_bwd.cu")],
+    "nolo": [("attention_mma.cuh", "    mma(out[2 * dp], lo, bf[0], bf[1]);\n"
+              "    mma(out[2 * dp + 1], lo, bf[2], bf[3]);\n", "")],
+}
+PACKAGE = (cuda_build.CSRC, cuda_build.BUILD_DIR)
+
+
+def use(tag):
+    """Point cuda_build at the package's sources or at a variant's."""
+    root = REPO / "build" / "variants" / tag
+    cuda_build.CSRC, cuda_build.BUILD_DIR = (PACKAGE if tag == "package"
+                                             else (root / "csrc", root / "kernels"))
+    for name in NAMES:
+        cuda_build._libs.pop(name, None)
+
+
+def build_all():
+    procs = []
+    for tag, edits in EDITS.items():
+        root = REPO / "build" / "variants" / tag
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.copytree(PACKAGE[0], root / "csrc")
+        for f, old, new in edits:
+            src = (root / "csrc" / f).read_text()
+            if old not in src:
+                raise RuntimeError(f"{tag}: {f} no longer holds the text to edit")
+            (root / "csrc" / f).write_text(src.replace(old, new))
+        use(tag)
+        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for name in NAMES:
+            cmd = [cuda_build.nvcc_path(), *cuda_build.FLAGS, "-o",
+                   str(cuda_build.library_path(name)), str(cuda_build.CSRC / f"{name}.cu")]
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+    use("package")
+    cuda_build.build(NAMES)
+    for p in procs:
+        out, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed:\n{out}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("k3_variants: no CUDA GPU available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip(), flush=True)
+    build_all()
+    dev = torch.device("cuda")
+    ok = True
+    gen = torch.Generator(device=dev).manual_seed(7)
+    fwd = cs.k3_case(dev, torch.bfloat16, 2, 16, 64, 64, 80, gen)[0]
+    bwd = cs.k3b_case(dev, torch.bfloat16, 2, 16, 64, 64, 80, gen)[0]
+    first = {}
+    for tag in ("package", "general", "general", "package", "package", "general"):
+        use(tag)
+        out = fwd()[0]
+        grads = bwd()
+        torch.cuda.synchronize()
+        first.setdefault(tag, (out, *grads))
+        print(f"  {tag:8s} K3 ms={cs.cuda_ms(fwd, 30):.4f}  K3b ms={cs.cuda_ms(bwd, 10):.4f}",
+              flush=True)
+    same = all(torch.equal(a, b) for a, b in zip(first["package"], first["general"]))
+    ok &= same
+    print(f"  general gives the package's bits (out, dq, dk, dv, drel_h, drel_w): {same}",
+          flush=True)
+    for tag, want_pass in (("package", True), ("general", True), ("nolo", False)):
+        use(tag)
+        for gh, gw, d in ((64, 64, 80), (12, 40, 64)):
+            try:
+                cs.k3b_split_check(dev, gh, gw, d, gen)
+                passed = True
+            except AssertionError:
+                passed = False
+            ok &= passed == want_pass
+            print(f"  {tag} {gh}x{gw} D={d}: split-product check "
+                  f"{'passed' if passed else 'failed'} (expected to "
+                  f"{'pass' if want_pass else 'fail'})", flush=True)
+    use("package")
+    print("k3_variants: ok" if ok else "k3_variants: FAILED", flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
