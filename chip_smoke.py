@@ -17,7 +17,7 @@ Phases (any failure raises and the script exits non-zero):
      bf16, and again in fp32 at small ragged shapes (K3 also in bf16 there:
      head views at D = 20, key tiles that cut grid rows, a 16 x 16 grid,
      whole grid rows per key tile at D = 40 and at gw = 128, contiguous and
-     as head views; the route each dtype takes is logged); kernel,
+     as head views; K2 also in bf16 at ws = 7 and 3, D = 20 and 64); kernel,
      plain-version and library times, and the bound. The W8A8 int32
      product on the card against the CPU's, bit for bit.
   3. parity: demo_config in fp32 (TF32 off) through generate_and_segment
@@ -43,8 +43,9 @@ Phases (any failure raises and the script exits non-zero):
      request against greedy_generate of it alone.
   4. the slices at full width, random weights from --seed built on the card,
      two requests of 2 images and 2 prompt rows each, with launch counts per
-     request, peak memory, and the warm request's phase times on the host
-     clock and on the card (torch.profiler):
+     request, peak memory, the warm request's phase times on the host
+     clock and on the card (torch.profiler), and K2's and K3's share of the
+     warm SAM encode's device time:
        a. walkgpt_7b_config (SAM ViT-H at 1024^2, LLaMA-7B), bf16 weights;
        b. WalkGPT-7B in its production format: int4 MLPs, fused q/k/v and
           lm_head, W8A8 o-proj and SAM blocks, the packed int4 flat cache;
@@ -79,14 +80,20 @@ Phases (any failure raises and the script exits non-zero):
      shapes in fp32 (and a bf16 q with fp32 rel tables), against K2/K2b on
      the same values repacked (bit for bit), with kernel, plain and library
      (SDPA with the expanded bias, and its backward) times and the bound.
+  2g (after 2f): the route each dtype takes (K1b, K2, K3, K3b, K10: bf16
+     on the tensor-core engines, fp32 on the CUDA-core ones), read from the
+     kernels one call launches under the profiler, and held.
   2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
      (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
      against their plain backwards at the training step's shapes in bf16
-     and at ragged shapes in fp32 (fully masked rows, D = 80), K3b also in
-     bf16 at K3's ragged shapes and twice on the ViT-H inputs (bit-identical
-     gradients), with kernel, plain and library (SDPA backward) times and
-     the bound; K3b's dq, dk and dv against float64 products of its own p
-     and ds, SPLIT_GAIN times closer than p and ds rounded to bf16 alone.
+     and at ragged shapes in fp32 (fully masked rows, D = 80), K1b also in
+     bf16 at ragged shapes (N = 70, 37, 130; D = 128, 80, 64, 20; the fully
+     masked rows' dq exactly 0), K3b also in bf16 at K3's ragged shapes;
+     K1b twice on the training step's inputs and K3b twice on the ViT-H
+     inputs (bit-identical gradients); kernel, plain and library (SDPA
+     backward) times and the bound; K1b's and K3b's dq, dk and dv against
+     float64 products of their own p and ds, SPLIT_GAIN times closer than p
+     and ds rounded to bf16 alone.
   3d (after 3c): demo_config in fp32 with LoRA r=8, two train_steps and one
      qlora_train_step (int8 attention, int4 MLP, int8 SAM blocks) on the card
      and on the CPU: loss terms within LOSS_RTOL, trainable leaves within
@@ -96,8 +103,8 @@ Phases (any failure raises and the script exits non-zero):
      train_cli.py's defaults (2 images at 1024^2, 2 rows of 512 tokens, 767
      spliced, 16 [SEG], max_segs 32): the LoRA recipe in bf16 for 3 steps
      (the last with remat), the QLoRA base for 2 steps, with loss terms,
-     gradient norm, wall and device ms, tokens/s, peak memory and launches
-     per step (held exactly); then one backward through the ViT-H encoder
+     gradient norm, wall and device ms (K1b's and K2's share of it), tokens/s,
+     peak memory and launches per step (held exactly); then one backward through the ViT-H encoder
      with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4),
      and the same backward warm under the profiler (device ms, K3's and
      K3b's share).
@@ -150,9 +157,10 @@ FORMAT_1B = dict(act_quant=True, sam_int8=True)
 # of order one (2^-8 relative), more where an fp32 sum straddles a rounding
 # boundary of p.
 BF16_MAX_ABS, BF16_MEAN_ABS = 3e-2, 3e-3
-# K3b's dq, dk and dv against float64 products of its own fp32 p and ds
-# (all rounded to bf16): the kernel's mean error stays this many times under
-# that of rounding p and ds to bf16 alone (k3b_split_check)
+# K1b's and K3b's dq, dk and dv against float64 products of their own fp32
+# p and ds (all rounded to bf16): the kernel's mean error stays this many
+# times under that of rounding p and ds to bf16 alone (k1b_split_check,
+# k3b_split_check)
 SPLIT_GAIN = 8
 FP32_ATOL = 1e-4
 # K4-K7 round inside (K4's p and alpha and K6's intermediate to bf16, K7's
@@ -209,7 +217,9 @@ KERNEL_INFO = {
     "flash_attention": ("walkgpt_tpu_torch/csrc/flash_attention.cu",
                         "walkgpt_tpu/ops/flash_attention.py:51"),
     "sam_window_attention_packed": ("walkgpt_tpu_torch/csrc/sam_window_attention.cu",
-                                    "walkgpt_tpu/ops/flash_attention.py:958"),
+                                    "walkgpt_tpu/ops/flash_attention.py:958",
+                                    ["walkgpt_tpu_torch/csrc/attention_mma.cuh",
+                                     "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "sam_flash_attention": ("walkgpt_tpu_torch/csrc/sam_flash_attention.cu",
                             "walkgpt_tpu/ops/flash_attention.py:372",
                             ["walkgpt_tpu_torch/csrc/attention_mma.cuh",
@@ -227,7 +237,10 @@ KERNEL_INFO = {
     "decode_attention": ("walkgpt_tpu_torch/csrc/decode_attention.cu",
                          "walkgpt_tpu/ops/flash_attention.py:1154"),
     "flash_attention_bwd": ("walkgpt_tpu_torch/csrc/flash_attention_bwd.cu",
-                            "walkgpt_tpu/ops/flash_attention.py:243"),
+                            "walkgpt_tpu/ops/flash_attention.py:243",
+                            ["walkgpt_tpu_torch/csrc/attention_mma_bwd.cuh",
+                             "walkgpt_tpu_torch/csrc/attention_mma.cuh",
+                             "walkgpt_tpu_torch/csrc/attention_bwd.cuh"]),
     "sam_window_attention_packed_bwd": ("walkgpt_tpu_torch/csrc/sam_window_attention_bwd.cu",
                                         "walkgpt_tpu/ops/flash_attention.py:984"),
     "sam_flash_attention_bwd": ("walkgpt_tpu_torch/csrc/sam_flash_attention_bwd.cu",
@@ -241,7 +254,9 @@ KERNEL_INFO = {
                         "walkgpt_tpu/ops/int8_gemm.py:66"),
     "w8a8_gemm": ("walkgpt_tpu_torch/csrc/int8_gemm.cu", "walkgpt_tpu/ops/int8_gemm.py:136"),
     "sam_window_attention": ("walkgpt_tpu_torch/csrc/sam_window_attention_split.cu",
-                             "walkgpt_tpu/ops/flash_attention.py:777"),
+                             "walkgpt_tpu/ops/flash_attention.py:777",
+                             ["walkgpt_tpu_torch/csrc/attention_mma.cuh",
+                              "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "sam_window_attention_bwd": ("walkgpt_tpu_torch/csrc/sam_window_attention_split_bwd.cu",
                                  "walkgpt_tpu/ops/flash_attention.py:800"),
 }
@@ -323,11 +338,59 @@ def k2_case(dev, dtype, bw, h, d, ws, gen):
     return run, plain, library, cost
 
 
-def k3_route(dtype) -> str:
-    """K3/K3b's route for a dtype: bf16 on the tensor cores, fp32 on the
-    CUDA cores (the tensor cores have no exact fp32 product)."""
-    return ("tensor cores, attention_mma*.cuh" if dtype == torch.bfloat16
-            else "CUDA cores, attention_tile.cuh / attention_bwd.cuh")
+# the route of each kernel whose bf16 inputs run the tensor-core engines
+# (bf16 mma.sync; fp32 inputs stay on the CUDA-core engines, since the
+# tensor cores have no exact fp32 product): the engine's header, and the
+# CUDA kernels (torch.profiler names) of each route
+ROUTES = {
+    "flash_attention_bwd": "attention_mma_bwd.cuh (pair layout) / attention_bwd.cuh",
+    "sam_window_attention_packed": "attention_mma.cuh / attention_tile.cuh",
+    "sam_window_attention": "attention_mma.cuh / attention_tile.cuh",
+    "sam_flash_attention": "attention_mma.cuh / attention_tile.cuh",
+    "sam_flash_attention_bwd": "attention_mma_bwd.cuh / attention_bwd.cuh",
+}
+TENSOR_CORE_KERNELS = ("attention_mma_kernel", "bwd_mma_kernel", "bwd_pair_kernel")
+
+
+def phase_routes(dev, seed):
+    """The route each dtype takes, read from the kernels one call launches
+    under the profiler (after every kernel timing: once the profiler has
+    run, launches stay slower)."""
+    log("== phase 2g: the route of each tensor-core kernel, by dtype")
+    gen = torch.Generator(device=dev).manual_seed(seed + 50)
+    dts = (torch.bfloat16, torch.float32)
+    log_routes("flash_attention_bwd",
+               {dt: k1b_case(dev, dt, 2, 2, 70, 128, [70, 59], gen, 5)[0] for dt in dts})
+    log_routes("sam_window_attention_packed",
+               {dt: k2_case(dev, dt, 2, 2, 80, 14, gen)[0] for dt in dts})
+    log_routes("sam_window_attention",
+               {dt: k10_case(k10_inputs(dev, dt, dt, 2, 2, 80, 14, gen), 14)[0] for dt in dts})
+    log_routes("sam_flash_attention", {dt: k3_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
+    log_routes("sam_flash_attention_bwd",
+               {dt: k3b_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
+
+
+def log_routes(name, runs):
+    """One call of each closure in runs ({dtype: fn}) under the profiler:
+    logs the package's CUDA kernels it launched, and fails unless bf16 ran
+    a tensor-core kernel and fp32 none."""
+    for dtype, fn in runs.items():
+        kernels = {}
+        for attempt in range(3):   # a short trace may come back without device events
+            try:
+                profiled(fn, kernels)
+                break
+            except AssertionError:
+                if attempt == 2:
+                    raise
+                log(f"  {name} {str(dtype)[6:]}: the profiler saw no device time, tracing again")
+        ours = sorted({n.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+                       for n in kernels if "wgt::" in n})
+        tc = any(k in n for n in ours for k in TENSOR_CORE_KERNELS)
+        log(f"  {name} {str(dtype)[6:]} route: {'tensor cores' if tc else 'CUDA cores'} "
+            f"({ROUTES[name].split(' / ')[0 if tc else 1]}): {'; '.join(ours)}")
+        if not ours or tc != (dtype == torch.bfloat16):
+            raise AssertionError(f"{name}: {dtype} took the wrong route ({ours})")
 
 
 def k3_case(dev, dtype, b, h, gh, gw, d, gen, strided=False):
@@ -430,6 +493,12 @@ def phase_kernels(dev, seed):
     ragged("flash_attention", k1_case(dev, f32, 2, 2, 37, 20, [37, 30], gen))
     ragged("sam_window_attention_packed", k2_case(dev, f32, 3, 2, 80, 14, gen))
     ragged("sam_window_attention_packed", k2_case(dev, f32, 5, 3, 20, 3, gen))
+    # K2's bf16 route at the edges of its tiles: T = 49 and 9 (one ragged key
+    # and query tile), D = 20 (2-byte loads, a padded head dim) and 64, odd
+    # windows (the rel rows by plain loads)
+    for bw, h, d, ws in ((5, 3, 20, 7), (5, 3, 20, 3), (4, 2, 64, 7), (3, 2, 80, 14)):
+        ragged("sam_window_attention_packed", k2_case(dev, bf16, bw, h, d, ws, gen), bf16,
+               f"ragged ws={ws} D={d}")
     ragged("sam_flash_attention", k3_case(dev, f32, 2, 2, 5, 7, 20, gen))
     ragged("sam_flash_attention", k3_case(dev, f32, 1, 2, 16, 16, 80, gen))
     # K3's bf16 route at the edges of its tiles: head views at D = 20
@@ -441,8 +510,6 @@ def phase_kernels(dev, seed):
                                  ((8, 128, 64), False), ((8, 128, 64), True)):
         ragged("sam_flash_attention", k3_case(dev, bf16, 2, 2, gh, gw, d, gen, strided), bf16,
                f"ragged {gh}x{gw} D={d}{' head views' if strided else ''}")
-    for dtype in (bf16, f32):
-        log(f"  sam_flash_attention {str(dtype)[6:]} route: {k3_route(dtype)}")
     return results
 
 
@@ -805,6 +872,20 @@ def phase_backward_kernels(dev, seed):
     ragged("flash_attention_bwd", k1b_case(dev, f32, 2, 3, 70, 128, [70, 59], gen, 5),
            "ragged, fully masked rows")
     ragged("flash_attention_bwd", k1b_case(dev, f32, 2, 2, 37, 80, [37, 30], gen), "ragged D=80")
+    # K1b's bf16 route (the pair layout) at ragged tiles: N = 70, 37 and 130,
+    # D = 128, 80, 64 and 20; row 1's first 5 keys invalid, so its queries
+    # 0-4 see no key (fully masked rows: dq exactly 0)
+    for n, d, lengths in ((70, 128, [70, 59]), (37, 80, [37, 30]), (130, 64, [130, 101]),
+                          (37, 20, [37, 33])):
+        case = k1b_case(dev, bf16, 2, 3, n, d, lengths, gen, 5)
+        check_backward("flash_attention_bwd", case, bf16, 0, 1,
+                       f"ragged N={n} D={d}, fully masked rows")
+        dq = case[0]()[0]
+        zero = not bool(dq[1, :, :5].any())
+        log(f"  flash_attention_bwd ragged N={n} D={d} bf16: the fully masked rows' dq is exactly "
+            f"0: {zero} -> {'ok' if zero else 'FAIL'}")
+        if not zero:
+            raise AssertionError("flash_attention_bwd: a fully masked row got a gradient")
     ragged("sam_window_attention_packed_bwd", k2b_case(dev, f32, 3, 2, 80, 14, gen), "ragged")
     ragged("sam_window_attention_packed_bwd", k2b_case(dev, f32, 5, 3, 20, 3, gen), "ragged")
     ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 2, 2, 5, 7, 20, gen), "ragged")
@@ -815,12 +896,81 @@ def phase_backward_kernels(dev, seed):
         check_backward("sam_flash_attention_bwd",
                        k3b_case(dev, bf16, 2, 2, gh, gw, d, gen, strided), bf16, 0, 1,
                        f"ragged {gh}x{gw} D={d}{' head views' if strided else ''}")
-    for dtype in (bf16, f32):
-        log(f"  sam_flash_attention_bwd {str(dtype)[6:]} route: {k3_route(dtype)}")
+    k1b_deterministic(dev, gen)
+    for n, d in ((767, 128), (130, 64)):
+        k1b_split_check(dev, n, d, gen)
     k3b_deterministic(dev, gen)
     for gh, gw, d in ((64, 64, 80), (12, 40, 64)):
         k3b_split_check(dev, gh, gw, d, gen)
     return results
+
+
+def k1b_deterministic(dev, gen):
+    """K1b twice on the training step's inputs: bit-identical gradients (one
+    owner per element, a fixed order, no atomics)."""
+    run = k1b_case(dev, torch.bfloat16, 2, 32, 767, 128, [767, 707], gen)[0]
+    first = run()
+    second = run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"  flash_attention_bwd 7B training bf16 twice: bit-identical -> {'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("flash_attention_bwd gave different gradients on a second run")
+
+
+def k1b_products(q, k, v, causal, kv, out, lse, g, single):
+    """dq, dk and dv from K1b's own fp32 p and ds (s = scale (q . k) and dp =
+    g . v from the bf16 operands, p = exp(s - lse) and exactly 0 where
+    masked, ds = p (dp - delta)) with every product in float64. single: p
+    and ds rounded to bf16 alone first."""
+    n, d = q.shape[2], q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    pos = torch.arange(n, device=q.device)
+    mask = kv[:, None, None, :] & ((pos[None, :] <= pos[:, None]) | (not causal))[None, None]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()).float() * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    del s
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.double(), v.double()).float()
+    ds = p * (dp - fa._delta(g, out)[..., None])
+    del dp
+    if single:
+        p, ds = p.to(q.dtype), ds.to(q.dtype)
+    p, ds = p.double(), ds.double()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, g.double())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.double()) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.double()) * scale
+    return dq, dk, dv
+
+
+def k1b_split_check(dev, n, d, gen):
+    """K1b's dq, dk and dv against the same products in float64, each
+    rounded to bf16 as the kernel writes it, beside p and ds rounded to
+    bf16 alone, at a causal shape with padded keys (2 rows, the second
+    without its last n // 10 keys): the kernel's hi + lo split keeps about
+    16 bits of p and ds, so its mean error must stay SPLIT_GAIN times under
+    the single-bf16 scheme's (rounding p and ds to bf16 alone fails this)."""
+    q, k, v, g = (torch.randn(2, 2, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    kv = torch.arange(n, device=dev)[None] < torch.tensor([n, n - n // 10], device=dev)[:, None]
+    out, lse = fa.flash_attention(q, k, v, True, kv, return_lse=True)
+    args = (q, k, v, True, kv, out, lse, g)
+    got = fa.flash_attention_bwd(*args)
+    exact = k1b_products(*args, single=False)
+    single = k1b_products(*args, single=True)
+    ok = True
+    for name, a, e, si in zip(("dq", "dk", "dv"), got, exact, single):
+        e = e.to(torch.bfloat16).float()
+        err_kernel = float((a.float() - e).abs().mean())
+        err_single = float((si.to(torch.bfloat16).float() - e).abs().mean())
+        good = err_kernel * SPLIT_GAIN <= err_single
+        ok &= good
+        log(f"  flash_attention_bwd split products N={n} D={d} {name}: mean_abs against float64 "
+            f"products {err_kernel:.3e}, p and ds in bf16 alone {err_single:.3e} (ratio "
+            f"{err_single / err_kernel if err_kernel else math.inf:.1f}, at least {SPLIT_GAIN}) -> "
+            f"{'ok' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_attention_bwd: the split products are not closer than "
+                             "bf16 alone")
 
 
 def k3b_deterministic(dev, gen):
@@ -1789,6 +1939,7 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
         f"top 8 of its kernels by device time:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:9.1f} ms {ms / request_dev:6.1%}  {name[:110]}")
+    encode_shares(params, cfg, kw)
     greedy_step = walls["decode"] / max_new_tokens
     log(f"  greedy part: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -1808,6 +1959,32 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
         launches = add(launches, phase_serving(dev, seed, params, cfg))
         log(f"  serving part: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# the problem objects (in the profiler's kernel names) of the bf16 kernels
+# whose share of a phase's device time phases 4 and 5 print
+SHARES = {"K2": "::WindowMma", "K3": "::GlobalMma", "K1b": "::FlashBwdMma"}
+
+
+def log_shares(label, kernels, dev_ms, names):
+    """Each named kernel's device ms and share of dev_ms, from a profiled
+    run's `kernels` ({name: ms}); fails if one of them took no time."""
+    parts = []
+    for short in names:
+        ms = sum(v for n, v in kernels.items() if SHARES[short] in n)
+        parts.append(f"{short} {ms:.2f} ms ({ms / dev_ms:.1%})")
+        if ms <= 0:
+            raise AssertionError(f"{label}: the profiler saw no {short} time")
+    log(f"  {label}: device_ms={dev_ms:.1f}, " + ", ".join(parts))
+
+
+@torch.inference_mode()
+def encode_shares(params, cfg, kw):
+    """The warm SAM encode alone under the profiler: K2's and K3's share of
+    its device time."""
+    kernels = {}
+    _, dev_ms = profiled(lambda: walkgpt.encode_sam(params, cfg, kw["images"]), kernels)
+    log_shares("SAM encode (2 images), warm, under the profiler", kernels, dev_ms, ("K2", "K3"))
 
 
 def phase_speculative(params, cfg, kw, greedy_step):
@@ -2456,6 +2633,7 @@ def run_train_steps(label, cfg, state, batch, step_fn, remats, tokens, kernels):
         f"device_busy={dev_ms / walls[1]:.3f} of step 2's wall; top 5 kernels by device time:")
     for name, kms in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
         log(f"    {kms:9.1f} ms {kms / dev_ms:6.1%}  {name[:100]}")
+    log_shares(f"{label} step, warm, under the profiler", kernels, dev_ms, ("K1b", "K2"))
     return state, state2
 
 
@@ -2694,6 +2872,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     numbers.update(phase_window_split_kernels(dev, args.seed))
     torch.cuda.empty_cache()
+    phase_routes(dev, args.seed)
     phase_parity(dev, args.seed)
     torch.cuda.empty_cache()
     phase_parity_quant(dev, args.seed)

@@ -32,10 +32,11 @@ tanhf last places: rtol 1e-6 in fp32, one bf16 step (2^-8) in bf16.
 K10 and K10b take K2's and K2b's bounds (a bf16 output of either, or a
 bf16 q with fp32 rel tables, the bf16 ones); K10 runs K2's engine with the
 same logits, so on repacked values its out and lse equal K2's bit for bit.
-K3 and K3b take their route by dtype: fp32 the CUDA-core engines, bf16 the
-tensor-core ones (bf16 products with fp32 sums at the same rounding points;
-K3b's dv, dk and dq take p and ds split into two bf16 parts, about 16
-bits), both within the bounds above; K3b is deterministic in both.
+K1b, K2, K3, K3b and K10 take their route by dtype: fp32 the CUDA-core
+engines, bf16 the tensor-core ones (bf16 products with fp32 sums at the
+same rounding points; K1b's and K3b's dv, dk and dq take p and ds split
+into two bf16 parts, about 16 bits), both within the bounds above; K1b and
+K3b are deterministic in both.
 """
 import pytest
 import torch
@@ -93,6 +94,25 @@ def test_k2_kernel_matches_plain(dev, dtype, ws, d, h):
     torch.cuda.synchronize()
     ref, ref_lse = fa.sam_window_attention_packed_reference(qkv, rel, h, d, ws)
     _close(out, ref, dtype)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+# K2's (and K10's) bf16 route runs the tensor-core engine: ragged tiles at
+# every T (196 = 3 x 64 + 4, 49, 9), D a multiple of 16, of 8 only, and of
+# neither (2-byte loads), one image's 25 windows at ViT-H's 16 heads
+@pytest.mark.parametrize("ws", [14, 7, 3])
+@pytest.mark.parametrize("d", [80, 64, 20])
+def test_k2_bf16_tensor_core_route_matches_plain(dev, ws, d):
+    g = torch.Generator(device=dev).manual_seed(ws * d + 9)
+    bw, h, t = 25, 16 if d == 80 else 3, ws * ws
+    qkv = torch.randn(bw, t, 3 * h * d, generator=g, device=dev).to(torch.bfloat16)
+    rel = torch.randn(bw, t, 2 * h * ws, generator=g, device=dev).to(torch.bfloat16)
+    before = fa.sam_window_attention_packed.launches
+    out, lse = fa.sam_window_attention_packed(qkv, rel, h, d, ws, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.sam_window_attention_packed.launches == before + 1
+    ref, ref_lse = fa.sam_window_attention_packed_reference(qkv, rel, h, d, ws)
+    _close(out, ref, torch.bfloat16)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
@@ -360,6 +380,81 @@ def test_k1b_kernel_matches_plain(dev, dtype, n, d, causal):
         assert not got[0][1, :, :5].any()
     auto = _autograd(lambda a, b, c: fa.flash_attention(a, b, c, causal, kv), (q, k, v), go)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))   # one kernel, deterministic
+
+
+def _k1b_inputs(dev, n, d, seed, dtype=torch.bfloat16):
+    """q, k, v, g [2, 3, N, D]; key_valid: row 1 without keys 0-4 and the
+    last 11 (under the causal mask its queries 0-4 see no key); out, lse
+    from K1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, go = (torch.randn(2, 3, n, d, generator=g, device=dev).to(dtype) for _ in range(4))
+    pos = torch.arange(n, device=dev)
+    kv = torch.stack([pos < n, (pos >= 5) & (pos < n - 11)])
+    out, lse = fa.flash_attention(q, k, v, True, kv, return_lse=True)
+    return q, k, v, kv, out, lse, go
+
+
+# K1b's bf16 route runs the pair layout of the tensor-core engine: N = 767
+# (the training step's, 11 x 64 + 63), 70 and 37, at the LLM's D = 128,
+# SAM's 80 and 64; fully masked rows get exactly zero dq
+@pytest.mark.parametrize("n", [767, 70, 37])
+@pytest.mark.parametrize("d", [128, 80, 64])
+def test_k1b_bf16_tensor_core_route_matches_plain(dev, n, d):
+    q, k, v, kv, out, lse, go = _k1b_inputs(dev, n, d, n * d + 7)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, True, kv, out, lse, go)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, True, kv, out, lse, go)
+    _close_grads(got, want, torch.bfloat16)
+    assert not got[0][1, :, :5].any()
+
+
+@pytest.mark.parametrize("n,d", [(767, 128), (70, 80)])
+def test_k1b_is_deterministic(dev, n, d):
+    """Two K1b calls on the same inputs give the same bits: every gradient
+    element is summed by one owner in a fixed order (no atomics)."""
+    q, k, v, kv, out, lse, go = _k1b_inputs(dev, n, d, n * d + 8)
+    first = fa.flash_attention_bwd(q, k, v, True, kv, out, lse, go)
+    second = fa.flash_attention_bwd(q, k, v, True, kv, out, lse, go)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _k1b_products(q, k, v, kv, out, lse, g, single):
+    """dq, dk, dv from K1b's fp32 p and ds (s = scale (q . k), dp = g . v)
+    with float64 products; single: p and ds rounded to bf16 alone first."""
+    n, d = q.shape[2], q.shape[-1]
+    scale = d ** -0.5
+    pos = torch.arange(n, device=q.device)
+    mask = kv[:, None, None, :] & (pos[None, :] <= pos[:, None])[None, None]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()).float() * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.double(), v.double()).float()
+    ds = p * (dp - fa._delta(g, out)[..., None])
+    if single:
+        p, ds = p.to(q.dtype), ds.to(q.dtype)
+    p, ds = p.double(), ds.double()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.double()) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.double()) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", p, g.double()))
+
+
+@pytest.mark.parametrize("n,d", [(200, 128), (70, 80)])
+def test_k1b_split_products_beat_bf16_alone(dev, n, d):
+    """K1b's bf16 dq, dk and dv against float64 products of its own p and
+    ds, all rounded to bf16: the hi + lo split keeps about 16 bits of p and
+    ds, so the kernel's mean error stays 8 times under that of rounding p
+    and ds to bf16 alone (chip_smoke.py's SPLIT_GAIN), at a causal shape
+    with padded keys."""
+    q, k, v, kv, out, lse, go = _k1b_inputs(dev, n, d, n * d + 9)
+    got = fa.flash_attention_bwd(q, k, v, True, kv, out, lse, go)
+    args = (q, k, v, kv, out, lse, go)
+    for a, e, si in zip(got, _k1b_products(*args, False), _k1b_products(*args, True)):
+        e = e.to(torch.bfloat16).float()
+        err_kernel = (a.float() - e).abs().mean()
+        err_single = (si.to(torch.bfloat16).float() - e).abs().mean()
+        assert err_kernel * 8 <= err_single, (float(err_kernel), float(err_single))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

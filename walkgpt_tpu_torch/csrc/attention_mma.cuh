@@ -1,13 +1,15 @@
 // Tensor-core forward-attention engine (bf16), the Hopper redesign of
 // attention_tile.cuh for bf16 inputs. Built on it: K3
-// (sam_flash_attention.cu). Its fp32 route stays on attention_tile.cuh: the
-// tensor cores have no exact fp32 product.
+// (sam_flash_attention.cu), K2 (sam_window_attention.cu) and K10
+// (sam_window_attention_split.cu). Their fp32 routes stay on
+// attention_tile.cuh: the tensor cores have no exact fp32 product.
 //
 // One block of 4 warps computes a 64-row query tile against every key tile,
 // 64 keys at a time, with an fp32 online softmax. Each warp owns 16 query
 // rows. Every product is a bf16 mma.sync.m16n8k16 with fp32 sums:
-//   S = Q.K^T   A = the staged (scaled, rounded) query rows, B = K rows
-//               (ldmatrix); D is padded to DP = 16 * KD with zeros;
+//   S = Q.K^T   A = the staged query rows (ldmatrix), each value scaled and
+//               rounded in registers, B = K rows (ldmatrix); D is padded to
+//               DP = 16 * KD with zeros;
 //   O += P.V    A = p rounded to bf16, built from S's accumulator fragments
 //               in registers (never through shared memory), B = V rows
 //               (ldmatrix.trans).
@@ -37,7 +39,9 @@
 //                 adds the bias to the warp's fragment (rows row, row + 8;
 //                 keys from k0) for keys < nk; keys >= nk are masked by the
 //                 engine afterwards
-//   void out(int row, int d, float x) const; void lse(int row, float x) const
+//   bf16* op; int64_t so;   the output tile's row 0 and its row stride (an
+//                 even D is written in bf16 pairs, so op and so are then even)
+//   void lse(int row, float x) const
 #pragma once
 
 #include <cuda_bf16.h>
@@ -140,33 +144,33 @@ __device__ __forceinline__ void a_frag_split(const float (&s)[NT][4], int j, uin
 // staged [64][SS] tile; rows >= nr are zeros. vec: 16-byte cp.async copies
 // (the caller commits and waits); otherwise plain loads. Columns D .. DP-1
 // are never written: the engine zeroes the tiles once. FULL: the caller
-// knows that vec holds, D == DP and nr == 64.
-template <int SS, int DP, bool FULL = false>
+// knows that vec holds, D == DP and nr == 64. NTH: the block's threads.
+template <int SS, int DP, bool FULL = false, int NTH = NTHREADS>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int64_t ld, int nr, int D,
                                           bool vec) {
   if (FULL) {
     constexpr int cpr = DP / 8, n = BQ * cpr;
 #pragma unroll
-    for (int k = 0; k < (n + NTHREADS - 1) / NTHREADS; ++k) {
-      const int i = threadIdx.x + k * NTHREADS, r = i / cpr, c = i - r * cpr;
-      if (n % NTHREADS == 0 || i < n) cp_async16(dst + r * SS + 8 * c, src + r * ld + 8 * c, 16);
+    for (int k = 0; k < (n + NTH - 1) / NTH; ++k) {
+      const int i = threadIdx.x + k * NTH, r = i / cpr, c = i - r * cpr;
+      if (n % NTH == 0 || i < n) cp_async16(dst + r * SS + 8 * c, src + r * ld + 8 * c, 16);
     }
   } else if (vec && D == DP) {
     constexpr int cpr = DP / 8;   // a constant: no division at run time
-    for (int i = threadIdx.x; i < BQ * cpr; i += NTHREADS) {
+    for (int i = threadIdx.x; i < BQ * cpr; i += NTH) {
       const int r = i / cpr, c = i - r * cpr;
       const bool ok = r < nr;
       cp_async16(dst + r * SS + 8 * c, src + (ok ? r * ld + 8 * c : 0), ok ? 16 : 0);
     }
   } else if (vec) {
     const int cpr = D >> 3;
-    for (int i = threadIdx.x; i < BQ * cpr; i += NTHREADS) {
+    for (int i = threadIdx.x; i < BQ * cpr; i += NTH) {
       const int r = i / cpr, c = i - r * cpr;
       const bool ok = r < nr;
       cp_async16(dst + r * SS + 8 * c, src + (ok ? r * ld + 8 * c : 0), ok ? 16 : 0);
     }
   } else {
-    for (int i = threadIdx.x; i < BQ * D; i += NTHREADS) {
+    for (int i = threadIdx.x; i < BQ * D; i += NTH) {
       const int r = i / D, d = i - r * D;
       dst[r * SS + d] = r < nr ? src[r * ld + d] : __float2bfloat16_rn(0.f);
     }
@@ -187,9 +191,10 @@ __device__ __forceinline__ void scale_rows(bf16* dst, const bf16* src, bf16 scal
   }
 }
 
+template <int NTH = NTHREADS>
 __device__ __forceinline__ void zero_smem(void* p, size_t bytes) {
   int4* q = static_cast<int4*>(p);
-  for (size_t i = threadIdx.x; i < bytes / 16; i += NTHREADS) q[i] = make_int4(0, 0, 0, 0);
+  for (size_t i = threadIdx.x; i < bytes / 16; i += NTH) q[i] = make_int4(0, 0, 0, 0);
 }
 
 // Warp-level products over staged tiles (row stride SS). acc[NT] (16 x 64)
@@ -299,12 +304,19 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
   cp_commit();
   cp_wait<0>();
   __syncthreads();
-  scale_rows<SS, DP>(Qs, Qs, pr.qscale);
-  __syncthreads();
+  // the warp's query fragments, each value rounded to bf16(q * qscale) in
+  // registers (as scale_rows would in shared memory)
+  const __nv_bfloat162 qs2 = __bfloat162bfloat162(pr.qscale);
   uint32_t qf[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
+  for (int kk = 0; kk < KD; ++kk) {
     ldsm_x4(qf[kk], Qs + (16 * warp + (lane & 15)) * SS + 16 * kk + (lane >> 4) * 8);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 x = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qf[kk][i]), qs2);
+      qf[kk][i] = *reinterpret_cast<const uint32_t*>(&x);
+    }
+  }
 
   float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
   float acc[2 * KD][4];
@@ -405,13 +417,18 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
     const int r = row + 8 * h;
     if (!F && r >= pr.nq) continue;
     const float lm = fmaxf(l[h], 1e-30f);
+    bf16* o = pr.op + int64_t(r) * pr.so;
 #pragma unroll
-    for (int i = 0; i < 2 * KD; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = 8 * i + 2 * t + e;
-        if (d < pr.D) pr.out(r, d, acc[i][2 * h + e] / lm);
+    for (int i = 0; i < 2 * KD; ++i) {
+      const int d = 8 * i + 2 * t;
+      const float x0 = acc[i][2 * h] / lm, x1 = acc[i][2 * h + 1] / lm;
+      if (pr.D % 2 == 0) {   // even D: every pair d, d + 1 is in the row, 4-byte aligned
+        if (d < pr.D) *reinterpret_cast<__nv_bfloat162*>(o + d) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (d < pr.D) o[d] = __float2bfloat16_rn(x0);
+        if (d + 1 < pr.D) o[d + 1] = __float2bfloat16_rn(x1);
       }
+    }
     if (t == 0) pr.lse(r, m[h] + logf(lm));
   }
 }
@@ -420,7 +437,8 @@ template <class Prob, int KD>
 __global__ void __launch_bounds__(NTHREADS) attention_mma_kernel(typename Prob::Args a) {
   extern __shared__ __align__(16) char smem[];
   const Prob pr(a, blockIdx.x, blockIdx.y, smem + fwd_tile_bytes<KD>());
-  zero_smem(smem, fwd_tile_bytes<KD>());
+  // only the columns D .. DP - 1 rely on zeros (load_rows writes every row)
+  if (pr.D != 16 * KD) zero_smem(smem, fwd_tile_bytes<KD>());
   __syncthreads();
   attention_mma_tile<KD>(pr, smem);
 }
@@ -581,6 +599,119 @@ struct RelRows {
                               __bfloat162float(rh[r * hs + kh]);
         }
       }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The decomposed rel-pos bias of SAM's windowed blocks (K2, K10): logit = s +
+// (rel_h[q, key / ws] + rel_w[q, key % ws]), formed in fp32 in the TPU
+// kernel's order, the [T, T] bias never built.
+// ---------------------------------------------------------------------------
+
+// A 64-query tile's rel rows staged in shared memory once, as R (bf16 or
+// fp32, exact), [64][ws] for rel_h and then for rel_w (rows past the tile's
+// end zeros; with ws even every row starts 4-byte aligned for bf16 and
+// 8-byte aligned for fp32), and a table of every key k < nkt * 64 to
+// (k / ws) | (k % ws) << 8 (keys past T map to 0; the engine masks them),
+// so that the bias costs shared-memory reads and no division.
+template <typename R>
+struct WinRel {
+  const R* rh;
+  const R* rw;
+  const uint16_t* kidx;
+  int ws;
+
+  __host__ __device__ static size_t bytes(int ws, int T) {
+    const size_t rows = (sizeof(R) * 2 * BQ * ws + 15) / 16 * 16;
+    return rows + sizeof(uint16_t) * size_t((T + BK - 1) / BK * BK);
+  }
+  // src_h, src_w: rel_h and rel_w of the tile's row 0 (row stride ld). A
+  // head's rel_h starts ws elements apart, not 16-byte aligned: where rows
+  // are whole 4-byte words (w4), 4-byte cp.async copies, which join the
+  // engine's first copy group; else plain loads. The engine waits and
+  // synchronises before the tables are read.
+  __device__ void stage(const R* src_h, const R* src_w, int64_t ld, int nr, int ws_, int T,
+                        bool w4, char* extra) {
+    ws = ws_;
+    R* dh = reinterpret_cast<R*>(extra);
+    R* dw = dh + BQ * ws;
+    if (w4) {
+      constexpr int E = 4 / sizeof(R);   // elements per word
+      const int wpr = ws / E;            // words per row
+      for (int i = threadIdx.x; i < BQ * wpr; i += NTHREADS) {
+        const int r = i / wpr, c = E * (i - r * wpr);
+        const bool ok = r < nr;
+        cp_async4(dh + r * ws + c, src_h + (ok ? r * ld + c : 0), ok ? 4 : 0);
+        cp_async4(dw + r * ws + c, src_w + (ok ? r * ld + c : 0), ok ? 4 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < BQ * ws; i += NTHREADS) {
+        const int r = i / ws, c = i - r * ws;
+        if (r < nr) {
+          dh[i] = src_h[r * ld + c];
+          dw[i] = src_w[r * ld + c];
+        } else {
+          dh[i] = dw[i] = from_float(0.f);
+        }
+      }
+    }
+    uint16_t* kt = reinterpret_cast<uint16_t*>(extra + (sizeof(R) * 2 * BQ * ws + 15) / 16 * 16);
+    const int nk = (T + BK - 1) / BK * BK;
+    for (int k = threadIdx.x; k < nk; k += NTHREADS) {
+      const int kh = k / ws;
+      kt[k] = k < T ? uint16_t(kh | (k - kh * ws) << 8) : uint16_t(0);
+    }
+    rh = dh;
+    rw = dw;
+    kidx = kt;
+  }
+  // s[n][e] += bias for the warp fragment's rows row, row + 8 (local) and
+  // keys k0 + 8 n + 2 t + (e & 1)
+  __device__ __forceinline__ void add(float (&s)[NT][4], int k0, int row) const {
+    const int t = threadIdx.x & 3;
+    const R* h0 = rh + row * ws;
+    const R* w0 = rw + row * ws;
+    if (ws % 2 == 0) {
+      // a fragment's key pair k, k + 1 (k even) then lies in one grid row,
+      // at the columns kw, kw + 1 (kw even): one read of rel_h and one
+      // paired read of rel_w serve both keys (T = ws^2 is even, so a pair
+      // never straddles T)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const uint32_t c = kidx[k0 + 8 * n + 2 * t];
+        const int kh = c & 0xff, kw = c >> 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float bh = to_float(h0[8 * h * ws + kh]);
+          const float2 bw = to_float2(w0 + 8 * h * ws + kw);
+          s[n][2 * h] += bh + bw.x;
+          s[n][2 * h + 1] += bh + bw.y;
+        }
+      }
+      return;
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint32_t c = kidx[k0 + 8 * n + 2 * t + j];
+        const int kh = c & 0xff, kw = c >> 8;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          s[n][2 * h + j] += to_float(h0[8 * h * ws + kh]) + to_float(w0[8 * h * ws + kw]);
+      }
+  }
+  __device__ __forceinline__ static float to_float(float x) { return x; }
+  __device__ __forceinline__ static float to_float(bf16 x) { return __bfloat162float(x); }
+  __device__ __forceinline__ static float2 to_float2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  __device__ __forceinline__ static float2 to_float2(const bf16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ __forceinline__ static R from_float(float x) {
+    if constexpr (sizeof(R) == sizeof(float)) return x;
+    else return __float2bfloat16_rn(x);
   }
 };
 

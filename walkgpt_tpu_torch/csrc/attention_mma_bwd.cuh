@@ -1,6 +1,8 @@
 // Tensor-core backward-attention engine (bf16), the Hopper redesign of
 // attention_bwd.cuh for bf16 inputs. Built on it: K3b
-// (sam_flash_attention_bwd.cu). Its fp32 route stays on attention_bwd.cuh.
+// (sam_flash_attention_bwd.cu) on the 4-warp layout, and K1b
+// (flash_attention_bwd.cu) on the pair layout at the end of this file.
+// Their fp32 routes stay on attention_bwd.cuh.
 //
 // Two passes, as the CUDA-core engine and the TPU kernels have them, each
 // recomputing p from the forward's saved logsumexp:
@@ -419,6 +421,366 @@ cudaError_t launch_bwd(const typename Prob::Args& a, int D, int n_bh, int N, int
     case 6: return launch_bwd_kd<Prob, 6>(a, n_bh, N, NK, st);
     case 7: return launch_bwd_kd<Prob, 7>(a, n_bh, N, NK, st);
     case 8: return launch_bwd_kd<Prob, 8>(a, n_bh, N, NK, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The pair layout (K1b): 8 warps a block, for head dims up to 128. In the
+// 4-warp layout above a warp holds dk and dv of its 16 keys (2 x 16 x DP
+// fp32: 128 registers a thread at D = 128) beside s, dp and the split
+// fragments, which overflows 255 registers. Here warps w and w + 4 own the
+// same 16 rows of the block's tile and split each step's products between
+// them, so that a warp holds one 16 x DP accumulator at most:
+//   dq pass   warp w: s = scale (q.k^T), p; warp w + 4: dp = g.v^T, then
+//             ds = p (dp - delta); each warp then sums half of dq's head
+//             dims, d-tiles [0, KH) and [KH, KD), KH = ceil(KD / 2).
+//   dk/dv     warp w: s^T = scale (k.q^T), p^T, dv += p^T.g; warp w + 4:
+//   pass      dp^T = v.g^T, ds^T = p^T (dp^T - delta), dk += ds^T.q.
+// Each warp runs the same number of mma.sync per step. p (and in the dq
+// pass ds) crosses from one warp of the pair to the other through a 4 KB
+// shared-memory slot: every lane writes and reads only its own fragment
+// positions, and a barrier of the pair's 64 threads (named barrier 1 + the
+// pair) orders the two. The logits are the fp32 accumulator of q.k times
+// scale (Prob::SCALE_ACC): q is staged unscaled. Masks: the problem's
+// mask_qk / mask_kq set the logits of masked pairs to -inf, so p is exactly
+// 0 there; pairs past the tile's end get p = 0 from the engine.
+// Blocks are ordered heaviest first (see bwd_pair_kernel).
+// Problem interface (as above, without the rel-pos parts), plus:
+//   static constexpr bool SCALE_ACC = true
+//   int dq_key_tiles(int q0) const        key tiles the dq pass of the query
+//                                         tile at q0 walks (from 0)
+//   int dkv_first_qtile(int k0) const     first query tile of the dk/dv pass
+//   void mask_qk(float (&s)[NT][4], int q0, int k0, int row) const
+//                 rows q0 + row, + 8; keys k0 + 8 n + 2 t + (e & 1)
+//   void mask_kq(float (&s)[NT][4], int q0, int k0, int key) const
+//                 rows keys k0 + key, + 8; columns queries q0 + 8 n + 2 t + (e & 1)
+// ---------------------------------------------------------------------------
+
+constexpr int PAIR_WARPS = 8;
+constexpr int PAIR_THREADS = 32 * PAIR_WARPS;
+constexpr int XCH_FLOATS = 32 * 4 * NT;                      // one pair's slot
+constexpr size_t XCH_BYTES = sizeof(float) * XCH_FLOATS * 4;   // four pairs
+
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// a warp's 16 x 64 fp32 fragment into, and out of, its pair's slot
+__device__ __forceinline__ void xch_put(float* x, const float (&f)[NT][4]) {
+  float4* p = reinterpret_cast<float4*>(x) + (threadIdx.x & 31);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) p[32 * n] = make_float4(f[n][0], f[n][1], f[n][2], f[n][3]);
+}
+__device__ __forceinline__ void xch_get(const float* x, float (&f)[NT][4]) {
+  const float4* p = reinterpret_cast<const float4*>(x) + (threadIdx.x & 31);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const float4 v = p[32 * n];
+    f[n][0] = v.x;
+    f[n][1] = v.y;
+    f[n][2] = v.z;
+    f[n][3] = v.w;
+  }
+}
+
+// out[0 .. 2 ND) (16 x 16 ND) += (hi + lo) . B columns 16 D0 .. 16 (D0 + ND)
+// - 1 of rows 16 j .. + 15 of b (mma_ab2 over a range of head-dim tiles)
+template <int D0, int ND, int SS, int NO>
+__device__ __forceinline__ void mma_ab2_part(float (&out)[NO][4], const uint32_t hi[4],
+                                             const uint32_t lo[4], const bf16* b, int j) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int dp = 0; dp < ND; ++dp) {
+    uint32_t bf[4];
+    ldsm_x4_t(bf, b + (16 * j + (lane & 7) + ((lane >> 3) & 1) * 8) * SS + 16 * (D0 + dp) +
+                      (lane >> 4) * 8);
+    mma(out[2 * dp], hi, bf[0], bf[1]);
+    mma(out[2 * dp + 1], hi, bf[2], bf[3]);
+    mma(out[2 * dp], lo, bf[0], bf[1]);
+    mma(out[2 * dp + 1], lo, bf[2], bf[3]);
+  }
+}
+
+template <int KD, class Prob>
+__device__ __forceinline__ void dq_pass_pair(const Prob& pr, int q0, char* smem) {
+  constexpr int SS = row_stride<KD>();
+  constexpr int DP = 16 * KD;
+  constexpr int KH = (KD + 1) / 2;
+  constexpr int T = PAIR_THREADS;
+  static_assert(Prob::SCALE_ACC, "the pair layout scales the logits' accumulator");
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + BQ * SS;
+  bf16* Ks = Gs + BQ * SS;         // [2][BK][SS]
+  bf16* Vs = Ks + 2 * BK * SS;       // [2][BK][SS]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = warp & 3, role = warp >> 2;
+  float* xch = reinterpret_cast<float*>(smem + dq_tile_bytes<KD>()) + pair * XCH_FLOATS;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = 16 * pair + g;     // this thread's rows: row, row + 8
+  const int nq = min(BQ, pr.N - q0);
+  const int nkt = pr.dq_key_tiles(q0);
+
+  load_rows<SS, DP, false, T>(Qs, pr.q + q0 * pr.sq, pr.sq, nq, pr.D, pr.vec);
+  load_rows<SS, DP, false, T>(Gs, pr.g + q0 * pr.sg, pr.sg, nq, pr.D, pr.vec);
+  load_rows<SS, DP, false, T>(Ks, pr.k, pr.sk, min(BK, pr.NK), pr.D, pr.vec);
+  load_rows<SS, DP, false, T>(Vs, pr.v, pr.sv, min(BK, pr.NK), pr.D, pr.vec);
+  cp_commit();
+
+  float lse[2], delta[2];   // lse in log2 units
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row + 8 * h < nq;
+    lse[h] = ok ? pr.lse[q0 + row + 8 * h] * LOG2E : 0.f;
+    delta[h] = ok ? pr.delta[q0 + row + 8 * h] : 0.f;
+  }
+  float dq[2 * KH][4];   // role 0: d-tiles [0, KH); role 1: [KH, KD)
+#pragma unroll
+  for (int i = 0; i < 2 * KH; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * BK;
+    const bf16* Kb = Ks + (kt & 1) * BK * SS;
+    const bf16* Vb = Vs + (kt & 1) * BK * SS;
+    cp_wait<0>();
+    __syncthreads();   // tile kt has landed; every warp is done with tile kt - 1
+    if (kt + 1 < nkt) {   // into the buffer of tile kt - 1, while kt is multiplied
+      const int k1 = k0 + BK, nk1 = min(BK, pr.NK - k1), b = (kt + 1) & 1;
+      load_rows<SS, DP, false, T>(Ks + b * BK * SS, pr.k + k1 * pr.sk, pr.sk, nk1, pr.D,
+                                  pr.vec);
+      load_rows<SS, DP, false, T>(Vs + b * BK * SS, pr.v + k1 * pr.sv, pr.sv, nk1, pr.D,
+                                  pr.vec);
+      cp_commit();
+    }
+
+    float f[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) f[n][0] = f[n][1] = f[n][2] = f[n][3] = 0.f;
+    if (role == 0) {   // s, then p
+      mma_abt<KD, SS>(f, Qs + 16 * pair * SS, Kb);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[n][e] *= pr.scale;
+      pr.mask_qk(f, q0, k0, row);
+      const bool full = k0 + BK <= pr.NK && nq == BQ;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const bool ok = full || (k0 + 8 * n + 2 * t + (e & 1) < pr.NK && row + 8 * h < nq);
+          f[n][e] = ok ? exp2_fast(fmaf(f[n][e], LOG2E, -lse[h])) : 0.f;
+        }
+      xch_put(xch, f);
+    } else {           // dp
+      mma_abt<KD, SS>(f, Gs + 16 * pair * SS, Vb);
+    }
+    pair_sync(pair);
+    if (role == 1) {   // ds = p (dp - delta), back to the pair's slot
+      float p[NT][4];
+      xch_get(xch, p);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[n][e] = p[n][e] * (f[n][e] - delta[e >> 1]);
+      xch_put(xch, f);
+    }
+    pair_sync(pair);
+    if (role == 0) xch_get(xch, f);
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      uint32_t hi[4], lo[4];
+      a_frag_split(f, j, hi, lo);
+      if (role == 0)
+        mma_ab2_part<0, KH, SS>(dq, hi, lo, Kb, j);
+      else
+        mma_ab2_part<KH, KD - KH, SS>(dq, hi, lo, Kb, j);
+    }
+  }
+
+  const int d0 = role ? 16 * KH : 0, nd = role ? KD - KH : KH;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= nq) continue;
+#pragma unroll
+    for (int i = 0; i < 2 * KH; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = d0 + 8 * i + 2 * t + e;
+        if (i < 2 * nd && d < pr.D) pr.dq(q0 + r, d, dq[i][2 * h + e] * pr.scale);
+      }
+  }
+}
+
+template <int KD, class Prob>
+__device__ __forceinline__ void dkv_pass_pair(const Prob& pr, int k0, char* smem) {
+  constexpr int SS = row_stride<KD>();
+  constexpr int DP = 16 * KD;
+  constexpr int T = PAIR_THREADS;
+  static_assert(Prob::SCALE_ACC, "the pair layout scales the logits' accumulator");
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + BQ * SS;
+  bf16* Qr = Vs + BQ * SS;         // [2][BQ][SS]
+  bf16* Gs = Qr + 2 * BQ * SS;       // [2][BQ][SS]
+  float* lse_s = reinterpret_cast<float*>(Gs + 2 * BQ * SS);   // [2][BQ]
+  float* delta_s = lse_s + 2 * BQ;                              // [2][BQ]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int pair = warp & 3, role = warp >> 2;
+  float* xch = reinterpret_cast<float*>(smem + dkv_tile_bytes<KD>()) + pair * XCH_FLOATS;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = 16 * pair + g;     // this thread's keys: k0 + row, + 8
+  const int nk = min(BK, pr.NK - k0);
+  const int nqt = (pr.N + BQ - 1) / BQ;
+
+  auto stage = [&](int qt) {   // then the caller commits
+    const int q0 = qt * BQ, nq = min(BQ, pr.N - q0), b = qt & 1;
+    load_rows<SS, DP, false, T>(Qr + b * BQ * SS, pr.q + q0 * pr.sq, pr.sq, nq, pr.D, pr.vec);
+    load_rows<SS, DP, false, T>(Gs + b * BQ * SS, pr.g + q0 * pr.sg, pr.sg, nq, pr.D, pr.vec);
+    for (int i = threadIdx.x; i < 2 * BQ; i += T) {
+      const int r = i & (BQ - 1);
+      const bool ok = r < nq;
+      if (i < BQ)
+        cp_async4(lse_s + b * BQ + r, pr.lse + (ok ? q0 + r : 0), ok ? 4 : 0);
+      else
+        cp_async4(delta_s + b * BQ + r, pr.delta + (ok ? q0 + r : 0), ok ? 4 : 0);
+    }
+  };
+  const int first = pr.dkv_first_qtile(k0);
+  load_rows<SS, DP, false, T>(Ks, pr.k + k0 * pr.sk, pr.sk, nk, pr.D, pr.vec);
+  load_rows<SS, DP, false, T>(Vs, pr.v + k0 * pr.sv, pr.sv, nk, pr.D, pr.vec);
+  stage(first);
+  cp_commit();
+
+  float acc[2 * KD][4];   // role 0: dv; role 1: dk
+#pragma unroll
+  for (int i = 0; i < 2 * KD; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int qt = first; qt < nqt; ++qt) {
+    const int q0 = qt * BQ, b = qt & 1;
+    cp_wait<0>();
+    __syncthreads();   // tile qt has landed; every warp is done with tile qt - 1
+    if (qt + 1 < nqt) {   // into the buffers of tile qt - 1, while qt is multiplied
+      stage(qt + 1);
+      cp_commit();
+    }
+    const bf16* Qb = Qr + b * BQ * SS;
+    const bf16* Gb = Gs + b * BQ * SS;
+    const float* db = delta_s + b * BQ;
+
+    float f[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) f[n][0] = f[n][1] = f[n][2] = f[n][3] = 0.f;
+    if (role == 0) {   // s^T, then p^T
+      const float* lb = lse_s + b * BQ;
+      mma_abt<KD, SS>(f, Ks + 16 * pair * SS, Qb);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[n][e] *= pr.scale;
+      pr.mask_kq(f, q0, k0, row);
+      const bool full = q0 + BQ <= pr.N && nk == BK;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t + (e & 1);
+          const bool ok = full || (q0 + c < pr.N && row + 8 * (e >> 1) < nk);
+          f[n][e] = ok ? exp2_fast(fmaf(f[n][e], LOG2E, -lb[c] * LOG2E)) : 0.f;
+        }
+      xch_put(xch, f);
+    } else {           // dp^T
+      mma_abt<KD, SS>(f, Vs + 16 * pair * SS, Gb);
+    }
+    pair_sync(pair);
+    if (role == 1) {   // ds^T = p^T (dp^T - delta)
+      float p[NT][4];
+      xch_get(xch, p);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[n][e] = p[n][e] * (f[n][e] - db[8 * n + 2 * t + (e & 1)]);
+    }
+    const bf16* Bb = role ? Qb : Gb;   // dk += ds^T.q; dv += p^T.g
+#pragma unroll
+    for (int j = 0; j < BQ / 16; ++j) {
+      uint32_t hi[4], lo[4];
+      a_frag_split(f, j, hi, lo);
+      mma_ab2<KD, SS>(acc, hi, lo, Bb, j);
+    }
+  }
+
+  const float sc = role ? pr.scale : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r >= nk) continue;
+#pragma unroll
+    for (int i = 0; i < 2 * KD; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * i + 2 * t + e;
+        if (d >= pr.D) continue;
+        if (role)
+          pr.dk(k0 + r, d, acc[i][2 * h + e] * sc);
+        else
+          pr.dv(k0 + r, d, acc[i][2 * h + e]);
+      }
+  }
+}
+
+// Both passes of the pair layout in one launch over a 1-D grid of 2 * nt *
+// n_bh blocks (nt tiles of 64 on each side, N == NK), heaviest first: rank
+// r holds, for every (batch, head), the dk/dv pass of key tile r and the dq
+// pass of query tile nt - 1 - r, which under a causal mask both walk nt - r
+// tiles (without one, every block walks nt).
+template <class Prob, int KD>
+__global__ void __launch_bounds__(PAIR_THREADS) bwd_pair_kernel(typename Prob::Args a, int nt,
+                                                                  int n_bh) {
+  extern __shared__ __align__(16) char smem[];
+  const int r = blockIdx.x / (2 * n_bh), rem = blockIdx.x - r * 2 * n_bh;
+  const Prob pr(a, rem >> 1);
+  // only the columns D .. DP - 1 rely on zeros (load_rows writes every row)
+  const bool pad = pr.D != 16 * KD;
+  if (rem & 1) {
+    if (pad) zero_smem<PAIR_THREADS>(smem, dq_tile_bytes<KD>());
+    __syncthreads();
+    dq_pass_pair<KD>(pr, (nt - 1 - r) * BQ, smem);
+  } else {
+    if (pad) zero_smem<PAIR_THREADS>(smem, dkv_tile_bytes<KD>());
+    __syncthreads();
+    dkv_pass_pair<KD>(pr, r * BK, smem);
+  }
+}
+
+template <class Prob, int KD>
+cudaError_t launch_pair_kd(const typename Prob::Args& a, int n_bh, int N, cudaStream_t st) {
+  const size_t dq_smem = dq_tile_bytes<KD>() + XCH_BYTES;
+  const size_t dkv_smem = dkv_tile_bytes<KD>() + XCH_BYTES;
+  const size_t smem = dq_smem > dkv_smem ? dq_smem : dkv_smem;
+  cudaError_t e = cudaFuncSetAttribute(bwd_pair_kernel<Prob, KD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  const int nt = (N + BQ - 1) / BQ;
+  bwd_pair_kernel<Prob, KD><<<2 * nt * n_bh, PAIR_THREADS, smem, st>>>(a, nt, n_bh);
+  return cudaGetLastError();
+}
+
+// Both passes of the pair layout for head dims up to 128 (KD <= 8), N == NK.
+template <class Prob>
+cudaError_t launch_pair(const typename Prob::Args& a, int D, int n_bh, int N, cudaStream_t st) {
+  switch ((D + 15) / 16) {
+    case 1: return launch_pair_kd<Prob, 1>(a, n_bh, N, st);
+    case 2: return launch_pair_kd<Prob, 2>(a, n_bh, N, st);
+    case 3: return launch_pair_kd<Prob, 3>(a, n_bh, N, st);
+    case 4: return launch_pair_kd<Prob, 4>(a, n_bh, N, st);
+    case 5: return launch_pair_kd<Prob, 5>(a, n_bh, N, st);
+    case 6: return launch_pair_kd<Prob, 6>(a, n_bh, N, st);
+    case 7: return launch_pair_kd<Prob, 7>(a, n_bh, N, st);
+    case 8: return launch_pair_kd<Prob, 8>(a, n_bh, N, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -136,6 +136,7 @@ struct GlobalMma {
   bf16 qscale;
   tc::RelRows rel;
   bf16* op;
+  int64_t so;
   float* lp;
 
   __device__ GlobalMma(const Args& a, int qtile, int bh, char* extra) {
@@ -156,12 +157,12 @@ struct GlobalMma {
     rel.stage<FAST>(a.rel_h + int64_t(bh) * a.N * a.gh, a.rel_w + int64_t(bh) * a.N * a.gw, q0, a.N,
               a.gh, a.gw, a.rel_vec, extra);
     op = a.out + (int64_t(bh) * a.N + q0) * a.D;
+    so = a.D;
     lp = a.lse_out + int64_t(bh) * a.N + q0;
   }
   __device__ void add_bias(float (&s)[tc::NT][4], int k0, int row) const {
     rel.add<FAST>(s, k0, row, nq, nk);
   }
-  __device__ void out(int r, int d, float x) const { op[r * D + d] = __float2bfloat16_rn(x); }
   __device__ void lse(int r, float x) const { lp[r] = x; }
 };
 

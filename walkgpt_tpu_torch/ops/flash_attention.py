@@ -17,7 +17,10 @@ K2 sam_window_attention_packed (csrc/sam_window_attention.cu)
     (_win_packed_fwd_kernel): whole-window attention with the decomposed
     rel-pos bias, read from the unsplit qkv projection, merged heads out.
     ViT-H, 2 images: qkv [50, 196, 3840], rel [50, 196, 448] bf16: about
-    109 MB and 9.8 GFLOP, bound by bytes (about 33 us).
+    109 MB and 9.8 GFLOP, bound by bytes (about 33 us). bf16 runs on the
+    tensor cores (csrc/attention_mma.cuh: the head views read in place, the
+    tile's rel rows and a key -> (k / ws, k % ws) table staged in shared
+    memory); fp32 stays on the CUDA-core engine.
 K3 sam_flash_attention (csrc/sam_flash_attention.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:sam_flash_attention
     (_sam_fwd_kernel): global attention over the 64x64 grid with the
@@ -32,9 +35,10 @@ K10 sam_window_attention (csrc/sam_window_attention_split.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:sam_window_attention
     (_win_fwd_kernel): K2's function over the split-head layout, q/k/v
     [BW, H, T, D] and rel_h/rel_w [BW, H, T, ws] (in q's dtype or fp32), on
-    K2's engine, so on the same values its output is K2's bit for bit. No
-    model path calls it (the encoder's windowed blocks take K2). ViT-H, 2
-    images: [50, 16, 196, 80] bf16, about 110 MB, bound by bytes (33 us).
+    K2's engines (bf16 q: tensor cores; fp32: CUDA cores), so on the same
+    values its output is K2's bit for bit. No model path calls it (the
+    encoder's windowed blocks take K2). ViT-H, 2 images: [50, 16, 196, 80]
+    bf16, about 110 MB, bound by bytes (33 us).
 
 K1b flash_attention_bwd (csrc/flash_attention_bwd.cu), K2b
 sam_window_attention_packed_bwd (csrc/sam_window_attention_bwd.cu), K3b
@@ -51,10 +55,14 @@ sam_flash_attention_bwd (csrc/sam_flash_attention_bwd.cu)
     64-key tile, both recomputing p from lse; no atomics. 7B training
     [2, 32, 767, 128] bf16 (K1b): about 101 MB, bound by bytes (30 us);
     ViT-H global (K3b): about 430 GFLOP, bound by operations (434 us).
-    K3b's bf16 route runs the same two passes, in one launch, on the
-    tensor cores (csrc/attention_mma_bwd.cuh): s and dp as bf16 products,
-    dv, dk and dq with p and ds split into two bf16 parts (hi + lo, about 16
-    significant bits), deterministic as before.
+    K1b's and K3b's bf16 routes run the same two passes, in one launch, on
+    the tensor cores (csrc/attention_mma_bwd.cuh): s and dp as bf16
+    products, dv, dk and dq with p and ds split into two bf16 parts (hi +
+    lo, about 16 significant bits), deterministic as before. K1b takes the
+    engine's pair layout (8 warps, warps w and w + 4 splitting a tile's
+    products, so that D = 128 fits the registers) and forms s as scale
+    times the fp32 sum of q . k (K1's function; K3b stages bf16(q * scale),
+    SAM's).
 
 K4 decode_attention_q (csrc/decode_attention_q.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention_q
@@ -85,12 +93,13 @@ and (batch, head) or (window, head); key tiles of 64 stream through shared
 memory; the logits tile and its bias live only in registers and shared
 memory, with an fp32 online softmax, so no [N, N] tensor reaches device
 memory — the part of each bound that is bytes is met by reading each input
-once per query tile. K1, K2 and K10 (and their backwards) run their
-products on the CUDA cores in fp32, far from the tensor-core bound; K3 and
-K3b moved in bf16 to the tensor-core engines (csrc/attention_mma.cuh,
-attention_mma_bwd.cuh: the same tiles, each warp 16 rows, mma.sync bf16
-products with fp32 sums), which keep the problem-object style so that
-K1/K2/K10 can move onto them later; wgmma/TMA tiles are later work.
+once per query tile. In bf16, K1b, K2, K3, K3b and K10 run on the
+tensor-core engines (csrc/attention_mma.cuh, attention_mma_bwd.cuh: the
+same tiles, each warp 16 rows, mma.sync bf16 products with fp32 sums, a
+problem object per kernel); K1 (forward), K2b and K10b run their products
+on the CUDA cores in fp32, far from the tensor-core bound, and every fp32
+call stays there (the fp32 parity runs need exact fp32 products). wgmma/TMA
+tiles are later work.
 """
 from __future__ import annotations
 
@@ -256,8 +265,10 @@ def _flash_fwd(q, k, v, causal: bool, key_valid) -> Tuple[torch.Tensor, torch.Te
 def flash_attention_bwd(q, k, v, causal: bool, key_valid, out, lse, g
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1b: (dq, dk, dv) of flash_attention for the output gradient g, from
-    the forward's out and lse. Two launches (a dq pass per 64-query tile,
-    a dk/dv pass per 64-key tile) that recompute p from lse."""
+    the forward's out and lse: a dq pass per 64-query tile and a dk/dv pass
+    per 64-key tile, both recomputing p from lse (bf16: one launch of both
+    on the tensor cores; fp32: two launches on the CUDA cores); the same
+    bits on every run."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, causal, key_valid, out, lse, g)
     name = "flash_attention_bwd"

@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
-"""K3 and K3b against two edited builds of their own sources, on one GPU.
+"""The tensor-core attention kernels against edited builds of their own
+sources, on one GPU.
 
-    python3 walkgpt_tpu_torch/tools/k3_variants.py
+    python3 walkgpt_tpu_torch/tools/attention_variants.py
 
 Copies `walkgpt_tpu_torch/csrc` twice into `build/variants/` and edits each
-copy, then builds K3 (`sam_flash_attention.cu`) and K3b
-(`sam_flash_attention_bwd.cu`) from every copy in parallel:
-  * general: the launchers never choose the production instantiation (FAST,
-    no bounds checks and constant strides), so every shape runs the
-    general one;
-  * nolo: `mma_ab2` drops its two lo products, so K3b's dv, dk and dq take
-    p and ds rounded to bf16 alone.
+copy, then builds K3 (`sam_flash_attention.cu`), K3b
+(`sam_flash_attention_bwd.cu`) and K1b (`flash_attention_bwd.cu`) from every
+copy in parallel:
+  * general: the launchers of K3 and K3b never choose the production
+    instantiation (FAST, no bounds checks and constant strides), so every
+    shape runs the general one. K1b and K2 have no such instantiation (the
+    training step's N = 767 and the windows' T = 196 leave ragged tiles);
+  * nolo: `mma_ab2` and `mma_ab2_part` drop their two lo products, so
+    K3b's and K1b's dv, dk and dq take p and ds rounded to bf16 alone.
 Then, on bf16 inputs:
   1. K3 and K3b at ViT-H's global attention, [2, 16, 4096, 80], in the
      package's build and in `general`, interleaved (package, general,
      general, package, package, general), ms per call by CUDA events; both
      builds must give the same bits;
-  2. chip_smoke.py's split-product check (k3b_split_check) on each build at
-     the 64 x 64 grid (D = 80) and the 12 x 40 grid (D = 64): the package's
-     and `general` must pass it and `nolo` must fail it.
+  2. chip_smoke.py's split-product checks on each build: k3b_split_check at
+     the 64 x 64 grid (D = 80) and the 12 x 40 grid (D = 64), k1b_split_check
+     at N = 767 (D = 128) and N = 130 (D = 64), causal with padded keys: the
+     package's and `general` must pass them and `nolo` must fail them.
 Exits non-zero if any of these does not hold. Needs nvcc and a CUDA GPU.
 """
 import shutil
@@ -34,12 +38,12 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 from walkgpt_tpu_torch.ops import cuda_build  # noqa: E402
 
-NAMES = ("sam_flash_attention", "sam_flash_attention_bwd")
+NAMES = ("sam_flash_attention", "sam_flash_attention_bwd", "flash_attention_bwd")
+LO = "    mma(out[2 * dp], lo, bf[0], bf[1]);\n    mma(out[2 * dp + 1], lo, bf[2], bf[3]);\n"
 EDITS = {
     "general": [(f, "const bool fast = vec", "const bool fast = false && vec")
                 for f in ("sam_flash_attention.cu", "sam_flash_attention_bwd.cu")],
-    "nolo": [("attention_mma.cuh", "    mma(out[2 * dp], lo, bf[0], bf[1]);\n"
-              "    mma(out[2 * dp + 1], lo, bf[2], bf[3]);\n", "")],
+    "nolo": [("attention_mma.cuh", LO, ""), ("attention_mma_bwd.cuh", LO, "")],
 }
 PACKAGE = (cuda_build.CSRC, cuda_build.BUILD_DIR)
 
@@ -72,7 +76,8 @@ def build_all():
             procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                           text=True))
     use("package")
-    cuda_build.build(NAMES)
+    cuda_build.build(NAMES + ("flash_attention",))
+    cuda_build.load("flash_attention")   # K1's forward (k1b_split_check): the package's
     for p in procs:
         out, _ = p.communicate()
         if p.returncode:
@@ -81,7 +86,7 @@ def build_all():
 
 def main() -> int:
     if not torch.cuda.is_available():
-        print("k3_variants: no CUDA GPU available", file=sys.stderr)
+        print("attention_variants: no CUDA GPU available", file=sys.stderr)
         return 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
@@ -105,20 +110,24 @@ def main() -> int:
     ok &= same
     print(f"  general gives the package's bits (out, dq, dk, dv, drel_h, drel_w): {same}",
           flush=True)
+    checks = [(f"K3b {gh}x{gw} D={d}", lambda gh=gh, gw=gw, d=d: cs.k3b_split_check(
+        dev, gh, gw, d, gen)) for gh, gw, d in ((64, 64, 80), (12, 40, 64))]
+    checks += [(f"K1b N={n} D={d}", lambda n=n, d=d: cs.k1b_split_check(dev, n, d, gen))
+               for n, d in ((767, 128), (130, 64))]
     for tag, want_pass in (("package", True), ("general", True), ("nolo", False)):
         use(tag)
-        for gh, gw, d in ((64, 64, 80), (12, 40, 64)):
+        for label, check in checks:
             try:
-                cs.k3b_split_check(dev, gh, gw, d, gen)
+                check()
                 passed = True
             except AssertionError:
                 passed = False
             ok &= passed == want_pass
-            print(f"  {tag} {gh}x{gw} D={d}: split-product check "
+            print(f"  {tag} {label}: split-product check "
                   f"{'passed' if passed else 'failed'} (expected to "
                   f"{'pass' if want_pass else 'fail'})", flush=True)
     use("package")
-    print("k3_variants: ok" if ok else "k3_variants: FAILED", flush=True)
+    print("attention_variants: ok" if ok else "attention_variants: FAILED", flush=True)
     return 0 if ok else 1
 
 
