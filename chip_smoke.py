@@ -10,7 +10,9 @@ Phases (any failure raises and the script exits non-zero):
      (sam_flash_attention) against their plain versions at the shapes the
      WalkGPT-7B main path gives them; K4 (decode_attention_q), K5
      (int4_matmul_pallas), K6 (fused_mlp_int4) and K7 (fused_mlp_int8) at
-     the shapes of the quantized 7B and 1B paths (2b); K8
+     the shapes of the quantized 7B and 1B paths, K6 also at the 7B
+     server's pool of 4 rows, each row of which must equal the row called
+     alone, and a second call the first, bit for bit (2b); K8
      (decode_attention_q_chunk) at the speculative chunk of both, K8's
      tokens against K4 at the same positions bit for bit, and K11
      (decode_attention) at the dense 7B fused_decode step (2c); all in
@@ -44,8 +46,10 @@ Phases (any failure raises and the script exits non-zero):
   4. the slices at full width, random weights from --seed built on the card,
      two requests of 2 images and 2 prompt rows each, with launch counts per
      request, peak memory, the warm request's phase times on the host
-     clock and on the card (torch.profiler), and K2's and K3's share of the
-     warm SAM encode's device time:
+     clock and on the card (torch.profiler), K6's share of the int4x
+     greedy request's device time and K8's of the speculative ones (beside
+     the decode step's wall, device ms and busy share), and K2's and K3's
+     share of the warm SAM encode's device time:
        a. walkgpt_7b_config (SAM ViT-H at 1024^2, LLaMA-7B), bf16 weights;
        b. WalkGPT-7B in its production format: int4 MLPs, fused q/k/v and
           lm_head, W8A8 o-proj and SAM blocks, the packed int4 flat cache;
@@ -82,7 +86,10 @@ Phases (any failure raises and the script exits non-zero):
      (SDPA with the expanded bias, and its backward) times and the bound.
   2g (after 2f): the route each dtype takes (K1b, K2, K3, K3b, K10: bf16
      on the tensor-core engines, fp32 on the CUDA-core ones), read from the
-     kernels one call launches under the profiler, and held.
+     kernels one call launches under the profiler, and held; K6 and K8 at
+     the 7B shapes launch their own engines' kernels (mlp4_stream.cuh,
+     decode_chunk.cuh) and none of those they left (mlp4_tile.cuh,
+     decode_walk.cuh, which K12 and K4 keep).
   2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
      (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
      against their plain backwards at the training step's shapes in bf16
@@ -229,11 +236,15 @@ KERNEL_INFO = {
     "int4_matmul_pallas": ("walkgpt_tpu_torch/csrc/int4_matmul.cu",
                            "walkgpt_tpu/ops/int4.py:463"),
     "fused_mlp_int4": ("walkgpt_tpu_torch/csrc/fused_mlp_int4.cu",
-                       "walkgpt_tpu/ops/int4.py:105"),
+                       "walkgpt_tpu/ops/int4.py:105",
+                       ["walkgpt_tpu_torch/csrc/mlp4_stream.cuh",
+                        "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "fused_mlp_int8": ("walkgpt_tpu_torch/csrc/fused_mlp_int8.cu",
                        "walkgpt_tpu/ops/int4.py:351"),
     "decode_attention_q_chunk": ("walkgpt_tpu_torch/csrc/decode_attention_q.cu",
-                                 "walkgpt_tpu/ops/flash_attention.py:1519"),
+                                 "walkgpt_tpu/ops/flash_attention.py:1519",
+                                 ["walkgpt_tpu_torch/csrc/decode_chunk.cuh",
+                                  "walkgpt_tpu_torch/csrc/decode_walk.cuh"]),
     "decode_attention": ("walkgpt_tpu_torch/csrc/decode_attention.cu",
                          "walkgpt_tpu/ops/flash_attention.py:1154"),
     "flash_attention_bwd": ("walkgpt_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -356,7 +367,7 @@ def phase_routes(dev, seed):
     """The route each dtype takes, read from the kernels one call launches
     under the profiler (after every kernel timing: once the profiler has
     run, launches stay slower)."""
-    log("== phase 2g: the route of each tensor-core kernel, by dtype")
+    log("== phase 2g: the route of each tensor-core kernel, by dtype; K6's and K8's kernels")
     gen = torch.Generator(device=dev).manual_seed(seed + 50)
     dts = (torch.bfloat16, torch.float32)
     log_routes("flash_attention_bwd",
@@ -368,6 +379,27 @@ def phase_routes(dev, seed):
     log_routes("sam_flash_attention", {dt: k3_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
     log_routes("sam_flash_attention_bwd",
                {dt: k3b_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
+    log("  K6 and K8 on their own engines (the 7B decode MLP, the 7B speculative chunk):")
+    log_symbols("fused_mlp_int4", mlp_case(dev, torch.bfloat16, "int4", 2, 4096, 11008, gen)[0])
+    log_symbols("decode_attention_q_chunk",
+                k8_case(dev, torch.bfloat16, 2, SPEC_K + 1, 32, 32, 128, 512, [440, 375], True,
+                        gen)[0])
+
+
+def traced_kernels(label, fn):
+    """The package's CUDA kernels (torch.profiler names, namespaces and
+    arguments cut) that one call of fn launches."""
+    kernels = {}
+    for attempt in range(3):   # a short trace may come back without device events
+        try:
+            profiled(fn, kernels)
+            break
+        except AssertionError:
+            if attempt == 2:
+                raise
+            log(f"  {label}: the profiler saw no device time, tracing again")
+    return sorted({n.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+                   for n in kernels if "wgt::" in n})
 
 
 def log_routes(name, runs):
@@ -375,22 +407,33 @@ def log_routes(name, runs):
     logs the package's CUDA kernels it launched, and fails unless bf16 ran
     a tensor-core kernel and fp32 none."""
     for dtype, fn in runs.items():
-        kernels = {}
-        for attempt in range(3):   # a short trace may come back without device events
-            try:
-                profiled(fn, kernels)
-                break
-            except AssertionError:
-                if attempt == 2:
-                    raise
-                log(f"  {name} {str(dtype)[6:]}: the profiler saw no device time, tracing again")
-        ours = sorted({n.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
-                       for n in kernels if "wgt::" in n})
+        ours = traced_kernels(f"{name} {str(dtype)[6:]}", fn)
         tc = any(k in n for n in ours for k in TENSOR_CORE_KERNELS)
         log(f"  {name} {str(dtype)[6:]} route: {'tensor cores' if tc else 'CUDA cores'} "
             f"({ROUTES[name].split(' / ')[0 if tc else 1]}): {'; '.join(ours)}")
         if not ours or tc != (dtype == torch.bfloat16):
             raise AssertionError(f"{name}: {dtype} took the wrong route ({ours})")
+
+
+# the CUDA kernels of K6's and K8's engines (mlp4_stream.cuh, decode_chunk.cuh),
+# and those of the engines they left (mlp4_tile.cuh, decode_walk.cuh), which
+# K12 and K4 keep
+SYMBOLS = {
+    "fused_mlp_int4": (("mlp4_gate_up", "mlp4_down", "sum_tiles"), ("mlp4_tiles",)),
+    "decode_attention_q_chunk": (("chunk_walk",), ("decode_walk",)),
+}
+
+
+def log_symbols(name, fn):
+    """One call of fn under the profiler: fails unless it launched every
+    kernel of the name's engine and none of the engine it left."""
+    want, gone = SYMBOLS[name]
+    ours = traced_kernels(name, fn)
+    missing = [w for w in want if not any(w in n for n in ours)]
+    old = [o for o in gone if any(o in n for n in ours)]
+    log(f"  {name} launches {'; '.join(ours)}")
+    if missing or old:
+        raise AssertionError(f"{name}: kernels {ours}, missing {missing}, old engine {old}")
 
 
 def k3_case(dev, dtype, b, h, gh, gw, d, gen, strided=False):
@@ -586,8 +629,25 @@ def mlp_case(dev, dtype, fmt, m, h, i_dim, gen):
     return run, plain, library, (nb, 6.0 * m * h * i_dim, ops_type)
 
 
+def k6_rows_check(dev, gen):
+    """K6 on 4 rows against each row alone and rows 1-2 together, and twice
+    on the same inputs: its sums run in an order fixed by the shapes, so
+    every comparison is bit for bit (the serving check's alone_in_pool
+    rests on it)."""
+    p = int4_mlp(dev, gen, 4096, 11008, "silu")
+    x = torch.randn(4, 1, 4096, generator=gen, device=dev).to(torch.bfloat16)
+    out = int4.fused_mlp_int4(p, x, "silu")
+    same = [torch.equal(out[r], int4.fused_mlp_int4(p, x[r:r + 1], "silu")[0]) for r in range(4)]
+    pair = torch.equal(out[1:3], int4.fused_mlp_int4(p, x[1:3], "silu"))
+    again = torch.equal(out, int4.fused_mlp_int4(p, x, "silu"))
+    log(f"  fused_mlp_int4 7B mlp: each of 4 rows equals the row alone {same}, rows 1-2 "
+        f"together {pair}; a second call gives the same bits {again}")
+    if not (all(same) and pair and again):
+        raise AssertionError("K6's rows depend on the batch, or its bits on the run")
+
+
 def phase_quant_kernels(dev, seed):
-    log("== phase 2b: K4-K7 against their plain versions")
+    log("== phase 2b: K4-K7 against their plain versions, K6's rows against each row alone")
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
     bf16, f32 = torch.bfloat16, torch.float32
     check = lambda name, case, dtype, iters, label: check_kernel(
@@ -609,6 +669,11 @@ def phase_quant_kernels(dev, seed):
             "fused_mlp_int8", mlp_case(dev, bf16, "int8", 2, 2048, 5504, gen), bf16, 100,
             "1B mlp"),
     }
+    # K6 at the 7B server's pool of 4 rows; its rows against the same rows
+    # called alone, and a second call, bit for bit
+    check("fused_mlp_int4", mlp_case(dev, bf16, "int4", 4, 4096, 11008, gen), bf16, 50,
+          "7B mlp, 4 rows (the serving pool)")
+    k6_rows_check(dev, gen)
     check("decode_attention_q", k4_case(dev, bf16, 2, 16, 16, 128, 512, 480, False, gen),
           bf16, 200, "1B int8_flat")
     check("int4_matmul_pallas", k5_case(dev, bf16, 2, 4096, 32128, gen), bf16, 50, "7B lm_head")
@@ -1939,6 +2004,11 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
         f"top 8 of its kernels by device time:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:9.1f} ms {ms / request_dev:6.1%}  {name[:110]}")
+    if int4.mlp_is_int4(params["llm"]["layers"][0]["mlp"]):
+        log_shares(f"greedy request, replayed (decode per step: wall_ms="
+                   f"{walls['decode'] / max_new_tokens:.2f} device_ms="
+                   f"{devices['decode'] / max_new_tokens:.2f} device_busy="
+                   f"{devices['decode'] / walls['decode']:.3f})", kernels, request_dev, ("K6",))
     encode_shares(params, cfg, kw)
     greedy_step = walls["decode"] / max_new_tokens
     log(f"  greedy part: {time.perf_counter() - t0:.1f} s")
@@ -1961,9 +2031,11 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
     return launches
 
 
-# the problem objects (in the profiler's kernel names) of the bf16 kernels
-# whose share of a phase's device time phases 4 and 5 print
-SHARES = {"K2": "::WindowMma", "K3": "::GlobalMma", "K1b": "::FlashBwdMma"}
+# the profiler's kernel names (a part of them) of the kernels whose share of
+# a phase's device time phases 4 and 5 print: the problem objects of the
+# bf16 tensor-core kernels, K6's three launches and K8's engine
+SHARES = {"K2": ("::WindowMma",), "K3": ("::GlobalMma",), "K1b": ("::FlashBwdMma",),
+          "K6": ("mlp4_gate_up", "mlp4_down", "sum_tiles"), "K8": ("chunk_walk",)}
 
 
 def log_shares(label, kernels, dev_ms, names):
@@ -1971,7 +2043,7 @@ def log_shares(label, kernels, dev_ms, names):
     run's `kernels` ({name: ms}); fails if one of them took no time."""
     parts = []
     for short in names:
-        ms = sum(v for n, v in kernels.items() if SHARES[short] in n)
+        ms = sum(v for n, v in kernels.items() if any(k in n for k in SHARES[short]))
         parts.append(f"{short} {ms:.2f} ms ({ms / dev_ms:.1%})")
         if ms <= 0:
             raise AssertionError(f"{label}: the profiler saw no {short} time")
@@ -2001,7 +2073,8 @@ def phase_speculative(params, cfg, kw, greedy_step):
         lambda out: expected_launches(cfg, params, n_new, out.n_iters))
     check_outputs("speculative", outs[1], cfg, n_new, (768, 1024))
     walls, res = replay(params, cfg, kw, host_ms, speculative_k=SPEC_K)
-    devices = replay(params, cfg, kw, lambda fn: profiled(fn, {}), speculative_k=SPEC_K)[0]
+    kernels = {}
+    devices = replay(params, cfg, kw, lambda fn: profiled(fn, kernels), speculative_k=SPEC_K)[0]
     it, emitted = res.n_iters, int(res.lengths.max())
     log(f"  speculative warm request (2): end_to_end_ms={e2e[1]:.1f}; replayed decode: "
         f"n_iters={it} emitted={res.lengths.tolist()} wall_ms={walls['decode']:.1f} "
@@ -2010,6 +2083,10 @@ def phase_speculative(params, cfg, kw, greedy_step):
         f"device_ms={devices['decode'] / it:.2f}; per emitted token (longest row): "
         f"wall_ms={walls['decode'] / emitted:.2f} against greedy's wall_ms per step "
         f"{greedy_step:.2f}")
+    log_shares(f"speculative request, replayed (decode per iteration: wall_ms="
+               f"{walls['decode'] / it:.2f} device_ms={devices['decode'] / it:.2f} device_busy="
+               f"{devices['decode'] / walls['decode']:.3f})", kernels, sum(devices.values()),
+               ("K8",))
     for accept in (0, SPEC_K):
         res, wall = schedule(params, cfg, kw, accept, host_ms)
         wall = wall - walls["prefill"]

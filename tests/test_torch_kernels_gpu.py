@@ -15,13 +15,15 @@ inside (p and alpha, the intermediate h) to bf16, and K7 requantizes its
 intermediate to int8, so a last-place difference before such a point moves
 one term by a bf16 step or one code: for K4-K8 the errors are taken
 relative to the output's largest magnitude (at least 1): 1e-3 in fp32, the
-bf16 bounds above in bf16. K8's token t and K4 at the same position run one
-engine over the same cache: equal bit for bit. K11 (fp32 online softmax,
-p rounded to the cache's type) takes the K1-K3 bounds. The backward kernels
-K1b-K3b sum over up to N terms per gradient in another order than the
-plain backward: fp32 atol = rtol = 1e-4; bf16 outputs relative to their
-largest magnitude (at least 1), 2e-2 max and 2e-3 mean, one bf16 rounding
-step of the gradient. K12 rounds x2, the normed row and the MLP's
+bf16 bounds above in bf16. K8's token t and K4 at the same position keep the
+same rounding points in the same block order over the same cache: equal bit
+for bit. K6's sums run in an order fixed by the shapes: a row of a batch
+equals that row called alone, and two calls give the same bits. K11 (fp32
+online softmax, p rounded to the cache's type) takes the K1-K3 bounds. The
+backward kernels K1b-K3b sum over up to N terms per gradient in another
+order than the plain backward: fp32 atol = rtol = 1e-4; bf16 outputs
+relative to their largest magnitude (at least 1), 2e-2 max and 2e-3 mean,
+one bf16 rounding step of the gradient. K12 rounds x2, the normed row and the MLP's
 intermediate to bf16 inside, in fp32 models too: its output takes the bf16
 bounds relative to its largest magnitude, whatever x's dtype, and its
 attention rows K4's fp32 bound. K13a's codes and scales are the plain
@@ -221,7 +223,10 @@ def _mlp(dev, g, h, i_dim, act, fmt):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fmt", ["int4", "int8"])
 @pytest.mark.parametrize("m,h,i_dim,act", [(1, 64, 96, "silu"), (5, 128, 384, "gelu"),
-                                           (2, 4096, 11008, "silu"), (2, 2048, 5504, "silu")])
+                                           (2, 4096, 11008, "silu"), (2, 2048, 5504, "silu"),
+                                           (1, 4096, 11008, "silu"), (4, 4096, 11008, "silu"),
+                                           (17, 4096, 11008, "silu"),
+                                           (256, 4096, 11008, "silu")])
 def test_k6_k7_kernels_match_plain(dev, dtype, fmt, m, h, i_dim, act):
     g = torch.Generator(device=dev).manual_seed(m + h + i_dim)
     p = _mlp(dev, g, h, i_dim, act, fmt)
@@ -233,6 +238,22 @@ def test_k6_k7_kernels_match_plain(dev, dtype, fmt, m, h, i_dim, act):
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     _close_scaled(out, ref(p, x, act), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_k6_rows_are_independent_and_deterministic(dev, dtype, act):
+    """Row r of a 4-row call (the 7B server's pool) equals row r called
+    alone, bit for bit, and a second call gives the same bits: the sums'
+    order depends on the shapes only."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    p = _mlp(dev, g, 4096, 11008, act, "int4")
+    x = torch.randn(4, 1, 4096, generator=g, device=dev).to(dtype)
+    out = int4.fused_mlp_int4(p, x, act)
+    assert torch.equal(out, int4.fused_mlp_int4(p, x, act))
+    for r in range(4):
+        assert torch.equal(out[r], int4.fused_mlp_int4(p, x[r:r + 1], act)[0]), r
+    assert torch.equal(out[1:3], int4.fused_mlp_int4(p, x[1:3], act))
 
 
 @pytest.mark.parametrize("m,k,n", [(2, 4096, 4096), (2, 2048, 6144), (9800, 1280, 3840),
@@ -271,7 +292,8 @@ def _chunk_inputs(dev, g, dtype, b, tc, h, n_kv, d, l, pack4, cl):
 K8_SHAPES = [  # h, n_kv, d, l, block, pack4, tc, cache_len per row
     (4, 2, 16, 48, 16, False, 4, [30, 7]), (4, 4, 20, 64, 32, True, 1, [40, 63]),
     (6, 3, 8, 24, 8, True, 5, [11, 0]), (16, 2, 16, 64, 16, True, 16, [33, 48]),
-    (32, 32, 128, 512, 256, True, 9, [440, 375]), (16, 16, 128, 512, 256, False, 9, [440, 375])]
+    (32, 32, 128, 512, 256, True, 9, [440, 375]), (16, 16, 128, 512, 256, False, 9, [440, 375]),
+    (32, 32, 128, 512, 256, True, 9, [0, 503])]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -291,10 +313,12 @@ def test_k8_kernel_matches_plain(dev, dtype, h, n_kv, d, l, block, pack4, tc, cl
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,n_kv,d,l,block,pack4,tc,cl", K8_SHAPES)
-def test_k8_token_equals_k4_at_its_position(dev, dtype, h, n_kv, d, l, block, pack4, tc, cl):
+@pytest.mark.parametrize("qdot8", [True, False])
+def test_k8_token_equals_k4_at_its_position(dev, dtype, h, n_kv, d, l, block, pack4, tc, cl,
+                                            qdot8):
     g = torch.Generator(device=dev).manual_seed(h * d + l + tc + 1)
     q, kq, ks, vq, vs, cache_len = _chunk_inputs(dev, g, dtype, 2, tc, h, n_kv, d, l, pack4, cl)
-    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=0, block=block)
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=0, block=block, qdot_int8=qdot8)
     out = fa.decode_attention_q_chunk(q, kq, ks, vq, vs, cache_len, **kw)
     pos = torch.arange(l, device=dev)[None]
     for t in range(tc):

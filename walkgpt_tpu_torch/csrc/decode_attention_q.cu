@@ -3,11 +3,11 @@
 // Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention_q
 // (_decode_attn_q8_kernel, _decode_attn_q_kernel, _decode_attn_q_block,
 // _decode_attn_q_finish) and :decode_attention_q_chunk (_decode_attn_qc_kernel,
-// the speculative verify). Both run the engine of decode_walk.cuh, which
-// keeps the TPU kernels' rounding points per DECODE_BLOCK-key block, so a
-// chunk token's output is the one-step kernel's at the same position over the
-// same cache, bit for bit (the property speculative decode's token identity
-// rests on).
+// the speculative verify). K4 runs the engine of decode_walk.cuh, K8 that of
+// decode_chunk.cuh; both keep the TPU kernels' rounding points per
+// DECODE_BLOCK-key block, so a chunk token's output is the one-step kernel's
+// at the same position over the same cache, bit for bit (the property
+// speculative decode's token identity rests on).
 // K4: a key mask [B, L]; blocks at or past nvb = ceil(valid_len / bl) are
 // skipped. K8: no mask; slot p is valid for chunk token t iff p < cache_len +
 // t + 1 (the chunk's K/V already sit at [cache_len, cache_len + Tc), caches
@@ -18,10 +18,11 @@
 // Bound: bytes. The codes and scales of the keys a step or chunk needs, read
 // once (7B, 2 rows, packed int4: K4 at 480 valid slots 4.1 MB, about 1.2 us
 // at 3.35 TB/s; K8 with Tc = 9 at cache_len ~440 and ~375 about 3.8 MB,
-// about 1.1 us); the products are few. The design stages each block's codes
-// once in shared memory for all Tc * n_rep query rows of a (row, kv head),
-// so a chunk reads the cache once, not once per token.
-#include "decode_walk.cuh"
+// about 1.1 us); the products are few. K4 stages each block's codes once in
+// shared memory for all the query rows of a (row, kv head); K8's design
+// (more blocks, 16-byte staging, int8 tensor-core scores) is in
+// decode_chunk.cuh.
+#include "decode_chunk.cuh"
 
 namespace {
 
@@ -33,6 +34,11 @@ int run(const DecodeArgs& a, int B, int qdot8, int pv8, cudaStream_t st) {
   if (qdot8 && pv8) return decode_launch<T, int8_t, Q_INT8, true>(a, B, st);
   if (qdot8) return decode_launch<T, int8_t, Q_INT8, false>(a, B, st);
   return decode_launch<T, int8_t, Q_BF16, false>(a, B, st);
+}
+
+template <typename T>
+int run_chunk(const ChunkArgs& a, int B, int qdot8, cudaStream_t st) {
+  return qdot8 ? chunk_launch<T, Q_INT8>(a, B, st) : chunk_launch<T, Q_BF16>(a, B, st);
 }
 
 DecodeArgs quant_args(const void* q, const void* k, const void* ks, const void* v,
@@ -90,10 +96,23 @@ extern "C" int wg_decode_attention_q_chunk(const void* q, const void* k, const v
                                            int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, n_kv, D, L, bl) || Tc <= 0) return int(cudaErrorInvalidValue);
-  DecodeArgs a = quant_args(q, k, ks, v, vs, out, H, n_kv, D, L, bl, pack4, scale);
+  ChunkArgs a{};
+  a.q = q;
+  a.k = static_cast<const int8_t*>(k);
+  a.v = static_cast<const int8_t*>(v);
+  a.ks = static_cast<const __nv_bfloat16*>(ks);
+  a.vs = static_cast<const __nv_bfloat16*>(vs);
   a.cache_len = static_cast<const int*>(cache_len);
+  a.out = out;
   a.Tc = Tc;
-  if (dtype == 0) return run<float>(a, B, qdot8, 0, st);
-  if (dtype == 1) return run<__nv_bfloat16>(a, B, qdot8, 0, st);
+  a.H = H;
+  a.n_kv = n_kv;
+  a.D = D;
+  a.L = L;
+  a.bl = bl;
+  a.pack4 = pack4;
+  a.scale = scale;
+  if (dtype == 0) return run_chunk<float>(a, B, qdot8, st);
+  if (dtype == 1) return run_chunk<__nv_bfloat16>(a, B, qdot8, st);
   return int(cudaErrorInvalidValue);
 }

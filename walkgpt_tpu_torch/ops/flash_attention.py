@@ -71,7 +71,7 @@ K4 decode_attention_q (csrc/decode_attention_q.cu)
     global-halves order), walked in DECODE_BLOCK-key blocks. 7B, 2 rows,
     480 of 512 slots valid, packed int4: about 4.1 MB of k and v codes and
     scales below valid_len, bound by bytes (about 1.2 us).
-K8 decode_attention_q_chunk (csrc/decode_attention_q.cu)
+K8 decode_attention_q_chunk (csrc/decode_attention_q.cu + decode_chunk.cuh)
     Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention_q_chunk
     (_decode_attn_qc_kernel): the speculative verify, Tc tokens at once over
     the same cache, causal inside the chunk by cache_len. 7B, 2 rows, Tc =
@@ -82,11 +82,14 @@ K11 decode_attention (csrc/decode_attention.cu)
     LLMConfig.fused_decode. Dense 7B, 2 rows, 480 of 512 slots valid: about
     15.7 MB, bound by bytes (about 4.7 us).
 
-K4, K8 and K11 run one engine (csrc/decode_walk.cuh): a block per (row,
-kv head) walks the cache in DECODE_BLOCK-key blocks with the TPU kernels'
+K4 and K11 run one engine (csrc/decode_walk.cuh): a block per (row, kv
+head) walks the cache in DECODE_BLOCK-key blocks with the TPU kernels'
 rounding points, each block's values staged once in shared memory for all
-the query rows of that kv head, so K8's token t is K4's output at the same
-position bit for bit.
+the query rows of that kv head. K8 runs its own engine
+(csrc/decode_chunk.cuh) with the same rounding points in the same block
+order: a block per (row, kv head, 16 query rows, 32 value dims), int8
+tensor-core scores, so its token t is K4's output at the same position bit
+for bit.
 
 Design (K1-K3, csrc/attention_tile.cuh): one block per 64-row query tile
 and (batch, head) or (window, head); key tiles of 64 stream through shared
@@ -104,8 +107,9 @@ tiles are later work.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -936,6 +940,38 @@ def decode_attention_q(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
 decode_attention_q.launches = 0
 
 
+# K8's launch plan (csrc/decode_chunk.cuh): a block per (row, kv head),
+# group of CHUNK_QUERY_ROWS query rows and slice of CHUNK_VALUE_DIMS value
+# dims, each walking its row's key blocks in order
+CHUNK_QUERY_ROWS = 16
+CHUNK_VALUE_DIMS = 32
+_SMEM_MAX = 232448
+
+
+@functools.lru_cache(maxsize=None)
+def decode_chunk_plan(b: int, tc: int, h: int, n_kv: int, d: int, bl: int,
+                      qdot_int8: bool = True) -> Dict[str, int]:
+    """K8's grid (b * n_kv, query groups, value slices), its query rows per
+    block and its shared memory per block in bytes (as decode_chunk.cuh's
+    ChunkSmem lays it out)."""
+    nq = tc * (h // n_kv)
+    qg = min(nq, CHUNK_QUERY_ROWS)
+    blp = -(-bl // 8) * 8
+    ks = -(-d // 32) * 32 + 16
+    align = lambda x: -(-x // 16) * 16
+    vf = align(blp * ks)
+    qt = vf + blp * CHUNK_VALUE_DIMS * 4 + qg * (-(-bl // 4) * 4) * 4
+    st = align(qt + (CHUNK_QUERY_ROWS * ks if qdot_int8 else qg * d * 4))
+    return dict(grid=(b * n_kv, -(-nq // qg), -(-d // CHUNK_VALUE_DIMS)), query_rows=qg,
+                smem=st + qg * 16)
+
+
+def chunk_key_blocks(cache_len: int, tc: int, l: int, bl: int) -> int:
+    """The key blocks of `bl` keys K8 walks for a row: those holding a slot
+    below cache_len + tc, at most l / bl."""
+    return min(-(-(cache_len + tc) // bl), l // bl)
+
+
 def decode_attention_q_chunk_reference(q, k_cache, k_scale, v_cache, v_scale, cache_len, *,
                                        n_kv: int, head_dim: int, pack4: bool = False,
                                        layer: int = 0, block: int = DECODE_BLOCK,
@@ -948,7 +984,7 @@ def decode_attention_q_chunk_reference(q, k_cache, k_scale, v_cache, v_scale, ca
     l = k_cache.shape[2]
     bl, _ = _decode_blocks(l, block, None)
     cl = cache_len.to(device=q.device, dtype=torch.long)
-    nvb = min(-(-(int(cl.max()) + tc) // bl), l // bl)
+    nvb = chunk_key_blocks(int(cl.max()), tc, l, bl)
     end = (cl[:, None] + torch.arange(tc, device=q.device)[None] + 1)[..., None]   # [B, Tc, 1]
     pos = torch.arange(l, device=q.device)
     return _quant_walk(q, k_cache, k_scale, v_cache, v_scale, lambda keys: pos[keys] < end,
@@ -982,6 +1018,9 @@ def decode_attention_q_chunk(q, k_cache, k_scale, v_cache, v_scale, cache_len, *
         raise ValueError(f"{name}: bad q {tuple(q.shape)} or cache_len "
                          f"{tuple(cache_len.shape)} for n_kv={n_kv}, D={d}")
     _check_quant_cache(name, b, n_kv, d, l, pack4, k_cache, k_scale, v_cache, v_scale)
+    if decode_chunk_plan(b, tc, h, n_kv, d, bl, qdot_int8)["smem"] > _SMEM_MAX:
+        raise ValueError(f"{name}: a block of {bl} keys at D={d} does not fit the kernel's "
+                         f"shared memory")
     cl = cache_len.to(device=q.device, dtype=torch.int32).contiguous()
     bufs = [q, k_cache[layer], k_scale[layer], v_cache[layer], v_scale[layer], cl]
     _check_contiguous(name, q.device, *bufs)

@@ -19,10 +19,12 @@ K5 int4_matmul_pallas (csrc/int4_matmul.cu)
     Replaces walkgpt_tpu/ops/int4.py:int4_matmul_pallas (_mm_kernel): the
     fused int4 q/k/v and the int4 lm_head of a decode step, fp32 sums, then
     (acc * scale) in x's dtype.
-K6 fused_mlp_int4 (csrc/fused_mlp_int4.cu)
+K6 fused_mlp_int4 (csrc/fused_mlp_int4.cu + mlp4_stream.cuh)
     Replaces walkgpt_tpu/ops/int4.py:fused_mlp_int4 (_fused_mlp_kernel):
     silu(x Wg) * (x Wu) Wd in one call; the intermediate goes through bf16
     before the down product, each tile's partial is scaled before the sum.
+    Every sum has an order fixed by the shapes: a row's output does not
+    depend on the other rows of the call.
 K7 fused_mlp_int8 (csrc/fused_mlp_int8.cu)
     Replaces walkgpt_tpu/ops/int4.py:fused_mlp_int8 (_fused_mlp8_kernel):
     the W8A8 MLP with exact int32 products and the intermediate requantized
@@ -35,6 +37,7 @@ not depend on the order in which the card runs the tiles.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -290,10 +293,33 @@ def fused_mlp_int4_reference(mlp_params: Dict, x: torch.Tensor, act: str) -> tor
     return _sum_tiles(parts).to(x.dtype).reshape(shape)
 
 
+# K6's launch plan (csrc/mlp4_stream.cuh): a gate/up block per
+# MLP4_GATE_UP_COLS columns of I, a down block per (tile, MLP4_DOWN_COLS
+# output columns), rows in passes of 1, 2 or 4
+MLP4_GATE_UP_COLS = 32
+MLP4_DOWN_COLS = 512
+
+
+@functools.lru_cache(maxsize=None)
+def fused_mlp_int4_plan(m: int, h: int, i_dim: int) -> Dict[str, int]:
+    """K6's launches for m rows of width h through an intermediate of
+    i_dim: the tile, the blocks of its gate/up and down passes, the rows per
+    pass and the fp32 scratch the wrapper allocates (the tiles' partials
+    [n_tiles, m, h], then from h_offset the intermediate h [m, i_dim] in
+    bf16)."""
+    tile = tile_for(i_dim)
+    n_tiles = i_dim // tile
+    parts = n_tiles * m * h
+    return dict(tile=tile, n_tiles=n_tiles, gate_up_blocks=-(-i_dim // MLP4_GATE_UP_COLS),
+                down_blocks=-(-h // MLP4_DOWN_COLS) * n_tiles,
+                rows_per_pass=m if m <= 2 else 4, h_offset=parts,
+                scratch_floats=parts + -(-m * i_dim // 2))
+
+
 def fused_mlp_int4(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
-    """K6: the int4 MLP of a decode step in one call. mlp_params: {"gate",
-    "up": {w_p4, w_scale}, "down": {w_p4t, w_scale}} (silu) or {"fc1",
-    "fc2"} (gelu); x [..., H]."""
+    """K6: the int4 MLP of a decode step (three launches). mlp_params:
+    {"gate", "up": {w_p4, w_scale}, "down": {w_p4t, w_scale}} (silu) or
+    {"fc1", "fc2"} (gelu); x [..., H]."""
     if x.device.type == "cpu":
         return fused_mlp_int4_reference(mlp_params, x, act)
     first, up, down, gelu = _mlp_parts(mlp_params, act)
@@ -303,7 +329,7 @@ def fused_mlp_int4(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
     xf = x.reshape(-1, h).contiguous()
     m = xf.shape[0]
     i_dim = first["w_p4"].shape[1]
-    tile = tile_for(i_dim)
+    plan = fused_mlp_int4_plan(m, h, i_dim)
     ups = (up["w_p4"], up["w_scale"]) if up is not None else (None, None)
     _check_weights("fused_mlp_int4", x.device, first["w_p4"], first["w_scale"], *ups,
                    down["w_p4t"], down["w_scale"])
@@ -311,14 +337,14 @@ def fused_mlp_int4(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
             or tuple(down["w_p4t"].shape) != (i_dim // 2, h)):
         raise ValueError(f"fused_mlp_int4: bad shapes x {tuple(shape)}, "
                          f"first {tuple(first['w_p4'].shape)}, down {tuple(down['w_p4t'].shape)}")
-    scratch = torch.empty((i_dim // tile, m, h), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32, device=x.device)
     y = torch.empty((m, h), dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     cuda_build.launch("fused_mlp_int4", "wg_fused_mlp_int4", [_P] * 9 + [_I] * 6 + [_P],
                       x.device, xf.data_ptr(), first["w_p4"].data_ptr(),
                       first["w_scale"].data_ptr(), ptr(ups[0]), ptr(ups[1]),
                       down["w_p4t"].data_ptr(), down["w_scale"].data_ptr(),
-                      scratch.data_ptr(), y.data_ptr(), m, h, i_dim, tile, int(gelu), dt)
+                      scratch.data_ptr(), y.data_ptr(), m, h, i_dim, plan["tile"], int(gelu), dt)
     fused_mlp_int4.launches += 1
     return y.reshape(shape)
 

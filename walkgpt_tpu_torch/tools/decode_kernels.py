@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""K6 (fused_mlp_int4) and K8 (decode_attention_q_chunk) at the decode
+path's shapes, timed on one GPU, for the package's sources and for other
+copies of `walkgpt_tpu_torch/csrc` (an older tree's, an edited one's).
+
+    python3 walkgpt_tpu_torch/tools/decode_kernels.py [--csrc DIR ...] [--rounds 2]
+
+For each source tree (the package's first, then each --csrc directory,
+built into build/decode_kernels/<n>/), on the same bf16 inputs:
+  * K6 on the 7B int4 MLP (H 4096, I 11008) at M = 1, 2 and 4 rows, and K8
+    on the 7B int4_flat and 1B int8_flat chunks (Tc 9, cache_len 440 and
+    375, 512 slots): ms per call by CUDA events (100 calls after a warm-up),
+    the trees taken in turns for `--rounds` rounds (a, b, ..., b, a, ...);
+  * once, the CUDA kernels of one call by torch.profiler, ms each (K6 runs
+    three launches);
+  * every tree's outputs are the package's bit for bit (K8) or within
+    chip_smoke's bf16 bounds of the plain version (K6), else it exits
+    non-zero.
+Needs nvcc and a CUDA GPU. Prints the card's name and power limit first.
+"""
+import argparse
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke as cs  # noqa: E402
+from walkgpt_tpu_torch.ops import cuda_build  # noqa: E402
+
+NAMES = ("fused_mlp_int4", "decode_attention_q")
+PACKAGE = (cuda_build.CSRC, cuda_build.BUILD_DIR)
+
+
+def use(tree):
+    """Point cuda_build at a source tree: (csrc, build dir)."""
+    cuda_build.CSRC, cuda_build.BUILD_DIR = tree
+    for name in NAMES:
+        cuda_build._libs.pop(name, None)
+
+
+def cases(dev):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for m in (1, 2, 4):
+        out[f"K6 7B M={m}"] = cs.mlp_case(dev, torch.bfloat16, "int4", m, 4096, 11008, gen)
+    out["K8 7B int4_flat"] = cs.k8_case(dev, torch.bfloat16, 2, 9, 32, 32, 128, 512, [440, 375],
+                                        True, gen)
+    out["K8 1B int8_flat"] = cs.k8_case(dev, torch.bfloat16, 2, 9, 16, 16, 128, 512, [440, 375],
+                                        False, gen)
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--csrc", action="append", default=[], help="another csrc directory")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("decode_kernels: no CUDA GPU available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    trees = [("package", PACKAGE)]
+    for i, d in enumerate(args.csrc):
+        trees.append((d, (Path(d).resolve(), REPO / "build" / "decode_kernels" / str(i))))
+    for tag, tree in trees:
+        use(tree)
+        print(f"{tag}:", flush=True)
+        cs.ptxas_summary(cuda_build.build(NAMES))
+    dev = torch.device("cuda")
+    runs = cases(dev)
+    want = {}
+    for label, (run, plain, _, cost) in runs.items():
+        use(PACKAGE)
+        want[label] = run()
+        bound_ms = cs.bound(*cost)[0]
+        print(f"{label}: bound_ms={bound_ms:.4f}", flush=True)
+    ok = True
+    times = {(t, label): [] for t, _ in trees for label in runs}
+    for r in range(args.rounds):
+        order = trees if r % 2 == 0 else trees[::-1]
+        for tag, tree in order:
+            use(tree)
+            for label, (run, plain, _, _) in runs.items():
+                got = run()
+                torch.cuda.synchronize()
+                if label.startswith("K8"):
+                    same = torch.equal(got, want[label])
+                else:
+                    ref = plain()
+                    err = (got.float() - ref.float()).abs()
+                    scale = max(1.0, float(ref.float().abs().max()))
+                    same = bool(err.max() <= cs.BF16_MAX_ABS * scale
+                                and err.mean() <= cs.BF16_MEAN_ABS * scale)
+                ok &= same
+                times[(tag, label)].append(cs.cuda_ms(run, 100))
+                if not same:
+                    print(f"  {tag} {label}: outputs differ", flush=True)
+    for label in runs:
+        print(label + ": " + "; ".join(
+            f"{tag} ms " + " ".join(f"{t:.4f}" for t in times[(tag, label)]) for tag, _ in trees))
+    for tag, tree in trees:
+        use(tree)
+        for label, (run, *_rest) in runs.items():
+            kernels = {}
+            cs.profiled(run, kernels)
+            parts = ", ".join(f"{n.split('(')[0].replace('void ', '')[:60]} {ms:.4f}"
+                              for n, ms in kernels.items())
+            print(f"  {tag} {label} kernels (ms, one call): {parts}")
+    use(PACKAGE)
+    print("ok" if ok else "FAIL")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
