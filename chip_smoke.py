@@ -8,11 +8,16 @@ Phases (any failure raises and the script exits non-zero):
      (one nvcc per source, in parallel) and print the build time.
   2. kernels: K1 (flash_attention), K2 (sam_window_attention_packed) and K3
      (sam_flash_attention) against their plain versions at the shapes the
-     WalkGPT-7B main path gives them; K4 (decode_attention_q), K5
+     WalkGPT-7B main path gives them (K1 also at the serving admit and the
+     training forward, in bf16 at ragged tiles, on rows that see no valid
+     key, and against float64 products of its own p, SPLIT_GAIN times
+     closer than p rounded to bf16 alone); K4 (decode_attention_q), K5
      (int4_matmul_pallas), K6 (fused_mlp_int4) and K7 (fused_mlp_int8) at
      the shapes of the quantized 7B and 1B paths, K6 also at the 7B
      server's pool of 4 rows, each row of which must equal the row called
-     alone, and a second call the first, bit for bit (2b); K8
+     alone, and a second call the first, bit for bit, and K4's chunk engine
+     against its walk route bit for bit (7B at 2 and 4 rows, 1B, ragged GQA;
+     int8 and bf16 scores) with its host microseconds per call (2b); K8
      (decode_attention_q_chunk) at the speculative chunk of both, K8's
      tokens against K4 at the same positions bit for bit, and K11
      (decode_attention) at the dense 7B fused_decode step (2c); all in
@@ -46,10 +51,11 @@ Phases (any failure raises and the script exits non-zero):
   4. the slices at full width, random weights from --seed built on the card,
      two requests of 2 images and 2 prompt rows each, with launch counts per
      request, peak memory, the warm request's phase times on the host
-     clock and on the card (torch.profiler), K6's share of the int4x
-     greedy request's device time and K8's of the speculative ones (beside
-     the decode step's wall, device ms and busy share), and K2's and K3's
-     share of the warm SAM encode's device time:
+     clock and on the card (torch.profiler), K1's share of the prefill's
+     and the request's device time, K4's and K6's of the quantized greedy
+     requests' and K8's of the speculative ones (beside the decode step's
+     wall, device ms and busy share), and K2's and K3's share of the warm
+     SAM encode's device time:
        a. walkgpt_7b_config (SAM ViT-H at 1024^2, LLaMA-7B), bf16 weights;
        b. WalkGPT-7B in its production format: int4 MLPs, fused q/k/v and
           lm_head, W8A8 o-proj and SAM blocks, the packed int4 flat cache;
@@ -63,7 +69,8 @@ Phases (any failure raises and the script exits non-zero):
      its decode step beside the unfused one, then serves eight PAVE
      questions (llava_v1 prompts, byte tokenizer, 3 images encoded once)
      through the continuous batcher (4 slots, int4_flat pool, PAVE-like
-     budgets), launches per admit and per segment held exactly, the two
+     budgets), launches per admit and per segment held exactly (K1's share
+     of the admits' device time, K4's and K6's of the segments'), the two
      longest requests token for token against the same request decoded
      alone with the batcher's arithmetic (alone_in_pool), and against
      greedy_generate alone (reported, not held: it decodes at a batch of
@@ -84,12 +91,12 @@ Phases (any failure raises and the script exits non-zero):
      shapes in fp32 (and a bf16 q with fp32 rel tables), against K2/K2b on
      the same values repacked (bit for bit), with kernel, plain and library
      (SDPA with the expanded bias, and its backward) times and the bound.
-  2g (after 2f): the route each dtype takes (K1b, K2, K3, K3b, K10: bf16
-     on the tensor-core engines, fp32 on the CUDA-core ones), read from the
-     kernels one call launches under the profiler, and held; K6 and K8 at
-     the 7B shapes launch their own engines' kernels (mlp4_stream.cuh,
-     decode_chunk.cuh) and none of those they left (mlp4_tile.cuh,
-     decode_walk.cuh, which K12 and K4 keep).
+  2g (after 2f): the route each dtype takes (K1, K1b, K2, K3, K3b, K10:
+     bf16 on the tensor-core engines, fp32 on the CUDA-core ones), read from
+     the kernels one call launches under the profiler, and held; K6, K8 and
+     K4 (7B and 1B, int8 scores) launch their own engines' kernels
+     (mlp4_stream.cuh, decode_chunk.cuh) and none of those they left
+     (mlp4_tile.cuh, decode_walk.cuh, which K12 keeps).
   2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
      (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
      against their plain backwards at the training step's shapes in bf16
@@ -110,7 +117,7 @@ Phases (any failure raises and the script exits non-zero):
      train_cli.py's defaults (2 images at 1024^2, 2 rows of 512 tokens, 767
      spliced, 16 [SEG], max_segs 32): the LoRA recipe in bf16 for 3 steps
      (the last with remat), the QLoRA base for 2 steps, with loss terms,
-     gradient norm, wall and device ms (K1b's and K2's share of it), tokens/s,
+     gradient norm, wall and device ms (K1's, K1b's and K2's share of it), tokens/s,
      peak memory and launches per step (held exactly); then one backward through the ViT-H encoder
      with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4),
      and the same backward warm under the profiler (device ms, K3's and
@@ -222,7 +229,9 @@ SERVE_FLAT_HIDDEN_REL = 1e-2
 
 KERNEL_INFO = {
     "flash_attention": ("walkgpt_tpu_torch/csrc/flash_attention.cu",
-                        "walkgpt_tpu/ops/flash_attention.py:51"),
+                        "walkgpt_tpu/ops/flash_attention.py:51",
+                        ["walkgpt_tpu_torch/csrc/attention_mma.cuh",
+                         "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "sam_window_attention_packed": ("walkgpt_tpu_torch/csrc/sam_window_attention.cu",
                                     "walkgpt_tpu/ops/flash_attention.py:958",
                                     ["walkgpt_tpu_torch/csrc/attention_mma.cuh",
@@ -232,7 +241,9 @@ KERNEL_INFO = {
                             ["walkgpt_tpu_torch/csrc/attention_mma.cuh",
                              "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "decode_attention_q": ("walkgpt_tpu_torch/csrc/decode_attention_q.cu",
-                           "walkgpt_tpu/ops/flash_attention.py:1327"),
+                           "walkgpt_tpu/ops/flash_attention.py:1327",
+                           ["walkgpt_tpu_torch/csrc/decode_chunk.cuh",
+                            "walkgpt_tpu_torch/csrc/decode_walk.cuh"]),
     "int4_matmul_pallas": ("walkgpt_tpu_torch/csrc/int4_matmul.cu",
                            "walkgpt_tpu/ops/int4.py:463"),
     "fused_mlp_int4": ("walkgpt_tpu_torch/csrc/fused_mlp_int4.cu",
@@ -331,6 +342,76 @@ def k1_case(dev, dtype, b, h, n, d, lengths, gen):
     return run, plain, library, cost
 
 
+def k1_masked_rows(dev, gen):
+    """K1's bf16 route on rows that see no valid key (row 1's first 5 keys
+    invalid, causal): every logit such a row sees is the finite -1e30, so
+    the kernel gives it p = 1 for each key of the 64-key tiles it visits
+    (the CUDA-core engine's function): out is the mean of v over keys 0 ..
+    63, finite, within the bf16 bounds, and lse about -1e30. The other rows
+    are held to the plain version within the bf16 bounds."""
+    n, d, dead = 70, 128, 5
+    q, k, v = (torch.randn(2, 2, n, d, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    kv = torch.ones(2, n, dtype=torch.bool, device=dev)
+    kv[1, :dead] = False
+    out, lse = fa.flash_attention(q, k, v, True, kv, return_lse=True)
+    ref = fa.flash_attention_reference(q, k, v, True, kv)[0]
+    live = torch.ones(2, n, dtype=torch.bool, device=dev)
+    live[1, :dead] = False
+    live = live[:, None].expand(-1, 2, -1)
+    err = (out.float() - ref.float())[live].abs()
+    mean = v[1, :, :64].float().mean(1, keepdim=True)
+    err_dead = float((out[1, :, :dead].float() - mean).abs().max())
+    ok = (bool(torch.isfinite(out.float()).all()) and float(err.max()) <= BF16_MAX_ABS
+          and float(err.mean()) <= BF16_MEAN_ABS and err_dead <= BF16_MAX_ABS
+          and bool((lse[1, :, :dead] <= -1e29).all()))
+    log(f"  flash_attention bf16 rows with no valid key: finite, the mean of v over the keys of "
+        f"their tile (max_abs={err_dead:.3e}), lse {float(lse[1, :, :dead].max()):.3e}; the "
+        f"other rows against the plain version max_abs={float(err.max()):.3e} "
+        f"mean_abs={float(err.mean()):.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_attention: rows with no valid key, or the others, are wrong")
+
+
+def k1_products(q, k, v, kv, lse, single):
+    """out from K1's own fp32 p (s = scale (q . k) from the bf16 operands, p
+    = exp(s - lse) and exactly 0 where masked) with every value product in
+    float64. single: p rounded to bf16 alone first."""
+    n, d = q.shape[2], q.shape[-1]
+    pos = torch.arange(n, device=q.device)
+    mask = kv[:, None, None, :] & (pos[None, :] <= pos[:, None])[None, None]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()).float() * (1.0 / math.sqrt(d))
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    if single:
+        p = p.to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", p.double(), v.double())
+
+
+def k1_split_check(dev, n, d, gen):
+    """K1's bf16 out against the same products in float64, rounded to bf16
+    as the kernel writes it, beside p rounded to bf16 alone, causal with
+    padded keys (2 rows, the second without its last n // 10 keys): the
+    kernel's hi + lo split keeps about 16 bits of p, so its mean error must
+    stay SPLIT_GAIN times under the single-bf16 scheme's (rounding p to
+    bf16 alone, as the nolo build of tools/attention_variants.py does,
+    fails this)."""
+    q, k, v = (torch.randn(2, 2, n, d, generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    kv = torch.arange(n, device=dev)[None] < torch.tensor([n, n - n // 10], device=dev)[:, None]
+    out, lse = fa.flash_attention(q, k, v, True, kv, return_lse=True)
+    exact = k1_products(q, k, v, kv, lse, single=False).to(torch.bfloat16).float()
+    single = k1_products(q, k, v, kv, lse, single=True).to(torch.bfloat16).float()
+    err_kernel = float((out.float() - exact).abs().mean())
+    err_single = float((single - exact).abs().mean())
+    ok = err_kernel * SPLIT_GAIN <= err_single
+    log(f"  flash_attention split products N={n} D={d}: mean_abs against float64 products "
+        f"{err_kernel:.3e}, p in bf16 alone {err_single:.3e} (ratio "
+        f"{err_single / err_kernel if err_kernel else math.inf:.1f}, at least {SPLIT_GAIN}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_attention: the split products are not closer than bf16 alone")
+
+
 def k2_case(dev, dtype, bw, h, d, ws, gen):
     t = ws * ws
     qkv = torch.randn(bw, t, 3 * h * d, generator=gen, device=dev).to(dtype)
@@ -354,6 +435,7 @@ def k2_case(dev, dtype, bw, h, d, ws, gen):
 # tensor cores have no exact fp32 product): the engine's header, and the
 # CUDA kernels (torch.profiler names) of each route
 ROUTES = {
+    "flash_attention": "attention_mma.cuh / attention_tile.cuh",
     "flash_attention_bwd": "attention_mma_bwd.cuh (pair layout) / attention_bwd.cuh",
     "sam_window_attention_packed": "attention_mma.cuh / attention_tile.cuh",
     "sam_window_attention": "attention_mma.cuh / attention_tile.cuh",
@@ -367,9 +449,12 @@ def phase_routes(dev, seed):
     """The route each dtype takes, read from the kernels one call launches
     under the profiler (after every kernel timing: once the profiler has
     run, launches stay slower)."""
-    log("== phase 2g: the route of each tensor-core kernel, by dtype; K6's and K8's kernels")
+    log("== phase 2g: the route of each tensor-core kernel, by dtype; K6's, K8's and K4's "
+        "kernels")
     gen = torch.Generator(device=dev).manual_seed(seed + 50)
     dts = (torch.bfloat16, torch.float32)
+    log_routes("flash_attention", {dt: k1_case(dev, dt, 2, 2, 70, 128, [70, 59], gen)[0]
+                                   for dt in dts})
     log_routes("flash_attention_bwd",
                {dt: k1b_case(dev, dt, 2, 2, 70, 128, [70, 59], gen, 5)[0] for dt in dts})
     log_routes("sam_window_attention_packed",
@@ -379,11 +464,15 @@ def phase_routes(dev, seed):
     log_routes("sam_flash_attention", {dt: k3_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
     log_routes("sam_flash_attention_bwd",
                {dt: k3b_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
-    log("  K6 and K8 on their own engines (the 7B decode MLP, the 7B speculative chunk):")
+    log("  K6, K8 and K4 on their own engines (the 7B decode MLP, the 7B speculative chunk, "
+        "the 7B and 1B decode steps with int8 scores, the main path's mode):")
     log_symbols("fused_mlp_int4", mlp_case(dev, torch.bfloat16, "int4", 2, 4096, 11008, gen)[0])
     log_symbols("decode_attention_q_chunk",
                 k8_case(dev, torch.bfloat16, 2, SPEC_K + 1, 32, 32, 128, 512, [440, 375], True,
                         gen)[0])
+    for h, pack4 in ((32, True), (16, False)):
+        log_symbols("decode_attention_q",
+                    k4_case(dev, torch.bfloat16, 2, h, h, 128, 512, 480, pack4, gen)[0])
 
 
 def traced_kernels(label, fn):
@@ -415,12 +504,14 @@ def log_routes(name, runs):
             raise AssertionError(f"{name}: {dtype} took the wrong route ({ours})")
 
 
-# the CUDA kernels of K6's and K8's engines (mlp4_stream.cuh, decode_chunk.cuh),
-# and those of the engines they left (mlp4_tile.cuh, decode_walk.cuh), which
-# K12 and K4 keep
+# the CUDA kernels of K6's, K8's and K4's engines (mlp4_stream.cuh,
+# decode_chunk.cuh), and those of the engines they left (mlp4_tile.cuh,
+# decode_walk.cuh), which K12 keeps (and K4 for its int8 value product, off
+# on the main path)
 SYMBOLS = {
     "fused_mlp_int4": (("mlp4_gate_up", "mlp4_down", "sum_tiles"), ("mlp4_tiles",)),
     "decode_attention_q_chunk": (("chunk_walk",), ("decode_walk",)),
+    "decode_attention_q": (("chunk_walk",), ("decode_walk",)),
 }
 
 
@@ -528,12 +619,26 @@ def phase_kernels(dev, seed):
             "sam_flash_attention", k3_case(dev, bf16, 2, 16, 64, 64, 80, gen), bf16, 5, 1,
             "ViT-H global"),
     }
+    # K1 at the serving admit (one row of prompt_len 1024) and the training
+    # forward (2 rows of 767 spliced tokens, the second with 60 pad keys)
+    check_kernel("flash_attention", k1_case(dev, bf16, 1, 32, 1024, 128, [700], gen), bf16, 50,
+                 3, "serving admit")
+    check_kernel("flash_attention", k1_case(dev, bf16, 2, 32, 767, 128, [767, 707], gen), bf16,
+                 50, 3, "7B training")
     torch.cuda.empty_cache()
     f32 = torch.float32
     ragged = lambda name, case, dtype=f32, label="ragged": check_kernel(name, case, dtype, 0, 1,
                                                                         label)
     ragged("flash_attention", k1_case(dev, f32, 2, 3, 70, 128, [70, 59], gen))
     ragged("flash_attention", k1_case(dev, f32, 2, 2, 37, 20, [37, 30], gen))
+    # K1's bf16 route at ragged tiles: N = 70, 37 and 130, D = 128, 20 (2-byte
+    # loads, a padded head dim) and 80
+    for n, d, lengths in ((70, 128, [70, 59]), (37, 20, [37, 30]), (130, 80, [130, 101])):
+        ragged("flash_attention", k1_case(dev, bf16, 2, 3, n, d, lengths, gen), bf16,
+               f"ragged N={n} D={d}")
+    k1_masked_rows(dev, gen)
+    for n, d in ((447, 128), (130, 80)):
+        k1_split_check(dev, n, d, gen)
     ragged("sam_window_attention_packed", k2_case(dev, f32, 3, 2, 80, 14, gen))
     ragged("sam_window_attention_packed", k2_case(dev, f32, 5, 3, 20, 3, gen))
     # K2's bf16 route at the edges of its tiles: T = 49 and 9 (one ragged key
@@ -574,13 +679,15 @@ def flat_cache(dev, gen, b, l, n_kv, d, pack4):
     return out
 
 
-def k4_case(dev, dtype, b, h, n_kv, d, l, valid, pack4, gen):
+def k4_case(dev, dtype, b, h, n_kv, d, l, valid, pack4, gen, walk=False):
+    """walk: run K4 on its walk route (fa.decode_attention_q_walk)."""
     kq, ks, kd, vq, vs, vd = flat_cache(dev, gen, b, l, n_kv, d, pack4)
     q = torch.randn(b, h * d, generator=gen, device=dev).to(dtype)
     mask = torch.arange(l, device=dev)[None].expand(b, l) < valid
     mask = mask.contiguous()
     kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=0, valid_len=valid)
-    run = lambda: fa.decode_attention_q(q, kq, ks, vq, vs, mask, **kw)
+    fn = fa.decode_attention_q_walk if walk else fa.decode_attention_q
+    run = lambda: fn(q, kq, ks, vq, vs, mask, **kw)
     plain = lambda: fa.decode_attention_q_reference(q, kq, ks, vq, vs, mask, **kw)
     rep = h // n_kv
     kr, vr = kd.repeat_interleave(rep, 1).to(dtype), vd.repeat_interleave(rep, 1).to(dtype)
@@ -592,6 +699,48 @@ def k4_case(dev, dtype, b, h, n_kv, d, l, valid, pack4, gen):
     width = kq.shape[-1]
     nb = 2 * b * valid * (width + 2 * n_kv) + b * valid + 2 * q.numel() * q.element_size()
     return run, plain, library, (nb, 4.0 * b * h * d * valid, torch.int8)
+
+
+def k4_against_walk(dev, label, dtype, b, h, n_kv, d, l, valid, pack4, qdot8, gen):
+    """K4's wrapper (the chunk engine) against the walk route
+    (fa.decode_attention_q_walk) on the same inputs, bit for bit: the two
+    engines keep the same rounding points in the same order. The key mask
+    has holes below valid_len (a serving pool's), key 0 valid."""
+    kq, ks, _, vq, vs, _ = flat_cache(dev, gen, b, l, n_kv, d, pack4)
+    q = torch.randn(b, h * d, generator=gen, device=dev).to(dtype)
+    pos = torch.arange(l, device=dev)[None]
+    mask = (torch.rand(b, l, generator=gen, device=dev) < 0.9) & (pos < valid)
+    mask[:, 0] = True
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=0, valid_len=valid, qdot_int8=qdot8)
+    got = fa.decode_attention_q(q, kq, ks, vq, vs, mask, **kw)
+    want = fa.decode_attention_q_walk(q, kq, ks, vq, vs, mask, **kw)
+    same = torch.equal(got, want)
+    log(f"  decode_attention_q {label} {str(dtype)[6:]} {'int8' if qdot8 else 'bf16'} scores: "
+        f"the chunk engine equals the walk bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"decode_attention_q {label}: the chunk engine parts from the walk "
+                             f"(max_abs {float((got.float() - want.float()).abs().max()):.3e})")
+
+
+def host_us(fn, n=200):
+    """Host microseconds per call of fn: the host time of n calls with no
+    synchronisation inside (the wrapper's checks and its C entry's launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def k4_host_us(dev, gen, n=200):
+    """K4's wrapper at the 7B step: host microseconds per call beside the
+    wall per call with the card's work included (CUDA events)."""
+    run = k4_case(dev, torch.bfloat16, 2, 32, 32, 128, 512, 480, True, gen)[0]
+    log(f"  decode_attention_q 7B int4_flat: host_us per call {host_us(run, n):.1f} (enqueue of "
+        f"{n}); ms per call with the card's work {cuda_ms(run, n):.4f}")
 
 
 def k5_case(dev, dtype, m, k, n, gen):
@@ -676,6 +825,19 @@ def phase_quant_kernels(dev, seed):
     k6_rows_check(dev, gen)
     check("decode_attention_q", k4_case(dev, bf16, 2, 16, 16, 128, 512, 480, False, gen),
           bf16, 200, "1B int8_flat")
+    k4_host_us(dev, gen)
+    # K4's chunk engine against the walk, bit for bit: the 7B step at the
+    # request's 2 rows and the server's 4, the 1B step, ragged GQA (odd n_kv
+    # int4, n_rep 8 int8), with int8 and with bf16 scores, masks with holes
+    for b, h, n_kv, d, l, valid, pack4, label in (
+            (2, 32, 32, 128, 512, 480, True, "7B int4_flat"),
+            (4, 32, 32, 128, 512, 480, True, "7B int4_flat, 4 rows"),
+            (2, 16, 16, 128, 512, 480, False, "1B int8_flat"),
+            (3, 6, 3, 40, 96, 70, True, "ragged GQA odd n_kv int4"),
+            (2, 16, 2, 24, 64, 64, False, "ragged n_rep 8 int8")):
+        for qdot8 in (True, False):
+            for dtype in ((bf16, f32) if d < 128 else (bf16,)):
+                k4_against_walk(dev, label, dtype, b, h, n_kv, d, l, valid, pack4, qdot8, gen)
     check("int4_matmul_pallas", k5_case(dev, bf16, 2, 4096, 32128, gen), bf16, 50, "7B lm_head")
     torch.cuda.empty_cache()
     check("decode_attention_q", k4_case(dev, f32, 3, 6, 3, 40, 96, 70, True, gen), f32, 0,
@@ -1984,9 +2146,9 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
         f"max_memory_allocated_GB={peak / 1e9:.2f}")
     # host-clock times first: once the profiler has run, launches stay slower
     walls = replay(params, cfg, kw, host_ms)[0]
-    kernels = {}
+    kernels, pre_kernels = {}, {}
     devices = replay(params, cfg, kw, lambda fn: profiled(fn, kernels),
-                     prefill_timer=lambda fn: profiled(fn, {}))[0]
+                     prefill_timer=lambda fn: profiled(fn, pre_kernels))[0]
     request_dev = sum(devices.values())
     log("  the warm request replayed step by step through the package's functions: "
         "wall ms on the host clock (synchronised), then device ms (kernels and copies, "
@@ -2004,11 +2166,15 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
         f"top 8 of its kernels by device time:")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {ms:9.1f} ms {ms / request_dev:6.1%}  {name[:110]}")
-    if int4.mlp_is_int4(params["llm"]["layers"][0]["mlp"]):
-        log_shares(f"greedy request, replayed (decode per step: wall_ms="
-                   f"{walls['decode'] / max_new_tokens:.2f} device_ms="
-                   f"{devices['decode'] / max_new_tokens:.2f} device_busy="
-                   f"{devices['decode'] / walls['decode']:.3f})", kernels, request_dev, ("K6",))
+    log_shares(f"LLM prefill (wall_ms={walls['prefill']:.1f})", pre_kernels, devices["prefill"],
+               ("K1",))
+    flat = cfg.kv_quant_cache in ("int8_flat", "int4_flat")
+    names = ("K1",) + (("K4",) if flat else ()) + (
+        ("K6",) if int4.mlp_is_int4(params["llm"]["layers"][0]["mlp"]) else ())
+    log_shares(f"greedy request, replayed (decode per step: wall_ms="
+               f"{walls['decode'] / max_new_tokens:.2f} device_ms="
+               f"{devices['decode'] / max_new_tokens:.2f} device_busy="
+               f"{devices['decode'] / walls['decode']:.3f})", kernels, request_dev, names)
     encode_shares(params, cfg, kw)
     greedy_step = walls["decode"] / max_new_tokens
     log(f"  greedy part: {time.perf_counter() - t0:.1f} s")
@@ -2033,9 +2199,11 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
 
 # the profiler's kernel names (a part of them) of the kernels whose share of
 # a phase's device time phases 4 and 5 print: the problem objects of the
-# bf16 tensor-core kernels, K6's three launches and K8's engine
-SHARES = {"K2": ("::WindowMma",), "K3": ("::GlobalMma",), "K1b": ("::FlashBwdMma",),
-          "K6": ("mlp4_gate_up", "mlp4_down", "sum_tiles"), "K8": ("chunk_walk",)}
+# bf16 tensor-core kernels, K6's three launches, and the chunk engine's rule
+# for K4 (a key mask) and K8 (a causal chunk)
+SHARES = {"K1": ("::FlashMma",), "K2": ("::WindowMma",), "K3": ("::GlobalMma",),
+          "K1b": ("::FlashBwdMma",), "K4": ("KeyMask",),
+          "K6": ("mlp4_gate_up", "mlp4_down", "sum_tiles"), "K8": ("CausalChunk",)}
 
 
 def log_shares(label, kernels, dev_ms, names):
@@ -2295,11 +2463,13 @@ def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=128, segm
         raise AssertionError(f"serving: launches per call {bad[:2]}, expected {expect}")
     # the device time of a segment: the first `slots` requests again, two
     # full segments each under the profiler (the same pool, every slot busy)
-    seg_dev = []
-    batcher._admit_row = admit
+    seg_dev, adm_dev, seg_kernels, adm_kernels = [], [], {}, {}
+    batcher._admit_row = lambda *a: (lambda r: (adm_dev.append(r[1]), r[0])[1])(
+        profiled(lambda: admit(*a), adm_kernels))
     batcher._decode_segment = lambda *a: (lambda r: (seg_dev.append(r[1]), r[0])[1])(
-        profiled(lambda: decode(*a), {}))
+        profiled(lambda: decode(*a), seg_kernels))
     again = batcher.run(reqs[:slots], [2 * segment] * slots)
+    batcher._admit_row = admit
     batcher._decode_segment = decode
     first = {f.request_id: f.tokens for f in fin}
     same = all(f.tokens == first[f.request_id][:2 * segment] for f in again)
@@ -2307,6 +2477,9 @@ def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=128, segm
         f"(tokens the first run's: {same}): device_ms per segment mean {np.mean(seg_dev):.1f}, "
         f"per step {np.mean(seg_dev) / segment:.2f}; device_busy "
         f"{np.mean(seg_dev) / np.mean(seg_walls):.3f} of the first run's mean segment wall")
+    log_shares(f"{len(adm_dev)} admits (device_ms mean {np.mean(adm_dev):.2f})", adm_kernels,
+               sum(adm_dev), ("K1",))
+    log_shares(f"{len(seg_dev)} segments", seg_kernels, sum(seg_dev), ("K4", "K6"))
 
     ok = len(fin) == len(reqs) and all(len(f.tokens) <= budgets[f.request_id] for f in fin)
     top2 = sorted(range(len(reqs)), key=lambda r: -budgets[r])[:2]
@@ -2710,7 +2883,7 @@ def run_train_steps(label, cfg, state, batch, step_fn, remats, tokens, kernels):
         f"device_busy={dev_ms / walls[1]:.3f} of step 2's wall; top 5 kernels by device time:")
     for name, kms in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
         log(f"    {kms:9.1f} ms {kms / dev_ms:6.1%}  {name[:100]}")
-    log_shares(f"{label} step, warm, under the profiler", kernels, dev_ms, ("K1b", "K2"))
+    log_shares(f"{label} step, warm, under the profiler", kernels, dev_ms, ("K1", "K1b", "K2"))
     return state, state2
 
 

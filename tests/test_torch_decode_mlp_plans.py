@@ -1,12 +1,13 @@
-"""K6's and K8's launch plans (ops/int4.fused_mlp_int4_plan,
-ops/flash_attention.decode_chunk_plan and chunk_key_blocks), which mirror
-the grids of csrc/mlp4_stream.cuh and csrc/decode_chunk.cuh, and K6's plain
-version against the JAX package at the 7B server's pool of 4 rows.
+"""K6's, K8's and K4's launch plans (ops/int4.fused_mlp_int4_plan,
+ops/flash_attention.decode_chunk_plan and chunk_key_blocks,
+decode_attention_q_plan), which mirror the grids of csrc/mlp4_stream.cuh,
+csrc/decode_chunk.cuh and csrc/decode_walk.cuh, and K6's plain version
+against the JAX package at the 7B server's pool of 4 rows.
 
 The plans are checked for coverage at the shapes of the repository's
 configurations: every column and tile of K6's two passes and every output
-element of K8 is owned by exactly one block, and K8's key blocks hold every
-key its rows attend. K6's plain version is held as
+element of K8 and of K4 (on either of its engines) is owned by exactly one
+block, and K8's and K4's key blocks hold every key their rows attend. K6's plain version is held as
 tests/test_torch_quant_kernels.py holds it (atol = rtol = 1e-4: h is rounded
 to bf16 before the down product, so an fp32 last place in silu(g) * u can
 move one element of h by a bf16 step).
@@ -108,6 +109,60 @@ def test_k8_key_blocks_hold_every_attended_key(cl, tc, l, bl):
     attended = min(cl + tc, l)
     assert nvb * bl >= attended and nvb <= l // bl
     assert (nvb - 1) * bl < attended
+
+
+@pytest.mark.parametrize("name", list(_k8_shapes()))
+@pytest.mark.parametrize("b", [2, 4])
+@pytest.mark.parametrize("qdot8,pv8,walk", [(True, False, False), (False, False, False),
+                                            (True, True, False), (True, False, True)])
+def test_k4_plan_owns_every_output_once(name, b, qdot8, pv8, walk):
+    """K4 runs the chunk engine at Tc = 1 (one query row a block where n_rep
+    is 1; value slices of STEP_VALUE_DIMS, or CHUNK_VALUE_DIMS where n_rep is
+    over 8), or the walk (a block per (row, kv head) and query group, every
+    dim) for the int8 value product and for decode_attention_q_walk; no
+    thread of the chunk engine holds more than two value chains."""
+    h, n_kv, d = _k8_shapes()[name]
+    bl = 256
+    plan = tfa.decode_attention_q_plan(b, h, n_kv, d, bl, qdot8, pv8, walk)
+    chunk = not (walk or pv8)
+    assert plan["engine"] == ("chunk" if chunk else "walk")
+    gx, gy, gz = plan["grid"]
+    qg, n_rep = plan["query_rows"], h // n_kv
+    dims = plan["value_dims"]
+    if chunk:
+        assert dims == (tfa.STEP_VALUE_DIMS if n_rep <= 8 else tfa.CHUNK_VALUE_DIMS)
+        assert qg * dims <= 2 * tfa.CHUNK_THREADS
+    else:
+        assert dims == d
+    assert gx == b * n_kv and gz * dims >= d and (gz - 1) * dims < d
+    owned = np.zeros((b, h, d), int)
+    for x in range(gx):
+        bb, kv = divmod(x, n_kv)
+        for y in range(gy):
+            for g in range(y * qg, min((y + 1) * qg, n_rep)):
+                for z in range(gz):
+                    owned[bb, kv * n_rep + g, z * dims:(z + 1) * dims] += 1
+    assert (owned == 1).all()
+    assert plan["smem"] <= tfa._SMEM_MAX
+    # two blocks an SM at the production shapes (D = 128, DECODE_BLOCK keys)
+    assert plan["smem"] <= tfa._SMEM_MAX // 2 or d != 128, plan["smem"]
+
+
+@pytest.mark.parametrize("l,block,valid_len", [(512, 256, 480), (512, 256, 256), (512, 256, 257),
+                                                (512, 256, None), (96, 256, 70), (64, 256, 64),
+                                                (1280, 256, 1100), (1280, 256, 1)])
+def test_k4_key_blocks_hold_every_valid_key(l, block, valid_len):
+    """K4 visits key blocks [0, nvb) with nvb = ceil(valid_len / bl): every
+    valid key of a mask with holes (a serving pool's) below valid_len lies
+    in them, and a block past them would hold none."""
+    bl, nvb = tfa._decode_blocks(l, block, valid_len)
+    end = l if valid_len is None else valid_len
+    rng = np.random.RandomState(l + end)
+    mask = (rng.rand(3, l) < 0.7) & (np.arange(l)[None] < end)
+    mask[:, 0] = True
+    visited = np.arange(l) < nvb * bl
+    assert not (mask & ~visited[None]).any()
+    assert nvb <= l // bl and (nvb - 1) * bl < end
 
 
 @pytest.fixture(scope="module")

@@ -34,11 +34,15 @@ tanhf last places: rtol 1e-6 in fp32, one bf16 step (2^-8) in bf16.
 K10 and K10b take K2's and K2b's bounds (a bf16 output of either, or a
 bf16 q with fp32 rel tables, the bf16 ones); K10 runs K2's engine with the
 same logits, so on repacked values its out and lse equal K2's bit for bit.
-K1b, K2, K3, K3b and K10 take their route by dtype: fp32 the CUDA-core
+K1, K1b, K2, K3, K3b and K10 take their route by dtype: fp32 the CUDA-core
 engines, bf16 the tensor-core ones (bf16 products with fp32 sums at the
-same rounding points; K1b's and K3b's dv, dk and dq take p and ds split
-into two bf16 parts, about 16 bits), both within the bounds above; K1b and
-K3b are deterministic in both.
+same rounding points; K1's p . v and K1b's and K3b's dv, dk and dq take p
+and ds split into two bf16 parts, about 16 bits), both within the bounds
+above; K1b and K3b are deterministic in both. K1's bf16 route gives a row
+that sees no valid key the mean of v over the keys of the tiles it visits
+(the CUDA-core engine's function), finite. K4 runs the chunk engine of K8
+(all modes but the int8 value product), which keeps the walk's rounding
+points in the same order: it equals K4 on the walk route bit for bit.
 """
 import pytest
 import torch
@@ -83,6 +87,23 @@ def test_k1_kernel_matches_plain(dev, dtype, n, d, causal):
     ref, ref_lse = fa.flash_attention_reference(q, k, v, causal, kv)
     _close(out, ref, dtype)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("n,d", [(70, 128), (37, 20)])
+def test_k1_bf16_rows_without_a_valid_key(dev, n, d):
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    q, k, v = (torch.randn(2, 2, n, d, generator=g, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    kv = torch.ones(2, n, dtype=torch.bool, device=dev)
+    kv[1, :5] = False                       # row 1's queries 0 .. 4 see no key
+    out, lse = fa.flash_attention(q, k, v, True, kv, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    mean = v[1, :, :min(n, 64)].float().mean(1, keepdim=True)
+    assert (out[1, :, :5].float() - mean).abs().max() <= 2e-2
+    assert (lse[1, :, :5] <= -1e29).all()
+    ref = fa.flash_attention_reference(q, k, v, True, kv)[0]
+    _close(out[:, :, 5:], ref[:, :, 5:], torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -195,6 +216,28 @@ def test_k4_kernel_matches_plain(dev, dtype, h, n_kv, d, l, block, pack4, qdot8,
     torch.cuda.synchronize()
     assert fa.decode_attention_q.launches == before + 1
     _close_scaled(out, fa.decode_attention_q_reference(q, kq, ks, vq, vs, mask, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,n_kv,d,l,block,pack4", [
+    (4, 2, 16, 48, 16, False), (4, 4, 20, 64, 32, True), (6, 3, 8, 24, 8, True),
+    (6, 3, 40, 96, 256, True), (32, 32, 128, 512, 256, True), (16, 16, 128, 512, 256, False)])
+@pytest.mark.parametrize("qdot8", [True, False])
+def test_k4_chunk_engine_equals_the_walk(dev, dtype, h, n_kv, d, l, block, pack4, qdot8):
+    g = torch.Generator(device=dev).manual_seed(h * d + l + 1)
+    b = 3
+    kq, ks, vq, vs = _flat_cache(dev, g, b, l, n_kv, d, pack4)
+    q = torch.randn(b, h * d, generator=g, device=dev).to(dtype)
+    valid = l * 3 // 4
+    mask = (torch.rand(b, l, generator=g, device=dev) < 0.8) & (
+        torch.arange(l, device=dev)[None] < valid)
+    mask[:, 0] = True
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=1, block=block, valid_len=valid,
+              qdot_int8=qdot8)
+    out = fa.decode_attention_q(q, kq, ks, vq, vs, mask, **kw)
+    walk = fa.decode_attention_q_walk(q, kq, ks, vq, vs, mask, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, walk)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

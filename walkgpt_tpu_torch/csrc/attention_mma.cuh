@@ -1,8 +1,9 @@
 // Tensor-core forward-attention engine (bf16), the Hopper redesign of
-// attention_tile.cuh for bf16 inputs. Built on it: K3
-// (sam_flash_attention.cu), K2 (sam_window_attention.cu) and K10
-// (sam_window_attention_split.cu). Their fp32 routes stay on
-// attention_tile.cuh: the tensor cores have no exact fp32 product.
+// attention_tile.cuh for bf16 inputs. Built on it: K1
+// (flash_attention.cu), K3 (sam_flash_attention.cu), K2
+// (sam_window_attention.cu) and K10 (sam_window_attention_split.cu). Their
+// fp32 routes stay on attention_tile.cuh: the tensor cores have no exact
+// fp32 product.
 //
 // One block of 4 warps computes a 64-row query tile against every key tile,
 // 64 keys at a time, with an fp32 online softmax. Each warp owns 16 query
@@ -34,7 +35,7 @@
 //                 (for the rel-pos problems also gw == 64, rel rows staged):
 //                 the instantiation drops every bounds check
 //   int D, nq, nk, nkt;  head dim, rows in the tile, keys, key tiles
-//   bf16 qscale;  q is staged as bf16(q * qscale)
+//   bf16 qscale;  q is staged as bf16(q * qscale) (not with SCALE_ACC)
 //   void add_bias(float (&s)[8][4], int k0, int row) const
 //                 adds the bias to the warp's fragment (rows row, row + 8;
 //                 keys from k0) for keys < nk; keys >= nk are masked by the
@@ -42,12 +43,28 @@
 //   bf16* op; int64_t so;   the output tile's row 0 and its row stride (an
 //                 even D is written in bf16 pairs, so op and so are then even)
 //   void lse(int row, float x) const
+// Optional traits (static constexpr bool, false where a problem does not
+// declare them; K2, K3 and K10 declare none and compile as before):
+//   SCALE_ACC     q is staged unscaled (no qscale) and the logits are
+//                 scale times the fp32 accumulator of the exact bf16 products
+//                 q . k (K1's function; K1b forms them the same way); the
+//                 problem then has `float scale`
+//   SPLIT_P       O += P.V takes p split as hi = bf16(p), lo = bf16(p - hi),
+//                 two bf16 products into one fp32 sum (about 16 significant
+//                 bits of the fp32 p where bf16 alone keeps 8)
+//   SUB_MAX       p = exp(s - m) with s - m formed first, so that a row whose
+//                 logits all equal the finite masked -1e30 gets p = 1 for
+//                 each, as the CUDA-core engine gives it (the fused form
+//                 s log2e - m log2e leaves the rounding error of a product
+//                 of magnitude 1e30 in the exponent)
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace wgt {
 namespace tc {
@@ -279,6 +296,16 @@ __device__ __forceinline__ void mma_ab2(float (&out)[2 * KD][4], const uint32_t 
   }
 }
 
+#define WGT_FWD_TRAIT(NAME)                                                     \
+  template <class P, class = void> struct has_##NAME : std::false_type {};     \
+  template <class P>                                                            \
+  struct has_##NAME<P, std::void_t<decltype(P::NAME)>>                          \
+      : std::integral_constant<bool, P::NAME> {};
+WGT_FWD_TRAIT(SCALE_ACC)
+WGT_FWD_TRAIT(SPLIT_P)
+WGT_FWD_TRAIT(SUB_MAX)
+#undef WGT_FWD_TRAIT
+
 // bytes of the engine's own tiles: Q, and K and V twice each
 template <int KD> __host__ __device__ constexpr size_t fwd_tile_bytes() {
   return sizeof(bf16) * size_t(5) * BQ * row_stride<KD>();
@@ -298,6 +325,9 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
   const int row = 16 * warp + g;     // this thread's rows: row, row + 8
 
   constexpr bool F = Prob::FAST;
+  constexpr bool SCALE_ACC = has_SCALE_ACC<Prob>::value;
+  constexpr bool SPLIT_P = has_SPLIT_P<Prob>::value;
+  constexpr bool SUB_MAX = has_SUB_MAX<Prob>::value;
   load_rows<SS, DP, F>(Qs, pr.q, pr.sq, pr.nq, pr.D, pr.vec);
   load_rows<SS, DP, F>(Ks, pr.k, pr.sk, min(BK, pr.nk), pr.D, pr.vec);
   load_rows<SS, DP, F>(Vs, pr.v, pr.sv, min(BK, pr.nk), pr.D, pr.vec);
@@ -305,16 +335,19 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
   cp_wait<0>();
   __syncthreads();
   // the warp's query fragments, each value rounded to bf16(q * qscale) in
-  // registers (as scale_rows would in shared memory)
-  const __nv_bfloat162 qs2 = __bfloat162bfloat162(pr.qscale);
+  // registers (as scale_rows would in shared memory); SCALE_ACC: unscaled
   uint32_t qf[KD][4];
 #pragma unroll
   for (int kk = 0; kk < KD; ++kk) {
     ldsm_x4(qf[kk], Qs + (16 * warp + (lane & 15)) * SS + 16 * kk + (lane >> 4) * 8);
+    if constexpr (!SCALE_ACC) {
+      const __nv_bfloat162 qs2 = __bfloat162bfloat162(pr.qscale);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 x = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qf[kk][i]), qs2);
-      qf[kk][i] = *reinterpret_cast<const uint32_t*>(&x);
+      for (int i = 0; i < 4; ++i) {
+        const __nv_bfloat162 x =
+            __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&qf[kk][i]), qs2);
+        qf[kk][i] = *reinterpret_cast<const uint32_t*>(&x);
+      }
     }
   }
 
@@ -354,6 +387,12 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
         mma(s[2 * np + 1], qf[kk], bf[2], bf[3]);
       }
     }
+    if constexpr (SCALE_ACC) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= pr.scale;
+    }
     pr.add_bias(s, k0, row);
 
     if (!F && k0 + BK > pr.nk) {
@@ -383,7 +422,8 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2_fast(fmaf(s[n][e], LOG2E, -ml[e >> 1]));
+        s[n][e] = SUB_MAX ? exp2_fast((s[n][e] - m[e >> 1]) * LOG2E)
+                          : exp2_fast(fmaf(s[n][e], LOG2E, -ml[e >> 1]));
         rs[e >> 1] += s[n][e];
       }
 #pragma unroll
@@ -403,12 +443,19 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
         acc[i][3] *= alpha[1];
       }
     }
-    // P.V with p rounded to bf16, straight from the logits' registers
+    // P.V with p rounded to bf16 (SPLIT_P: hi + lo), straight from the
+    // logits' registers
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
-      uint32_t pa[4];
-      a_frag(s, j, pa);
-      mma_ab<KD, SS>(acc, pa, Vb, j);
+      if constexpr (SPLIT_P) {
+        uint32_t hi[4], lo[4];
+        a_frag_split(s, j, hi, lo);
+        mma_ab2<KD, SS>(acc, hi, lo, Vb, j);
+      } else {
+        uint32_t pa[4];
+        a_frag(s, j, pa);
+        mma_ab<KD, SS>(acc, pa, Vb, j);
+      }
     }
   }
 

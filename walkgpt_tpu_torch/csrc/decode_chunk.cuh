@@ -1,28 +1,38 @@
-// The engine of K8 (decode_attention_q.cu: wg_decode_attention_q_chunk): a
+// The engine of K8 (decode_attention_q.cu: wg_decode_attention_q_chunk, a
 // chunk of Tc query tokens against the flat quantized cache, the verify pass
-// of speculative decode. K4, K11 and K12 keep decode_walk.cuh; this engine
-// reproduces walk_block's arithmetic exactly, per DECODE_BLOCK block and in
-// block order, so chunk token t equals K4 at position cache_len + t bit for
-// bit:
+// of speculative decode) and of K4 (wg_decode_attention_q, one decode step
+// over the same cache with an arbitrary key mask, Tc = 1) in every mode but
+// the int8 value product (pv_int8, off on the main path), which stays on
+// decode_walk.cuh with K11 and K12's attention phase. This engine reproduces
+// walk_block's arithmetic exactly, per DECODE_BLOCK block and in block
+// order, so K4 here equals K4 on the walk bit for bit (the walk route stays
+// reachable as wg_decode_attention_q_walk for that comparison), and chunk
+// token t equals K4 at position cache_len + t bit for bit:
 //   * Q_INT8: q8 = rint(q / qs), qs = max(|q|max, 1e-20) * (1/127), per
 //     (token, head); s = int(q8 . k) * (ks * (qs * scale)); Q_BF16: s =
 //     bf16(q) . k in fp32, summed lane-strided over D then by the xor
 //     butterfly (walk_block's warp_sum), times (ks * scale);
-//   * slot p is valid for token t iff p < cache_len + t + 1; invalid keys
-//     get -1e30 and p = 0;
+//   * the Rule says which keys a query row attends: K8's CausalChunk (slot
+//     p is valid for token t iff p < cache_len + t + 1) or K4's KeyMask
+//     (mask[b, p], over the wrapper's nvb blocks); invalid keys get -1e30
+//     and p = 0;
 //   * m_new = max(m, block max), alpha = exp(m - m_new), p = exp(s - m_new),
 //     lsum lane-strided then the butterfly, l = l * alpha + lsum;
 //   * p_v = bf16(p * vs); y = the key-ordered fp32 sum of p_v * v (each
 //     product exact); acc = acc * bf16(alpha) + y;
 //   * out = acc / max(bf16(l), 1e-30) in q's dtype.
 // Bound: bytes (the codes and scales of the keys below cache_len + Tc; 7B at
-// Tc = 9, cache_len 440 and 375: 3.8 MB, about 1.1 us at 3.35 TB/s).
+// Tc = 9, cache_len 440 and 375: 3.8 MB, about 1.1 us at 3.35 TB/s; K4 at
+// 7B, 2 rows, 480 valid slots: 4.1 MB, about 1.2 us).
 // Design. A block of 256 threads takes one (row, kv head), up to 16 of its
 // Tc * n_rep query rows and a slice of 32 value dims (grid B * n_kv x query
 // groups x ceil(D / 32): 256 blocks at 7B, 128 at 1B, against the walk's
-// 64 and 32). Each block recomputes the whole scores and softmax of its
-// rows, which are cheap, and runs the value product of its own dims, so the
-// block order of the recurrence stays inside one block. Per 256-key block:
+// 64 and 32; K4, one token, takes 64 value dims a block while n_rep <= 8:
+// 128 blocks at 7B with 2 rows, 256 with the server's 4, one query row
+// each, n_rep = Tc = 1). Each block recomputes the whole scores and
+// softmax of its rows, which are cheap, and runs the value product of its
+// own dims, so the block order of the recurrence stays inside one block.
+// Per 256-key block:
 //   * staging: the head's codes (its 128-byte run of the slot row; packed
 //     int4 holds it in the low or the high nibbles) and the value slice are
 //     loaded 16 bytes a thread into registers one block ahead, then written
@@ -48,8 +58,8 @@ constexpr int DC_NT = 256;
 constexpr int DC_NW = DC_NT / 32;
 constexpr int DC_QG = 16;      // query rows per block (one mma row tile)
 constexpr int DC_DS = 32;      // value dims per block
+constexpr int DC_DS_STEP = 64; // value dims per block of K4's plan at few query rows
 constexpr int DC_KCH = 8;      // 16-byte key chunks a thread holds ahead
-constexpr int DC_VCH = 2;      // 16-byte value chunks a thread holds ahead
 
 struct ChunkArgs {
   const void* q;                 // [B, Tc, H*D] in T
@@ -57,29 +67,49 @@ struct ChunkArgs {
   const int8_t* v;
   const __nv_bfloat16* ks;       // [B, n_kv, L]
   const __nv_bfloat16* vs;
-  const int* cache_len;          // [B] pre-chunk lengths
+  const int* cache_len;          // [B] pre-chunk lengths (CausalChunk)
+  const uint8_t* mask;           // [B, L] key mask (KeyMask)
   void* out;                     // [B, Tc, H*D] in T
   int Tc, H, n_kv, D, L, bl, pack4;
+  int nvb;                       // key blocks to visit (KeyMask)
   int qg;                        // query rows per block
   float scale;
+};
+
+// The keys a block's query row qi attends, and the key blocks the block
+// walks: K8's causal chunk (slot p is valid for token t iff p < cache_len +
+// t + 1; min(ceil((cache_len + Tc) / bl), L / bl) blocks) or K4's key mask
+// (mask[b, key]; the wrapper's nvb blocks).
+struct CausalChunk {
+  int cl, n_rep, g0, nvb;
+  __device__ CausalChunk(const ChunkArgs& a, int b, int g0_)
+      : cl(a.cache_len[b]), n_rep(a.H / a.n_kv), g0(g0_),
+        nvb(min((a.cache_len[b] + a.Tc + a.bl - 1) / a.bl, a.L / a.bl)) {}
+  __device__ bool valid(int qi, int key) const { return key < cl + (g0 + qi) / n_rep + 1; }
+};
+struct KeyMask {
+  const uint8_t* m;
+  int nvb;
+  __device__ KeyMask(const ChunkArgs& a, int b, int) : m(a.mask + size_t(b) * a.L), nvb(a.nvb) {}
+  __device__ bool valid(int, int key) const { return m[key] != 0; }
 };
 
 __host__ __device__ constexpr int dc_align16(int x) { return (x + 15) & ~15; }
 
 // Shared memory of a block, in bytes: key codes kt [blp][KS] int8 (KS = Dp +
 // 16, Dp = D rounded up to 32; the 16 bytes of padding keep the mma
-// fragments' reads free of bank conflicts), values vf [blp][32] fp32, scores
+// fragments' reads free of bank conflicts), values vf [blp][ds] fp32, scores
 // / p_v sp [qg][spS] fp32, the query tile (Q_INT8: int8 [16][KS]; Q_BF16:
 // bf16(q) as fp32 [qg][D]) and the statistics st [qg][4].
 struct ChunkSmem {
   int KS, spS, kt, vf, sp, qt, st, bytes;
-  __host__ __device__ ChunkSmem(int D, int bl, int qg, bool qint8) {
+  __host__ __device__ ChunkSmem(int D, int bl, int qg, bool qint8, int ds) {
     const int blp = (bl + 7) & ~7;
     KS = ((D + 31) & ~31) + 16;
     spS = (bl + 3) & ~3;
     kt = 0;
     vf = dc_align16(kt + blp * KS);
-    sp = vf + blp * DC_DS * 4;
+    sp = vf + blp * ds * 4;
     qt = sp + qg * spS * 4;
     st = dc_align16(qt + (qint8 ? DC_QG * KS : qg * D * 4));
     bytes = st + qg * 16;
@@ -88,12 +118,13 @@ struct ChunkSmem {
 
 // How a cache row's bytes hold a head: vec (the head's D bytes are one
 // 16-byte-aligned run in one nibble plane, D % 16 == 0, and a block's
-// chunks fit the registers held ahead), else byte-wise.
+// chunks fit the registers held ahead: DC_KCH key chunks and DS / 16 value
+// chunks a thread), else byte-wise.
 __host__ __device__ inline bool chunk_vec(const ChunkArgs& a) {
   const int kd = a.n_kv * a.D, width = a.pack4 ? kd / 2 : kd;
   const bool planes = !a.pack4 || (kd / 2) % a.D == 0;
   return a.D % 16 == 0 && width % 16 == 0 && planes && a.bl % 8 == 0
-         && a.bl * (a.D / 16) <= DC_NT * DC_KCH && a.bl * (DC_DS / 16) <= DC_NT * DC_VCH
+         && a.bl * (a.D / 16) <= DC_NT * DC_KCH && a.bl <= DC_NT
          && (reinterpret_cast<uintptr_t>(a.k) & 15) == 0
          && (reinterpret_cast<uintptr_t>(a.v) & 15) == 0;
 }
@@ -147,17 +178,20 @@ __device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Block (b * n_kv + kv, query group, value slice). T: q/out type; QM:
-// Q_INT8 or Q_BF16; VEC: chunk_vec(a).
-template <typename T, int QM, bool VEC>
+// Block (b * n_kv + kv, query group, value slice of DS dims). T: q/out
+// type; QM: Q_INT8 or Q_BF16; VEC: chunk_vec(a); Rule: CausalChunk (K8) or
+// KeyMask (K4); DS: DC_DS, or DC_DS_STEP for K4 at few query rows (each
+// thread still owns at most two value chains).
+template <typename T, int QM, bool VEC, class Rule, int DS>
 __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
+  constexpr int VCH = DS / 16;   // 16-byte value chunks a thread holds ahead
   extern __shared__ __align__(16) unsigned char dsm[];
   const int n_rep = a.H / a.n_kv, D = a.D, bl = a.bl, L = a.L;
   const int b = blockIdx.x / a.n_kv, kv = blockIdx.x - b * a.n_kv;
   const int g0 = blockIdx.y * a.qg, nq = min(a.qg, a.Tc * n_rep - g0);
-  const int d0 = blockIdx.z * DC_DS, dsw = min(DC_DS, D - d0);
+  const int d0 = blockIdx.z * DS, dsw = min(DS, D - d0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const ChunkSmem sm(D, bl, a.qg, QM == Q_INT8);
+  const ChunkSmem sm(D, bl, a.qg, QM == Q_INT8, DS);
   const int KS = sm.KS, spS = sm.spS, blp = (bl + 7) & ~7;
   int8_t* kt = reinterpret_cast<int8_t*>(dsm + sm.kt);
   float* vf = reinterpret_cast<float*>(dsm + sm.vf);
@@ -170,13 +204,13 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
   // the head's byte run and nibble plane (VEC: one run in one plane)
   const int hoff = a.pack4 && kv * D >= half ? kv * D - half : kv * D;
   const int mode = a.pack4 ? (kv * D >= half ? 2 : 1) : 0;
-  const int cl = a.cache_len[b];
-  const int nvb = min((cl + a.Tc + bl - 1) / bl, L / bl);
+  const Rule rule(a, b, g0);
+  const int nvb = rule.nvb;
   auto q_off = [&](int qi) {
     const int g = g0 + qi, t = g / n_rep, head = kv * n_rep + (g - t * n_rep);
     return ((size_t(b) * a.Tc + t) * a.H + head) * D;
   };
-  auto valid = [&](int qi, int key) { return key < cl + (g0 + qi) / n_rep + 1; };
+  auto valid = [&](int qi, int key) { return rule.valid(qi, key); };
 
   // zero the key tile (padding dims and keys stay zero) and the query tile
   for (int i = tid * 16; i < sm.sp; i += DC_NT * 16)
@@ -210,7 +244,7 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
   const __nv_bfloat16* ksr = a.ks + (size_t(b) * a.n_kv + kv) * L;
   const __nv_bfloat16* vsr = a.vs + (size_t(b) * a.n_kv + kv) * L;
   const int kcpr = D / 16, vcpr = dsw / 16;      // 16-byte chunks per key (VEC)
-  uint4 kr[DC_KCH], vr[DC_VCH];
+  uint4 kr[DC_KCH], vr[VCH];
   // VEC: the block's raw key and value chunks into registers
   auto fetch = [&](int j0) {
 #pragma unroll
@@ -220,7 +254,7 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
         kr[i] = dc_ld16(a.k + (row0 + j0 + j) * width + hoff + (c - j * kcpr) * 16);
     }
 #pragma unroll
-    for (int i = 0; i < DC_VCH; ++i) {
+    for (int i = 0; i < VCH; ++i) {
       const int c = tid + i * DC_NT, j = c / vcpr;
       if (j < bl)
         vr[i] = dc_ld16(a.v + (row0 + j0 + j) * width + hoff + d0 + (c - j * vcpr) * 16);
@@ -236,9 +270,9 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
           *reinterpret_cast<uint4*>(kt + j * KS + (c - j * kcpr) * 16) = codes16(kr[i], mode);
       }
 #pragma unroll
-      for (int i = 0; i < DC_VCH; ++i) {
+      for (int i = 0; i < VCH; ++i) {
         const int c = tid + i * DC_NT, j = c / vcpr;
-        if (j < bl) values16(vr[i], mode, vf + j * DC_DS + (c - j * vcpr) * 16);
+        if (j < bl) values16(vr[i], mode, vf + j * DS + (c - j * vcpr) * 16);
       }
     } else {
       for (int i = tid; i < bl * D; i += DC_NT) {
@@ -250,7 +284,7 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
       for (int i = tid; i < bl * dsw; i += DC_NT) {
         const int j = i / dsw, dl = i - j * dsw, f = kv * D + d0 + dl;
         const int8_t* row = a.v + (row0 + j0 + j) * width;
-        vf[j * DC_DS + dl] =
+        vf[j * DS + dl] =
             float(!a.pack4 ? row[f] : f < half ? lo4(row[f]) : hi4(row[f - half]));
       }
     }
@@ -343,12 +377,12 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
         int j = 0;
         for (; j + 4 <= bl; j += 4) {
           const float4 p4 = *reinterpret_cast<const float4*>(pr + j);
-          y += p4.x * vc[(j + 0) * DC_DS];
-          y += p4.y * vc[(j + 1) * DC_DS];
-          y += p4.z * vc[(j + 2) * DC_DS];
-          y += p4.w * vc[(j + 3) * DC_DS];
+          y += p4.x * vc[(j + 0) * DS];
+          y += p4.y * vc[(j + 1) * DS];
+          y += p4.z * vc[(j + 2) * DS];
+          y += p4.w * vc[(j + 3) * DS];
         }
-        for (; j < bl; ++j) y += pr[j] * vc[j * DC_DS];
+        for (; j < bl; ++j) y += pr[j] * vc[j * DS];
         acc[h] = acc[h] * round_to<__nv_bfloat16>(st[4 * qi + 3]) + y;
       }
     }
@@ -367,15 +401,19 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
   }
 }
 
-// Launch over grid (B * n_kv, query groups of DC_QG, value slices of
-// DC_DS). Returns a cudaError_t as int.
-template <typename T, int QM>
+// Launch over grid (B * n_kv, query groups of DC_QG, value slices of DS):
+// K8 takes DS = DC_DS; K4 (one token) DC_DS_STEP while its query rows a
+// block hold at most two value chains a thread (n_rep <= 8), which halves
+// its blocks (one wave of two blocks an SM at 7B, 4 rows) with the same
+// chains. Returns a cudaError_t as int.
+template <typename T, int QM, class Rule, int DS = DC_DS>
 int chunk_launch(ChunkArgs a, int B, cudaStream_t stream) {
   const int nq_all = a.Tc * (a.H / a.n_kv);
   a.qg = min(nq_all, DC_QG);
-  const ChunkSmem sm(a.D, a.bl, a.qg, QM == Q_INT8);
+  const ChunkSmem sm(a.D, a.bl, a.qg, QM == Q_INT8, DS);
   if (sm.bytes > int(DW_SMEM_MAX)) return int(cudaErrorInvalidValue);
-  const dim3 grid(B * a.n_kv, (nq_all + a.qg - 1) / a.qg, (a.D + DC_DS - 1) / DC_DS);
+  if (a.qg * DS > 2 * DC_NT) return int(cudaErrorInvalidValue);   // two chains a thread
+  const dim3 grid(B * a.n_kv, (nq_all + a.qg - 1) / a.qg, (a.D + DS - 1) / DS);
   auto go = [&](auto kernel) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.bytes);
@@ -383,7 +421,8 @@ int chunk_launch(ChunkArgs a, int B, cudaStream_t stream) {
     kernel<<<grid, DC_NT, sm.bytes, stream>>>(a);
     return int(cudaGetLastError());
   };
-  return chunk_vec(a) ? go(chunk_walk<T, QM, true>) : go(chunk_walk<T, QM, false>);
+  return chunk_vec(a) ? go(chunk_walk<T, QM, true, Rule, DS>)
+                      : go(chunk_walk<T, QM, false, Rule, DS>);
 }
 
 }  // namespace wgt

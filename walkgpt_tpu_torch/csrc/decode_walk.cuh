@@ -1,6 +1,10 @@
-// The decode-attention engine shared by K4 and K8 (decode_attention_q.cu),
-// K11 (decode_attention.cu) and the attention phase of K12 (fused_layer.cu,
-// which calls walk_block from its own cooperative kernel).
+// The decode-attention engine of K11 (decode_attention.cu), of the
+// attention phase of K12 (fused_layer.cu, which calls walk_block from its
+// own cooperative kernel) and of K4's int8 value product (pv_int8, off on
+// the main path) and walk route (decode_attention_q.cu:
+// wg_decode_attention_q_walk, the reference the chunk engine is held to).
+// K4's other modes and K8 run decode_chunk.cuh, which repeats this
+// engine's arithmetic per block bit for bit.
 //
 // A block of 256 threads takes one (row, kv head) and up to `qg` of its
 // query rows: the n_rep query heads of that kv head for each of the Tc

@@ -38,9 +38,10 @@
 //         lo = bf16(x - hi), two bf16 products into one fp32 sum (about 16
 //         significant bits of p and ds; bf16 alone would keep 8). Ten
 //         mma.sync units of 2*D per pair for the function's five.
-//       - p and lse: K1's forward stays on the fp32 CUDA-core engine, so
-//         this route's s is not formed in the forward's fma order: p = exp(s
-//         - lse) matches the saved lse to fp32 rounding, not bit for bit.
+//       - p and lse: K1's bf16 forward (attention_mma.cuh, SCALE_ACC) forms
+//         s the same way, scale times the fp32 sum of exact products, but
+//         in its own tiles and sum order: p = exp(s - lse) matches the saved
+//         lse to fp32 rounding, not bit for bit.
 //     Masks: key_valid and the causal mask set s to -inf on the fragments
 //     before p is formed (p exactly 0); key_valid of a key tile is two
 //     ballots of its 64 bytes.

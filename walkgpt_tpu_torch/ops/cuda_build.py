@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Any, Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -31,6 +31,8 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# (library, entry) -> (the loaded library, its entry with argument types set)
+_entries: Dict[Tuple[str, str], Tuple[ctypes.CDLL, Any]] = {}
 
 
 def nvcc_path() -> str:
@@ -90,14 +92,33 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def entry(lib: str, fn_name: str, argtypes: Sequence):
+    """The C entry `fn_name` of csrc/<lib>.cu with its ctypes argument types
+    (the stream, its last argument, included) and an int result, bound once
+    per loaded library (a tool that reloads a library from other sources
+    gets the new library's entry)."""
+    cdll = _libs[lib] if lib in _libs else load(lib)
+    hit = _entries.get((lib, fn_name))
+    if hit is not None and hit[0] is cdll:
+        return hit[1]
+    fn = getattr(cdll, fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    _entries[(lib, fn_name)] = (cdll, fn)
+    return fn
+
+
 def launch(lib: str, fn_name: str, argtypes: Sequence, device: torch.device, *args) -> None:
     """Call the C entry `fn_name` of csrc/<lib>.cu on `device`'s current
     stream. `argtypes` are its ctypes argument types, the stream (its last
-    argument) included; raises if the entry returns a CUDA error."""
-    fn = getattr(load(lib), fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    argument) included; raises if the entry returns a CUDA error. The device
+    is switched only when it is not the current one."""
+    fn = entry(lib, fn_name, argtypes)
+    idx = device.index
+    if idx is None or idx == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream(idx).cuda_stream)
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, torch.cuda.current_stream(idx).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")

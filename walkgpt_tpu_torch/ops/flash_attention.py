@@ -11,7 +11,11 @@ K1 flash_attention (csrc/flash_attention.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:flash_attention (_fwd_kernel):
     the causal LLM prefill attention with a per-batch key mask, fp32 math.
     7B prefill [2, 32, 447, 128] bf16: about 29 MB moved and 3.3 GFLOP, so
-    bound by bytes on an H100 (about 9 us at 3.35 TB/s).
+    bound by bytes on an H100 (about 9 us at 3.35 TB/s). bf16 runs on the
+    tensor cores (csrc/attention_mma.cuh: s as scale times the fp32 sum of
+    exact q . k products, as K1b forms it; p split hi + lo for the value
+    product; query tiles heaviest first); fp32 stays on the CUDA-core
+    engine.
 K2 sam_window_attention_packed (csrc/sam_window_attention.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:sam_window_attention_packed
     (_win_packed_fwd_kernel): whole-window attention with the decomposed
@@ -82,27 +86,30 @@ K11 decode_attention (csrc/decode_attention.cu)
     LLMConfig.fused_decode. Dense 7B, 2 rows, 480 of 512 slots valid: about
     15.7 MB, bound by bytes (about 4.7 us).
 
-K4 and K11 run one engine (csrc/decode_walk.cuh): a block per (row, kv
-head) walks the cache in DECODE_BLOCK-key blocks with the TPU kernels'
-rounding points, each block's values staged once in shared memory for all
-the query rows of that kv head. K8 runs its own engine
-(csrc/decode_chunk.cuh) with the same rounding points in the same block
-order: a block per (row, kv head, 16 query rows, 32 value dims), int8
-tensor-core scores, so its token t is K4's output at the same position bit
-for bit.
+K4 and K8 run one engine (csrc/decode_chunk.cuh; K4 at Tc = 1 with its key
+mask): a block per (row, kv head, 16 query rows, 32 value dims; K4 64 value
+dims while n_rep <= 8) walks the cache in DECODE_BLOCK-key blocks with the
+TPU kernels' rounding points,
+int8 tensor-core scores, each block's codes staged 16 bytes a thread; the
+launch plans are decode_attention_q_plan and decode_chunk_plan. K11, K12's
+attention phase and K4's int8 value product (pv_int8, off on the main
+path) run the first engine (csrc/decode_walk.cuh: a block per (row, kv
+head)), whose arithmetic per block the chunk engine repeats, so K8's token
+t is K4's output at the same position, and K4 on either engine the same,
+bit for bit (decode_attention_q_walk runs K4 on the walk for that check).
 
 Design (K1-K3, csrc/attention_tile.cuh): one block per 64-row query tile
 and (batch, head) or (window, head); key tiles of 64 stream through shared
 memory; the logits tile and its bias live only in registers and shared
 memory, with an fp32 online softmax, so no [N, N] tensor reaches device
 memory — the part of each bound that is bytes is met by reading each input
-once per query tile. In bf16, K1b, K2, K3, K3b and K10 run on the
+once per query tile. In bf16, K1, K1b, K2, K3, K3b and K10 run on the
 tensor-core engines (csrc/attention_mma.cuh, attention_mma_bwd.cuh: the
 same tiles, each warp 16 rows, mma.sync bf16 products with fp32 sums, a
-problem object per kernel); K1 (forward), K2b and K10b run their products
-on the CUDA cores in fp32, far from the tensor-core bound, and every fp32
-call stays there (the fp32 parity runs need exact fp32 products). wgmma/TMA
-tiles are later work.
+problem object per kernel), and so does K1's bf16 forward; K2b and K10b
+run their products on the CUDA cores in fp32, far from the tensor-core
+bound, and every fp32 call stays there (the fp32 parity runs need exact
+fp32 products). wgmma/TMA tiles are later work.
 """
 from __future__ import annotations
 
@@ -130,6 +137,7 @@ _SIGNATURES = {
                                    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                     _P, _F, _I, _P]),
     "wg_decode_attention_q": ("decode_attention_q", [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
+    "wg_decode_attention_q_walk": ("decode_attention_q", [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
     "wg_decode_attention_q_chunk": ("decode_attention_q", [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
     "wg_decode_attention": ("decode_attention", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
     "wg_flash_attention_bwd": ("flash_attention_bwd", [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
@@ -896,6 +904,35 @@ def decode_attention_q_reference(q, k_cache, k_scale, v_cache, v_scale, key_mask
                        qdot_int8=qdot_int8, pv_int8=pv_int8)[:, 0]
 
 
+def _decode_q(entry: str, q, k_cache, k_scale, v_cache, v_scale, key_mask, *, n_kv: int,
+              head_dim: int, pack4: bool, layer: int, block: int, valid_len: Optional[int],
+              qdot_int8: bool, pv_int8: bool) -> torch.Tensor:
+    """K4's launch through the C entry `entry` (the wrapper's, or the walk's)."""
+    name = "decode_attention_q"
+    dt = _check_cuda(name, q)
+    b, hd = q.shape
+    d = head_dim
+    h = hd // d
+    l = k_cache.shape[2]
+    bl, nvb = _decode_blocks(l, block, valid_len)
+    if (hd % d or h % n_kv or tuple(key_mask.shape) != (b, l)
+            or key_mask.dtype != torch.bool):
+        raise ValueError(f"{name}: bad q {tuple(q.shape)} or mask {tuple(key_mask.shape)} "
+                         f"{key_mask.dtype} for n_kv={n_kv}, D={d}")
+    _check_quant_cache(name, b, n_kv, d, l, pack4, k_cache, k_scale, v_cache, v_scale)
+    walk = entry == "wg_decode_attention_q_walk" or (qdot_int8 and pv_int8)
+    if decode_attention_q_plan(b, h, n_kv, d, bl, qdot_int8, pv_int8, walk)["smem"] > _SMEM_MAX:
+        raise ValueError(f"{name}: a block of {bl} keys at D={d} does not fit the kernel's "
+                         f"shared memory")
+    bufs = [q, k_cache[layer], k_scale[layer], v_cache[layer], v_scale[layer], key_mask]
+    _check_contiguous(name, q.device, *bufs)
+    out = torch.empty((b, hd), dtype=q.dtype, device=q.device)
+    _launch(entry, q.device, *[x.data_ptr() for x in bufs], out.data_ptr(),
+            b, h, n_kv, d, l, bl, nvb, int(pack4), int(qdot_int8), int(pv_int8),
+            1.0 / math.sqrt(d), dt)
+    return out
+
+
 def decode_attention_q(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
                        n_kv: int, head_dim: int, pack4: bool = False, layer: int = 0,
                        block: int = DECODE_BLOCK, valid_len: Optional[int] = None,
@@ -915,26 +952,26 @@ def decode_attention_q(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
     if q.device.type == "cpu":
         return decode_attention_q_reference(q, k_cache, k_scale, v_cache, v_scale,
                                             key_mask, **kw)
-    name = "decode_attention_q"
-    dt = _check_cuda(name, q)
-    b, hd = q.shape
-    d = head_dim
-    h = hd // d
-    l = k_cache.shape[2]
-    bl, nvb = _decode_blocks(l, block, valid_len)
-    if (hd % d or h % n_kv or tuple(key_mask.shape) != (b, l)
-            or key_mask.dtype != torch.bool):
-        raise ValueError(f"{name}: bad q {tuple(q.shape)} or mask {tuple(key_mask.shape)} "
-                         f"{key_mask.dtype} for n_kv={n_kv}, D={d}")
-    _check_quant_cache(name, b, n_kv, d, l, pack4, k_cache, k_scale, v_cache, v_scale)
-    bufs = [q, k_cache[layer], k_scale[layer], v_cache[layer], v_scale[layer], key_mask]
-    _check_contiguous(name, q.device, *bufs)
-    out = torch.empty((b, hd), dtype=q.dtype, device=q.device)
-    _launch("wg_decode_attention_q", q.device, *[x.data_ptr() for x in bufs], out.data_ptr(),
-            b, h, n_kv, d, l, bl, nvb, int(pack4), int(qdot_int8), int(pv_int8),
-            1.0 / math.sqrt(d), dt)
+    out = _decode_q("wg_decode_attention_q", q, k_cache, k_scale, v_cache, v_scale, key_mask,
+                    **kw)
     decode_attention_q.launches += 1
     return out
+
+
+def decode_attention_q_walk(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
+                            n_kv: int, head_dim: int, pack4: bool = False, layer: int = 0,
+                            block: int = DECODE_BLOCK, valid_len: Optional[int] = None,
+                            qdot_int8: bool = True, pv_int8: bool = False) -> torch.Tensor:
+    """K4 on the walk engine (csrc/decode_walk.cuh) in every mode, CUDA
+    tensors only: the route decode_attention_q's chunk engine is held
+    against, bit for bit (chip_smoke.py, tools/decode_kernels.py).
+    decode_attention_q never calls it, and it counts no launches: it is a
+    yardstick, not a step of any path. Arguments as decode_attention_q's."""
+    if q.device.type != "cuda":
+        raise ValueError("decode_attention_q_walk: the walk takes CUDA tensors")
+    return _decode_q("wg_decode_attention_q_walk", q, k_cache, k_scale, v_cache, v_scale,
+                     key_mask, n_kv=n_kv, head_dim=head_dim, pack4=pack4, layer=layer,
+                     block=block, valid_len=valid_len, qdot_int8=qdot_int8, pv_int8=pv_int8)
 
 
 decode_attention_q.launches = 0
@@ -942,28 +979,63 @@ decode_attention_q.launches = 0
 
 # K8's launch plan (csrc/decode_chunk.cuh): a block per (row, kv head),
 # group of CHUNK_QUERY_ROWS query rows and slice of CHUNK_VALUE_DIMS value
-# dims, each walking its row's key blocks in order
+# dims, each walking its row's key blocks in order; K4 takes slices of
+# STEP_VALUE_DIMS while a block's query rows times that stay within
+# CHUNK_THREADS * 2 value chains
 CHUNK_QUERY_ROWS = 16
 CHUNK_VALUE_DIMS = 32
+STEP_VALUE_DIMS = 64
+CHUNK_THREADS = 256
 _SMEM_MAX = 232448
 
 
 @functools.lru_cache(maxsize=None)
 def decode_chunk_plan(b: int, tc: int, h: int, n_kv: int, d: int, bl: int,
-                      qdot_int8: bool = True) -> Dict[str, int]:
+                      qdot_int8: bool = True,
+                      value_dims: int = CHUNK_VALUE_DIMS) -> Dict[str, int]:
     """K8's grid (b * n_kv, query groups, value slices), its query rows per
-    block and its shared memory per block in bytes (as decode_chunk.cuh's
-    ChunkSmem lays it out)."""
+    block, value dims per slice and shared memory per block in bytes (as
+    decode_chunk.cuh's ChunkSmem lays it out); value_dims: K4's slices."""
     nq = tc * (h // n_kv)
     qg = min(nq, CHUNK_QUERY_ROWS)
     blp = -(-bl // 8) * 8
     ks = -(-d // 32) * 32 + 16
     align = lambda x: -(-x // 16) * 16
     vf = align(blp * ks)
-    qt = vf + blp * CHUNK_VALUE_DIMS * 4 + qg * (-(-bl // 4) * 4) * 4
+    qt = vf + blp * value_dims * 4 + qg * (-(-bl // 4) * 4) * 4
     st = align(qt + (CHUNK_QUERY_ROWS * ks if qdot_int8 else qg * d * 4))
-    return dict(grid=(b * n_kv, -(-nq // qg), -(-d // CHUNK_VALUE_DIMS)), query_rows=qg,
-                smem=st + qg * 16)
+    return dict(grid=(b * n_kv, -(-nq // qg), -(-d // value_dims)), query_rows=qg,
+                value_dims=value_dims, smem=st + qg * 16)
+
+
+# the walk's plan (csrc/decode_walk.cuh): a block per (row, kv head) and
+# group of at most WALK_QUERY_ROWS query rows
+WALK_QUERY_ROWS = 32
+
+
+@functools.lru_cache(maxsize=None)
+def decode_attention_q_plan(b: int, h: int, n_kv: int, d: int, bl: int, qdot_int8: bool = True,
+                            pv_int8: bool = False, walk: bool = False) -> Dict[str, object]:
+    """K4's launch plan, as csrc/decode_attention_q.cu chooses it: the chunk
+    engine at Tc = 1 (decode_chunk_plan's grid (b * n_kv, query groups,
+    value slices), slices of STEP_VALUE_DIMS while min(n_rep, 16) of them
+    are at most 2 * CHUNK_THREADS value chains, else CHUNK_VALUE_DIMS), or
+    the walk for the int8 value product (pv_int8 with qdot_int8) and for
+    decode_attention_q_walk (walk): grid (b * n_kv, query groups, 1), as
+    many query rows a block as fit the shared memory (decode_walk.cuh's
+    decode_launch), every dim. Returns the engine, grid, query rows, value
+    dims and shared memory per block in bytes."""
+    if not (walk or (qdot_int8 and pv_int8)):
+        qg = min(h // n_kv, CHUNK_QUERY_ROWS)
+        dims = STEP_VALUE_DIMS if qg * STEP_VALUE_DIMS <= 2 * CHUNK_THREADS else CHUNK_VALUE_DIMS
+        return dict(engine="chunk", **decode_chunk_plan(b, 1, h, n_kv, d, bl, qdot_int8, dims))
+    nq = h // n_kv
+    smem = lambda qg: 4 * (qg * (3 * d + bl + 5) + 64) + 64 * d   # int8 codes staged
+    qg = min(nq, WALK_QUERY_ROWS)
+    while qg > 1 and smem(qg) > _SMEM_MAX:
+        qg -= 1
+    return dict(engine="walk", grid=(b * n_kv, -(-nq // qg), 1), query_rows=qg, value_dims=d,
+                smem=smem(qg))
 
 
 def chunk_key_blocks(cache_len: int, tc: int, l: int, bl: int) -> int:

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """The tensor-core attention kernels against edited builds of their own
-sources, on one GPU.
+sources, and against another tree's, on one GPU.
 
-    python3 walkgpt_tpu_torch/tools/attention_variants.py
+    python3 walkgpt_tpu_torch/tools/attention_variants.py [--parent DIR]
 
 Copies `walkgpt_tpu_torch/csrc` twice into `build/variants/` and edits each
-copy, then builds K3 (`sam_flash_attention.cu`), K3b
-(`sam_flash_attention_bwd.cu`) and K1b (`flash_attention_bwd.cu`) from every
-copy in parallel:
+copy, then builds K1 (`flash_attention.cu`), K3 (`sam_flash_attention.cu`),
+K3b (`sam_flash_attention_bwd.cu`) and K1b (`flash_attention_bwd.cu`) from
+every copy in parallel:
   * general: the launchers of K3 and K3b never choose the production
     instantiation (FAST, no bounds checks and constant strides), so every
-    shape runs the general one. K1b and K2 have no such instantiation (the
-    training step's N = 767 and the windows' T = 196 leave ragged tiles);
-  * nolo: `mma_ab2` and `mma_ab2_part` drop their two lo products, so
-    K3b's and K1b's dv, dk and dq take p and ds rounded to bf16 alone.
+    shape runs the general one. K1, K1b and K2 have no such instantiation
+    (the prefill's N = 447, the training step's N = 767 and the windows'
+    T = 196 leave ragged tiles);
+  * nolo: `mma_ab2` and `mma_ab2_part` drop their two lo products, so K1's
+    p . v and K3b's and K1b's dv, dk and dq take p and ds rounded to bf16
+    alone.
 Then, on bf16 inputs:
   1. K3 and K3b at ViT-H's global attention, [2, 16, 4096, 80], in the
      package's build and in `general`, interleaved (package, general,
@@ -21,10 +23,19 @@ Then, on bf16 inputs:
      builds must give the same bits;
   2. chip_smoke.py's split-product checks on each build: k3b_split_check at
      the 64 x 64 grid (D = 80) and the 12 x 40 grid (D = 64), k1b_split_check
-     at N = 767 (D = 128) and N = 130 (D = 64), causal with padded keys: the
-     package's and `general` must pass them and `nolo` must fail them.
+     at N = 767 (D = 128) and N = 130 (D = 64), k1_split_check at N = 447
+     (D = 128) and N = 130 (D = 80), causal with padded keys: the package's
+     and `general` must pass them and `nolo` must fail them;
+  3. with --parent (another tree's csrc directory, e.g. the parent commit's
+     from `git archive` into build/), K2, K3 and K10 (`sam_window_attention`,
+     `sam_flash_attention`, `sam_window_attention_split`) built from it: on
+     the ViT-H shapes and on ragged ones (K3 at a 12 x 40 grid, D = 64; K2
+     and K10 at ws = 7, D = 20) their out and lse must be the package's bit
+     for bit (the forward engine they share with K1 gained traits that they
+     do not take).
 Exits non-zero if any of these does not hold. Needs nvcc and a CUDA GPU.
 """
+import argparse
 import shutil
 import subprocess
 import sys
@@ -38,7 +49,9 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 from walkgpt_tpu_torch.ops import cuda_build  # noqa: E402
 
-NAMES = ("sam_flash_attention", "sam_flash_attention_bwd", "flash_attention_bwd")
+NAMES = ("flash_attention", "sam_flash_attention", "sam_flash_attention_bwd",
+         "flash_attention_bwd")
+PARENT_NAMES = ("sam_window_attention", "sam_flash_attention", "sam_window_attention_split")
 LO = "    mma(out[2 * dp], lo, bf[0], bf[1]);\n    mma(out[2 * dp + 1], lo, bf[2], bf[3]);\n"
 EDITS = {
     "general": [(f, "const bool fast = vec", "const bool fast = false && vec")
@@ -48,12 +61,14 @@ EDITS = {
 PACKAGE = (cuda_build.CSRC, cuda_build.BUILD_DIR)
 
 
+TREES = {"package": PACKAGE}
+
+
 def use(tag):
-    """Point cuda_build at the package's sources or at a variant's."""
+    """Point cuda_build at the package's sources, a variant's or --parent's."""
     root = REPO / "build" / "variants" / tag
-    cuda_build.CSRC, cuda_build.BUILD_DIR = (PACKAGE if tag == "package"
-                                             else (root / "csrc", root / "kernels"))
-    for name in NAMES:
+    cuda_build.CSRC, cuda_build.BUILD_DIR = TREES.get(tag, (root / "csrc", root / "kernels"))
+    for name in NAMES + PARENT_NAMES:
         cuda_build._libs.pop(name, None)
 
 
@@ -75,16 +90,44 @@ def build_all():
                    str(cuda_build.library_path(name)), str(cuda_build.CSRC / f"{name}.cu")]
             procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                           text=True))
+    if "parent" in TREES:
+        use("parent")
+        cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        for name in PARENT_NAMES:
+            cmd = [cuda_build.nvcc_path(), *cuda_build.FLAGS, "-o",
+                   str(cuda_build.library_path(name)), str(cuda_build.CSRC / f"{name}.cu")]
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
     use("package")
-    cuda_build.build(NAMES + ("flash_attention",))
-    cuda_build.load("flash_attention")   # K1's forward (k1b_split_check): the package's
+    cuda_build.build(NAMES + PARENT_NAMES)
     for p in procs:
         out, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed:\n{out}")
 
 
-def main() -> int:
+def parent_cases(dev):
+    """{label: a closure giving (out, lse)} of K2, K3 and K10 in bf16."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16 = torch.bfloat16
+    return {
+        "K2 ViT-H windows": cs.k2_case(dev, bf16, 50, 16, 80, 14, gen)[0],
+        "K2 ws=7 D=20": cs.k2_case(dev, bf16, 5, 3, 20, 7, gen)[0],
+        "K3 ViT-H global": cs.k3_case(dev, bf16, 2, 16, 64, 64, 80, gen)[0],
+        "K3 12x40 D=64": cs.k3_case(dev, bf16, 2, 2, 12, 40, 64, gen)[0],
+        "K10 ViT-H windows": cs.k10_case(cs.k10_inputs(dev, bf16, bf16, 50, 16, 80, 14, gen),
+                                         14)[0],
+        "K10 ws=7 D=20": cs.k10_case(cs.k10_inputs(dev, bf16, bf16, 5, 3, 20, 7, gen), 7)[0],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="another tree's csrc directory (K2, K3, K10 bits)")
+    args = ap.parse_args(argv)
+    if args.parent:
+        TREES["parent"] = (Path(args.parent).resolve(),
+                           REPO / "build" / "variants" / "parent" / "kernels")
     if not torch.cuda.is_available():
         print("attention_variants: no CUDA GPU available", file=sys.stderr)
         return 1
@@ -114,6 +157,8 @@ def main() -> int:
         dev, gh, gw, d, gen)) for gh, gw, d in ((64, 64, 80), (12, 40, 64))]
     checks += [(f"K1b N={n} D={d}", lambda n=n, d=d: cs.k1b_split_check(dev, n, d, gen))
                for n, d in ((767, 128), (130, 64))]
+    checks += [(f"K1 N={n} D={d}", lambda n=n, d=d: cs.k1_split_check(dev, n, d, gen))
+               for n, d in ((447, 128), (130, 80))]
     for tag, want_pass in (("package", True), ("general", True), ("nolo", False)):
         use(tag)
         for label, check in checks:
@@ -126,6 +171,19 @@ def main() -> int:
             print(f"  {tag} {label}: split-product check "
                   f"{'passed' if passed else 'failed'} (expected to "
                   f"{'pass' if want_pass else 'fail'})", flush=True)
+    if "parent" in TREES:
+        runs = parent_cases(dev)
+        outs = {}
+        for tag in ("package", "parent"):
+            use(tag)
+            outs[tag] = {label: run() for label, run in runs.items()}
+            torch.cuda.synchronize()
+        for label in runs:
+            same = all(torch.equal(a, b) for a, b in zip(outs["package"][label],
+                                                          outs["parent"][label]))
+            ok &= same
+            print(f"  {label}: out and lse equal the parent tree's bit for bit: {same}",
+                  flush=True)
     use("package")
     print("attention_variants: ok" if ok else "attention_variants: FAILED", flush=True)
     return 0 if ok else 1

@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""K6 (fused_mlp_int4) and K8 (decode_attention_q_chunk) at the decode
-path's shapes, timed on one GPU, for the package's sources and for other
-copies of `walkgpt_tpu_torch/csrc` (an older tree's, an edited one's).
+"""K6 (fused_mlp_int4), K8 (decode_attention_q_chunk) and K4
+(decode_attention_q) at the decode path's shapes, timed on one GPU, for the
+package's sources and for other copies of `walkgpt_tpu_torch/csrc` (an
+older tree's, an edited one's).
 
     python3 walkgpt_tpu_torch/tools/decode_kernels.py [--csrc DIR ...] [--rounds 2]
 
 For each source tree (the package's first, then each --csrc directory,
 built into build/decode_kernels/<n>/), on the same bf16 inputs:
-  * K6 on the 7B int4 MLP (H 4096, I 11008) at M = 1, 2 and 4 rows, and K8
-    on the 7B int4_flat and 1B int8_flat chunks (Tc 9, cache_len 440 and
-    375, 512 slots): ms per call by CUDA events (100 calls after a warm-up),
-    the trees taken in turns for `--rounds` rounds (a, b, ..., b, a, ...);
+  * K6 on the 7B int4 MLP (H 4096, I 11008) at M = 1, 2 and 4 rows, K8 on
+    the 7B int4_flat and 1B int8_flat chunks (Tc 9, cache_len 440 and 375,
+    512 slots), and K4 on the 7B int4_flat step (2 and 4 rows) and the 1B
+    int8_flat step (2 rows), 480 of 512 slots valid: ms per call by CUDA
+    events (100 calls after a warm-up), the trees taken in turns for
+    `--rounds` rounds (a, b, ..., b, a, ...); in the package's tree also K4
+    on its walk route (decode_attention_q_walk, the engine a tree older
+    than the chunk engine's K4 runs) on the same inputs;
   * once, the CUDA kernels of one call by torch.profiler, ms each (K6 runs
-    three launches);
-  * every tree's outputs are the package's bit for bit (K8) or within
-    chip_smoke's bf16 bounds of the plain version (K6), else it exits
-    non-zero.
+    three launches): K4's kernel alone against the walk's;
+  * every tree's outputs are the package's bit for bit (K8, K4, K4's walk
+    route) or within chip_smoke's bf16 bounds of the plain version (K6),
+    else it exits non-zero;
+  * K4's host microseconds per call at the 7B step (200 calls, no
+    synchronisation inside), its C entry bound once (cuda_build.launch)
+    against bound on every call with the device entered each time (the
+    launch before entries were cached), in turns.
 Needs nvcc and a CUDA GPU. Prints the card's name and power limit first.
 """
 import argparse
+import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -43,14 +53,48 @@ def use(tree):
 
 
 def cases(dev):
+    """({label: chip_smoke case} for every tree, {label: (case, the label whose
+    outputs it must equal)} for the package's tree only)."""
+    bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(9)
-    out = {}
+    out, package_only = {}, {}
     for m in (1, 2, 4):
-        out[f"K6 7B M={m}"] = cs.mlp_case(dev, torch.bfloat16, "int4", m, 4096, 11008, gen)
-    out["K8 7B int4_flat"] = cs.k8_case(dev, torch.bfloat16, 2, 9, 32, 32, 128, 512, [440, 375],
-                                        True, gen)
-    out["K8 1B int8_flat"] = cs.k8_case(dev, torch.bfloat16, 2, 9, 16, 16, 128, 512, [440, 375],
-                                        False, gen)
+        out[f"K6 7B M={m}"] = cs.mlp_case(dev, bf16, "int4", m, 4096, 11008, gen)
+    out["K8 7B int4_flat"] = cs.k8_case(dev, bf16, 2, 9, 32, 32, 128, 512, [440, 375], True, gen)
+    out["K8 1B int8_flat"] = cs.k8_case(dev, bf16, 2, 9, 16, 16, 128, 512, [440, 375], False, gen)
+    for i, (label, b, h, pack4) in enumerate((("K4 7B int4_flat", 2, 32, True),
+                                              ("K4 7B int4_flat 4 rows", 4, 32, True),
+                                              ("K4 1B int8_flat", 2, 16, False))):
+        # the walk's case from the same seed: the same inputs
+        same = lambda walk: cs.k4_case(dev, bf16, b, h, h, 128, 512, 480, pack4,
+                                       torch.Generator(device=dev).manual_seed(100 + i), walk)
+        out[label] = same(False)
+        package_only[label + " (walk)"] = (same(True), label)
+    return out, package_only
+
+
+def launch_rebinding(lib, fn_name, argtypes, device, *args):
+    """cuda_build.launch as it was before entries were bound once: the
+    entry's argument types set and the device entered on every call."""
+    fn = getattr(cuda_build.load(lib), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} at launch")
+
+
+def binding_host_us(run):
+    """{"bound once": [us, ...], "bound every call": [...]} in turns."""
+    bound_once = cuda_build.launch
+    out = {"bound once": [], "bound every call": []}
+    for label in ("bound once", "bound every call", "bound every call", "bound once"):
+        cuda_build.launch = bound_once if label == "bound once" else launch_rebinding
+        try:
+            out[label].append(cs.host_us(run))
+        finally:
+            cuda_build.launch = bound_once
     return out
 
 
@@ -73,23 +117,27 @@ def main(argv=None) -> int:
         print(f"{tag}:", flush=True)
         cs.ptxas_summary(cuda_build.build(NAMES))
     dev = torch.device("cuda")
-    runs = cases(dev)
+    runs, walks = cases(dev)
     want = {}
+    use(PACKAGE)
     for label, (run, plain, _, cost) in runs.items():
-        use(PACKAGE)
         want[label] = run()
         bound_ms = cs.bound(*cost)[0]
         print(f"{label}: bound_ms={bound_ms:.4f}", flush=True)
+    for label, (_, of) in walks.items():
+        want[label] = want[of]
     ok = True
-    times = {(t, label): [] for t, _ in trees for label in runs}
+    tree_runs = lambda tag: {**runs, **({k: c for k, (c, _) in walks.items()}
+                                        if tag == "package" else {})}
+    times = {(t, label): [] for t, _ in trees for label in tree_runs(t)}
     for r in range(args.rounds):
         order = trees if r % 2 == 0 else trees[::-1]
         for tag, tree in order:
             use(tree)
-            for label, (run, plain, _, _) in runs.items():
+            for label, (run, plain, _, _) in tree_runs(tag).items():
                 got = run()
                 torch.cuda.synchronize()
-                if label.startswith("K8"):
+                if not label.startswith("K6"):
                     same = torch.equal(got, want[label])
                 else:
                     ref = plain()
@@ -101,18 +149,22 @@ def main(argv=None) -> int:
                 times[(tag, label)].append(cs.cuda_ms(run, 100))
                 if not same:
                     print(f"  {tag} {label}: outputs differ", flush=True)
-    for label in runs:
+    for label in tree_runs("package"):
         print(label + ": " + "; ".join(
-            f"{tag} ms " + " ".join(f"{t:.4f}" for t in times[(tag, label)]) for tag, _ in trees))
+            f"{tag} ms " + " ".join(f"{t:.4f}" for t in times[(tag, label)])
+            for tag, _ in trees if (tag, label) in times))
     for tag, tree in trees:
         use(tree)
-        for label, (run, *_rest) in runs.items():
+        for label, (run, *_rest) in tree_runs(tag).items():
             kernels = {}
             cs.profiled(run, kernels)
             parts = ", ".join(f"{n.split('(')[0].replace('void ', '')[:60]} {ms:.4f}"
                               for n, ms in kernels.items())
             print(f"  {tag} {label} kernels (ms, one call): {parts}")
     use(PACKAGE)
+    us = binding_host_us(runs["K4 7B int4_flat"][0])
+    print("K4 7B int4_flat host us per call: " + "; ".join(
+        f"{k} " + " ".join(f"{v:.1f}" for v in vals) for k, vals in us.items()), flush=True)
     print("ok" if ok else "FAIL")
     return 0 if ok else 1
 
