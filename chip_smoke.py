@@ -13,11 +13,14 @@ Phases (any failure raises and the script exits non-zero):
      key, and against float64 products of its own p, SPLIT_GAIN times
      closer than p rounded to bf16 alone); K4 (decode_attention_q), K5
      (int4_matmul_pallas), K6 (fused_mlp_int4) and K7 (fused_mlp_int8) at
-     the shapes of the quantized 7B and 1B paths, K6 also at the 7B
-     server's pool of 4 rows, each row of which must equal the row called
-     alone, and a second call the first, bit for bit, and K4's chunk engine
-     against its walk route bit for bit (7B at 2 and 4 rows, 1B, ragged GQA;
-     int8 and bf16 scores) with its host microseconds per call (2b); K8
+     the shapes of the quantized 7B and 1B paths (K5 and K7 also at 4 and
+     18 rows, K5 at 1 row and the 13B qkv4, K7 at a 7B-width W8A8 MLP),
+     K5, K6 and K7 also at the server's pool of 4 rows, each row of which
+     must equal the row called alone, and a second call the first, bit for
+     bit (K4's rows and the decode step's RMSNorm the same way, logged,
+     not held), and K4's chunk engine against its walk route bit for bit
+     (7B at 2 and 4 rows, 1B, ragged GQA; int8 and bf16 scores) with its
+     host microseconds per call (2b); K8
      (decode_attention_q_chunk) at the speculative chunk of both, K8's
      tokens against K4 at the same positions bit for bit, and K11
      (decode_attention) at the dense 7B fused_decode step (2c); all in
@@ -52,9 +55,10 @@ Phases (any failure raises and the script exits non-zero):
      two requests of 2 images and 2 prompt rows each, with launch counts per
      request, peak memory, the warm request's phase times on the host
      clock and on the card (torch.profiler), K1's share of the prefill's
-     and the request's device time, K4's and K6's of the quantized greedy
-     requests' and K8's of the speculative ones (beside the decode step's
-     wall, device ms and busy share), and K2's and K3's share of the warm
+     and the request's device time, K4's, K5's, K6's and K7's of the
+     quantized greedy requests' and K8's, K5's and K7's of the speculative
+     ones (beside the decode step's wall, device ms and busy share), and
+     K2's and K3's share of the warm
      SAM encode's device time:
        a. walkgpt_7b_config (SAM ViT-H at 1024^2, LLaMA-7B), bf16 weights;
        b. WalkGPT-7B in its production format: int4 MLPs, fused q/k/v and
@@ -70,8 +74,8 @@ Phases (any failure raises and the script exits non-zero):
      questions (llava_v1 prompts, byte tokenizer, 3 images encoded once)
      through the continuous batcher (4 slots, int4_flat pool, PAVE-like
      budgets), launches per admit and per segment held exactly (K1's share
-     of the admits' device time, K4's and K6's of the segments'), the two
-     longest requests token for token against the same request decoded
+     of the admits' device time, K4's, K5's and K6's of the segments'), the
+     two longest requests token for token against the same request decoded
      alone with the batcher's arithmetic (alone_in_pool), and against
      greedy_generate alone (reported, not held: it decodes at a batch of
      one, whose products round otherwise), beside the same
@@ -93,10 +97,11 @@ Phases (any failure raises and the script exits non-zero):
      (SDPA with the expanded bias, and its backward) times and the bound.
   2g (after 2f): the route each dtype takes (K1, K1b, K2, K3, K3b, K10:
      bf16 on the tensor-core engines, fp32 on the CUDA-core ones), read from
-     the kernels one call launches under the profiler, and held; K6, K8 and
-     K4 (7B and 1B, int8 scores) launch their own engines' kernels
-     (mlp4_stream.cuh, decode_chunk.cuh) and none of those they left
-     (mlp4_tile.cuh, decode_walk.cuh, which K12 keeps).
+     the kernels one call launches under the profiler, and held; K5, K6, K7,
+     K8 and K4 (7B and 1B, int8 scores) launch their own engines' kernels
+     (mlp4_stream.cuh, K7's three passes, decode_chunk.cuh) and none of
+     those they left (K5's and K7's first designs; mlp4_tile.cuh and
+     decode_walk.cuh, which K12 keeps).
   2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
      (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
      against their plain backwards at the training step's shapes in bf16
@@ -245,13 +250,17 @@ KERNEL_INFO = {
                            ["walkgpt_tpu_torch/csrc/decode_chunk.cuh",
                             "walkgpt_tpu_torch/csrc/decode_walk.cuh"]),
     "int4_matmul_pallas": ("walkgpt_tpu_torch/csrc/int4_matmul.cu",
-                           "walkgpt_tpu/ops/int4.py:463"),
+                           "walkgpt_tpu/ops/int4.py:463",
+                           ["walkgpt_tpu_torch/csrc/mlp4_stream.cuh",
+                            "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "fused_mlp_int4": ("walkgpt_tpu_torch/csrc/fused_mlp_int4.cu",
                        "walkgpt_tpu/ops/int4.py:105",
                        ["walkgpt_tpu_torch/csrc/mlp4_stream.cuh",
                         "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "fused_mlp_int8": ("walkgpt_tpu_torch/csrc/fused_mlp_int8.cu",
-                       "walkgpt_tpu/ops/int4.py:351"),
+                       "walkgpt_tpu/ops/int4.py:351",
+                       ["walkgpt_tpu_torch/csrc/mlp4_stream.cuh",
+                        "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "decode_attention_q_chunk": ("walkgpt_tpu_torch/csrc/decode_attention_q.cu",
                                  "walkgpt_tpu/ops/flash_attention.py:1519",
                                  ["walkgpt_tpu_torch/csrc/decode_chunk.cuh",
@@ -449,8 +458,8 @@ def phase_routes(dev, seed):
     """The route each dtype takes, read from the kernels one call launches
     under the profiler (after every kernel timing: once the profiler has
     run, launches stay slower)."""
-    log("== phase 2g: the route of each tensor-core kernel, by dtype; K6's, K8's and K4's "
-        "kernels")
+    log("== phase 2g: the route of each tensor-core kernel, by dtype; K5's, K6's, K7's, "
+        "K8's and K4's kernels")
     gen = torch.Generator(device=dev).manual_seed(seed + 50)
     dts = (torch.bfloat16, torch.float32)
     log_routes("flash_attention", {dt: k1_case(dev, dt, 2, 2, 70, 128, [70, 59], gen)[0]
@@ -464,9 +473,12 @@ def phase_routes(dev, seed):
     log_routes("sam_flash_attention", {dt: k3_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
     log_routes("sam_flash_attention_bwd",
                {dt: k3b_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
-    log("  K6, K8 and K4 on their own engines (the 7B decode MLP, the 7B speculative chunk, "
-        "the 7B and 1B decode steps with int8 scores, the main path's mode):")
+    log("  K5, K6, K7, K8 and K4 on their own engines (the 7B qkv4, the 7B and 1B decode "
+        "MLPs, the 7B speculative chunk, the 7B and 1B decode steps with int8 scores, the "
+        "main path's mode):")
+    log_symbols("int4_matmul_pallas", k5_case(dev, torch.bfloat16, 2, 4096, 12288, gen)[0])
     log_symbols("fused_mlp_int4", mlp_case(dev, torch.bfloat16, "int4", 2, 4096, 11008, gen)[0])
+    log_symbols("fused_mlp_int8", mlp_case(dev, torch.bfloat16, "int8", 2, 2048, 5504, gen)[0])
     log_symbols("decode_attention_q_chunk",
                 k8_case(dev, torch.bfloat16, 2, SPEC_K + 1, 32, 32, 128, 512, [440, 375], True,
                         gen)[0])
@@ -504,12 +516,15 @@ def log_routes(name, runs):
             raise AssertionError(f"{name}: {dtype} took the wrong route ({ours})")
 
 
-# the CUDA kernels of K6's, K8's and K4's engines (mlp4_stream.cuh,
-# decode_chunk.cuh), and those of the engines they left (mlp4_tile.cuh,
-# decode_walk.cuh), which K12 keeps (and K4 for its int8 value product, off
-# on the main path)
+# the CUDA kernels of K5's, K6's, K7's, K8's and K4's engines (mlp4_stream.cuh
+# for K5 and K6, fused_mlp_int8.cu's three passes, decode_chunk.cuh), and
+# those of the engines they left (K5's and K7's one-block-per-tile kernels;
+# mlp4_tile.cuh and decode_walk.cuh, which K12 keeps, and K4 for its int8
+# value product, off on the main path)
 SYMBOLS = {
-    "fused_mlp_int4": (("mlp4_gate_up", "mlp4_down", "sum_tiles"), ("mlp4_tiles",)),
+    "int4_matmul_pallas": (("int4_mm_stream",), ("int4_mm_kernel",)),
+    "fused_mlp_int4": (("mlp4_gate_up", "mlp4_down", "mlp4_sum_tiles"), ("mlp4_tiles",)),
+    "fused_mlp_int8": (("mlp8_gate_up", "mlp8_down", "mlp8_sum_tiles"), ("mlp8_tiles",)),
     "decode_attention_q_chunk": (("chunk_walk",), ("decode_walk",)),
     "decode_attention_q": (("chunk_walk",), ("decode_walk",)),
 }
@@ -778,25 +793,66 @@ def mlp_case(dev, dtype, fmt, m, h, i_dim, gen):
     return run, plain, library, (nb, 6.0 * m * h * i_dim, ops_type)
 
 
-def k6_rows_check(dev, gen):
-    """K6 on 4 rows against each row alone and rows 1-2 together, and twice
-    on the same inputs: its sums run in an order fixed by the shapes, so
-    every comparison is bit for bit (the serving check's alone_in_pool
-    rests on it)."""
+def rows_check(label, fn, hold=True):
+    """fn(rows) (rows: a slice of a 4-row batch) on the 4 rows against each
+    row alone and rows 1-2 together, and twice on the same rows, bit for
+    bit. hold: fail unless every comparison holds (a kernel whose sums run
+    in an order fixed by the shapes: the serving check's alone_in_pool rests
+    on it); else the result is only logged."""
+    out = fn(slice(0, 4))
+    same = [torch.equal(out[r], fn(slice(r, r + 1))[0]) for r in range(4)]
+    pair = torch.equal(out[1:3], fn(slice(1, 3)))
+    again = torch.equal(out, fn(slice(0, 4)))
+    ok = all(same) and pair and again
+    log(f"  {label}: each of 4 rows equals the row alone {same}, rows 1-2 together {pair}; "
+        f"a second call gives the same bits {again}" + ("" if hold else " (logged, not held)"))
+    if hold and not ok:
+        raise AssertionError(f"{label}: the rows depend on the batch, or the bits on the run")
+
+
+def quant_rows_checks(dev, gen):
+    """Rows checks at the serving pool's 4 rows: K5 on the 7B qkv4, K6 on the
+    7B int4 MLP and K7 on the 1B W8A8 MLP, held; K4 on the 7B int4_flat step
+    (a mask per row, with holes) and the decode step's RMSNorm (a PyTorch
+    row reduction), logged: which part of the 7B int4x decode step, if any,
+    rounds otherwise at 1 row than at 4."""
+    bf16 = torch.bfloat16
+    w = int4.quantize_weight4(torch.randn(4096, 12288, generator=gen, device=dev) * 0.02)
+    x = torch.randn(4, 4096, generator=gen, device=dev).to(bf16)
+    rows_check("int4_matmul_pallas 7B qkv4",
+               lambda r: int4.int4_matmul_pallas(x[r], w["w_p4"], w["w_scale"]))
+    del w
     p = int4_mlp(dev, gen, 4096, 11008, "silu")
-    x = torch.randn(4, 1, 4096, generator=gen, device=dev).to(torch.bfloat16)
-    out = int4.fused_mlp_int4(p, x, "silu")
-    same = [torch.equal(out[r], int4.fused_mlp_int4(p, x[r:r + 1], "silu")[0]) for r in range(4)]
-    pair = torch.equal(out[1:3], int4.fused_mlp_int4(p, x[1:3], "silu"))
-    again = torch.equal(out, int4.fused_mlp_int4(p, x, "silu"))
-    log(f"  fused_mlp_int4 7B mlp: each of 4 rows equals the row alone {same}, rows 1-2 "
-        f"together {pair}; a second call gives the same bits {again}")
-    if not (all(same) and pair and again):
-        raise AssertionError("K6's rows depend on the batch, or its bits on the run")
+    x = torch.randn(4, 1, 4096, generator=gen, device=dev).to(bf16)
+    rows_check("fused_mlp_int4 7B mlp", lambda r: int4.fused_mlp_int4(p, x[r], "silu"))
+    p = {n: quant.convert_proj({"w": torch.randn(*shape, generator=gen, device=dev) * 0.02}, True)
+         for n, shape in (("gate", (2048, 5504)), ("up", (2048, 5504)), ("down", (5504, 2048)))}
+    x = torch.randn(4, 1, 2048, generator=gen, device=dev).to(bf16)
+    rows_check("fused_mlp_int8 1B mlp", lambda r: int4.fused_mlp_int8(p, x[r], "silu"))
+    same = torch.equal(int4.fused_mlp_int8(p, x, "silu"),
+                       int4.fused_mlp_int8_reference(p, x, "silu"))
+    log(f"  fused_mlp_int8 1B mlp, 4 rows: equals its plain version bit for bit: {same} "
+        f"(logged, not held: the plain version's silu and products are PyTorch's)")
+    del p
+    kq, ks, _, vq, vs, _ = flat_cache(dev, gen, 4, 512, 32, 128, True)
+    q = torch.randn(4, 32 * 128, generator=gen, device=dev).to(bf16)
+    pos = torch.arange(512, device=dev)[None]
+    lengths = torch.tensor([[480], [471], [455], [402]], device=dev)
+    mask = (torch.rand(4, 512, generator=gen, device=dev) < 0.9) & (pos < lengths)
+    mask[:, 0] = True
+    kw = dict(n_kv=32, head_dim=128, pack4=True, layer=0, valid_len=480)
+    rows_check("decode_attention_q 7B int4_flat (masks per row)",
+               lambda r: fa.decode_attention_q(q[r], kq[:, r], ks[:, r], vq[:, r], vs[:, r],
+                                               mask[r], **kw), hold=False)
+    norm = {"scale": (1 + 0.1 * torch.randn(4096, generator=gen, device=dev)).to(bf16)}
+    x = torch.randn(4, 1, 4096, generator=gen, device=dev).to(bf16)
+    rows_check("rms_norm 7B (PyTorch's mean over a row)",
+               lambda r: nn.rms_norm(norm, x[r], eps=1e-5), hold=False)
 
 
 def phase_quant_kernels(dev, seed):
-    log("== phase 2b: K4-K7 against their plain versions, K6's rows against each row alone")
+    log("== phase 2b: K4-K7 against their plain versions; K5's, K6's, K7's (held), K4's and "
+        "RMSNorm's (logged) rows against each row alone")
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
     bf16, f32 = torch.bfloat16, torch.float32
     check = lambda name, case, dtype, iters, label: check_kernel(
@@ -809,20 +865,31 @@ def phase_quant_kernels(dev, seed):
             "decode_attention_q", k4_case(dev, bf16, 2, 32, 32, 128, 512, 480, True, gen),
             bf16, 200, "7B int4_flat"),
         "int4_matmul_pallas": check(
-            "int4_matmul_pallas", k5_case(dev, bf16, 2, 4096, 12288, gen), bf16, 100,
+            "int4_matmul_pallas", k5_case(dev, bf16, 2, 4096, 12288, gen), bf16, 200,
             "7B qkv4"),
         "fused_mlp_int4": check(
             "fused_mlp_int4", mlp_case(dev, bf16, "int4", 2, 4096, 11008, gen), bf16, 50,
             "7B mlp"),
         "fused_mlp_int8": check(
-            "fused_mlp_int8", mlp_case(dev, bf16, "int8", 2, 2048, 5504, gen), bf16, 100,
+            "fused_mlp_int8", mlp_case(dev, bf16, "int8", 2, 2048, 5504, gen), bf16, 200,
             "1B mlp"),
     }
-    # K6 at the 7B server's pool of 4 rows; its rows against the same rows
-    # called alone, and a second call, bit for bit
+    # K5 and K7 at the other decode rows: 1 (K5 only), the serving pool's 4
+    # and the speculative chunk's 18 (2 rows x SPEC_K + 1 tokens); K7 at a
+    # 7B-width W8A8 MLP, K5 at the 13B qkv4; K6 at the 7B server's pool
+    for m in (1, 4, SPEC_K * 2 + 2):
+        check("int4_matmul_pallas", k5_case(dev, bf16, m, 4096, 12288, gen), bf16, 100,
+              f"7B qkv4, {m} rows")
+    for m in (4, SPEC_K * 2 + 2):
+        check("fused_mlp_int8", mlp_case(dev, bf16, "int8", m, 2048, 5504, gen), bf16, 100,
+              f"1B mlp, {m} rows")
+    check("fused_mlp_int8", mlp_case(dev, bf16, "int8", 2, 4096, 11008, gen), bf16, 50,
+          "7B-width W8A8 mlp")
+    check("int4_matmul_pallas", k5_case(dev, bf16, 2, 5120, 15360, gen), bf16, 50, "13B qkv4")
     check("fused_mlp_int4", mlp_case(dev, bf16, "int4", 4, 4096, 11008, gen), bf16, 50,
           "7B mlp, 4 rows (the serving pool)")
-    k6_rows_check(dev, gen)
+    torch.cuda.empty_cache()
+    quant_rows_checks(dev, gen)
     check("decode_attention_q", k4_case(dev, bf16, 2, 16, 16, 128, 512, 480, False, gen),
           bf16, 200, "1B int8_flat")
     k4_host_us(dev, gen)
@@ -2169,8 +2236,7 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
     log_shares(f"LLM prefill (wall_ms={walls['prefill']:.1f})", pre_kernels, devices["prefill"],
                ("K1",))
     flat = cfg.kv_quant_cache in ("int8_flat", "int4_flat")
-    names = ("K1",) + (("K4",) if flat else ()) + (
-        ("K6",) if int4.mlp_is_int4(params["llm"]["layers"][0]["mlp"]) else ())
+    names = ("K1",) + (("K4",) if flat else ()) + quant_shares(params)
     log_shares(f"greedy request, replayed (decode per step: wall_ms="
                f"{walls['decode'] / max_new_tokens:.2f} device_ms="
                f"{devices['decode'] / max_new_tokens:.2f} device_busy="
@@ -2199,11 +2265,22 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
 
 # the profiler's kernel names (a part of them) of the kernels whose share of
 # a phase's device time phases 4 and 5 print: the problem objects of the
-# bf16 tensor-core kernels, K6's three launches, and the chunk engine's rule
-# for K4 (a key mask) and K8 (a causal chunk)
+# bf16 tensor-core kernels, K5's kernel, K6's and K7's three launches each
+# (each with a tile sum of its own), and the chunk engine's rule for K4 (a
+# key mask) and K8 (a causal chunk)
 SHARES = {"K1": ("::FlashMma",), "K2": ("::WindowMma",), "K3": ("::GlobalMma",),
-          "K1b": ("::FlashBwdMma",), "K4": ("KeyMask",),
-          "K6": ("mlp4_gate_up", "mlp4_down", "sum_tiles"), "K8": ("CausalChunk",)}
+          "K1b": ("::FlashBwdMma",), "K4": ("KeyMask",), "K5": ("int4_mm_stream",),
+          "K6": ("mlp4_gate_up", "mlp4_down", "mlp4_sum_tiles"),
+          "K7": ("mlp8_gate_up", "mlp8_down", "mlp8_sum_tiles"), "K8": ("CausalChunk",)}
+
+
+def quant_shares(params, speculative=False):
+    """The short names of K5 (int4 q/k/v or head), K6 (int4 MLP: greedy steps
+    only) and K7 (W8A8 MLP) where the params' format runs them."""
+    layer = params["llm"]["layers"][0]
+    k5 = "qkv4" in layer["attn"] or "w_p4" in params["llm"]["lm_head"]
+    k6 = int4.mlp_is_int4(layer["mlp"]) and not speculative
+    return ("K5",) * k5 + ("K6",) * k6 + ("K7",) * int4.mlp_is_w8a8(layer["mlp"])
 
 
 def log_shares(label, kernels, dev_ms, names):
@@ -2254,7 +2331,7 @@ def phase_speculative(params, cfg, kw, greedy_step):
     log_shares(f"speculative request, replayed (decode per iteration: wall_ms="
                f"{walls['decode'] / it:.2f} device_ms={devices['decode'] / it:.2f} device_busy="
                f"{devices['decode'] / walls['decode']:.3f})", kernels, sum(devices.values()),
-               ("K8",))
+               ("K8",) + quant_shares(params, speculative=True))
     for accept in (0, SPEC_K):
         res, wall = schedule(params, cfg, kw, accept, host_ms)
         wall = wall - walls["prefill"]
@@ -2479,7 +2556,7 @@ def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=128, segm
         f"{np.mean(seg_dev) / np.mean(seg_walls):.3f} of the first run's mean segment wall")
     log_shares(f"{len(adm_dev)} admits (device_ms mean {np.mean(adm_dev):.2f})", adm_kernels,
                sum(adm_dev), ("K1",))
-    log_shares(f"{len(seg_dev)} segments", seg_kernels, sum(seg_dev), ("K4", "K6"))
+    log_shares(f"{len(seg_dev)} segments", seg_kernels, sum(seg_dev), ("K4", "K5", "K6"))
 
     ok = len(fin) == len(reqs) and all(len(f.tokens) <= budgets[f.request_id] for f in fin)
     top2 = sorted(range(len(reqs)), key=lambda r: -budgets[r])[:2]

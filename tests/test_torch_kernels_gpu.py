@@ -17,8 +17,9 @@ one term by a bf16 step or one code: for K4-K8 the errors are taken
 relative to the output's largest magnitude (at least 1): 1e-3 in fp32, the
 bf16 bounds above in bf16. K8's token t and K4 at the same position keep the
 same rounding points in the same block order over the same cache: equal bit
-for bit. K6's sums run in an order fixed by the shapes: a row of a batch
-equals that row called alone, and two calls give the same bits. K11 (fp32
+for bit. K5's and K6's sums run in an order fixed by the shapes and K7's
+are exact integers: a row of a batch equals that row called alone, and two
+calls give the same bits. K11 (fp32
 online softmax, p rounded to the cache's type) takes the K1-K3 bounds. The
 backward kernels K1b-K3b sum over up to N terms per gradient in another
 order than the plain backward: fp32 atol = rtol = 1e-4; bf16 outputs
@@ -241,7 +242,8 @@ def test_k4_chunk_engine_equals_the_walk(dev, dtype, h, n_kv, d, l, block, pack4
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (2, 4096, 12288), (5, 96, 384), (2, 4096, 32128)])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (2, 4096, 12288), (5, 96, 384), (2, 4096, 32128),
+                                   (4, 4096, 12288), (18, 4096, 12288), (2, 5120, 15360)])
 def test_k5_kernel_matches_plain(dev, dtype, m, k, n):
     g = torch.Generator(device=dev).manual_seed(m + k + n)
     w = int4.quantize_weight4(torch.randn(k, n, generator=g, device=dev) * 0.02)
@@ -269,7 +271,8 @@ def _mlp(dev, g, h, i_dim, act, fmt):
                                            (2, 4096, 11008, "silu"), (2, 2048, 5504, "silu"),
                                            (1, 4096, 11008, "silu"), (4, 4096, 11008, "silu"),
                                            (17, 4096, 11008, "silu"),
-                                           (256, 4096, 11008, "silu")])
+                                           (256, 4096, 11008, "silu"),
+                                           (18, 2048, 5504, "silu"), (3, 160, 200, "gelu")])
 def test_k6_k7_kernels_match_plain(dev, dtype, fmt, m, h, i_dim, act):
     g = torch.Generator(device=dev).manual_seed(m + h + i_dim)
     p = _mlp(dev, g, h, i_dim, act, fmt)
@@ -297,6 +300,27 @@ def test_k6_rows_are_independent_and_deterministic(dev, dtype, act):
     for r in range(4):
         assert torch.equal(out[r], int4.fused_mlp_int4(p, x[r:r + 1], act)[0]), r
     assert torch.equal(out[1:3], int4.fused_mlp_int4(p, x[1:3], act))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["silu", "gelu"])
+def test_k5_k7_rows_are_independent_and_deterministic(dev, dtype, act):
+    """As K6's: row r of a 4-row call equals row r called alone, bit for
+    bit, and a second call gives the same bits (K5 at the 7B qkv4, K7 at the
+    1B MLP)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    w = int4.quantize_weight4(torch.randn(4096, 12288, generator=g, device=dev) * 0.02)
+    x = torch.randn(4, 4096, generator=g, device=dev).to(dtype)
+    k5 = lambda r: int4.int4_matmul_pallas(x[r], w["w_p4"], w["w_scale"])
+    p = _mlp(dev, g, 2048, 5504, act, "int8")
+    x8 = torch.randn(4, 1, 2048, generator=g, device=dev).to(dtype)
+    k7 = lambda r: int4.fused_mlp_int8(p, x8[r], act)
+    for fn in (k5, k7):
+        out = fn(slice(0, 4))
+        assert torch.equal(out, fn(slice(0, 4)))
+        for r in range(4):
+            assert torch.equal(out[r], fn(slice(r, r + 1))[0]), r
+        assert torch.equal(out[1:3], fn(slice(1, 3)))
 
 
 @pytest.mark.parametrize("m,k,n", [(2, 4096, 4096), (2, 2048, 6144), (9800, 1280, 3840),

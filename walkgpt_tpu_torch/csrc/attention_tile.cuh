@@ -237,10 +237,12 @@ __device__ __forceinline__ float act_fn(float g, int gelu) {
   return gelu ? 0.5f * g * (1.f + erff(g * 0.70710678118654752f)) : g / (1.f + expf(-g));
 }
 
-// out[i] = the sum of scratch[t, i] over t < n_tiles, in tile order.
+// out[i] = the sum of scratch[t, i] over t < n_tiles, in tile order: the
+// body of K6's and K7's last launch (mlp4_sum_tiles, mlp8_sum_tiles), one
+// thread an element.
 template <typename T>
-__global__ void sum_tiles(const float* __restrict__ scratch, T* __restrict__ out, int n_tiles,
-                          int MH) {
+__device__ __forceinline__ void sum_tiles(const float* __restrict__ scratch, T* __restrict__ out,
+                                          int n_tiles, int MH) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= MH) return;
   float y = scratch[i];

@@ -52,7 +52,7 @@ int run_mb(const T* x, const int8_t* gp, const float* gs, const int8_t* up, cons
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   const int MH = M * H;
-  sum_tiles<T><<<(MH + 255) / 256, 256, 0, st>>>(parts, out, I / TI, MH);
+  mlp4_sum_tiles<T><<<(MH + 255) / 256, 256, 0, st>>>(parts, out, I / TI, MH);
   return int(cudaGetLastError());
 }
 

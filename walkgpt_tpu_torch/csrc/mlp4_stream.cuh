@@ -1,5 +1,6 @@
 // The tile code of K6 (fused_mlp_int4.cu): the int4 MLP of a decode step in
-// three launches that stream the packed weights through every SM.
+// three launches that stream the packed weights through every SM. Its
+// product loop (stream_nibbles) is also K5's (int4_matmul.cu).
 // Semantics (walkgpt_tpu/ops/int4.py _fused_mlp_kernel, as mlp4_tile.cuh,
 // which K12 keeps):
 //   * gate and up are packed in half pairs (byte [i, c] = rows i, i + H/2);
@@ -29,7 +30,8 @@
 //      per warp, rows i, i + 8, ... of the tile) x 32 column groups of 16;
 //      the lane partials are summed in lane order, scaled by ds and written
 //      to parts [I/T, M, H].
-//   3. sum_tiles (attention_tile.cuh): the tiles in tile order.
+//   3. mlp4_sum_tiles (sum_tiles, attention_tile.cuh): the tiles in tile
+//      order.
 // Rows run in passes of MB (1, 2 or 4; a padded row computes zeros that are
 // not written). The launch plan is mirrored by ops/int4.py:fused_mlp_int4_plan.
 #pragma once
@@ -95,6 +97,34 @@ __device__ __forceinline__ void fma_nibbles(float (&acc)[16], const uint4& w, fl
   }
 }
 
+// acc[m] (16 columns, m < MB) += x_lo[m] * lo + x_hi[m] * hi over the packed
+// rows r = r0, r0 + RL, ... < R, in that order, U rows in flight: row r is
+// the 16 bytes at wp + r * ld (n of them exist; v16: all 16, aligned),
+// x_lo[m] = xs[m * xld + r] and x_hi[m] = xs[m * xld + hoff + r]. The
+// product loop of K6's two passes and of K5.
+template <int MB, int U>
+__device__ __forceinline__ void stream_nibbles(float (&acc)[MB][16], const int8_t* wp, size_t ld,
+                                               int r0, int RL, int R, int n, bool v16,
+                                               const float* xs, int xld, int hoff) {
+  for (int rb = r0; rb < R; rb += RL * U) {
+    uint4 wv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = rb + u * RL;
+      wv[u] = r < R ? ld_bytes16(wp + size_t(r) * ld, n, v16) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = rb + u * RL;
+      if (r < R) {
+#pragma unroll
+        for (int m = 0; m < MB; ++m)
+          fma_nibbles(acc[m], wv[u], xs[m * xld + r], xs[m * xld + hoff + r]);
+      }
+    }
+  }
+}
+
 // Shared memory (floats) of mlp4_gate_up: the rows xs [MB][H], later the
 // lane partials [2][GU_RL][GU_RS].
 __host__ __device__ constexpr int gu_rs(int MB) { return MB * GU_CW + 4; }
@@ -137,25 +167,7 @@ mlp4_gate_up(const T* __restrict__ x, const int8_t* __restrict__ gp,
     for (int m = 0; m < MB; ++m)
 #pragma unroll
       for (int c = 0; c < 16; ++c) acc[m][c] = 0.f;
-    if (active) {
-      for (int r0 = rl; r0 < H2; r0 += GU_RL * U) {
-        uint4 wv[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int r = r0 + u * GU_RL;
-          wv[u] = r < H2 ? ld_bytes16(wp + size_t(r) * I, I - col, v16) : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int r = r0 + u * GU_RL;
-          if (r < H2) {
-#pragma unroll
-            for (int m = 0; m < MB; ++m)
-              fma_nibbles(acc[m], wv[u], smem[m * H + r], smem[m * H + H2 + r]);
-          }
-        }
-      }
-    }
+    if (active) stream_nibbles<MB, U>(acc, wp, I, rl, GU_RL, H2, I - col, v16, smem, H, H2);
     __syncthreads();                       // every lane is done with xs
     if (active) {
 #pragma unroll
@@ -214,23 +226,7 @@ mlp4_down(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ dp,
 #pragma unroll
       for (int c = 0; c < 16; ++c) acc[m][c] = 0.f;
     if (active) {
-      for (int i0 = rl; i0 < half; i0 += DN_RL * U) {
-        uint4 wv[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int i = i0 + u * DN_RL;
-          wv[u] = i < half ? ld_bytes16(wp + size_t(i) * H, H - col, v16) : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int i = i0 + u * DN_RL;
-          if (i < half) {
-#pragma unroll
-            for (int m = 0; m < MB; ++m)
-              fma_nibbles(acc[m], wv[u], hs[m * TI + i], hs[m * TI + half + i]);
-          }
-        }
-      }
+      stream_nibbles<MB, U>(acc, wp, H, rl, DN_RL, half, H - col, v16, hs, TI, half);
 #pragma unroll
       for (int m = 0; m < MB; ++m) {
         float* dst = red + (rl * MB + m) * DN_NW + cg * 16;
@@ -249,6 +245,13 @@ mlp4_down(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ dp,
       parts[(size_t(t) * M + m0 + m) * H + n] = s * ds[n];
     }
   }
+}
+
+// parts [n_tiles, MH] -> out [MH], the tiles in tile order
+template <typename T>
+__global__ void mlp4_sum_tiles(const float* __restrict__ parts, T* __restrict__ out, int n_tiles,
+                               int MH) {
+  sum_tiles(parts, out, n_tiles, MH);
 }
 
 }  // namespace wgt

@@ -15,10 +15,11 @@ package); a CUDA tensor launches the hand-written kernel (csrc/, built by
 ops/cuda_build.py at first use) or raises. Each counts its launches in
 `<function>.launches`.
 
-K5 int4_matmul_pallas (csrc/int4_matmul.cu)
+K5 int4_matmul_pallas (csrc/int4_matmul.cu on K6's mlp4_stream.cuh)
     Replaces walkgpt_tpu/ops/int4.py:int4_matmul_pallas (_mm_kernel): the
     fused int4 q/k/v and the int4 lm_head of a decode step, fp32 sums, then
-    (acc * scale) in x's dtype.
+    (acc * scale) in x's dtype. Its sums run in an order fixed by the
+    shapes: a row's output does not depend on the other rows of the call.
 K6 fused_mlp_int4 (csrc/fused_mlp_int4.cu + mlp4_stream.cuh)
     Replaces walkgpt_tpu/ops/int4.py:fused_mlp_int4 (_fused_mlp_kernel):
     silu(x Wg) * (x Wu) Wd in one call; the intermediate goes through bf16
@@ -27,12 +28,13 @@ K6 fused_mlp_int4 (csrc/fused_mlp_int4.cu + mlp4_stream.cuh)
     depend on the other rows of the call.
 K7 fused_mlp_int8 (csrc/fused_mlp_int8.cu)
     Replaces walkgpt_tpu/ops/int4.py:fused_mlp_int8 (_fused_mlp8_kernel):
-    the W8A8 MLP with exact int32 products and the intermediate requantized
-    per (row, tile).
+    the W8A8 MLP with exact int32 products (dp4a) and the intermediate
+    requantized per (row, tile), in three launches.
 
-K6 and K7 sum the tiles' partials in tile order (a second pass over a
+K6 and K7 sum the tiles' partials in tile order (a last pass over a
 scratch buffer), as the TPU kernel accumulates them, so the result does
-not depend on the order in which the card runs the tiles.
+not depend on the order in which the card runs the tiles. Each kernel's
+launch plan is mirrored beside its wrapper (`*_plan`).
 """
 from __future__ import annotations
 
@@ -265,6 +267,23 @@ def int4_matmul_pallas(x: torch.Tensor, p: torch.Tensor, s: torch.Tensor) -> tor
 
 int4_matmul_pallas.launches = 0
 
+# K5's launch plan (csrc/int4_matmul.cu): a block per INT4_MM_COLS output
+# columns (2 column groups of 16 x INT4_MM_ROW_LANES row lanes), rows in
+# passes of 1, 2 or 4
+INT4_MM_COLS = 32
+INT4_MM_ROW_LANES = 64
+
+
+@functools.lru_cache(maxsize=None)
+def int4_matmul_plan(m: int, k: int, n: int) -> Dict[str, int]:
+    """K5's launch for m rows of width k through a [k/2, n] packed weight:
+    its blocks, row lanes (lane r sums the packed rows r, r + row_lanes, ...),
+    rows per pass and the fp32 shared memory of a block (the staged rows,
+    later reused by the lanes' partials)."""
+    rows = m if m <= 2 else 4
+    return dict(blocks=-(-n // INT4_MM_COLS), row_lanes=INT4_MM_ROW_LANES, rows_per_pass=rows,
+                smem_floats=max(rows * k, INT4_MM_ROW_LANES * (rows * INT4_MM_COLS + 4)))
+
 
 # ---------------------------------------------------------------------------
 # K6: one-launch int4 MLP
@@ -376,10 +395,37 @@ def fused_mlp_int8_reference(mlp_params: Dict, x: torch.Tensor, act: str) -> tor
     return _sum_tiles(torch.stack(parts)).to(x.dtype).reshape(shape)
 
 
+# K7's launch plan (csrc/fused_mlp_int8.cu): a gate/up block per
+# MLP8_GATE_UP_COLS columns of I (in groups of 16, each with
+# MLP8_GATE_UP_QUAD_LANES lanes a matrix, lane l summing the row quads l,
+# l + lanes, ...), a down block per (tile, MLP8_DOWN_COLS output columns)
+# (MLP8_DOWN_QUAD_LANES lanes over the tile's row quads), rows in passes of
+# 1, 2 or 4
+MLP8_GATE_UP_COLS = 32
+MLP8_GATE_UP_QUAD_LANES = 64
+MLP8_DOWN_COLS = 256
+MLP8_DOWN_QUAD_LANES = 8
+
+
+@functools.lru_cache(maxsize=None)
+def fused_mlp_int8_plan(m: int, h: int, i_dim: int) -> Dict[str, int]:
+    """K7's launches for m rows of width h through an intermediate of
+    i_dim: the tile, the blocks of its gate/up and down passes, the rows per
+    pass and the fp32 scratch the wrapper allocates (act [m, i_dim], then
+    from parts_offset the tiles' partials [n_tiles, m, h])."""
+    tile = tile_for(i_dim)
+    n_tiles = i_dim // tile
+    act = m * i_dim
+    return dict(tile=tile, n_tiles=n_tiles, gate_up_blocks=-(-i_dim // MLP8_GATE_UP_COLS),
+                down_blocks=-(-h // MLP8_DOWN_COLS) * n_tiles, rows_per_pass=m if m <= 2 else 4,
+                parts_offset=act, scratch_floats=act + n_tiles * m * h)
+
+
 def fused_mlp_int8(mlp_params: Dict, x: torch.Tensor, act: str) -> Optional[torch.Tensor]:
-    """K7: the W8A8 MLP of a decode step in one call (the activation's
-    per-row quantization included). None for more than FUSED_MLP_MAX_ROWS
-    rows: the caller then runs the per-projection W8A8 path."""
+    """K7: the W8A8 MLP of a decode step in one call (three launches, the
+    activation's per-row quantization included). None for more than
+    FUSED_MLP_MAX_ROWS rows: the caller then runs the per-projection W8A8
+    path."""
     if x[..., 0].numel() > FUSED_MLP_MAX_ROWS:
         return None
     if x.device.type == "cpu":
@@ -391,21 +437,21 @@ def fused_mlp_int8(mlp_params: Dict, x: torch.Tensor, act: str) -> Optional[torc
     xf = x.reshape(-1, h).contiguous()
     m = xf.shape[0]
     i_dim = first["w_q"].shape[1]
-    tile = tile_for(i_dim)
+    plan = fused_mlp_int8_plan(m, h, i_dim)
     ups = (up["w_q"], up["w_scale"]) if up is not None else (None, None)
     _check_weights("fused_mlp_int8", x.device, first["w_q"], first["w_scale"], *ups,
                    down["w_q"], down["w_scale"])
     if tuple(first["w_q"].shape) != (h, i_dim) or tuple(down["w_q"].shape) != (i_dim, h):
         raise ValueError(f"fused_mlp_int8: bad shapes x {tuple(shape)}, "
                          f"first {tuple(first['w_q'].shape)}, down {tuple(down['w_q'].shape)}")
-    scratch = torch.empty((i_dim // tile, m, h), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32, device=x.device)
     y = torch.empty((m, h), dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     cuda_build.launch("fused_mlp_int8", "wg_fused_mlp_int8", [_P] * 9 + [_I] * 6 + [_P],
                       x.device, xf.data_ptr(), first["w_q"].data_ptr(),
                       first["w_scale"].data_ptr(), ptr(ups[0]), ptr(ups[1]),
                       down["w_q"].data_ptr(), down["w_scale"].data_ptr(),
-                      scratch.data_ptr(), y.data_ptr(), m, h, i_dim, tile, int(gelu), dt)
+                      scratch.data_ptr(), y.data_ptr(), m, h, i_dim, plan["tile"], int(gelu), dt)
     fused_mlp_int8.launches += 1
     return y.reshape(shape)
 

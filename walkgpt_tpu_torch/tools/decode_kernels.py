@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
-"""K6 (fused_mlp_int4), K8 (decode_attention_q_chunk) and K4
-(decode_attention_q) at the decode path's shapes, timed on one GPU, for the
-package's sources and for other copies of `walkgpt_tpu_torch/csrc` (an
-older tree's, an edited one's).
+"""K5 (int4_matmul_pallas), K6 (fused_mlp_int4), K7 (fused_mlp_int8), K8
+(decode_attention_q_chunk) and K4 (decode_attention_q) at the decode path's
+shapes, timed on one GPU, for the package's sources and for other copies of
+`walkgpt_tpu_torch/csrc` (an older tree's, an edited one's).
 
     python3 walkgpt_tpu_torch/tools/decode_kernels.py [--csrc DIR ...] [--rounds 2]
 
 For each source tree (the package's first, then each --csrc directory,
 built into build/decode_kernels/<n>/), on the same bf16 inputs:
-  * K6 on the 7B int4 MLP (H 4096, I 11008) at M = 1, 2 and 4 rows, K8 on
-    the 7B int4_flat and 1B int8_flat chunks (Tc 9, cache_len 440 and 375,
-    512 slots), and K4 on the 7B int4_flat step (2 and 4 rows) and the 1B
-    int8_flat step (2 rows), 480 of 512 slots valid: ms per call by CUDA
-    events (100 calls after a warm-up), the trees taken in turns for
-    `--rounds` rounds (a, b, ..., b, a, ...); in the package's tree also K4
-    on its walk route (decode_attention_q_walk, the engine a tree older
-    than the chunk engine's K4 runs) on the same inputs;
-  * once, the CUDA kernels of one call by torch.profiler, ms each (K6 runs
-    three launches): K4's kernel alone against the walk's;
-  * every tree's outputs are the package's bit for bit (K8, K4, K4's walk
-    route) or within chip_smoke's bf16 bounds of the plain version (K6),
-    else it exits non-zero;
+  * K5 on the 7B qkv4 (4096 x 12288) at M = 1, 2 and 4 rows and on the 7B
+    lm_head (4096 x 32128) at 2, K7 on the 1B W8A8 MLP (H 2048, I 5504) at
+    2 and 4 rows, K6 on the 7B int4 MLP (H 4096, I 11008) at M = 1, 2 and
+    4 rows, K8 on the 7B int4_flat and 1B int8_flat chunks (Tc 9,
+    cache_len 440 and 375, 512 slots), and K4 on the 7B int4_flat step (2
+    and 4 rows) and the 1B int8_flat step (2 rows), 480 of 512 slots
+    valid: ms per call by CUDA events (100 calls after a warm-up), the
+    trees taken in turns for `--rounds` rounds (a, b, ..., b, a, ...); in
+    the package's tree also K4 on its walk route (decode_attention_q_walk,
+    the engine a tree older than the chunk engine's K4 runs) on the same
+    inputs;
+  * once, the CUDA kernels of one call by torch.profiler, ms each (K6 and
+    K7 run three launches): each kernel alone beside the other trees', and
+    K4's against the walk's;
+  * every tree's outputs are the package's bit for bit (K6, K7, K8, K4,
+    K4's walk route) or within chip_smoke's bf16 bounds of the plain
+    version, relative to the output's largest magnitude (K5, whose sums
+    another tree may take in another order), else it exits non-zero;
   * K4's host microseconds per call at the 7B step (200 calls, no
     synchronisation inside), its C entry bound once (cuda_build.launch)
     against bound on every call with the device entered each time (the
@@ -41,7 +46,9 @@ sys.path.insert(0, str(REPO))
 import chip_smoke as cs  # noqa: E402
 from walkgpt_tpu_torch.ops import cuda_build  # noqa: E402
 
-NAMES = ("fused_mlp_int4", "decode_attention_q")
+NAMES = ("int4_matmul", "fused_mlp_int4", "fused_mlp_int8", "decode_attention_q")
+# held to the plain version's bf16 bounds; every other case to the package's bits
+WITHIN_BOUNDS = ("K5",)
 PACKAGE = (cuda_build.CSRC, cuda_build.BUILD_DIR)
 
 
@@ -58,6 +65,11 @@ def cases(dev):
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(9)
     out, package_only = {}, {}
+    for m in (1, 2, 4):
+        out[f"K5 7B qkv4 M={m}"] = cs.k5_case(dev, bf16, m, 4096, 12288, gen)
+    out["K5 7B lm_head M=2"] = cs.k5_case(dev, bf16, 2, 4096, 32128, gen)
+    for m in (2, 4):
+        out[f"K7 1B M={m}"] = cs.mlp_case(dev, bf16, "int8", m, 2048, 5504, gen)
     for m in (1, 2, 4):
         out[f"K6 7B M={m}"] = cs.mlp_case(dev, bf16, "int4", m, 4096, 11008, gen)
     out["K8 7B int4_flat"] = cs.k8_case(dev, bf16, 2, 9, 32, 32, 128, 512, [440, 375], True, gen)
@@ -137,7 +149,7 @@ def main(argv=None) -> int:
             for label, (run, plain, _, _) in tree_runs(tag).items():
                 got = run()
                 torch.cuda.synchronize()
-                if not label.startswith("K6"):
+                if not label.startswith(WITHIN_BOUNDS):
                     same = torch.equal(got, want[label])
                 else:
                     ref = plain()
@@ -158,8 +170,9 @@ def main(argv=None) -> int:
         for label, (run, *_rest) in tree_runs(tag).items():
             kernels = {}
             cs.profiled(run, kernels)
-            parts = ", ".join(f"{n.split('(')[0].replace('void ', '')[:60]} {ms:.4f}"
-                              for n, ms in kernels.items())
+            names = {n: n.replace("(anonymous namespace)::", "").split("(")[0]
+                     .replace("void ", "")[:60] for n in kernels}
+            parts = ", ".join(f"{names[n]} {ms:.4f}" for n, ms in kernels.items())
             print(f"  {tag} {label} kernels (ms, one call): {parts}")
     use(PACKAGE)
     us = binding_host_us(runs["K4 7B int4_flat"][0])
