@@ -92,11 +92,14 @@ Phases (any failure raises and the script exits non-zero):
      path, and one backward through K10b against K2b's.
   2f (after 2e): K10 and K10b (split-layout window attention) against their
      plain versions at the ViT-H windowed shapes in bf16 and at ragged
-     shapes in fp32 (and a bf16 q with fp32 rel tables), against K2/K2b on
-     the same values repacked (bit for bit), with kernel, plain and library
-     (SDPA with the expanded bias, and its backward) times and the bound.
-  2g (after 2f): the route each dtype takes (K1, K1b, K2, K3, K3b, K10:
-     bf16 on the tensor-core engines, fp32 on the CUDA-core ones), read from
+     shapes in fp32 and bf16 (and a bf16 q with fp32 rel tables), against
+     K2/K2b on the same values repacked (bit for bit), with kernel, plain
+     and library (SDPA with the expanded bias, and its backward) times and
+     the bound.
+  2g (after 2f): the route each dtype takes (K1, K1b, K2, K2b, K3, K3b,
+     K10, K10b: bf16, and K10b's bf16 q with fp32 rel tables, on the
+     tensor-core engines, the backwards in bwd_mma_kernel or K1b's
+     bwd_pair_kernel; fp32 on the CUDA-core ones), read from
      the kernels one call launches under the profiler, and held; K5, K6, K7,
      K8 and K4 (7B and 1B, int8 scores) launch their own engines' kernels
      (mlp4_stream.cuh, K7's three passes, decode_chunk.cuh) and none of
@@ -107,10 +110,11 @@ Phases (any failure raises and the script exits non-zero):
      against their plain backwards at the training step's shapes in bf16
      and at ragged shapes in fp32 (fully masked rows, D = 80), K1b also in
      bf16 at ragged shapes (N = 70, 37, 130; D = 128, 80, 64, 20; the fully
-     masked rows' dq exactly 0), K3b also in bf16 at K3's ragged shapes;
-     K1b twice on the training step's inputs and K3b twice on the ViT-H
-     inputs (bit-identical gradients); kernel, plain and library (SDPA
-     backward) times and the bound; K1b's and K3b's dq, dk and dv against
+     masked rows' dq exactly 0), K2b also in bf16 at ragged windows (ws =
+     3, 5, 7, 14; D = 16, 20, 80; odd BW * H), K3b also in bf16 at K3's
+     ragged shapes; K1b, K2b and K3b twice on the main path's inputs
+     (bit-identical gradients); kernel, plain and library (SDPA backward)
+     times and the bound; K1b's, K2b's and K3b's dq, dk and dv against
      float64 products of their own p and ds, SPLIT_GAIN times closer than p
      and ds rounded to bf16 alone.
   3d (after 3c): demo_config in fp32 with LoRA r=8, two train_steps and one
@@ -125,8 +129,8 @@ Phases (any failure raises and the script exits non-zero):
      gradient norm, wall and device ms (K1's, K1b's and K2's share of it), tokens/s,
      peak memory and launches per step (held exactly); then one backward through the ViT-H encoder
      with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4),
-     and the same backward warm under the profiler (device ms, K3's and
-     K3b's share).
+     and the same backward warm under the profiler (device ms, and K2's,
+     K3's, K2b's and K3b's shares, by problem name).
 Then one JSON line with every kernel's numbers and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
@@ -176,10 +180,10 @@ FORMAT_1B = dict(act_quant=True, sam_int8=True)
 # of order one (2^-8 relative), more where an fp32 sum straddles a rounding
 # boundary of p.
 BF16_MAX_ABS, BF16_MEAN_ABS = 3e-2, 3e-3
-# K1b's and K3b's dq, dk and dv against float64 products of their own fp32
-# p and ds (all rounded to bf16): the kernel's mean error stays this many
-# times under that of rounding p and ds to bf16 alone (k1b_split_check,
-# k3b_split_check)
+# K1b's, K2b's and K3b's dq, dk and dv against float64 products of their
+# own fp32 p and ds (all rounded to bf16): the kernel's mean error stays
+# this many times under that of rounding p and ds to bf16 alone
+# (k1b_split_check, k2b_split_check, k3b_split_check)
 SPLIT_GAIN = 8
 FP32_ATOL = 1e-4
 # K4-K7 round inside (K4's p and alpha and K6's intermediate to bf16, K7's
@@ -273,7 +277,10 @@ KERNEL_INFO = {
                              "walkgpt_tpu_torch/csrc/attention_mma.cuh",
                              "walkgpt_tpu_torch/csrc/attention_bwd.cuh"]),
     "sam_window_attention_packed_bwd": ("walkgpt_tpu_torch/csrc/sam_window_attention_bwd.cu",
-                                        "walkgpt_tpu/ops/flash_attention.py:984"),
+                                        "walkgpt_tpu/ops/flash_attention.py:984",
+                                        ["walkgpt_tpu_torch/csrc/attention_mma_bwd.cuh",
+                                         "walkgpt_tpu_torch/csrc/attention_mma.cuh",
+                                         "walkgpt_tpu_torch/csrc/attention_bwd.cuh"]),
     "sam_flash_attention_bwd": ("walkgpt_tpu_torch/csrc/sam_flash_attention_bwd.cu",
                                 "walkgpt_tpu/ops/flash_attention.py:641",
                                 ["walkgpt_tpu_torch/csrc/attention_mma_bwd.cuh",
@@ -289,7 +296,10 @@ KERNEL_INFO = {
                              ["walkgpt_tpu_torch/csrc/attention_mma.cuh",
                               "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "sam_window_attention_bwd": ("walkgpt_tpu_torch/csrc/sam_window_attention_split_bwd.cu",
-                                 "walkgpt_tpu/ops/flash_attention.py:800"),
+                                 "walkgpt_tpu/ops/flash_attention.py:800",
+                                 ["walkgpt_tpu_torch/csrc/attention_mma_bwd.cuh",
+                                  "walkgpt_tpu_torch/csrc/attention_mma.cuh",
+                                  "walkgpt_tpu_torch/csrc/attention_bwd.cuh"]),
 }
 
 
@@ -447,11 +457,18 @@ ROUTES = {
     "flash_attention": "attention_mma.cuh / attention_tile.cuh",
     "flash_attention_bwd": "attention_mma_bwd.cuh (pair layout) / attention_bwd.cuh",
     "sam_window_attention_packed": "attention_mma.cuh / attention_tile.cuh",
+    "sam_window_attention_packed_bwd": "attention_mma_bwd.cuh / attention_bwd.cuh",
     "sam_window_attention": "attention_mma.cuh / attention_tile.cuh",
+    "sam_window_attention_bwd": "attention_mma_bwd.cuh / attention_bwd.cuh",
     "sam_flash_attention": "attention_mma.cuh / attention_tile.cuh",
     "sam_flash_attention_bwd": "attention_mma_bwd.cuh / attention_bwd.cuh",
 }
 TENSOR_CORE_KERNELS = ("attention_mma_kernel", "bwd_mma_kernel", "bwd_pair_kernel")
+# the tensor-core kernel (and problem) each backward's bf16 route must launch
+TENSOR_CORE_BWD = {"flash_attention_bwd": "bwd_pair_kernel<FlashBwdMma",
+                   "sam_window_attention_packed_bwd": "bwd_mma_kernel<WindowBwdMma",
+                   "sam_window_attention_bwd": "bwd_mma_kernel<WindowSplitBwdMma",
+                   "sam_flash_attention_bwd": "bwd_mma_kernel<GlobalBwdMma"}
 
 
 def phase_routes(dev, seed):
@@ -468,8 +485,15 @@ def phase_routes(dev, seed):
                {dt: k1b_case(dev, dt, 2, 2, 70, 128, [70, 59], gen, 5)[0] for dt in dts})
     log_routes("sam_window_attention_packed",
                {dt: k2_case(dev, dt, 2, 2, 80, 14, gen)[0] for dt in dts})
+    log_routes("sam_window_attention_packed_bwd",
+               {dt: k2b_case(dev, dt, 2, 2, 80, 14, gen)[0] for dt in dts})
     log_routes("sam_window_attention",
                {dt: k10_case(k10_inputs(dev, dt, dt, 2, 2, 80, 14, gen), 14)[0] for dt in dts})
+    log_routes("sam_window_attention_bwd",
+               {dt: k10b_case(k10_inputs(dev, dt, dt, 2, 2, 80, 14, gen), 14)[0] for dt in dts})
+    log_routes("sam_window_attention_bwd", {torch.bfloat16: k10b_case(
+        k10_inputs(dev, torch.bfloat16, torch.float32, 2, 2, 80, 14, gen), 14)[0]},
+        ", fp32 rel tables")
     log_routes("sam_flash_attention", {dt: k3_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
     log_routes("sam_flash_attention_bwd",
                {dt: k3b_case(dev, dt, 1, 2, 8, 8, 80, gen)[0] for dt in dts})
@@ -503,17 +527,20 @@ def traced_kernels(label, fn):
                    for n in kernels if "wgt::" in n})
 
 
-def log_routes(name, runs):
+def log_routes(name, runs, note=""):
     """One call of each closure in runs ({dtype: fn}) under the profiler:
     logs the package's CUDA kernels it launched, and fails unless bf16 ran
-    a tensor-core kernel and fp32 none."""
+    a tensor-core kernel (a backward its own, TENSOR_CORE_BWD) and fp32
+    none."""
     for dtype, fn in runs.items():
-        ours = traced_kernels(f"{name} {str(dtype)[6:]}", fn)
+        label = f"{name} {str(dtype)[6:]}{note}"
+        ours = traced_kernels(label, fn)
         tc = any(k in n for n in ours for k in TENSOR_CORE_KERNELS)
-        log(f"  {name} {str(dtype)[6:]} route: {'tensor cores' if tc else 'CUDA cores'} "
+        log(f"  {label} route: {'tensor cores' if tc else 'CUDA cores'} "
             f"({ROUTES[name].split(' / ')[0 if tc else 1]}): {'; '.join(ours)}")
-        if not ours or tc != (dtype == torch.bfloat16):
-            raise AssertionError(f"{name}: {dtype} took the wrong route ({ours})")
+        own = name not in TENSOR_CORE_BWD or any(TENSOR_CORE_BWD[name] in n for n in ours)
+        if not ours or tc != (dtype == torch.bfloat16) or (tc and not own):
+            raise AssertionError(f"{label} took the wrong route ({ours})")
 
 
 # the CUDA kernels of K5's, K6's, K7's, K8's and K4's engines (mlp4_stream.cuh
@@ -1182,6 +1209,14 @@ def phase_backward_kernels(dev, seed):
             raise AssertionError("flash_attention_bwd: a fully masked row got a gradient")
     ragged("sam_window_attention_packed_bwd", k2b_case(dev, f32, 3, 2, 80, 14, gen), "ragged")
     ragged("sam_window_attention_packed_bwd", k2b_case(dev, f32, 5, 3, 20, 3, gen), "ragged")
+    # K2b's bf16 route at the edges of its tiles: T = 9, 25, 49 and 196 (one
+    # ragged tile each way; key tiles that cut window rows at ws = 5, 7, 14),
+    # D = 16 and 20 (2-byte loads; 20 a padded head dim), odd BW * H; a
+    # window of 17 (T = 289) takes the general rel-gradient path
+    for bw, h, d, ws in ((5, 3, 16, 3), (3, 3, 20, 5), (5, 3, 80, 7), (3, 1, 20, 7),
+                         (3, 3, 80, 14), (2, 2, 16, 17)):
+        check_backward("sam_window_attention_packed_bwd", k2b_case(dev, bf16, bw, h, d, ws, gen),
+                       bf16, 0, 1, f"ragged ws={ws} D={d} BW*H={bw * h}")
     ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 2, 2, 5, 7, 20, gen), "ragged")
     ragged("sam_flash_attention_bwd", k3b_case(dev, f32, 1, 2, 16, 16, 80, gen), "ragged")
     for (gh, gw, d), strided in (((5, 7, 20), False), ((12, 40, 64), False), ((16, 16, 80), False),
@@ -1190,153 +1225,159 @@ def phase_backward_kernels(dev, seed):
         check_backward("sam_flash_attention_bwd",
                        k3b_case(dev, bf16, 2, 2, gh, gw, d, gen, strided), bf16, 0, 1,
                        f"ragged {gh}x{gw} D={d}{' head views' if strided else ''}")
-    k1b_deterministic(dev, gen)
+    bf16_twice("flash_attention_bwd", "7B training",
+               k1b_case(dev, bf16, 2, 32, 767, 128, [767, 707], gen)[0])
     for n, d in ((767, 128), (130, 64)):
         k1b_split_check(dev, n, d, gen)
-    k3b_deterministic(dev, gen)
+    bf16_twice("sam_window_attention_packed_bwd", "ViT-H windows",
+               k2b_case(dev, bf16, 50, 16, 80, 14, gen)[0])
+    window_delta_check(dev, gen)
+    for ws, d in ((14, 80), (7, 20)):
+        k2b_split_check(dev, ws, d, gen)
+    bf16_twice("sam_flash_attention_bwd", "ViT-H global",
+               k3b_case(dev, bf16, 2, 16, 64, 64, 80, gen)[0])
     for gh, gw, d in ((64, 64, 80), (12, 40, 64)):
         k3b_split_check(dev, gh, gw, d, gen)
     return results
 
 
-def k1b_deterministic(dev, gen):
-    """K1b twice on the training step's inputs: bit-identical gradients (one
+def bf16_twice(name, label, run):
+    """A backward twice on the same bf16 inputs: bit-identical gradients (one
     owner per element, a fixed order, no atomics)."""
-    run = k1b_case(dev, torch.bfloat16, 2, 32, 767, 128, [767, 707], gen)[0]
     first = run()
     second = run()
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(first, second))
-    log(f"  flash_attention_bwd 7B training bf16 twice: bit-identical -> {'ok' if same else 'FAIL'}")
+    log(f"  {name} {label} bf16 twice: bit-identical -> {'ok' if same else 'FAIL'}")
     if not same:
-        raise AssertionError("flash_attention_bwd gave different gradients on a second run")
+        raise AssertionError(f"{name} gave different gradients on a second run")
 
 
-def k1b_products(q, k, v, causal, kv, out, lse, g, single):
-    """dq, dk and dv from K1b's own fp32 p and ds (s = scale (q . k) and dp =
-    g . v from the bf16 operands, p = exp(s - lse) and exactly 0 where
-    masked, ds = p (dp - delta)) with every product in float64. single: p
-    and ds rounded to bf16 alone first."""
-    n, d = q.shape[2], q.shape[-1]
-    scale = 1.0 / math.sqrt(d)
-    pos = torch.arange(n, device=q.device)
-    mask = kv[:, None, None, :] & ((pos[None, :] <= pos[:, None]) | (not causal))[None, None]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()).float() * scale
-    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
-    del s
-    dp = torch.einsum("bhqd,bhkd->bhqk", g.double(), v.double()).float()
-    ds = p * (dp - fa._delta(g, out)[..., None])
-    del dp
-    if single:
-        p, ds = p.to(q.dtype), ds.to(q.dtype)
-    p, ds = p.double(), ds.double()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, g.double())
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.double()) * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.double()) * scale
-    return dq, dk, dv
+def window_delta_check(dev, gen):
+    """K2b's and K10b's delta kernel (fa._window_delta) against the plain
+    fa._delta at ViT-H's windows, both dtypes: each row within 1e-5 of the
+    sum of its terms' magnitudes (fp32 sums of the same exact products in
+    another order); both timed."""
+    for dtype in (torch.bfloat16, torch.float32):
+        g, out = (torch.randn(50, 196, 16, 80, generator=gen, device=dev).to(dtype)
+                  for _ in range(2))
+        got, want = fa._window_delta("delta", g, out), fa._delta(g, out)
+        limit = 1e-5 * fa._delta(g.abs(), out.abs())
+        worst = float(((got - want).abs() / limit).max())
+        ms = cuda_ms(lambda: fa._window_delta("delta", g, out), 20)
+        plain = cuda_ms(lambda: fa._delta(g, out), 20)
+        log(f"  window delta kernel {str(dtype)[6:]} [50, 196, 16, 80]: largest error over its "
+            f"limit {worst:.3f} (at most 1), {ms:.4f} ms against the plain _delta's {plain:.4f}"
+            f" -> {'ok' if worst <= 1 else 'FAIL'}")
+        if not worst <= 1:
+            raise AssertionError(f"the window delta kernel disagrees with _delta in {dtype}")
 
 
-def k1b_split_check(dev, n, d, gen):
-    """K1b's dq, dk and dv against the same products in float64, each
-    rounded to bf16 as the kernel writes it, beside p and ds rounded to
-    bf16 alone, at a causal shape with padded keys (2 rows, the second
-    without its last n // 10 keys): the kernel's hi + lo split keeps about
-    16 bits of p and ds, so its mean error must stay SPLIT_GAIN times under
-    the single-bf16 scheme's (rounding p and ds to bf16 alone fails this)."""
-    q, k, v, g = (torch.randn(2, 2, n, d, generator=gen, device=dev).to(torch.bfloat16)
-                  for _ in range(4))
-    kv = torch.arange(n, device=dev)[None] < torch.tensor([n, n - n // 10], device=dev)[:, None]
-    out, lse = fa.flash_attention(q, k, v, True, kv, return_lse=True)
-    args = (q, k, v, True, kv, out, lse, g)
-    got = fa.flash_attention_bwd(*args)
-    exact = k1b_products(*args, single=False)
-    single = k1b_products(*args, single=True)
+def split_products(p, ds, q, k, g, scale):
+    """dq, dk and dv of a backward from its own fp32 p and ds ([.., N, NK])
+    and its bf16 q, k and g, every product in float64: once exactly, once
+    with p and ds rounded to bf16 alone first (FlashAttention's scheme,
+    which the kernels' hi + lo split replaces)."""
+    out = []
+    for pp, dd in ((p, ds), (p.to(q.dtype), ds.to(q.dtype))):
+        pp, dd = pp.double(), dd.double()
+        out.append((torch.einsum("bhqk,bhkd->bhqd", dd, k.double()) * scale,
+                    torch.einsum("bhqk,bhqd->bhkd", dd, q.double()) * scale,
+                    torch.einsum("bhqk,bhqd->bhkd", pp, g.double())))
+    return out
+
+
+def hold_split(name, label, got, exact, single):
+    """The kernel's dq, dk and dv against the float64 products, each rounded
+    to bf16 as the kernel writes it, beside p and ds rounded to bf16 alone:
+    the hi + lo split keeps about 16 bits of p and ds, so the kernel's mean
+    error must stay SPLIT_GAIN times under the single-bf16 scheme's
+    (rounding p and ds to bf16 alone fails this)."""
     ok = True
-    for name, a, e, si in zip(("dq", "dk", "dv"), got, exact, single):
+    for grad, a, e, si in zip(("dq", "dk", "dv"), got, exact, single):
         e = e.to(torch.bfloat16).float()
         err_kernel = float((a.float() - e).abs().mean())
         err_single = float((si.to(torch.bfloat16).float() - e).abs().mean())
         good = err_kernel * SPLIT_GAIN <= err_single
         ok &= good
-        log(f"  flash_attention_bwd split products N={n} D={d} {name}: mean_abs against float64 "
-            f"products {err_kernel:.3e}, p and ds in bf16 alone {err_single:.3e} (ratio "
+        log(f"  {name} split products {label} {grad}: mean_abs against float64 products "
+            f"{err_kernel:.3e}, p and ds in bf16 alone {err_single:.3e} (ratio "
             f"{err_single / err_kernel if err_kernel else math.inf:.1f}, at least {SPLIT_GAIN}) -> "
             f"{'ok' if good else 'FAIL'}")
     if not ok:
-        raise AssertionError("flash_attention_bwd: the split products are not closer than "
-                             "bf16 alone")
+        raise AssertionError(f"{name}: the split products are not closer than bf16 alone")
 
 
-def k3b_deterministic(dev, gen):
-    """K3b twice on the ViT-H inputs: bit-identical gradients (one owner per
-    element, a fixed order, no atomics)."""
-    run = k3b_case(dev, torch.bfloat16, 2, 16, 64, 64, 80, gen)[0]
-    first = run()
-    second = run()
-    torch.cuda.synchronize()
-    same = all(torch.equal(a, b) for a, b in zip(first, second))
-    log(f"  sam_flash_attention_bwd ViT-H bf16 twice: bit-identical -> {'ok' if same else 'FAIL'}")
-    if not same:
-        raise AssertionError("sam_flash_attention_bwd gave different gradients on a second run")
+def _qk(q, k, scale=None):
+    """q . k^T summed in float64, rounded to fp32; with scale, q * scale
+    rounded to q's dtype first (SAM's logits)."""
+    if scale is not None:
+        q = q * torch.tensor(scale, dtype=q.dtype)
+    return torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()).float()
 
 
-def k3b_products(q, k, v, rel_h, rel_w, grid_hw, out, lse, g, single):
-    """dq, dk and dv from K3b's own fp32 p and ds (s and dp from the bf16
-    operands, p = exp(s - lse), ds = p (dp - delta)) with every product in
-    float64. single: p and ds rounded to bf16 alone first (FlashAttention's
-    scheme, which the kernel's hi + lo split replaces)."""
-    gh, gw = grid_hw
-    d = q.shape[-1]
-    scale = 1.0 / math.sqrt(d)
-    key = torch.arange(q.shape[2], device=q.device)
-    qs = (q * torch.tensor(scale, dtype=q.dtype)).double()       # q * scale, in bf16
-    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.double()).float()
-    s = (s + rel_w.float()[..., key % gw]) + rel_h.float()[..., key // gw]
+def _p_ds(s, lse, g, v, out):
+    """p = exp(s - lse) and ds = p (g . v^T - delta) in fp32, dp from the
+    bf16 operands."""
     p = torch.exp(s - lse[..., None])
-    del s
     dp = torch.einsum("bhqd,bhkd->bhqk", g.double(), v.double()).float()
-    ds = p * (dp - fa._delta(g, out)[..., None])
-    del dp
-    if single:
-        p, ds = p.to(q.dtype), ds.to(q.dtype)
-    p, ds = p.double(), ds.double()
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, g.double())
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.double()) * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.double()) * scale
-    return dq, dk, dv
+    return p, p * (dp - fa._delta(g, out)[..., None])
+
+
+def k1b_split_check(dev, n, d, gen):
+    """hold_split for K1b at a causal shape with padded keys (2 rows, the
+    second without its last n // 10 keys); s = scale (q . k), p exactly 0
+    where masked."""
+    q, k, v, g = (torch.randn(2, 2, n, d, generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(4))
+    kv = torch.arange(n, device=dev)[None] < torch.tensor([n, n - n // 10], device=dev)[:, None]
+    out, lse = fa.flash_attention(q, k, v, True, kv, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, True, kv, out, lse, g)
+    scale = 1.0 / math.sqrt(d)
+    pos = torch.arange(n, device=dev)
+    mask = kv[:, None, None, :] & (pos[None, :] <= pos[:, None])[None, None]
+    p, ds = _p_ds((_qk(q, k) * scale).masked_fill(~mask, -math.inf), lse, g, v, out)
+    hold_split("flash_attention_bwd", f"N={n} D={d}", got,
+               *split_products(p, ds, q, k, g, scale))
+
+
+def k2b_split_check(dev, ws, d, gen):
+    """hold_split for K2b at 5 windows of 3 heads (T = ws^2; the kernel's
+    gradients taken out of the packed dqkv); s = (q * scale)_bf16 . k +
+    (rel_h + rel_w), as the forward forms it."""
+    bw, h, t = 5, 3, ws * ws
+    qkv = torch.randn(bw, t, 3 * h * d, generator=gen, device=dev).to(torch.bfloat16)
+    rel = torch.randn(bw, t, 2 * h * ws, generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn(bw, t, h * d, generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = fa.sam_window_attention_packed(qkv, rel, h, d, ws, return_lse=True)
+    dqkv = fa.sam_window_attention_packed_bwd(qkv, rel, h, d, ws, out, lse, g)[0]
+    got = [fa._win_heads(x, h, d) for x in dqkv.split(h * d, dim=-1)]
+    q, k, v, rel_h, rel_w = fa._win_split_heads(qkv, rel, h, d, ws)
+    gh, oh = fa._win_heads(g, h, d), fa._win_heads(out, h, d)
+    key = torch.arange(t, device=dev)
+    s = _qk(q, k, 1.0 / math.sqrt(d)) + (rel_h.float()[..., key // ws]
+                                          + rel_w.float()[..., key % ws])
+    p, ds = _p_ds(s, lse.transpose(1, 2), gh, v, oh)
+    hold_split("sam_window_attention_packed_bwd", f"ws={ws} D={d}", got,
+               *split_products(p, ds, q, k, gh, 1.0 / math.sqrt(d)))
 
 
 def k3b_split_check(dev, gh, gw, d, gen):
-    """K3b's dq, dk and dv against the same products in float64, each
-    rounded to bf16 as the kernel writes it, beside p and ds rounded to
-    bf16 alone: the kernel's hi + lo split keeps about 16 bits of p and ds,
-    so its mean error must stay SPLIT_GAIN times under the single-bf16
-    scheme's (rounding p and ds to bf16 alone fails this)."""
+    """hold_split for K3b on one image of 2 heads; s = (q * scale)_bf16 . k,
+    then (s + rel_w) + rel_h."""
     n = gh * gw
     q, k, v, g = (torch.randn(1, 2, n, d, generator=gen, device=dev).to(torch.bfloat16)
                   for _ in range(4))
     rel_h = torch.randn(1, 2, n, gh, generator=gen, device=dev).to(torch.bfloat16)
     rel_w = torch.randn(1, 2, n, gw, generator=gen, device=dev).to(torch.bfloat16)
     out, lse = fa.sam_flash_attention(q, k, v, rel_h, rel_w, (gh, gw), return_lse=True)
-    args = (q, k, v, rel_h, rel_w, (gh, gw), out, lse, g)
-    got = fa.sam_flash_attention_bwd(*args)
-    exact = k3b_products(*args, single=False)
-    single = k3b_products(*args, single=True)
-    ok = True
-    for name, a, e, si in zip(("dq", "dk", "dv"), got, exact, single):
-        e = e.to(torch.bfloat16).float()
-        err_kernel = float((a.float() - e).abs().mean())
-        err_single = float((si.to(torch.bfloat16).float() - e).abs().mean())
-        good = err_kernel * SPLIT_GAIN <= err_single
-        ok &= good
-        log(f"  sam_flash_attention_bwd split products {gh}x{gw} D={d} {name}: mean_abs against "
-            f"float64 products {err_kernel:.3e}, p and ds in bf16 alone {err_single:.3e} "
-            f"(ratio {err_single / err_kernel if err_kernel else math.inf:.1f}, at least "
-            f"{SPLIT_GAIN}) -> "
-            f"{'ok' if good else 'FAIL'}")
-    if not ok:
-        raise AssertionError("sam_flash_attention_bwd: the split products are not closer than "
-                             "bf16 alone")
+    got = fa.sam_flash_attention_bwd(q, k, v, rel_h, rel_w, (gh, gw), out, lse, g)
+    key = torch.arange(n, device=dev)
+    s = _qk(q, k, 1.0 / math.sqrt(d))
+    s = (s + rel_w.float()[..., key % gw]) + rel_h.float()[..., key // gw]
+    p, ds = _p_ds(s, lse, g, v, out)
+    hold_split("sam_flash_attention_bwd", f"{gh}x{gw} D={d}", got,
+               *split_products(p, ds, q, k, g, 1.0 / math.sqrt(d)))
 
 
 # ---------------------------------------------------------------------------
@@ -1431,9 +1472,11 @@ def phase_window_split_kernels(dev, seed):
     same = k10_against_k2(vit, 14, "ViT-H windows, bf16")
     del vit
     torch.cuda.empty_cache()
-    # ragged fp32 shapes (BW*H odd, D = 16 and 80, ws = 3 and 5), then a bf16 q
-    # with fp32 rel tables (which the JAX kernel takes too)
+    # ragged fp32 shapes (BW*H odd, D = 16 and 80, ws = 3 and 5), the bf16
+    # route's at ws = 3 and 7 (D = 16 and 20), then a bf16 q with fp32 rel
+    # tables (which the JAX kernel takes too)
     for dtype, rdt, bw, h, d, ws in ((f32, f32, 3, 1, 16, 3), (f32, f32, 5, 3, 80, 5),
+                                     (bf16, bf16, 5, 3, 16, 3), (bf16, bf16, 3, 1, 20, 7),
                                      (bf16, f32, 3, 3, 80, 5)):
         label = f"ragged ws={ws} D={d} BW*H={bw * h}" + (", fp32 rel" if rdt != dtype else "")
         inputs = k10_inputs(dev, dtype, rdt, bw, h, d, ws, gen)
@@ -2265,11 +2308,14 @@ def phase_slice(dev, seed, max_new_tokens, label, cfg, make_params, speculative=
 
 # the profiler's kernel names (a part of them) of the kernels whose share of
 # a phase's device time phases 4 and 5 print: the problem objects of the
-# bf16 tensor-core kernels, K5's kernel, K6's and K7's three launches each
+# bf16 tensor-core kernels (K2b's with its delta kernel), K5's kernel, K6's
+# and K7's three launches each
 # (each with a tile sum of its own), and the chunk engine's rule for K4 (a
 # key mask) and K8 (a causal chunk)
 SHARES = {"K1": ("::FlashMma",), "K2": ("::WindowMma",), "K3": ("::GlobalMma",),
-          "K1b": ("::FlashBwdMma",), "K4": ("KeyMask",), "K5": ("int4_mm_stream",),
+          "K1b": ("::FlashBwdMma",), "K2b": ("::WindowBwdMma", "row_dot_kernel"),
+          "K3b": ("::GlobalBwdMma",),
+          "K4": ("KeyMask",), "K5": ("int4_mm_stream",),
           "K6": ("mlp4_gate_up", "mlp4_down", "mlp4_sum_tiles"),
           "K7": ("mlp8_gate_up", "mlp8_down", "mlp8_sum_tiles"), "K8": ("CausalChunk",)}
 
@@ -3022,22 +3068,19 @@ def phase_train(dev, seed):
             and per["sam_flash_attention_bwd"] == n_glob):
         raise AssertionError(f"ViT-H encoder backward: launches {per}")
     # the same call again, warm, under the profiler: its device time and
-    # the share of K3 (forward) and K3b in it
+    # the shares of the forwards K2 and K3 and the backwards K2b and K3b,
+    # told apart by their problems' names (all four run the tensor cores)
     for t in rel.values():
         t.grad = None
     kernels = {}
     _, dev_ms = profiled(lambda: sam_encoder.apply(
         map_with_path(lambda p, t: rel.get(p, t), enc), cfg.sam, batch["images"][:1],
         use_flash=True).float().square().mean().backward(), kernels)
-    k3_ms = sum(v for n, v in kernels.items() if "attention_mma_kernel" in n)
-    k3b_ms = sum(v for n, v in kernels.items() if "bwd_mma_kernel" in n)
-    log(f"  the same backward warm under the profiler: device_ms={dev_ms:.1f}, K3 (forward) "
-        f"{k3_ms:.1f} ms ({k3_ms / dev_ms:.1%}), K3b {k3b_ms:.1f} ms ({k3b_ms / dev_ms:.1%}); "
-        f"top 5 kernels:")
+    log_shares("the same backward warm under the profiler", kernels, dev_ms,
+               ("K2", "K3", "K2b", "K3b"))
+    log("  its top 5 kernels:")
     for name, k_ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:5]:
         log(f"    {k_ms:9.2f} ms {k_ms / dev_ms:6.1%}  {name[:110]}")
-    if not (k3_ms > 0 and k3b_ms > 0):
-        raise AssertionError("ViT-H encoder backward: the profiler saw no K3 or K3b time")
     del params, state, state2, enc, rel, snap, b0
     torch.cuda.empty_cache()
 

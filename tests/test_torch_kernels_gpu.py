@@ -35,11 +35,12 @@ tanhf last places: rtol 1e-6 in fp32, one bf16 step (2^-8) in bf16.
 K10 and K10b take K2's and K2b's bounds (a bf16 output of either, or a
 bf16 q with fp32 rel tables, the bf16 ones); K10 runs K2's engine with the
 same logits, so on repacked values its out and lse equal K2's bit for bit.
-K1, K1b, K2, K3, K3b and K10 take their route by dtype: fp32 the CUDA-core
-engines, bf16 the tensor-core ones (bf16 products with fp32 sums at the
-same rounding points; K1's p . v and K1b's and K3b's dv, dk and dq take p
-and ds split into two bf16 parts, about 16 bits), both within the bounds
-above; K1b and K3b are deterministic in both. K1's bf16 route gives a row
+K1, K1b, K2, K2b, K3, K3b, K10 and K10b take their route by dtype: fp32
+the CUDA-core engines, bf16 the tensor-core ones (bf16 products with fp32
+sums at the same rounding points; K1's p . v and K1b's, K2b's and K3b's
+dv, dk and dq take p and ds split into two bf16 parts, about 16 bits), both
+within the bounds above; K1b, K2b and K3b are deterministic in both, and
+K10b's bf16 gradients equal K2b's on repacked values bit for bit. K1's bf16 route gives a row
 that sees no valid key the mean of v over the keys of the tiles it visits
 (the CUDA-core engine's function), finite. K4 runs the chunk engine of K8
 (all modes but the int8 value product), which keeps the walk's rounding
@@ -567,6 +568,90 @@ def test_k2b_kernel_matches_plain(dev, dtype, ws, d, h):
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
 
 
+def _k2b_inputs(dev, bw, h, ws, d, seed):
+    """qkv, rel, the cotangent (bf16, packed layouts) and K2's out and lse."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    t = ws * ws
+    qkv = torch.randn(bw, t, 3 * h * d, generator=g, device=dev).to(torch.bfloat16)
+    rel = torch.randn(bw, t, 2 * h * ws, generator=g, device=dev).to(torch.bfloat16)
+    go = torch.randn(bw, t, h * d, generator=g, device=dev).to(torch.bfloat16)
+    out, lse = fa.sam_window_attention_packed(qkv, rel, h, d, ws, return_lse=True)
+    return qkv, rel, go, out, lse
+
+
+# K2b's bf16 route runs the tensor-core engine: the ViT-H windows (T = 196,
+# D = 80, key tiles that cut window rows) and ragged windows (T = 9, 25,
+# 49; D = 16, 20 with 2-byte loads and a padded head dim; odd BW * H; ws =
+# 17 takes the general rel-gradient path); deterministic (two calls, the
+# same bits)
+@pytest.mark.parametrize("bw,h,ws,d", [(50, 16, 14, 80), (5, 3, 3, 16), (3, 3, 5, 20),
+                                       (5, 3, 7, 80), (3, 1, 7, 20), (3, 3, 14, 20),
+                                       (2, 2, 17, 16)])
+def test_k2b_bf16_tensor_core_route_matches_plain(dev, bw, h, ws, d):
+    qkv, rel, go, out, lse = _k2b_inputs(dev, bw, h, ws, d, bw * ws + d)
+    before = fa.sam_window_attention_packed_bwd.launches
+    got = fa.sam_window_attention_packed_bwd(qkv, rel, h, d, ws, out, lse, go)
+    again = fa.sam_window_attention_packed_bwd(qkv, rel, h, d, ws, out, lse, go)
+    torch.cuda.synchronize()
+    assert fa.sam_window_attention_packed_bwd.launches == before + 2
+    want = fa.sam_window_attention_packed_bwd_reference(qkv, rel, h, d, ws, out, lse, go)
+    _close_grads(got, want, torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(50, 196, 16, 80), (3, 9, 2, 20), (2, 1, 1, 33)])
+def test_window_delta_matches_plain(dev, dtype, shape):
+    """K2b's and K10b's delta kernel against the plain _delta: fp32 sums of
+    the same exact products in another order, each row within 1e-5 of the
+    sum of its terms' magnitudes."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    go, out = (torch.randn(*shape, generator=g, device=dev).to(dtype) for _ in range(2))
+    got = fa._window_delta("delta", go, out)
+    torch.cuda.synchronize()
+    assert got.shape == shape[:-1] and got.dtype == torch.float32
+    assert ((got - fa._delta(go, out)).abs() <= 1e-5 * fa._delta(go.abs(), out.abs())).all()
+
+
+def _window_products(q, k, v, rel_h, rel_w, ws, out, lse, g, single):
+    """dq, dk, dv from the window backward's fp32 p and ds (s = (q *
+    scale)_bf16 . k + (rel_h + rel_w), dp = g . v from the bf16 operands)
+    with float64 products; single: p and ds rounded to bf16 alone first."""
+    d, key = q.shape[-1], torch.arange(q.shape[2], device=q.device)
+    scale = d ** -0.5
+    qs = (q * torch.tensor(scale, dtype=q.dtype)).double()
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.double()).float()
+    p = torch.exp(s + (rel_h.float()[..., key // ws] + rel_w.float()[..., key % ws])
+                  - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", g.double(), v.double()).float()
+    ds = p * (dp - fa._delta(g, out)[..., None])
+    if single:
+        p, ds = p.to(q.dtype), ds.to(q.dtype)
+    p, ds = p.double(), ds.double()
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.double()) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", ds, q.double()) * scale,
+            torch.einsum("bhqk,bhqd->bhkd", p, g.double()))
+
+
+@pytest.mark.parametrize("ws,d", [(14, 80), (7, 20)])
+def test_k2b_split_products_beat_bf16_alone(dev, ws, d):
+    """K2b's bf16 dq, dk and dv against float64 products of its own p and
+    ds, all rounded to bf16: the hi + lo split keeps about 16 bits of p and
+    ds, so the kernel's mean error stays 8 times under that of rounding p
+    and ds to bf16 alone (chip_smoke.py's SPLIT_GAIN)."""
+    bw, h = 5, 3
+    qkv, rel, go, out, lse = _k2b_inputs(dev, bw, h, ws, d, ws * d + 6)
+    dqkv = fa.sam_window_attention_packed_bwd(qkv, rel, h, d, ws, out, lse, go)[0]
+    got = [fa._win_heads(x, h, d) for x in dqkv.split(h * d, dim=-1)]
+    args = (*fa._win_split_heads(qkv, rel, h, d, ws), ws, fa._win_heads(out, h, d),
+            lse.transpose(1, 2), fa._win_heads(go, h, d))
+    for a, e, si in zip(got, _window_products(*args, False), _window_products(*args, True)):
+        e = e.to(torch.bfloat16).float()
+        err_kernel = (a.float() - e).abs().mean()
+        err_single = (si.to(torch.bfloat16).float() - e).abs().mean()
+        assert err_kernel * 8 <= err_single, (float(err_kernel), float(err_single))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("gh,gw,d", K3_SHAPES)
 def test_k3b_kernel_matches_plain(dev, dtype, gh, gw, d):
@@ -721,6 +806,25 @@ def test_k10b_kernel_matches_plain(dev, dtype, rel_dtype, bw, h, ws, d):
             _close_scaled(a, b, torch.bfloat16)
     auto = _autograd(lambda *x: fa.sam_window_attention(*x, ws), (q, k, v, rel_h, rel_w), go)
     assert all(torch.equal(a, b) for a, b in zip(auto, got))
+
+
+@pytest.mark.parametrize("bw,h,ws,d", [(4, 2, 14, 80), (3, 1, 7, 20), (5, 3, 3, 16)])
+def test_k10b_equals_k2b_on_repacked_values(dev, bw, h, ws, d):
+    """bf16: K10b and K2b run one engine with the same expressions in the
+    same order, so on the same values repacked their gradients are equal
+    bit for bit."""
+    q, k, v, rel_h, rel_w, go = _k10_inputs(dev, torch.bfloat16, torch.bfloat16, bw, h, ws, d,
+                                            ws * d + 7)
+    out, lse = fa.sam_window_attention(q, k, v, rel_h, rel_w, ws, return_lse=True)
+    grads = fa.sam_window_attention_bwd(q, k, v, rel_h, rel_w, ws, out, lse, go)
+    merge = lambda x: x.transpose(1, 2).reshape(bw, ws * ws, -1)
+    qkv = torch.cat([merge(x) for x in (q, k, v)], -1)
+    rel = torch.cat([merge(rel_h), merge(rel_w)], -1)
+    pout, plse = fa.sam_window_attention_packed(qkv, rel, h, d, ws, return_lse=True)
+    dqkv, drel = fa.sam_window_attention_packed_bwd(qkv, rel, h, d, ws, pout, plse, merge(go))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([merge(x) for x in grads[:3]], -1), dqkv)
+    assert torch.equal(torch.cat([merge(x) for x in grads[3:]], -1), drel)
 
 
 def test_k10_wrappers_raise_instead_of_falling_back(dev):

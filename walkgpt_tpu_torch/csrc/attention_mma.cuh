@@ -668,19 +668,21 @@ struct WinRel {
   const uint16_t* kidx;
   int ws;
 
-  __host__ __device__ static size_t bytes(int ws, int T) {
-    const size_t rows = (sizeof(R) * 2 * BQ * ws + 15) / 16 * 16;
-    return rows + sizeof(uint16_t) * size_t((T + BK - 1) / BK * BK);
+  // the staged rows alone, then with the key table
+  __host__ __device__ static size_t rows_bytes(int ws) {
+    return (sizeof(R) * 2 * BQ * ws + 15) / 16 * 16;
   }
-  // src_h, src_w: rel_h and rel_w of the tile's row 0 (row stride ld). A
-  // head's rel_h starts ws elements apart, not 16-byte aligned: where rows
-  // are whole 4-byte words (w4), 4-byte cp.async copies, which join the
-  // engine's first copy group; else plain loads. The engine waits and
-  // synchronises before the tables are read.
-  __device__ void stage(const R* src_h, const R* src_w, int64_t ld, int nr, int ws_, int T,
-                        bool w4, char* extra) {
-    ws = ws_;
-    R* dh = reinterpret_cast<R*>(extra);
+  __host__ __device__ static size_t bytes(int ws, int T) {
+    return rows_bytes(ws) + sizeof(uint16_t) * size_t((T + BK - 1) / BK * BK);
+  }
+  // src_h, src_w: rel_h and rel_w of the tile's row 0 (row stride ld), into
+  // dst as [64][ws] twice (rows >= nr zeros). A head's rel_h starts ws
+  // elements apart, not 16-byte aligned: where rows are whole 4-byte words
+  // (w4), 4-byte cp.async copies, which join the caller's next copy group;
+  // else plain stores. The caller waits and synchronises before they are read.
+  __device__ static void stage_rows(const R* src_h, const R* src_w, int64_t ld, int nr, int ws,
+                                    bool w4, char* dst) {
+    R* dh = reinterpret_cast<R*>(dst);
     R* dw = dh + BQ * ws;
     if (w4) {
       constexpr int E = 4 / sizeof(R);   // elements per word
@@ -702,7 +704,15 @@ struct WinRel {
         }
       }
     }
-    uint16_t* kt = reinterpret_cast<uint16_t*>(extra + (sizeof(R) * 2 * BQ * ws + 15) / 16 * 16);
+  }
+  // the rows by stage_rows, then the key table
+  __device__ void stage(const R* src_h, const R* src_w, int64_t ld, int nr, int ws_, int T,
+                        bool w4, char* extra) {
+    ws = ws_;
+    stage_rows(src_h, src_w, ld, nr, ws, w4, extra);
+    const R* dh = reinterpret_cast<const R*>(extra);
+    const R* dw = dh + BQ * ws;
+    uint16_t* kt = reinterpret_cast<uint16_t*>(extra + rows_bytes(ws));
     const int nk = (T + BK - 1) / BK * BK;
     for (int k = threadIdx.x; k < nk; k += NTHREADS) {
       const int kh = k / ws;

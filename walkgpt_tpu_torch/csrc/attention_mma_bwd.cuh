@@ -1,6 +1,7 @@
 // Tensor-core backward-attention engine (bf16), the Hopper redesign of
 // attention_bwd.cuh for bf16 inputs. Built on it: K3b
-// (sam_flash_attention_bwd.cu) on the 4-warp layout, and K1b
+// (sam_flash_attention_bwd.cu), K2b (sam_window_attention_bwd.cu) and K10b
+// (sam_window_attention_split_bwd.cu) on the 4-warp layout, and K1b
 // (flash_attention_bwd.cu) on the pair layout at the end of this file.
 // Their fp32 routes stay on attention_bwd.cuh.
 //
@@ -13,9 +14,12 @@
 //   dk/dv     a block of 4 warps per 64-key tile (16 keys a warp) walks the
 //   pass      query tiles of 64: s^T = k.qs^T and dp^T = v.g^T, the same p
 //             and ds, dv += p^T.g and dk += ds^T.q.
-// Both passes run in one launch. Two blocks of 4 warps fit an SM (about
-// 240 registers a thread); blocks of 8 warps over 128 rows (one an SM)
-// measured no faster.
+// K3b runs both passes in one launch: two blocks of 4 warps fit an SM
+// (about 240 registers a thread); blocks of 8 warps over 128 rows (one an
+// SM) measured no faster, and two launches slower. K2b and K10b (4 tiles
+// each way) run the dq pass, then the dk/dv pass, in launches of their own,
+// each compiled for three blocks an SM: at ViT-H's windows one launch of
+// both is slower (tools/attention_variants.py times the two).
 // Products: s and dp have bf16 operands on the TPU too, and are single bf16
 // mma.sync.m16n8k16 products with fp32 sums. p and ds are fp32, and the TPU
 // kernels form dq, dk and dv in fp32: here each of those three products
@@ -30,12 +34,28 @@
 // (or one quad, in a fixed shuffle order) in tile order, so two runs give
 // the same bits.
 //
+// Ragged tiles (problems without FAST): a warp whose 16 rows of the
+// block's own tile all lie past its end forms no products. A ragged last
+// streamed tile runs whole (its rows past the end are zeros): skipping its
+// groups of 16 rows past the end measured slower at ViT-H's windows, with
+// runtime bounds in every tile and with the last tile's step compiled
+// apart alike (the products are not what bounds these kernels).
+//
+// Outputs: each warp rounds its 16 rows of dq (or dk and dv) to bf16 into
+// its own rows of the block's staged tile, which no other warp reads, and
+// copies them out row by row, 16 bytes a lane where vec holds.
+//
 // Rel-pos gradients (dq pass, Prob::REL): drel_h[q, r] and drel_w[q, c] are
 // the sums of ds over the keys of grid row r and grid column c, in fp32.
 //   * gw == 64 (ViT-H): key tile kt is grid row kt, so drel_h[q, kt] is the
 //     row sum of the tile's ds fragment (the thread's 16 values in order,
 //     then a quad shuffle) and is written at once; drel_w is an elementwise
 //     running sum of the ds fragments in registers.
+//   * Prob::ONE_HOT with gh, gw <= 16 (the windows' grids): drel_h and
+//     drel_w are products of ds with one-hot matrices on the tensor cores,
+//     B[k][c] = 1 where the tile's key k lies in grid row (column) c, read
+//     from the problem's key table; ds split hi + lo as for dq, fp32 sums in
+//     registers (16 rows x 16 grid rows, and x 16 grid columns, a warp);
 //   * otherwise each warp writes its 16 x 64 ds block to shared memory and
 //     its lanes sum it by (row, grid row) and (row, grid column) into fp32
 //     accumulators [64][gh + gw] in shared memory, one lane per element.
@@ -52,10 +72,15 @@
 //                 for the query tile at q0 and the block's keys k0 .. k0 +
 //                 63, into one of two buffers
 //   size_t tab_bytes() const                     the size of such a buffer
-//   const bf16 *q, *k, *v, *g; int64_t sq, sk, sv, sg; bool vec
+//   const bf16 *q, *k, *v, *g; int64_t sq, sk, sv, sg
+//   bool vec      rows of q, k, v, g and the outputs start 16-byte aligned
+//                 and D % 8 == 0: 16-byte copies; otherwise 2-byte ones
 //   static constexpr bool FAST   (as in attention_mma.cuh; for REL also
 //                 gw == 64, so drel_w stays in registers)
-//   const float *lse, *delta;  int N, NK, D;  float scale;  bf16 qscale
+//   static constexpr bool TWO_LAUNCHES   the dq pass, then the dk/dv pass,
+//                 each in a launch of its own (else both in one launch)
+//   const float *lse, *delta;  int64_t sl   (lse and delta of row r at r * sl)
+//   int N, NK, D;  float scale;  bf16 qscale
 //   void bias_qk(float (&s)[NT][4], int k0, int row, int nq) const
 //                 dq pass: the bias of local rows row, row + 8 (< nq) and
 //                 keys k0 + 8 n + 2 t + j (< NK)
@@ -64,9 +89,13 @@
 //                 dk/dv pass: rows are keys key, key + 8 (< NK) of the block
 //                 at k0, columns queries q0 + 8 n + 2 t + j (< N), buf the
 //                 tile's tables
-//   void dq(row, d, x), dk(key, d, x), dv(key, d, x) const
-//   static constexpr bool REL; with REL: int gh, gw and
-//   void drh(row, r, x), drw(row, c, x) const
+//   bf16* dq_row(row), dk_row(key), dv_row(key) const   an output row
+//                 (D values, contiguous)
+//   static constexpr bool REL; with REL: int gh, gw (Args too),
+//   void drh(row, r, x), drw(row, c, x) const, static constexpr bool
+//   ONE_HOT and, where it holds, const uint16_t* kidx() const: the key
+//   table of the dq pass's stage(), key k -> (k / gw) | (k % gw) << 8 for
+//   every k < 64 * key tiles (0 past NK)
 #pragma once
 
 #include "attention_mma.cuh"
@@ -83,11 +112,75 @@ template <int KD> __host__ __device__ constexpr size_t dkv_tile_bytes() {  // K,
 }
 
 constexpr int DSS = BK + 4;   // fp32 row stride of a warp's staged ds block
+constexpr int ONE_HOT_MAX = 16;   // grid rows and columns of the one-hot rel path
+
+// A warp's 16 x DP fp32 accumulator (mma layout) times sc, rounded to bf16
+// into the warp's own 16 staged rows st (row stride SS), then out to
+// row(r) for r < nr: 16-byte copies where vec holds, else 2-byte ones.
+template <int KD, int SS, class RowPtr>
+__device__ __forceinline__ void store_rows(const float (&acc)[2 * KD][4], float sc, bf16* st,
+                                           int nr, int D, bool vec, RowPtr row) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __syncwarp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 2 * KD; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(st + (g + 8 * h) * SS + 8 * i + 2 * t) =
+          __floats2bfloat162_rn(acc[i][2 * h] * sc, acc[i][2 * h + 1] * sc);
+  __syncwarp();
+  if (vec) {
+    const int cpr = D >> 3;
+    for (int idx = lane; idx < 16 * cpr; idx += 32) {
+      const int r = idx / cpr, c = idx - r * cpr;
+      if (r < nr)
+        *reinterpret_cast<uint4*>(row(r) + 8 * c) =
+            *reinterpret_cast<const uint4*>(st + r * SS + 8 * c);
+    }
+  } else {
+    for (int idx = lane; idx < 16 * D; idx += 32) {
+      const int r = idx / D, d = idx - r * D;
+      if (r < nr) row(r)[d] = st[r * SS + d];
+    }
+  }
+}
+
+// the bf16 pair (1 where the byte at `shift` of x is c, else 0; likewise y),
+// x and y the key-table entries of two consecutive keys
+__device__ __forceinline__ uint32_t one_hot_pair(uint32_t x, uint32_t y, int shift, int c) {
+  return (((x >> shift) & 0xffu) == uint32_t(c) ? 0x3f80u : 0u) |
+         (((y >> shift) & 0xffu) == uint32_t(c) ? 0x3f800000u : 0u);
+}
+
+// drh[nb] += (hi + lo) . B_h and drw[nb] += (hi + lo) . B_w for the k-step
+// whose key-table entries start at kt (16 keys): B_h[k][c] = 1 where key k
+// lies in grid row 8 nb + c, B_w likewise for the grid column
+__device__ __forceinline__ void one_hot_mma(float (&drh)[2][4], float (&drw)[2][4],
+                                            const uint32_t hi[4], const uint32_t lo[4],
+                                            const uint16_t* kt) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t k01 = *reinterpret_cast<const uint32_t*>(kt + 2 * t);      // keys 2t, 2t + 1
+  const uint32_t k89 = *reinterpret_cast<const uint32_t*>(kt + 2 * t + 8);  // 2t + 8, 2t + 9
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb) {
+    const int c = 8 * nb + g;
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      const uint32_t b0 = one_hot_pair(k01 & 0xffffu, k01 >> 16, 8 * w, c);
+      const uint32_t b1 = one_hot_pair(k89 & 0xffffu, k89 >> 16, 8 * w, c);
+      float (&acc)[4] = w ? drw[nb] : drh[nb];
+      mma(acc, hi, b0, b1);
+      mma(acc, lo, b0, b1);
+    }
+  }
+}
 
 // the general rel-gradient path's shared memory: the warps' ds blocks and
-// the [64][gh + gw] fp32 accumulators (none when gw == BK)
-__host__ __device__ inline size_t rel_grad_bytes(int gh, int gw) {
-  return gw == BK ? 0 : sizeof(float) * BQ * (DSS + gh + gw);
+// the [64][gh + gw] fp32 accumulators (none on the other two paths)
+__host__ __device__ inline size_t rel_grad_bytes(int gh, int gw, bool one_hot) {
+  return gw == BK || (one_hot && gh <= ONE_HOT_MAX && gw <= ONE_HOT_MAX)
+             ? 0
+             : sizeof(float) * BQ * (DSS + gh + gw);
 }
 
 template <int KD, class Prob>
@@ -105,6 +198,7 @@ __device__ __forceinline__ void dq_pass_mma(const Prob& pr, int q0, char* smem, 
   const int row = 16 * warp + g;     // this thread's rows: row, row + 8
   const int nq = min(BQ, pr.N - q0);
   const int nkt = (pr.NK + BK - 1) / BK;
+  const bool idle = !F && 16 * warp >= nq;   // no row of the warp is valid
 
   load_rows<SS, DP, F>(Qs, pr.q + q0 * pr.sq, pr.sq, nq, pr.D, pr.vec);
   load_rows<SS, DP, F>(Gs, pr.g + q0 * pr.sg, pr.sg, nq, pr.D, pr.vec);
@@ -119,8 +213,8 @@ __device__ __forceinline__ void dq_pass_mma(const Prob& pr, int q0, char* smem, 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const bool ok = row + 8 * h < nq;
-    lse[h] = ok ? pr.lse[q0 + row + 8 * h] * LOG2E : 0.f;
-    delta[h] = ok ? pr.delta[q0 + row + 8 * h] : 0.f;
+    lse[h] = ok ? pr.lse[(q0 + row + 8 * h) * pr.sl] * LOG2E : 0.f;
+    delta[h] = ok ? pr.delta[(q0 + row + 8 * h) * pr.sl] : 0.f;
   }
   float dq[2 * KD][4];
 #pragma unroll
@@ -128,12 +222,19 @@ __device__ __forceinline__ void dq_pass_mma(const Prob& pr, int q0, char* smem, 
   float drw[NT][4];   // REL with gw == BK: drel_w of the fragment's columns
 #pragma unroll
   for (int n = 0; n < NT; ++n) drw[n][0] = drw[n][1] = drw[n][2] = drw[n][3] = 0.f;
-  bool rel_regs = false;
+  bool rel_regs = false, one_hot = false;
   float* dsw = nullptr;
   float* drh_s = nullptr;
   float* drw_s = nullptr;
+  float drh1[2][4], drw1[2][4];   // ONE_HOT: drel_h, drel_w of the warp's rows
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) drh1[n][e] = drw1[n][e] = 0.f;
   if constexpr (Prob::REL) {
     rel_regs = F || pr.gw == BK;
+    if constexpr (Prob::ONE_HOT)
+      one_hot = !rel_regs && pr.gh <= ONE_HOT_MAX && pr.gw <= ONE_HOT_MAX;
     dsw = scratch + warp * 16 * DSS;
     drh_s = scratch + BQ * DSS;
     drw_s = drh_s + BQ * pr.gh;
@@ -154,6 +255,7 @@ __device__ __forceinline__ void dq_pass_mma(const Prob& pr, int q0, char* smem, 
                                        pr.vec);
       cp_commit();
     }
+    if (idle) continue;
 
     float s[NT][4], dp[NT][4];
 #pragma unroll
@@ -178,6 +280,9 @@ __device__ __forceinline__ void dq_pass_mma(const Prob& pr, int q0, char* smem, 
       uint32_t hi[4], lo[4];
       a_frag_split(s, j, hi, lo);
       mma_ab2<KD, SS>(dq, hi, lo, Kb, j);
+      if constexpr (Prob::ONE_HOT) {
+        if (one_hot) one_hot_mma(drh1, drw1, hi, lo, pr.kidx() + k0 + 16 * j);
+      }
     }
 
     if constexpr (Prob::REL) {
@@ -196,7 +301,7 @@ __device__ __forceinline__ void dq_pass_mma(const Prob& pr, int q0, char* smem, 
           rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
           if (t == 0 && (F || row + 8 * h < nq)) pr.drh(q0 + row + 8 * h, kt, rs[h]);
         }
-      } else {
+      } else if (!one_hot) {
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -224,20 +329,24 @@ __device__ __forceinline__ void dq_pass_mma(const Prob& pr, int q0, char* smem, 
     }
   }
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row + 8 * h;
-    if (r >= nq) continue;
-#pragma unroll
-    for (int i = 0; i < 2 * KD; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = 8 * i + 2 * t + e;
-        if (d < pr.D) pr.dq(q0 + r, d, dq[i][2 * h + e] * pr.scale);
-      }
-  }
+  store_rows<KD, SS>(dq, pr.scale, Qs + 16 * warp * SS, min(16, nq - 16 * warp), pr.D,
+                     pr.vec, [&](int r) { return pr.dq_row(q0 + 16 * warp + r); });
   if constexpr (Prob::REL) {
-    if (rel_regs) {
+    if (one_hot) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row + 8 * h;
+        if (r >= nq) continue;
+#pragma unroll
+        for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * nb + 2 * t + e;
+            if (c < pr.gh) pr.drh(q0 + r, c, drh1[nb][2 * h + e]);
+            if (c < pr.gw) pr.drw(q0 + r, c, drw1[nb][2 * h + e]);
+          }
+      }
+    } else if (rel_regs) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = row + 8 * h;
@@ -282,6 +391,7 @@ __device__ __forceinline__ void dkv_pass_mma(const Prob& pr, int k0, char* smem)
   const int row = 16 * warp + g;     // this thread's keys: k0 + row, + 8
   const int nk = min(BQ, pr.NK - k0);
   const int nqt = (pr.N + BQ - 1) / BQ;
+  const bool idle = !F && 16 * warp >= nk;   // no key of the warp is valid
 
   auto stage = [&](int qt) {   // then the caller commits
     const int q0 = qt * BQ, nq = min(BQ, pr.N - q0), b = qt & 1;
@@ -293,9 +403,9 @@ __device__ __forceinline__ void dkv_pass_mma(const Prob& pr, int k0, char* smem)
       const int r = i & (BQ - 1);
       const bool ok = r < nq;
       if (i < BQ)
-        cp_async4(lse_s + b * BQ + r, pr.lse + (ok ? q0 + r : 0), ok ? 4 : 0);
+        cp_async4(lse_s + b * BQ + r, pr.lse + (ok ? (q0 + r) * pr.sl : 0), ok ? 4 : 0);
       else
-        cp_async4(delta_s + b * BQ + r, pr.delta + (ok ? q0 + r : 0), ok ? 4 : 0);
+        cp_async4(delta_s + b * BQ + r, pr.delta + (ok ? (q0 + r) * pr.sl : 0), ok ? 4 : 0);
     }
     pr.stage_q(q0, k0, tabs + b * tab_bytes);
   };
@@ -318,6 +428,7 @@ __device__ __forceinline__ void dkv_pass_mma(const Prob& pr, int k0, char* smem)
       stage(qt + 1);
       cp_commit();
     }
+    if (idle) continue;
     const bf16* Qb = Qr + b * BQ * SS;
     const bf16* Gb = Gs + b * BQ * SS;
 
@@ -352,60 +463,73 @@ __device__ __forceinline__ void dkv_pass_mma(const Prob& pr, int k0, char* smem)
     }
   }
 
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row + 8 * h;
-    if (r >= nk) continue;
-#pragma unroll
-    for (int i = 0; i < 2 * KD; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = 8 * i + 2 * t + e;
-        if (d < pr.D) {
-          pr.dk(k0 + r, d, dk[i][2 * h + e] * pr.scale);
-          pr.dv(k0 + r, d, dv[i][2 * h + e]);
-        }
-      }
-  }
+  const int nr = min(16, nk - 16 * warp), r0 = k0 + 16 * warp;
+  store_rows<KD, SS>(dk, pr.scale, Ks + 16 * warp * SS, nr, pr.D, pr.vec,
+                     [&](int r) { return pr.dk_row(r0 + r); });
+  store_rows<KD, SS>(dv, 1.f, Vs + 16 * warp * SS, nr, pr.D, pr.vec,
+                     [&](int r) { return pr.dv_row(r0 + r); });
 }
 
-// Both passes in one launch: blocks x < n_dkv are the dk/dv pass (a key
-// tile each; the longer blocks start first), the others the dq pass (a
-// query tile each), so the two passes share the card and neither leaves a
-// tail of idle SMs.
-template <class Prob, int KD>
-__global__ void __launch_bounds__(NTHREADS) bwd_mma_kernel(typename Prob::Args a, int n_dkv) {
+// The passes a launch runs: both in one launch (blocks x < n_dkv are the
+// dk/dv pass, a key tile each, the longer blocks first; the others the dq
+// pass, a query tile each), so that they share the card and neither leaves
+// a tail of idle SMs; or one pass a launch, so that each is compiled, and
+// given registers, on its own (Prob::TWO_LAUNCHES).
+enum Passes { BOTH, DQ, DKV };
+
+// blocks an SM each kind of launch is compiled for: a launch of one pass
+// for three (at most 168 registers a thread: both passes spill a little at
+// D = 80, and still run faster at ViT-H's windows than at two blocks an
+// SM), a launch of both for two (about 240 registers)
+template <int P> constexpr int min_blocks() { return P == BOTH ? 1 : 3; }
+
+template <class Prob, int KD, int P>
+__global__ void __launch_bounds__(NTHREADS, min_blocks<P>())
+    bwd_mma_kernel(typename Prob::Args a, int n_dkv) {
   extern __shared__ __align__(16) char smem[];
   Prob pr(a, blockIdx.y);
-  if (blockIdx.x >= n_dkv) {
-    const int q0 = (blockIdx.x - n_dkv) * BQ;
+  // only the columns D .. DP - 1 rely on zeros (load_rows writes every row)
+  const bool pad = pr.D != 16 * KD;
+  if (P == DQ || (P == BOTH && blockIdx.x >= n_dkv)) {
+    const int q0 = (blockIdx.x - (P == BOTH ? n_dkv : 0)) * BQ;
     char* extra = smem + dq_tile_bytes<KD>();
     pr.stage(q0, extra);
-    zero_smem(smem, dq_tile_bytes<KD>());
+    if (pad) zero_smem(smem, dq_tile_bytes<KD>());
     float* scratch = reinterpret_cast<float*>(extra + Prob::dq_extra_bytes(a));
-    if constexpr (Prob::REL) zero_smem(scratch, rel_grad_bytes(a.gh, a.gw));
+    if constexpr (Prob::REL) zero_smem(scratch, rel_grad_bytes(a.gh, a.gw, Prob::ONE_HOT));
     __syncthreads();
     dq_pass_mma<KD>(pr, q0, smem, scratch);
   } else {
-    zero_smem(smem, dkv_tile_bytes<KD>());
+    if (pad) zero_smem(smem, dkv_tile_bytes<KD>());
     __syncthreads();
     dkv_pass_mma<KD>(pr, blockIdx.x * BQ, smem);
   }
+}
+
+template <class Prob, int KD, int P>
+cudaError_t launch_pass(const typename Prob::Args& a, dim3 grid, size_t smem, int n_dkv,
+                        cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(bwd_mma_kernel<Prob, KD, P>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  bwd_mma_kernel<Prob, KD, P><<<grid, NTHREADS, smem, st>>>(a, n_dkv);
+  return cudaGetLastError();
 }
 
 template <class Prob, int KD>
 cudaError_t launch_bwd_kd(const typename Prob::Args& a, int n_bh, int N, int NK,
                           cudaStream_t st) {
   size_t dq_smem = dq_tile_bytes<KD>() + Prob::dq_extra_bytes(a);
-  if constexpr (Prob::REL) dq_smem += rel_grad_bytes(a.gh, a.gw);
+  if constexpr (Prob::REL) dq_smem += rel_grad_bytes(a.gh, a.gw, Prob::ONE_HOT);
   const size_t dkv_smem = dkv_tile_bytes<KD>() + 2 * Prob::dkv_extra_bytes(a);
-  const size_t smem = dq_smem > dkv_smem ? dq_smem : dkv_smem;
-  cudaError_t e = cudaFuncSetAttribute(bwd_mma_kernel<Prob, KD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (e != cudaSuccess) return e;
   const int n_dq = (N + BQ - 1) / BQ, n_dkv = (NK + BQ - 1) / BQ;
-  bwd_mma_kernel<Prob, KD><<<dim3(n_dq + n_dkv, n_bh), NTHREADS, smem, st>>>(a, n_dkv);
-  return cudaGetLastError();
+  if constexpr (Prob::TWO_LAUNCHES) {
+    cudaError_t e = launch_pass<Prob, KD, DQ>(a, dim3(n_dq, n_bh), dq_smem, 0, st);
+    if (e != cudaSuccess) return e;
+    return launch_pass<Prob, KD, DKV>(a, dim3(n_dkv, n_bh), dkv_smem, 0, st);
+  }
+  return launch_pass<Prob, KD, BOTH>(a, dim3(n_dq + n_dkv, n_bh),
+                                     dq_smem > dkv_smem ? dq_smem : dkv_smem, n_dkv, st);
 }
 
 // Both passes for head dims up to 128 (KD = ceil(D/16) <= 8).
@@ -423,6 +547,44 @@ cudaError_t launch_bwd(const typename Prob::Args& a, int D, int n_bh, int N, int
     case 8: return launch_bwd_kd<Prob, 8>(a, n_bh, N, NK, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The windowed blocks' rel-pos bias in the backward (K2b, K10b): the dq pass
+// stages its query tile's rel rows and the key table with the forward's
+// WinRel and adds the bias as the forward does, s + (rel_h + rel_w), so p
+// matches the forward's lse. The dk/dv pass stages each query tile's rows
+// alone (WinRel<R>::stage_rows, [64][ws] for rel_h, then for rel_w) and adds
+// the bias of the thread's two keys, whose grid row and column it divides
+// out per tile.
+// ---------------------------------------------------------------------------
+
+// s[n][2 h + j] += rel_h[c, kh] + rel_w[c, kw] for the keys key + 8 h (kh, kw
+// = its grid row and column; keys >= nk read column 0, masked afterwards)
+// and the tile's queries c = 8 n + 2 t + j, from the rows staged in buf
+template <typename R>
+__device__ __forceinline__ void win_bias_kq(float (&s)[NT][4], const char* buf, int ws, int key,
+                                            int nk) {
+  const int t = threadIdx.x & 3;
+  const R* th = reinterpret_cast<const R*>(buf);
+  const R* tw = th + BQ * ws;
+  int kh[2], kw[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kk = key + 8 * h;
+    kh[h] = kk < nk ? kk / ws : 0;
+    kw[h] = kk < nk ? kk - kh[h] * ws : 0;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = 8 * n + 2 * t + j;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        s[n][2 * h + j] += WinRel<R>::to_float(th[c * ws + kh[h]]) +
+                           WinRel<R>::to_float(tw[c * ws + kw[h]]);
+    }
 }
 
 // ---------------------------------------------------------------------------

@@ -136,6 +136,8 @@ template <bool FAST_>
 struct GlobalBwdMma {
   using bf16 = tc::bf16;
   static constexpr bool REL = true;
+  static constexpr bool ONE_HOT = false;
+  static constexpr bool TWO_LAUNCHES = false;
   static constexpr bool FAST = FAST_;
   struct Args {
     const bf16* q;
@@ -186,6 +188,7 @@ struct GlobalBwdMma {
   bf16* drhp;
   bf16* drwp;
   int64_t sq, sk, sv, sg;
+  static constexpr int64_t sl = 1;   // lse and delta rows
   bool vec, rel_vec;
   int N, NK, D, gh, gw;
   float scale;
@@ -289,15 +292,9 @@ struct GlobalBwdMma {
         }
     }
   }
-  __device__ void dq(int r, int d, float x) const {
-    dqp[int64_t(r) * D + d] = __float2bfloat16_rn(x);
-  }
-  __device__ void dk(int key, int d, float x) const {
-    dkp[int64_t(key) * D + d] = __float2bfloat16_rn(x);
-  }
-  __device__ void dv(int key, int d, float x) const {
-    dvp[int64_t(key) * D + d] = __float2bfloat16_rn(x);
-  }
+  __device__ bf16* dq_row(int r) const { return dqp + int64_t(r) * D; }
+  __device__ bf16* dk_row(int key) const { return dkp + int64_t(key) * D; }
+  __device__ bf16* dv_row(int key) const { return dvp + int64_t(key) * D; }
   __device__ void drh(int r, int i, float x) const {
     drhp[int64_t(r) * gh + i] = __float2bfloat16_rn(x);
   }
@@ -313,7 +310,8 @@ int launch_global(const void* q, const void* k, const void* v, const void* rel_h
                   void* dk, void* dv, void* drel_h, void* drel_w, int B, int H, int N, int D,
                   int gh, int gw, float scale, cudaStream_t st) {
   using bf16 = tc::bf16;
-  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(g);
+  const bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(g) &&
+                   aligned16(dq) && aligned16(dk) && aligned16(dv);
   const bool rel_vec = gh % 8 == 0 && gw % 8 == 0 && aligned16(rel_h) && aligned16(rel_w);
   // FAST: aligned rows, D a multiple of 16, whole tiles, and one key tile
   // per grid row (gw = 64, ViT-H's) with the rel rows staged: drel_w in

@@ -59,14 +59,18 @@ sam_flash_attention_bwd (csrc/sam_flash_attention_bwd.cu)
     64-key tile, both recomputing p from lse; no atomics. 7B training
     [2, 32, 767, 128] bf16 (K1b): about 101 MB, bound by bytes (30 us);
     ViT-H global (K3b): about 430 GFLOP, bound by operations (434 us).
-    K1b's and K3b's bf16 routes run the same two passes, in one launch, on
-    the tensor cores (csrc/attention_mma_bwd.cuh): s and dp as bf16
-    products, dv, dk and dq with p and ds split into two bf16 parts (hi +
-    lo, about 16 significant bits), deterministic as before. K1b takes the
-    engine's pair layout (8 warps, warps w and w + 4 splitting a tile's
-    products, so that D = 128 fits the registers) and forms s as scale
-    times the fp32 sum of q . k (K1's function; K3b stages bf16(q * scale),
-    SAM's).
+    The bf16 routes of K1b, K2b, K3b and K10b run the same two passes on
+    the tensor cores (csrc/attention_mma_bwd.cuh; K1b and K3b in one
+    launch, K2b and K10b in two): s and dp as bf16 products, dv, dk and dq
+    with p and ds split into two bf16 parts (hi + lo, about 16 significant
+    bits), deterministic as before. K1b takes the engine's pair layout (8
+    warps, warps w and w + 4 splitting a tile's products, so that D = 128
+    fits the registers) and forms s as scale times the fp32 sum of q . k
+    (K1's function; K2b, K3b and K10b stage bf16(q * scale), SAM's). K2b
+    and K10b stage the rel rows and K2's key table as the forward does and
+    form drel as products of the split ds with one-hot matrices
+    (window_bwd_plan mirrors their launch); K10b gives K2b's bits on
+    repacked values.
 
 K4 decode_attention_q (csrc/decode_attention_q.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention_q
@@ -103,13 +107,12 @@ and (batch, head) or (window, head); key tiles of 64 stream through shared
 memory; the logits tile and its bias live only in registers and shared
 memory, with an fp32 online softmax, so no [N, N] tensor reaches device
 memory — the part of each bound that is bytes is met by reading each input
-once per query tile. In bf16, K1, K1b, K2, K3, K3b and K10 run on the
-tensor-core engines (csrc/attention_mma.cuh, attention_mma_bwd.cuh: the
-same tiles, each warp 16 rows, mma.sync bf16 products with fp32 sums, a
-problem object per kernel), and so does K1's bf16 forward; K2b and K10b
-run their products on the CUDA cores in fp32, far from the tensor-core
-bound, and every fp32 call stays there (the fp32 parity runs need exact
-fp32 products). wgmma/TMA tiles are later work.
+once per query tile. In bf16, K1, K1b, K2, K2b, K3, K3b, K10 and K10b
+run on the tensor-core engines (csrc/attention_mma.cuh,
+attention_mma_bwd.cuh: the same tiles, each warp 16 rows, mma.sync bf16
+products with fp32 sums, a problem object per kernel); every fp32 call
+stays on the CUDA-core engines (the fp32 parity runs need exact fp32
+products). wgmma/TMA tiles are later work.
 """
 from __future__ import annotations
 
@@ -143,6 +146,7 @@ _SIGNATURES = {
     "wg_flash_attention_bwd": ("flash_attention_bwd", [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
     "wg_sam_window_attention_bwd": ("sam_window_attention_bwd",
                                     [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
+    "wg_sam_window_delta": ("sam_window_attention_bwd", [_P] * 3 + [_I] * 3 + [_P]),
     "wg_sam_flash_attention_bwd": ("sam_flash_attention_bwd",
                                    [_P] * 13 + [_I] * 6 + [_F, _I, _P]),
     "wg_sam_window_split_fwd": ("sam_window_attention_split",
@@ -394,6 +398,21 @@ def sam_window_attention_packed_bwd_reference(qkv, rel, num_heads: int, head_dim
             torch.cat([_win_merge(x) for x in grads[3:]], dim=-1))
 
 
+def _window_delta(name: str, g: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """_delta on the card for K2b and K10b: g and out [..., D] of one shape
+    and dtype (contiguous after the call) -> delta [...] fp32, by one launch
+    of csrc/sam_window_attention_bwd.cu's row_dot_kernel (fp32 sums of the
+    exact products, in another order than _delta's)."""
+    if out.shape != g.shape or out.dtype != g.dtype or out.device != g.device:
+        raise ValueError(f"{name}: bad out {out.dtype} {tuple(out.shape)} for g "
+                         f"{g.dtype} {tuple(g.shape)}")
+    g, out = g.contiguous(), out.contiguous()
+    delta = torch.empty(g.shape[:-1], dtype=torch.float32, device=g.device)
+    _launch("wg_sam_window_delta", g.device, g.data_ptr(), out.data_ptr(), delta.data_ptr(),
+            delta.numel(), g.shape[-1], _DTYPES[g.dtype])
+    return delta
+
+
 def _check_window(name: str, qkv, rel, h: int, d: int, ws: int) -> None:
     bw, t, _ = qkv.shape
     if (t != ws * ws or qkv.shape[-1] != 3 * h * d or tuple(rel.shape) != (bw, t, 2 * h * ws)
@@ -422,8 +441,9 @@ def sam_window_attention_packed_bwd(qkv, rel, num_heads: int, head_dim: int, win
                                     out, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2b: (dqkv [BW, T, 3*H*D], drel [BW, T, 2*H*ws]) of
     sam_window_attention_packed for the output gradient g [BW, T, H*D], in
-    the packed layouts. Two launches: a dq + drel pass over 64-query tiles
-    and a dk/dv pass over 64-key tiles of each (window, head)."""
+    the packed layouts: a dq + drel pass over 64-query tiles, then a dk/dv
+    pass over 64-key tiles of each (window, head), two launches, on the
+    tensor cores for bf16, on the CUDA cores for fp32."""
     h, d, ws = num_heads, head_dim, window
     if qkv.device.type == "cpu":
         return sam_window_attention_packed_bwd_reference(qkv, rel, h, d, ws, out, lse, g)
@@ -435,7 +455,7 @@ def sam_window_attention_packed_bwd(qkv, rel, num_heads: int, head_dim: int, win
         raise ValueError(f"{name}: bad g {tuple(g.shape)} or lse {tuple(lse.shape)}")
     qkv, rel, g = qkv.contiguous(), rel.contiguous(), g.contiguous()
     lse = lse.float().contiguous()
-    delta = _delta(g.reshape(bw, t, h, d), out.reshape(bw, t, h, d)).contiguous()
+    delta = _window_delta(name, g.reshape(bw, t, h, d), out.reshape(bw, t, h, d))
     dqkv, drel = torch.empty_like(qkv), torch.empty_like(rel)
     _launch("wg_sam_window_attention_bwd", qkv.device,
             *[x.data_ptr() for x in (qkv, rel, g, lse, delta, dqkv, drel)],
@@ -553,9 +573,11 @@ def _window_split_fwd(q, k, v, rel_h, rel_w, ws: int) -> Tuple[torch.Tensor, tor
 
 def sam_window_attention_bwd(q, k, v, rel_h, rel_w, window: int, out, lse, g):
     """K10b: (dq, dk, dv, drel_h, drel_w) of sam_window_attention for the
-    output gradient g, from the forward's out and lse. Two launches: a dq
-    pass per 64-query tile that also sums drel_h and drel_w, and a dk/dv
-    pass per 64-key tile of each (window, head)."""
+    output gradient g, from the forward's out and lse: a dq pass per
+    64-query tile that also sums drel_h and drel_w, and a dk/dv pass per
+    64-key tile of each (window, head), two launches on K2b's engines
+    (bf16 q: the tensor cores, with bf16 or fp32 rel tables; fp32: the
+    CUDA cores)."""
     ws = window
     if q.device.type == "cpu":
         return sam_window_attention_bwd_reference(q, k, v, rel_h, rel_w, ws, out, lse, g)
@@ -566,7 +588,7 @@ def sam_window_attention_bwd(q, k, v, rel_h, rel_w, window: int, out, lse, g):
     if g.shape != q.shape or tuple(lse.shape) != (bw, h, t):
         raise ValueError(f"{name}: bad g {tuple(g.shape)} or lse {tuple(lse.shape)}")
     q, k, v, g, rel_h, rel_w = (x.contiguous() for x in (q, k, v, g, rel_h, rel_w))
-    lse, delta = lse.float().contiguous(), _delta(g, out).contiguous()
+    lse, delta = lse.float().contiguous(), _window_delta(name, g, out)
     grads = [torch.empty_like(x) for x in (q, k, v, rel_h, rel_w)]
     _launch("wg_sam_window_split_bwd", q.device,
             *[x.data_ptr() for x in (q, k, v, rel_h, rel_w, g, lse, delta, *grads)],
@@ -612,6 +634,55 @@ def sam_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 sam_window_attention.launches = 0
+
+
+# the bf16 backward engine's tiles (csrc/attention_mma_bwd.cuh, the 4-warp
+# layout): BWD_TILE rows a block's own tile and a streamed tile,
+# BWD_WARP_ROWS rows a warp; grids of at most BWD_ONE_HOT rows and columns
+# take the one-hot rel-gradient path
+BWD_TILE, BWD_WARP_ROWS, BWD_ONE_HOT = 64, 16, 16
+
+
+def window_bwd_plan(t: int, ws: int) -> Dict[str, list]:
+    """The bf16 route of K2b and K10b over one (window, head) of T = ws^2
+    tokens, as csrc/attention_mma_bwd.cuh runs it (a dq block per query
+    tile, then a dk/dv block per key tile). Returns
+      "products": the (rows, columns) ranges each warp multiplies against
+          each streamed tile, the same for both passes (N == NK): the dq
+          pass's rows are queries and columns keys, the dk/dv pass's the
+          other way round. A warp whose rows all lie past T forms none; a
+          streamed tile runs whole (its rows past T are zeros);
+      "drel_h", "drel_w": the dq pass's rel-gradient terms in the order the
+          kernel adds them to each query's accumulators, (grid row or
+          column, the keys summed into it at once): ws == 64 keeps them in
+          registers (key tile kt is grid row kt); ws <= 16 takes the
+          one-hot products, one step of 16 keys at a time; any other ws the
+          general path, a warp's ds block summed from shared memory, one
+          key tile at a time. A grid row that a step or tile boundary cuts
+          is summed in parts."""
+    n, g = -(-t // BWD_TILE), BWD_WARP_ROWS
+    plan = {"products": [], "drel_h": [], "drel_w": []}
+    for own in range(n):
+        o0 = own * BWD_TILE
+        for w in range(BWD_TILE // g):
+            if w * g < t - o0:
+                plan["products"] += [(range(o0 + w * g, o0 + (w + 1) * g),
+                                      range(st * BWD_TILE, (st + 1) * BWD_TILE))
+                                     for st in range(n)]
+    if ws == BWD_TILE:
+        for st in range(n):
+            k0 = st * BWD_TILE
+            plan["drel_h"].append((st, list(range(k0, k0 + BWD_TILE))))
+            plan["drel_w"] += [(c, [k0 + c]) for c in range(BWD_TILE)]
+        return plan
+    step = g if ws <= BWD_ONE_HOT else BWD_TILE
+    for k0 in range(0, t, step):
+        keys = range(k0, min(k0 + step, t))
+        for rr in sorted({k // ws for k in keys}):
+            plan["drel_h"].append((rr, [k for k in keys if k // ws == rr]))
+        for c in sorted({k % ws for k in keys}, key=lambda c: (c - k0) % ws):
+            plan["drel_w"].append((c, [k for k in keys if k % ws == c]))
+    return plan
 
 
 # ---------------------------------------------------------------------------

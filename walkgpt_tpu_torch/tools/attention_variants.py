@@ -5,27 +5,37 @@ sources, and against another tree's, on one GPU.
     python3 walkgpt_tpu_torch/tools/attention_variants.py [--parent DIR]
 
 Copies `walkgpt_tpu_torch/csrc` twice into `build/variants/` and edits each
-copy, then builds K1 (`flash_attention.cu`), K3 (`sam_flash_attention.cu`),
-K3b (`sam_flash_attention_bwd.cu`) and K1b (`flash_attention_bwd.cu`) from
-every copy in parallel:
+copy, then builds K1 (`flash_attention.cu`), K2 and K2b
+(`sam_window_attention.cu`, `sam_window_attention_bwd.cu`), K3
+(`sam_flash_attention.cu`), K3b (`sam_flash_attention_bwd.cu`) and K1b
+(`flash_attention_bwd.cu`) from every copy in parallel:
   * general: the launchers of K3 and K3b never choose the production
     instantiation (FAST, no bounds checks and constant strides), so every
-    shape runs the general one. K1, K1b and K2 have no such instantiation
-    (the prefill's N = 447, the training step's N = 767 and the windows'
-    T = 196 leave ragged tiles);
+    shape runs the general one, and the backward engine's warps whose rows
+    all lie past the end of a ragged tile (K2b's last tile at T = 196 holds
+    4 rows) form their products too. K1, K1b and K2 have no FAST
+    instantiation (the prefill's N = 447, the training step's N = 767 and
+    the windows' T = 196 leave ragged tiles);
   * nolo: `mma_ab2` and `mma_ab2_part` drop their two lo products, so K1's
-    p . v and K3b's and K1b's dv, dk and dq take p and ds rounded to bf16
-    alone.
+    p . v and K1b's, K2b's and K3b's dv, dk and dq take p and ds rounded to
+    bf16 alone;
+  * one_launch (K2 and K2b only): K2b runs its dq and dk/dv passes in one
+    launch.
 Then, on bf16 inputs:
-  1. K3 and K3b at ViT-H's global attention, [2, 16, 4096, 80], in the
-     package's build and in `general`, interleaved (package, general,
-     general, package, package, general), ms per call by CUDA events; both
-     builds must give the same bits;
+  1. K3 and K3b at ViT-H's global attention, [2, 16, 4096, 80], and K2b at
+     its windows, qkv [50, 196, 3840], in the package's build and in
+     `general`, interleaved (package, general, general, package, package,
+     general), ms per call by CUDA events; both builds must give the same
+     bits; then K2b in the package's build and in `one_launch` (its two
+     passes in one launch of the engine's kernel for both, as K3b runs
+     them), interleaved, the same bits;
   2. chip_smoke.py's split-product checks on each build: k3b_split_check at
-     the 64 x 64 grid (D = 80) and the 12 x 40 grid (D = 64), k1b_split_check
-     at N = 767 (D = 128) and N = 130 (D = 64), k1_split_check at N = 447
-     (D = 128) and N = 130 (D = 80), causal with padded keys: the package's
-     and `general` must pass them and `nolo` must fail them;
+     the 64 x 64 grid (D = 80) and the 12 x 40 grid (D = 64),
+     k2b_split_check at ws = 14 (D = 80) and ws = 7 (D = 20),
+     k1b_split_check at N = 767 (D = 128) and N = 130 (D = 64),
+     k1_split_check at N = 447 (D = 128) and N = 130 (D = 80), causal with
+     padded keys: the package's and `general` must pass them and `nolo`
+     must fail them;
   3. with --parent (another tree's csrc directory, e.g. the parent commit's
      from `git archive` into build/), K2, K3 and K10 (`sam_window_attention`,
      `sam_flash_attention`, `sam_window_attention_split`) built from it: on
@@ -50,14 +60,20 @@ import chip_smoke as cs  # noqa: E402
 from walkgpt_tpu_torch.ops import cuda_build  # noqa: E402
 
 NAMES = ("flash_attention", "sam_flash_attention", "sam_flash_attention_bwd",
-         "flash_attention_bwd")
+         "flash_attention_bwd", "sam_window_attention", "sam_window_attention_bwd")
 PARENT_NAMES = ("sam_window_attention", "sam_flash_attention", "sam_window_attention_split")
 LO = "    mma(out[2 * dp], lo, bf[0], bf[1]);\n    mma(out[2 * dp + 1], lo, bf[2], bf[3]);\n"
 EDITS = {
     "general": [(f, "const bool fast = vec", "const bool fast = false && vec")
-                for f in ("sam_flash_attention.cu", "sam_flash_attention_bwd.cu")],
+                for f in ("sam_flash_attention.cu", "sam_flash_attention_bwd.cu")]
+    + [("attention_mma_bwd.cuh", f"const bool idle = !F && 16 * warp >= {n};",
+        "const bool idle = false;") for n in ("nq", "nk")],
     "nolo": [("attention_mma.cuh", LO, ""), ("attention_mma_bwd.cuh", LO, "")],
+    "one_launch": [("sam_window_attention_bwd.cu", "TWO_LAUNCHES = true;",
+                    "TWO_LAUNCHES = false;")],
 }
+# the sources a variant builds, where not all of NAMES
+BUILDS = {"one_launch": ("sam_window_attention", "sam_window_attention_bwd")}
 PACKAGE = (cuda_build.CSRC, cuda_build.BUILD_DIR)
 
 
@@ -85,7 +101,7 @@ def build_all():
             (root / "csrc" / f).write_text(src.replace(old, new))
         use(tag)
         cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        for name in NAMES:
+        for name in BUILDS.get(tag, NAMES):
             cmd = [cuda_build.nvcc_path(), *cuda_build.FLAGS, "-o",
                    str(cuda_build.library_path(name)), str(cuda_build.CSRC / f"{name}.cu")]
             procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -140,21 +156,32 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(7)
     fwd = cs.k3_case(dev, torch.bfloat16, 2, 16, 64, 64, 80, gen)[0]
     bwd = cs.k3b_case(dev, torch.bfloat16, 2, 16, 64, 64, 80, gen)[0]
+    win = cs.k2b_case(dev, torch.bfloat16, 50, 16, 80, 14, gen)[0]
     first = {}
     for tag in ("package", "general", "general", "package", "package", "general"):
         use(tag)
         out = fwd()[0]
         grads = bwd()
+        win_grads = win()
         torch.cuda.synchronize()
-        first.setdefault(tag, (out, *grads))
-        print(f"  {tag:8s} K3 ms={cs.cuda_ms(fwd, 30):.4f}  K3b ms={cs.cuda_ms(bwd, 10):.4f}",
-              flush=True)
+        first.setdefault(tag, (out, *grads, *win_grads))
+        print(f"  {tag:8s} K3 ms={cs.cuda_ms(fwd, 30):.4f}  K3b ms={cs.cuda_ms(bwd, 10):.4f}"
+              f"  K2b ms={cs.cuda_ms(win, 30):.4f}", flush=True)
     same = all(torch.equal(a, b) for a, b in zip(first["package"], first["general"]))
     ok &= same
-    print(f"  general gives the package's bits (out, dq, dk, dv, drel_h, drel_w): {same}",
-          flush=True)
+    print(f"  general gives the package's bits (K3's out; K3b's dq, dk, dv, drel_h, drel_w; "
+          f"K2b's dqkv, drel): {same}", flush=True)
+    for tag in ("package", "one_launch", "one_launch", "package"):
+        use(tag)
+        first.setdefault(tag, win())
+        print(f"  {tag:10s} K2b ms={cs.cuda_ms(win, 30):.4f}", flush=True)
+    same = all(torch.equal(a, b) for a, b in zip(first["package"][-2:], first["one_launch"]))
+    ok &= same
+    print(f"  one_launch gives the package's bits (K2b's dqkv, drel): {same}", flush=True)
     checks = [(f"K3b {gh}x{gw} D={d}", lambda gh=gh, gw=gw, d=d: cs.k3b_split_check(
         dev, gh, gw, d, gen)) for gh, gw, d in ((64, 64, 80), (12, 40, 64))]
+    checks += [(f"K2b ws={ws} D={d}", lambda ws=ws, d=d: cs.k2b_split_check(dev, ws, d, gen))
+               for ws, d in ((14, 80), (7, 20))]
     checks += [(f"K1b N={n} D={d}", lambda n=n, d=d: cs.k1b_split_check(dev, n, d, gen))
                for n, d in ((767, 128), (130, 64))]
     checks += [(f"K1 N={n} D={d}", lambda n=n, d=d: cs.k1_split_check(dev, n, d, gen))
