@@ -32,6 +32,10 @@ version's bit for bit (same fp32 division, same rounding to x's dtype, same
 half-to-even round); K13b's int32 sums are exact and its epilogue is the
 plain version's operation for operation, so its outputs agree to erff /
 tanhf last places: rtol 1e-6 in fp32, one bf16 step (2^-8) in bf16.
+K11's bf16 route (csrc/decode_flat.cuh) repeats the walk's expressions in
+the same order, and K13b's tensor-core route (three launches, wgmma) has
+the first design's exact int32 sums, codes and epilogue: each equals its
+other route bit for bit.
 K10 and K10b take K2's and K2b's bounds (a bf16 output of either, or a
 bf16 q with fp32 rel tables, the bf16 ones); K10 runs K2's engine with the
 same logits, so on repacked values its out and lse equal K2's bit for bit.
@@ -413,6 +417,25 @@ def test_k11_kernel_matches_plain(dev, dtype, h, n_kv, d, l, block):
     assert fa.decode_attention.launches == before + 1
     _close(out, fa.decode_attention_reference(q, k, v, mask, n_kv=n_kv, layer=1, block=block),
            dtype)
+
+
+@pytest.mark.parametrize("h,n_kv,d,l,block", [(4, 2, 8, 16, 8), (6, 3, 20, 96, 32),
+                                              (32, 32, 128, 512, 256), (16, 2, 64, 256, 64),
+                                              (32, 1, 64, 768, 256), (6, 3, 40, 96, 256)])
+def test_k11_flat_engine_equals_the_walk(dev, h, n_kv, d, l, block):
+    g = torch.Generator(device=dev).manual_seed(h * d + l + 1)
+    b = 3
+    q = torch.randn(b, h * d, generator=g, device=dev).bfloat16()
+    k = torch.randn(2, b, l, n_kv * d, generator=g, device=dev).bfloat16()
+    v = torch.randn(2, b, l, n_kv * d, generator=g, device=dev).bfloat16()
+    mask = torch.rand(b, l, generator=g, device=dev) < 0.8
+    mask[:, 0] = True
+    before = fa.decode_attention.launches
+    out = fa.decode_attention(q, k, v, mask, n_kv=n_kv, layer=1, block=block)
+    walk = fa.decode_attention_walk(q, k, v, mask, n_kv=n_kv, layer=1, block=block)
+    torch.cuda.synchronize()
+    assert fa.decode_attention.launches == before + 1
+    assert torch.equal(out, walk)
 
 
 def test_decode_wrappers_raise_instead_of_falling_back(dev):
@@ -923,6 +946,22 @@ def test_k13b_kernel_matches_plain(dev, dtype, m, k, n, bias, act):
     scale = float(want.float().abs().max())
     rtol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
     torch.testing.assert_close(y.float(), want.float(), rtol=rtol, atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,bias,act", [
+    (1, 64, 128, False, None), (37, 256, 384, True, "gelu_exact"), (130, 96, 20, True, "gelu_tanh"),
+    (300, 400, 260, True, None), (8192, 1280, 5120, True, "gelu_exact")])
+def test_k13b_tensor_core_route_equals_the_first_design(dev, dtype, m, k, n, bias, act):
+    g = torch.Generator(device=dev).manual_seed(m + k + n + 1)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    w = quant.convert_proj({"w": torch.randn(k, n, generator=g, device=dev) * 0.05}, True)
+    b = torch.randn(n, generator=g, device=dev) * 0.1 if bias else None
+    assert int8_gemm.w8a8_gemm_plan(m, k, n)["route"] == "wgmma"
+    y = int8_gemm.w8a8_gemm(x, w["w_q"], w["w_scale"], b, act=act)
+    first = int8_gemm.w8a8_gemm_mma_sync(x, w["w_q"], w["w_scale"], b, act=act)
+    torch.cuda.synchronize()
+    assert torch.equal(y, first)
 
 
 def test_k12_k13_wrappers_raise_instead_of_falling_back(dev):

@@ -24,13 +24,29 @@
 // operations, about 54 us at 1,979 TOP/s).
 // Design. K13a: one warp per row (8 rows per block of 256 threads), two
 // passes over the row (absmax, then codes), 4 values per lane per load.
-// K13b: a 64 x 128 output tile per block of 8 warps. The block first takes
-// its rows' inv and sx (a warp per row, over all of K), then walks K in
-// 64-byte steps: the x tile is quantized on the fly into shared memory (4
-// codes per 32-bit word along K), the w_q tile is transposed into the same
-// K-packed words, and each warp runs int8 mma.sync m16n8k32 on its 32 x 32
-// sub-tile. The int32 sums are exact, so their order does not matter.
-// Requires K % 4 == 0, N % 4 == 0 and 16-byte aligned x rows.
+// K13b (wg_w8a8_gemm_tc) in three launches on the wrapper's scratch: K13a's
+// quantize_rows writes the codes xq [M, K] and sx [M] once (the first
+// design recomputed every row's absmax and codes in each of the N / 128
+// column tiles); transpose_w writes w_q K-major, wt [N, K], since the int8
+// wgmma takes both operands K-major; then w8a8_wgmma: a 128 x 128 output
+// tile per block of two consumer warpgroups (64 rows each) and one
+// producer warp, which keeps TMA loads of 128-byte K steps of xq and wt
+// (128B swizzle) in a ring of three stages on mbarriers; each consumer
+// issues four wgmma.mma_async m64n128k32 s8.s8 -> s32 per stage and frees
+// the previous stage when its products are done; the epilogue runs from
+// the accumulator registers with the first design's expressions. Two
+// blocks an SM (97 KB of shared memory each), so one block's epilogue
+// overlaps the other's main loop. The int32 sums are exact and the codes
+// and epilogue are the same, so the output is the first design's bit for
+// bit. K % 16 == 0 is TMA's row-stride rule; other shapes take the first
+// design (wg_w8a8_gemm): a 64 x 128 output tile per block of 8 warps that
+// takes its rows' inv and sx itself, then walks K in 64-byte steps,
+// quantizing the x tile on the fly and transposing the w_q tile into
+// K-packed words in shared memory, int8 mma.sync m16n8k32 on each warp's
+// 32 x 32 sub-tile. Requires K % 4 == 0, N % 4 == 0 and 16-byte aligned x
+// rows.
+#include <cuda.h>   // CUtensorMap and its enums (cuTensorMapEncodeTiled is looked up at run time)
+
 #include "attention_tile.cuh"
 
 namespace {
@@ -238,6 +254,237 @@ w8a8_kernel(const T* __restrict__ x, const int8_t* __restrict__ w, const float* 
       }
 }
 
+// ---- K13b's tensor-core route (w8a8_wgmma) ----
+constexpr int TBM = 128;            // output rows per block (two warpgroups of 64)
+constexpr int TBN = 128;            // output columns per block
+constexpr int TBK = 128;            // bytes of K per stage: one 128B swizzle row
+constexpr int TST = 3;              // ring stages
+constexpr int TNT = 288;            // two consumer warpgroups and one producer warp
+constexpr int TA = TBM * TBK, TB = TBN * TBK;          // bytes of a stage's tiles
+constexpr int TSMEM = TST * (TA + TB) + 1024 + 2 * TST * 8;   // + alignment, barriers
+
+__device__ __forceinline__ uint32_t su32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// a box of the 2-D tensor map at (c0 bytes along K, c1 rows) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+// wgmma descriptor of a K-major tile of 128-byte rows in the 128B swizzle
+// (8-row atoms 1024 bytes apart; the tile 1024-byte aligned)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t saddr) {
+  return uint64_t((saddr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32)
+         | (uint64_t(1) << 62);
+}
+// d (64 x 128 int32, the warpgroup's fragment) += a (64 x 32) . b (128 x 32)^T
+__device__ __forceinline__ void wgmma_s8(int d[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void fence_acc(int d[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// w [K, N] -> wt [N, K] in 64 x 64 byte tiles (K % 4 == 0, N % 4 == 0)
+__global__ void __launch_bounds__(256)
+transpose_w(const int8_t* __restrict__ w, int8_t* __restrict__ wt, int K, int N) {
+  __shared__ uint32_t tile[64][17];    // [k][word of 4 columns]
+  const int k0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
+  for (int i = threadIdx.x; i < 64 * 16; i += 256) {
+    const int r = i >> 4, c = i & 15, k = k0 + r, n = n0 + 4 * c;
+    tile[r][c] = k < K && n < N ? *reinterpret_cast<const uint32_t*>(w + size_t(k) * N + n) : 0u;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < 64 * 16; i += 256) {
+    const int nn = i >> 4, c = i & 15, n = n0 + nn, k = k0 + 4 * c;
+    uint32_t word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      word |= ((tile[4 * c + j][nn >> 2] >> (8 * (nn & 3))) & 0xffu) << (8 * j);
+    if (n < N && k < K) *reinterpret_cast<uint32_t*>(wt + size_t(n) * K + k) = word;
+  }
+}
+
+// two output values of a row at columns n, n + 1
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// ta: xq [M, K] codes, tb: wt [N, K], both K-major; sx [M] from quantize_rows
+template <typename T>
+__global__ void __launch_bounds__(TNT, 2)
+w8a8_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+           const float* __restrict__ sx, const float* __restrict__ ws,
+           const float* __restrict__ bias, T* __restrict__ out, int M, int K, int N, int act) {
+  extern __shared__ unsigned char graw[];
+  const uint32_t raw = su32(graw), base = (raw + 1023u) & ~1023u;
+  const uint32_t full0 = base + TST * (TA + TB), empty0 = full0 + TST * 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN, nk = (K + TBK - 1) / TBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < TST; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2);     // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 8) {                      // the producer
+    if (lane == 0)
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % TST;
+        if (kt >= TST) mbar_wait(empty0 + 8 * s, ((kt / TST) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, TA + TB);
+        tma_load(base + s * TA, &ta, kt * TBK, m0, full0 + 8 * s);
+        tma_load(base + TST * TA + s * TB, &tb, kt * TBK, n0, full0 + 8 * s);
+      }
+    return;
+  }
+  const int wg = warp >> 2;             // this consumer's 64 rows of the tile
+  int d[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) d[i] = 0;
+  fence_acc(d);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % TST;
+    mbar_wait(full0 + 8 * s, (kt / TST) & 1);
+    const uint32_t a = base + s * TA + wg * 64 * TBK, b = base + TST * TA + s * TB;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < TBK / 32; ++kk) wgmma_s8(d, gmma_desc(a + 32 * kk), gmma_desc(b + 32 * kk));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    // the previous stage's products are done: free it
+    if (kt > 0 && (threadIdx.x & 127) == 0) mbar_arrive(empty0 + 8 * ((kt - 1) % TST));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(d);
+
+  // epilogue: d[i] is row 16 * warp + lane / 4 (+ 8 for i % 4 >= 2) of this
+  // warpgroup's 64, column 8 * (i / 4) + 2 * (lane % 4) + i % 2
+  const int r0 = m0 + wg * 64 + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int m = r0 + 8 * r;
+    if (m >= M) continue;
+    const float sxm = sx[m];
+    T* orow = out + size_t(m) * N;
+#pragma unroll
+    for (int j = 0; j < TBN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane & 3);
+      if (n >= N) continue;            // N % 4 == 0: n + 1 < N as well
+      float y0 = __fmul_rn(__fmul_rn(float(d[4 * j + 2 * r]), sxm), ws[n]);
+      float y1 = __fmul_rn(__fmul_rn(float(d[4 * j + 2 * r + 1]), sxm), ws[n + 1]);
+      if (bias) {
+        y0 = __fadd_rn(y0, bias[n]);
+        y1 = __fadd_rn(y1, bias[n + 1]);
+      }
+      store2(orow + n, w8a8_act(y0, act), w8a8_act(y1, act));
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the tensor map of a K-major int8 matrix [rows, K] in boxes of 128 rows x
+// 128 bytes, 128B swizzle, zeros past its edges. Returns 0 or an error code.
+int kmajor_map(CUtensorMap* map, const void* p, int rows, int K) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return int(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {cuuint64_t(K), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(K)};
+  const cuuint32_t box[2] = {TBK, 128}, one[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(p), dims,
+                         strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 2000 + int(r);     // 2000 + CUresult: the encoder refused
+}
+
+template <typename T>
+int w8a8_tc(const T* x, const int8_t* w, const float* ws, const float* bias, int8_t* xq,
+            float* sx, int8_t* wt, T* out, int M, int K, int N, int act, cudaStream_t st) {
+  quantize_rows<T><<<(M + QNT / 32 - 1) / (QNT / 32), QNT, 0, st>>>(x, xq, sx, M, K);
+  transpose_w<<<dim3((N + 63) / 64, (K + 63) / 64), 256, 0, st>>>(w, wt, K, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  CUtensorMap ta, tb;
+  int rc = kmajor_map(&ta, xq, M, K);
+  if (!rc) rc = kmajor_map(&tb, wt, N, K);
+  if (rc) return rc;
+  err = cudaFuncSetAttribute(w8a8_wgmma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, TSMEM);
+  if (err != cudaSuccess) return int(err);
+  w8a8_wgmma<T><<<dim3((N + TBN - 1) / TBN, (M + TBM - 1) / TBM), TNT, TSMEM, st>>>(
+      ta, tb, sx, ws, bias, out, M, K, N, act);
+  return int(cudaGetLastError());
+}
+
 bool bad_shape(int M, int K) { return M <= 0 || K <= 0 || K % 4; }
 
 }  // namespace
@@ -284,4 +531,31 @@ extern "C" int wg_w8a8_gemm(const void* x, const void* w, const void* ws, const 
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
+}
+
+// K13b's tensor-core route (w8a8_wgmma), the arguments of wg_w8a8_gemm and
+// the wrapper's scratch: xq [M, K] int8, sx [M] float32 (K13a's codes and
+// scales) and wt [N, K] int8 (w_q K-major). Requires K % 16 == 0 (TMA's row
+// strides), N % 4 == 0 and 16-byte aligned x rows and w_q. Returns
+// cudaGetLastError() after the last launch, or 2000 + a CUresult where the
+// tensor maps are refused.
+extern "C" int wg_w8a8_gemm_tc(const void* x, const void* w, const void* ws, const void* bias,
+                               void* xq, void* sx, void* wt, void* out, int M, int K, int N,
+                               int act, int dtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad_shape(M, K) || K % 16 || N <= 0 || N % 4 || act < 0 || act > 2)
+    return int(cudaErrorInvalidValue);
+  const int8_t* wq = static_cast<const int8_t*>(w);
+  const float* s = static_cast<const float*>(ws);
+  const float* b = static_cast<const float*>(bias);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* sc = static_cast<float*>(sx);
+  int8_t* t = static_cast<int8_t*>(wt);
+  if (dtype == 0)
+    return w8a8_tc(static_cast<const float*>(x), wq, s, b, q, sc, t, static_cast<float*>(out), M,
+                   K, N, act, st);
+  if (dtype == 1)
+    return w8a8_tc(static_cast<const __nv_bfloat16*>(x), wq, s, b, q, sc, t,
+                   static_cast<__nv_bfloat16*>(out), M, K, N, act, st);
+  return int(cudaErrorInvalidValue);
 }

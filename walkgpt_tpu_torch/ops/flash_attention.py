@@ -88,19 +88,24 @@ K11 decode_attention (csrc/decode_attention.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention
     (_decode_attn_kernel): one decode step over the flat bf16 cache of
     LLMConfig.fused_decode. Dense 7B, 2 rows, 480 of 512 slots valid: about
-    15.7 MB, bound by bytes (about 4.7 us).
+    15.7 MB, bound by bytes (about 4.7 us). The bf16 cache runs
+    csrc/decode_flat.cuh (decode_attention_plan: blocks per (row, kv head,
+    16 query rows, 32 value dims), the cache streamed by cp.async through a
+    ring of 64-key tiles), the walk's bits; the fp32 cache stays on the walk.
 
 K4 and K8 run one engine (csrc/decode_chunk.cuh; K4 at Tc = 1 with its key
 mask): a block per (row, kv head, 16 query rows, 32 value dims; K4 64 value
 dims while n_rep <= 8) walks the cache in DECODE_BLOCK-key blocks with the
 TPU kernels' rounding points,
 int8 tensor-core scores, each block's codes staged 16 bytes a thread; the
-launch plans are decode_attention_q_plan and decode_chunk_plan. K11, K12's
-attention phase and K4's int8 value product (pv_int8, off on the main
-path) run the first engine (csrc/decode_walk.cuh: a block per (row, kv
-head)), whose arithmetic per block the chunk engine repeats, so K8's token
-t is K4's output at the same position, and K4 on either engine the same,
-bit for bit (decode_attention_q_walk runs K4 on the walk for that check).
+launch plans are decode_attention_q_plan and decode_chunk_plan. K11's bf16
+route runs the same split on its own engine (csrc/decode_flat.cuh). K11's
+fp32 route, K12's attention phase and K4's int8 value product (pv_int8, off
+on the main path) run the first engine (csrc/decode_walk.cuh: a block per
+(row, kv head)), whose arithmetic per block the other two repeat, so K8's
+token t is K4's output at the same position, and K4 and K11 on either
+engine the same, bit for bit (decode_attention_q_walk and
+decode_attention_walk run them on the walk for that check).
 
 Design (K1-K3, csrc/attention_tile.cuh): one block per 64-row query tile
 and (batch, head) or (window, head); key tiles of 64 stream through shared
@@ -143,6 +148,7 @@ _SIGNATURES = {
     "wg_decode_attention_q_walk": ("decode_attention_q", [_P] * 7 + [_I] * 10 + [_F, _I, _P]),
     "wg_decode_attention_q_chunk": ("decode_attention_q", [_P] * 7 + [_I] * 9 + [_F, _I, _P]),
     "wg_decode_attention": ("decode_attention", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
+    "wg_decode_attention_walk": ("decode_attention", [_P] * 5 + [_I] * 6 + [_F, _I, _P]),
     "wg_flash_attention_bwd": ("flash_attention_bwd", [_P] * 10 + [_I] * 5 + [_F, _I, _P]),
     "wg_sam_window_attention_bwd": ("sam_window_attention_bwd",
                                     [_P] * 7 + [_I] * 5 + [_F, _I, _P]),
@@ -1210,16 +1216,50 @@ def decode_attention_reference(q, k_cache, v_cache, key_mask, *, n_kv: int, laye
     return (acc / lsum.clamp_min(1e-30)[..., None]).reshape(b, hd).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0,
-                     block: int = DECODE_BLOCK) -> torch.Tensor:
-    """K11: one decode step of attention over a flat fp cache (the cache of
-    LLMConfig.fused_decode). q: [B, H*D]; k_cache/v_cache: [layers, B, L,
-    n_kv*D] in q's dtype with L a multiple of `block`; key_mask: [B, L] bool
-    with a valid key in every row's first block. Returns [B, H*D] in q's
-    dtype. Query head h reads kv head h // (H / n_kv)."""
-    if q.device.type == "cpu":
-        return decode_attention_reference(q, k_cache, v_cache, key_mask, n_kv=n_kv,
-                                          layer=layer, block=block)
+# K11's launch plan (csrc/decode_flat.cuh): a block per (row, kv head),
+# group of FLAT_QUERY_ROWS query rows and slice of FLAT_VALUE_DIMS value
+# dims, its cache streamed in tiles of FLAT_KEY_TILE keys through a ring of
+# FLAT_STAGES slots; the fp32 cache and decode_attention_walk take the walk
+FLAT_QUERY_ROWS = 16
+FLAT_VALUE_DIMS = 32
+FLAT_KEY_TILE = 64
+FLAT_STAGES = 4
+
+
+@functools.lru_cache(maxsize=None)
+def decode_attention_plan(b: int, h: int, n_kv: int, d: int, l: int, bl: int,
+                          bf16: bool = True, walk: bool = False) -> Dict[str, object]:
+    """K11's launch plan, as csrc/decode_attention.cu chooses it: for a bf16
+    cache (and not walk) the flat engine, grid (b * n_kv, query groups,
+    value slices), and the stream of tiles each block stages, in order
+    ("k" or "v", first key, keys): per block of bl keys its k tiles, then
+    its value tiles; else the walk (decode_walk.cuh's decode_launch: grid
+    (b * n_kv, query groups, 1), as many query rows as fit, every dim).
+    Returns the engine, grid, query rows, value dims, shared memory per
+    block in bytes and (flat engine) the tiles."""
+    n_rep = h // n_kv
+    if bf16 and not walk:
+        nvb = l // bl
+        qg = min(n_rep, FLAT_QUERY_ROWS)
+        tiles = [(kind, jb * bl + t0, min(FLAT_KEY_TILE, bl - t0))
+                 for jb in range(nvb) for kind in ("k", "v")
+                 for t0 in range(0, bl, FLAT_KEY_TILE)]
+        ring = FLAT_STAGES * FLAT_KEY_TILE * max(d, FLAT_VALUE_DIMS) * 2
+        smem = ring + qg * d * 4 + qg * (-(-bl // 4) * 4) * 4 + qg * 16
+        return dict(engine="flat", grid=(b * n_kv, -(-n_rep // qg), -(-d // FLAT_VALUE_DIMS)),
+                    query_rows=qg, value_dims=FLAT_VALUE_DIMS, tiles=tiles, smem=smem)
+    # the walk stages the fp cache as fp32 values, 64 keys at a time
+    smem = lambda qg: 4 * (qg * (3 * d + bl + 5) + 64) + 4 * 64 * d
+    qg = min(n_rep, WALK_QUERY_ROWS)
+    while qg > 1 and smem(qg) > _SMEM_MAX:
+        qg -= 1
+    return dict(engine="walk", grid=(b * n_kv, -(-n_rep // qg), 1), query_rows=qg, value_dims=d,
+                smem=smem(qg))
+
+
+def _decode_flat(entry: str, q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int,
+                 block: int) -> torch.Tensor:
+    """K11's launch through the C entry `entry` (the wrapper's, or the walk's)."""
     name = "decode_attention"
     dt = _check_cuda(name, q, k_cache, v_cache)
     b, hd = q.shape
@@ -1230,13 +1270,46 @@ def decode_attention(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0
             or tuple(key_mask.shape) != (b, l) or key_mask.dtype != torch.bool):
         raise ValueError(f"{name}: bad inputs q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
                          f"mask {tuple(key_mask.shape)} {key_mask.dtype}, n_kv={n_kv}")
+    plan = decode_attention_plan(b, hd // d, n_kv, d, l, bl, q.dtype == torch.bfloat16,
+                                 entry == "wg_decode_attention_walk")
+    if plan["smem"] > _SMEM_MAX:
+        raise ValueError(f"{name}: a block of {bl} keys at D={d} does not fit the kernel's "
+                         f"shared memory")
     bufs = [q, k_cache[layer], v_cache[layer], key_mask]
     _check_contiguous(name, q.device, *bufs)
     out = torch.empty((b, hd), dtype=q.dtype, device=q.device)
-    _launch("wg_decode_attention", q.device, *[x.data_ptr() for x in bufs], out.data_ptr(),
+    _launch(entry, q.device, *[x.data_ptr() for x in bufs], out.data_ptr(),
             b, hd // d, n_kv, d, l, bl, 1.0 / math.sqrt(d), dt)
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0,
+                     block: int = DECODE_BLOCK) -> torch.Tensor:
+    """K11: one decode step of attention over a flat fp cache (the cache of
+    LLMConfig.fused_decode). q: [B, H*D]; k_cache/v_cache: [layers, B, L,
+    n_kv*D] in q's dtype with L a multiple of `block`; key_mask: [B, L] bool
+    with a valid key in every row's first block. Returns [B, H*D] in q's
+    dtype. Query head h reads kv head h // (H / n_kv)."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k_cache, v_cache, key_mask, n_kv=n_kv,
+                                          layer=layer, block=block)
+    out = _decode_flat("wg_decode_attention", q, k_cache, v_cache, key_mask, n_kv=n_kv,
+                       layer=layer, block=block)
     decode_attention.launches += 1
     return out
+
+
+def decode_attention_walk(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0,
+                          block: int = DECODE_BLOCK) -> torch.Tensor:
+    """K11 on the walk engine (csrc/decode_walk.cuh) in both dtypes, CUDA
+    tensors only: the route decode_attention's bf16 engine is held against,
+    bit for bit (chip_smoke.py, tools/decode_kernels.py). decode_attention
+    never calls it for a bf16 cache, and it counts no launches. Arguments
+    as decode_attention's."""
+    if q.device.type != "cuda":
+        raise ValueError("decode_attention_walk: the walk takes CUDA tensors")
+    return _decode_flat("wg_decode_attention_walk", q, k_cache, v_cache, key_mask, n_kv=n_kv,
+                        layer=layer, block=block)
 
 
 decode_attention.launches = 0

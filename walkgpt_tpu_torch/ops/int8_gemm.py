@@ -10,7 +10,13 @@ K13b w8a8_gemm (csrc/int8_gemm.cu)
     quantization, the exact int32 product with an int8 weight, then
     (acc * sx) * w_scale, + b and the activation in fp32, cast to x's
     dtype. The bias and activation come before the cast, unlike nn.linear
-    and nn.mlp, which cast first.
+    and nn.mlp, which cast first. Where K % 16 == 0 (every ViT-H product)
+    a call is three launches on the int8 tensor cores (w8a8_gemm_plan):
+    K13a's quantizer into scratch codes, w_q transposed K-major into
+    scratch, and 128 x 128 output tiles of wgmma.mma_async fed by TMA
+    through a three-stage mbarrier ring; other shapes take the first
+    design (mma.sync, quantizing on the fly), which w8a8_gemm_mma_sync
+    runs at any shape for comparisons. Both give the same bits.
 
 As in the JAX package, nn.linear never calls either: they are ops for
 direct use at the ViT-H W8A8 block shapes. The TPU kernel's VMEM tiling
@@ -27,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -97,17 +103,41 @@ def w8a8_gemm_reference(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tenso
     return ACTS[act][0](y).to(x.dtype).reshape(*x.shape[:-1], n)
 
 
-def w8a8_gemm(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
-              b: Optional[torch.Tensor] = None, *, act: Optional[str] = None) -> torch.Tensor:
-    """K13b: y = act((quant8(x) @ w_q) * sx * w_scale + b) in one launch.
+# K13b's launch plan (csrc/int8_gemm.cu): the tensor-core route takes
+# TC_TILE x TC_TILE output tiles, K in TC_K_STEP-byte stages through a ring
+# of TC_STAGES, blocks of TC_THREADS (two consumer warpgroups, one producer
+# warp); the first design (mma.sync) FIRST_TILE tiles of FIRST_THREADS
+TC_TILE = 128
+TC_K_STEP = 128
+TC_STAGES = 3
+TC_THREADS = 288
+FIRST_TILE = (64, 128)
+FIRST_THREADS = 256
+SMEM_MAX = 232448
 
-    x: [..., K] (bf16 / fp32); w_q: [K, N] int8; w_scale: [N] fp32; b: [N]
-    or None; act: None | "gelu_exact" | "gelu_tanh". Returns [..., N] in x's
-    dtype."""
-    if act not in ACTS:
-        raise ValueError(f"w8a8_gemm: unknown activation {act!r}")
-    if x.device.type == "cpu":
-        return w8a8_gemm_reference(x, w_q, w_scale, b, act=act)
+
+def w8a8_gemm_plan(m: int, k: int, n: int) -> Dict[str, object]:
+    """K13b's launch for x [m, k] and w_q [k, n], as csrc/int8_gemm.cu takes
+    it: route "wgmma" where TMA can take the rows (k % 16 == 0), then grid
+    (ceil(n / 128), ceil(m / 128)) of 128 x 128 tiles, ceil(k / 128) stages
+    and the dynamic shared memory per block (the ring, 1 KB for its
+    alignment, the barriers); else route "mma_sync" (the first design),
+    grid (ceil(n / 128), ceil(m / 64)) of 64 x 128 tiles, static shared
+    memory. tile: (rows, columns) of a block's output."""
+    if k % 16 == 0:
+        ring = TC_STAGES * 2 * TC_TILE * TC_K_STEP
+        return dict(route="wgmma", grid=(-(-n // TC_TILE), -(-m // TC_TILE)),
+                    tile=(TC_TILE, TC_TILE), k_steps=-(-k // TC_K_STEP), threads=TC_THREADS,
+                    smem=ring + 1024 + 2 * TC_STAGES * 8)
+    bm, bn = FIRST_TILE
+    words = 64 // 4 + 4
+    return dict(route="mma_sync", grid=(-(-n // bn), -(-m // bm)), tile=FIRST_TILE,
+                k_steps=-(-k // 64), threads=FIRST_THREADS,
+                smem=4 * (bm * words + bn * words + 2 * bm))
+
+
+def _w8a8_launch(x, w_q, w_scale, b, act, route: Optional[str]) -> torch.Tensor:
+    """K13b's launch on the plan's route (route None) or on `route`."""
     name = "w8a8_gemm"
     k, n = w_q.shape
     xm = x.reshape(-1, x.shape[-1]).contiguous()
@@ -122,13 +152,50 @@ def w8a8_gemm(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if any(t.device != x.device for t in (w_q, ws) + ((bias,) if bias is not None else ())):
         raise ValueError(f"{name}: inputs must lie on one device")
     m = xm.shape[0]
+    route = route or w8a8_gemm_plan(m, k, n)["route"]
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    cuda_build.launch("int8_gemm", "wg_w8a8_gemm", [_P] * 5 + [_I] * 5 + [_P], x.device,
-                      xm.data_ptr(), w_q.data_ptr(), ws.data_ptr(),
-                      None if bias is None else bias.data_ptr(), y.data_ptr(), m, k, n,
-                      ACTS[act][1], dt)
-    w8a8_gemm.launches += 1
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if route == "wgmma":
+        xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+        wt = torch.empty((n, k), dtype=torch.int8, device=x.device)
+        cuda_build.launch("int8_gemm", "wg_w8a8_gemm_tc", [_P] * 8 + [_I] * 5 + [_P], x.device,
+                          xm.data_ptr(), w_q.data_ptr(), ws.data_ptr(), bias_ptr, xq.data_ptr(),
+                          sx.data_ptr(), wt.data_ptr(), y.data_ptr(), m, k, n, ACTS[act][1], dt)
+    else:
+        cuda_build.launch("int8_gemm", "wg_w8a8_gemm", [_P] * 5 + [_I] * 5 + [_P], x.device,
+                          xm.data_ptr(), w_q.data_ptr(), ws.data_ptr(), bias_ptr, y.data_ptr(),
+                          m, k, n, ACTS[act][1], dt)
     return y.reshape(*x.shape[:-1], n)
+
+
+def w8a8_gemm(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+              b: Optional[torch.Tensor] = None, *, act: Optional[str] = None) -> torch.Tensor:
+    """K13b: y = act((quant8(x) @ w_q) * sx * w_scale + b).
+
+    x: [..., K] (bf16 / fp32); w_q: [K, N] int8; w_scale: [N] fp32; b: [N]
+    or None; act: None | "gelu_exact" | "gelu_tanh". Returns [..., N] in x's
+    dtype."""
+    if act not in ACTS:
+        raise ValueError(f"w8a8_gemm: unknown activation {act!r}")
+    if x.device.type == "cpu":
+        return w8a8_gemm_reference(x, w_q, w_scale, b, act=act)
+    y = _w8a8_launch(x, w_q, w_scale, b, act, None)
+    w8a8_gemm.launches += 1
+    return y
+
+
+def w8a8_gemm_mma_sync(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                       b: Optional[torch.Tensor] = None, *, act: Optional[str] = None
+                       ) -> torch.Tensor:
+    """K13b on its first design (mma.sync, one launch) at any shape, CUDA
+    tensors only: the route the tensor-core one is held against, bit for
+    bit (chip_smoke.py, tools/decode_kernels.py). w8a8_gemm never calls it
+    at a shape TMA can take, and it counts no launches. Arguments as
+    w8a8_gemm's."""
+    if x.device.type != "cuda" or act not in ACTS:
+        raise ValueError("w8a8_gemm_mma_sync: CUDA tensors and a known activation")
+    return _w8a8_launch(x, w_q, w_scale, b, act, "mma_sync")
 
 
 w8a8_gemm.launches = 0

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """K5 (int4_matmul_pallas), K6 (fused_mlp_int4), K7 (fused_mlp_int8), K8
-(decode_attention_q_chunk) and K4 (decode_attention_q) at the decode path's
-shapes, timed on one GPU, for the package's sources and for other copies of
-`walkgpt_tpu_torch/csrc` (an older tree's, an edited one's).
+(decode_attention_q_chunk), K4 (decode_attention_q) and K11
+(decode_attention) at the decode path's shapes, and K13b (w8a8_gemm) at the
+ViT-H block's, timed on one GPU, for the package's sources and for other
+copies of `walkgpt_tpu_torch/csrc` (an older tree's, an edited one's).
 
     python3 walkgpt_tpu_torch/tools/decode_kernels.py [--csrc DIR ...] [--rounds 2]
 
@@ -14,16 +15,24 @@ built into build/decode_kernels/<n>/), on the same bf16 inputs:
     4 rows, K8 on the 7B int4_flat and 1B int8_flat chunks (Tc 9,
     cache_len 440 and 375, 512 slots), and K4 on the 7B int4_flat step (2
     and 4 rows) and the 1B int8_flat step (2 rows), 480 of 512 slots
-    valid: ms per call by CUDA events (100 calls after a warm-up), the
-    trees taken in turns for `--rounds` rounds (a, b, ..., b, a, ...); in
-    the package's tree also K4 on its walk route (decode_attention_q_walk,
-    the engine a tree older than the chunk engine's K4 runs) on the same
-    inputs;
+    valid, K11 on the dense 7B step (2 rows, 480 of 512 slots valid,
+    bf16), K13b on the four products of a ViT-H block (qkv 9800 x 1280 x
+    3840 with bias, proj 9800 x 1280 x 1280, fc1 8192 x 1280 x 5120 with
+    bias and gelu_exact, fc2 8192 x 5120 x 1280; bf16): ms per call by CUDA
+    events (100 calls after a warm-up), the trees taken in turns for
+    `--rounds` rounds (a, b, ..., b, a, ...); in the package's tree also K4
+    and K11 on their walk routes (decode_attention_q_walk,
+    decode_attention_walk: the engine a tree older than the chunk or flat
+    engine runs) and K13b on its first design (w8a8_gemm_mma_sync) on the
+    same inputs; a tree without K13b's tensor-core route (an older one)
+    runs its first design's C entry (wg_w8a8_gemm, which that tree's
+    w8a8_gemm launches);
   * once, the CUDA kernels of one call by torch.profiler, ms each (K6 and
     K7 run three launches): each kernel alone beside the other trees', and
     K4's against the walk's;
   * every tree's outputs are the package's bit for bit (K6, K7, K8, K4,
-    K4's walk route) or within chip_smoke's bf16 bounds of the plain
+    K11, K13b and their walk or first-design routes) or within
+    chip_smoke's bf16 bounds of the plain
     version, relative to the output's largest magnitude (K5, whose sums
     another tree may take in another order), else it exits non-zero;
   * K4's host microseconds per call at the 7B step (200 calls, no
@@ -44,9 +53,15 @@ REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
-from walkgpt_tpu_torch.ops import cuda_build  # noqa: E402
+from walkgpt_tpu_torch.ops import cuda_build, int8_gemm  # noqa: E402
 
-NAMES = ("int4_matmul", "fused_mlp_int4", "fused_mlp_int8", "decode_attention_q")
+NAMES = ("int4_matmul", "fused_mlp_int4", "fused_mlp_int8", "decode_attention_q",
+         "decode_attention", "int8_gemm")
+# K13b on the ViT-H block's products: (label, m, k, n, bias, act)
+K13B = (("K13b ViT-H qkv", 9800, 1280, 3840, True, None),
+        ("K13b ViT-H proj", 9800, 1280, 1280, False, None),
+        ("K13b ViT-H fc1", 8192, 1280, 5120, True, "gelu_exact"),
+        ("K13b ViT-H fc2", 8192, 5120, 1280, False, None))
 # held to the plain version's bf16 bounds; every other case to the package's bits
 WITHIN_BOUNDS = ("K5",)
 PACKAGE = (cuda_build.CSRC, cuda_build.BUILD_DIR)
@@ -61,7 +76,8 @@ def use(tree):
 
 def cases(dev):
     """({label: chip_smoke case} for every tree, {label: (case, the label whose
-    outputs it must equal)} for the package's tree only)."""
+    outputs it must equal)} for the package's tree only, {label: the run
+    another tree takes in place of the package's})."""
     bf16 = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(9)
     out, package_only = {}, {}
@@ -82,7 +98,19 @@ def cases(dev):
                                        torch.Generator(device=dev).manual_seed(100 + i), walk)
         out[label] = same(False)
         package_only[label + " (walk)"] = (same(True), label)
-    return out, package_only
+    same = lambda walk: cs.k11_case(dev, bf16, 2, 32, 32, 128, 512, [480, 480],
+                                    torch.Generator(device=dev).manual_seed(110), walk)
+    out["K11 7B bf16"] = same(False)
+    package_only["K11 7B bf16 (walk)"] = (same(True), "K11 7B bf16")
+    other = {}
+    for label, m, k, n, bias, act in K13B:
+        run, plain, library, cost, x, w, b = cs.k13b_case(dev, gen, m, k, n, bias, act, bf16)
+        first = (lambda x, w, b, act: lambda: int8_gemm.w8a8_gemm_mma_sync(
+            x, w["w_q"], w["w_scale"], b, act=act))(x, w, b, act)
+        out[label] = (run, plain, library, cost)
+        package_only[label + " (first design)"] = ((first, plain, library, cost), label)
+        other[label] = first
+    return out, package_only, other
 
 
 def launch_rebinding(lib, fn_name, argtypes, device, *args):
@@ -129,7 +157,7 @@ def main(argv=None) -> int:
         print(f"{tag}:", flush=True)
         cs.ptxas_summary(cuda_build.build(NAMES))
     dev = torch.device("cuda")
-    runs, walks = cases(dev)
+    runs, walks, other = cases(dev)
     want = {}
     use(PACKAGE)
     for label, (run, plain, _, cost) in runs.items():
@@ -139,8 +167,14 @@ def main(argv=None) -> int:
     for label, (_, of) in walks.items():
         want[label] = want[of]
     ok = True
-    tree_runs = lambda tag: {**runs, **({k: c for k, (c, _) in walks.items()}
-                                        if tag == "package" else {})}
+    # a tree whose int8_gemm.cu has no tensor-core route (older than it) runs
+    # K13b's first design, which its w8a8_gemm launches
+    first_only = {t: "wg_w8a8_gemm_tc" not in (tree[0] / "int8_gemm.cu").read_text()
+                  for t, tree in trees}
+    tree_runs = lambda tag: (
+        {**runs, **{k: c for k, (c, _) in walks.items()}} if tag == "package" else
+        {k: (other[k], *c[1:]) if k in other and first_only[tag] else c
+         for k, c in runs.items()})
     times = {(t, label): [] for t, _ in trees for label in tree_runs(t)}
     for r in range(args.rounds):
         order = trees if r % 2 == 0 else trees[::-1]
