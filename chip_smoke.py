@@ -82,8 +82,10 @@ Phases (any failure raises and the script exits non-zero):
      greedy_generate alone (reported, not held: it decodes at a batch of
      one, whose products round otherwise), beside the same
      requests in greedy_generate waves of 4.
-  2e (after 2d): K12 (fused_layer_tail) at the 7B int4x decode step and at
-     an int8_flat gelu shape, K13a (quantize_tokens, bit for bit) and K13b
+  2e (after 2d): K12 (fused_layer_tail) at the 7B int4x decode step (2
+     and 4 rows) and at an int8_flat gelu shape, its MLP partials held to
+     K6's on its own normed rows bit for bit, K13a (quantize_tokens, bit
+     for bit; timed at ViT-H fc1's and fc2's inputs) and K13b
      (w8a8_gemm) at the four products of a ViT-H block and at ragged
      shapes, against their plain versions, K13b also against its first
      design (w8a8_gemm_mma_sync) bit for bit, with times (K12's beside the
@@ -105,12 +107,16 @@ Phases (any failure raises and the script exits non-zero):
      tensor-core engines, the backwards in bwd_mma_kernel or K1b's
      bwd_pair_kernel; fp32 on the CUDA-core ones), read from
      the kernels one call launches under the profiler, and held; K5, K6, K7,
-     K8, K4 (7B and 1B, int8 scores), K11 (bf16) and K13b (K % 16 == 0)
-     launch their own engines' kernels (mlp4_stream.cuh, K7's three
+     K8, K4 (7B and 1B, int8 scores), K11 (bf16), K13b (K % 16 == 0), K12
+     and K13a launch their own engines' kernels (mlp4_stream.cuh, K7's three
      passes, decode_chunk.cuh, decode_flat.cuh, K13b's quantize, transpose
-     and wgmma kernels) and none of those they left (K5's, K7's and K13b's
-     first designs; mlp4_tile.cuh and decode_walk.cuh, which K12 keeps);
-     K11's fp32 cache and K13b at K % 16 != 0 the first ones.
+     and wgmma kernels, K12's one cooperative kernel, K13a's one-pass
+     quantize_rows) and none of those they left (K5's, K7's and K13b's
+     first designs; decode_walk.cuh, which K4 keeps for its int8 value
+     product); K11's fp32 cache and K13b at K % 16 != 0 the first ones.
+     Then K12 (7B, 2 and 4 rows; with its launch's blocks, registers,
+     spills and shared memory, and the same launch with every phase empty)
+     and K13a (ViT-H fc1 and fc2 inputs) alone, by the profiler.
   2d (after 2c): the backward kernels K1b (flash_attention_bwd), K2b
      (sam_window_attention_packed_bwd) and K3b (sam_flash_attention_bwd)
      against their plain backwards at the training step's shapes in bf16
@@ -269,7 +275,8 @@ KERNEL_INFO = {
                         "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "fused_mlp_int8": ("walkgpt_tpu_torch/csrc/fused_mlp_int8.cu",
                        "walkgpt_tpu/ops/int4.py:351",
-                       ["walkgpt_tpu_torch/csrc/mlp4_stream.cuh",
+                       ["walkgpt_tpu_torch/csrc/dp4a_quads.cuh",
+                        "walkgpt_tpu_torch/csrc/mlp4_stream.cuh",
                         "walkgpt_tpu_torch/csrc/attention_tile.cuh"]),
     "decode_attention_q_chunk": ("walkgpt_tpu_torch/csrc/decode_attention_q.cu",
                                  "walkgpt_tpu/ops/flash_attention.py:1519",
@@ -295,7 +302,10 @@ KERNEL_INFO = {
                                  "walkgpt_tpu_torch/csrc/attention_mma.cuh",
                                  "walkgpt_tpu_torch/csrc/attention_bwd.cuh"]),
     "fused_layer_tail": ("walkgpt_tpu_torch/csrc/fused_layer.cu",
-                         "walkgpt_tpu/ops/fused_layer.py:67"),
+                         "walkgpt_tpu/ops/fused_layer.py:67",
+                         ["walkgpt_tpu_torch/csrc/decode_chunk.cuh",
+                          "walkgpt_tpu_torch/csrc/mlp4_stream.cuh",
+                          "walkgpt_tpu_torch/csrc/dp4a_quads.cuh"]),
     "quantize_tokens": ("walkgpt_tpu_torch/csrc/int8_gemm.cu",
                         "walkgpt_tpu/ops/int8_gemm.py:66"),
     "w8a8_gemm": ("walkgpt_tpu_torch/csrc/int8_gemm.cu", "walkgpt_tpu/ops/int8_gemm.py:136"),
@@ -525,6 +535,38 @@ def phase_routes(dev, seed):
                                        torch.bfloat16)[0])
     log_symbols("w8a8_gemm K % 16 != 0",
                 k13b_case(dev, gen, 37, 100, 20, True, None, torch.float32)[0])
+    log("  K12 at the 7B int4x step and K13a at ViT-H fc1's and fc2's inputs, kernels alone "
+        "(the profiler, per call):")
+    bf16 = torch.bfloat16
+    for b in (2, 4):
+        run, *_rest, inp = k12_case(dev, gen, b, 32, 128, 512, 480, True, 11008, "silu", bf16)
+        log_symbols("fused_layer_tail", run)
+        log_kernel_alone(f"fused_layer_tail 7B int4x {b} rows", run)
+        info = fused_layer.fused_layer_tail_info(b, 32, 128, 512, 11008, True, bf16, bf16, dev)
+        log(f"    launch: {info['blocks']} blocks ({info['blocks_per_sm']} an SM of "
+            f"{info['sms']}), {info['registers']} registers and {info['local_bytes']} bytes of "
+            f"local memory a thread, {info['smem']} bytes of shared memory a block, rows in "
+            f"passes of {info['rows_per_pass']}")
+        log_kernel_alone(f"fused_layer_tail 7B int4x {b} rows, phases empty (the four grid "
+                         f"barriers)", lambda: fused_layer.fused_layer_tail_barriers(
+                             *inp["args"], **inp["kw"]))
+    for label, k in (("fc1", 1280), ("fc2", 5120)):
+        x = torch.randn(8192, k, generator=gen, device=dev).to(bf16)
+        log_symbols("quantize_tokens", lambda: int8_gemm.quantize_tokens(x))
+        log_kernel_alone(f"quantize_tokens ViT-H {label} [8192, {k}] bf16",
+                         lambda: int8_gemm.quantize_tokens(x))
+
+
+def log_kernel_alone(label, fn, n=20):
+    """The package's kernels that fn launches, device ms per call
+    (torch.profiler over n calls after a warm call)."""
+    fn()
+    kernels = {}
+    profiled(lambda: [fn() for _ in range(n)], kernels)
+    ours = {k: v / n for k, v in kernels.items() if is_package_kernel(k)}
+    log(f"    {label}: " + "; ".join(
+        f"{k.replace('(anonymous namespace)::', '').replace('void ', '').split('(')[0]} "
+        f"{v:.4f} ms" for k, v in ours.items()) + f" (total {sum(ours.values()):.4f} ms)")
 
 
 def is_package_kernel(name):
@@ -568,8 +610,9 @@ def log_routes(name, runs, note=""):
 # the CUDA kernels of K5's, K6's, K7's, K8's and K4's engines (mlp4_stream.cuh
 # for K5 and K6, fused_mlp_int8.cu's three passes, decode_chunk.cuh), and
 # those of the engines they left (K5's and K7's one-block-per-tile kernels;
-# mlp4_tile.cuh and decode_walk.cuh, which K12 keeps, and K4 for its int8
-# value product, off on the main path)
+# decode_walk.cuh, which K4 keeps for its int8 value product, off on the
+# main path); K12's one cooperative kernel (its engines are inlined) and
+# K13a's one-pass quantizer
 SYMBOLS = {
     "int4_matmul_pallas": (("int4_mm_stream",), ("int4_mm_kernel",)),
     "fused_mlp_int4": (("mlp4_gate_up", "mlp4_down", "mlp4_sum_tiles"), ("mlp4_tiles",)),
@@ -580,6 +623,8 @@ SYMBOLS = {
     "decode_attention fp32": (("decode_walk",), ("flat_walk",)),
     "w8a8_gemm": (("quantize_rows", "transpose_w", "w8a8_wgmma"), ("w8a8_kernel",)),
     "w8a8_gemm K % 16 != 0": (("w8a8_kernel",), ("quantize_rows", "transpose_w", "w8a8_wgmma")),
+    "fused_layer_tail": (("wgt::fused_tail",), ()),
+    "quantize_tokens": (("quantize_rows",), ()),
 }
 
 
@@ -1566,16 +1611,14 @@ def int4_mlp(dev, gen, h, i_dim, act):
     return p if act == "silu" else {"fc1": p["gate"], "fc2": p["down"]}
 
 
-def check_k12(dev, gen, label, b, h, d, l, valid, pack4, i_dim, act, dtype, iters):
-    """K12 against its plain version at one layer of a decode step (MHA, h
-    heads of d, a flat quantized cache of l slots, `valid` of them valid):
-    the output within the bf16 bounds of its largest magnitude, the
-    attention rows (row 0 of the wrapper's scratch [attention rows, x2, y,
-    partials], of which the result is row 2) within QUANT_FP32_REL of K4's
-    plain version on the same q, their o-proj codes within one and at most
-    K12_CODE_FLIPS of them moved. Then (iters > 0) kernel, plain and the
-    unfused sequence's ms (K4, nn.linear's a8 o-proj, rms_norm, K6: no one
-    PyTorch call computes the tail, so library_ms is None), and the bound."""
+def k12_case(dev, gen, b, h, d, l, valid, pack4, i_dim, act, dtype):
+    """K12 at one layer of a decode step (MHA, h heads of d, a flat
+    quantized cache of l slots, `valid` of them valid), random inputs in
+    the int4x format: (run, plain, unfused, cost, inputs); run returns K12's
+    y, whose `_base` is the launch's scratch (fused_layer_tail_plan's rows);
+    unfused is the sequence K4, nn.linear's a8 o-proj, rms_norm, K6 (no one
+    PyTorch call computes the tail); inputs holds q, the cache, the mask,
+    the MLP and fused_layer_tail's arguments (args, kw)."""
     kq, ks, _, vq, vs, _ = flat_cache(dev, gen, b, l, h, d, pack4)
     hd = h * d
     q = torch.randn(b, hd, generator=gen, device=dev).to(dtype)
@@ -1587,9 +1630,38 @@ def check_k12(dev, gen, label, b, h, d, l, valid, pack4, i_dim, act, dtype, iter
     q8, qs = fa.banded_q8(q, n_kv=h, head_dim=d)
     kw = dict(n_kv=h, head_dim=d, pack4=pack4, layer=0, act=act, norm_eps=1e-6, valid_len=valid)
     cache = (kq, ks, vq, vs)
-    run = lambda: fused_layer.fused_layer_tail(x, q8, qs, *cache, mask, o, pn, mlp, **kw)
-    plain = lambda: fused_layer.fused_layer_tail_reference(x, q8, qs, *cache, mask, o, pn, mlp,
-                                                           **kw)
+    args = (x, q8, qs, *cache, mask, o, pn, mlp)
+    run = lambda: fused_layer.fused_layer_tail(*args, **kw)
+    plain = lambda: fused_layer.fused_layer_tail_reference(*args, **kw)
+
+    def unfused():
+        a = fa.decode_attention_q(q, *cache, mask, n_kv=h, head_dim=d, pack4=pack4, layer=0,
+                                  valid_len=valid)
+        x2 = x + nn.linear(o, a)
+        return x2 + int4.fused_mlp_int4(mlp, nn.rms_norm({"scale": pn}, x2, eps=1e-6), act)
+    width = kq.shape[-1]
+    nb = (nbytes(x, q8, qs, o["w_q"], o["w_scale"], pn, *_leaves(mlp))
+          + 2 * b * valid * (width + 2 * h) + b * valid + 4 * b * hd)
+    n_mat = 3 if act == "silu" else 2
+    ops = 4.0 * b * hd * valid + 2.0 * b * hd * hd + 2.0 * n_mat * b * hd * i_dim
+    inputs = dict(q=q, cache=cache, mask=mask, mlp=mlp, args=args, kw=kw)
+    return run, plain, unfused, (nb, ops, torch.bfloat16), inputs
+
+
+def check_k12(dev, gen, label, b, h, d, l, valid, pack4, i_dim, act, dtype, iters):
+    """K12 against its plain version at one layer of a decode step
+    (k12_case): the output within the bf16 bounds of its largest magnitude,
+    the attention rows (row 0 of the wrapper's scratch, of which the result
+    is row 2) within QUANT_FP32_REL of K4's plain version on the same q,
+    their o-proj codes within one and at most K12_CODE_FLIPS of them moved,
+    its MLP partials K6's on its own normed rows (scratch row hn) bit for
+    bit, and its launch (fused_layer_tail_info: blocks, blocks an SM, shared
+    memory, rows per pass, hn held) fused_layer_tail_plan's.
+    Then (iters > 0) kernel, plain and the unfused sequence's ms
+    (library_ms is None), and the bound."""
+    run, plain, unfused, cost, inp = k12_case(dev, gen, b, h, d, l, valid, pack4, i_dim, act,
+                                              dtype)
+    q, cache, mask = inp["q"], inp["cache"], inp["mask"]
     y = run()
     torch.cuda.synchronize()
     ref, plain_ms = host_ms(plain)
@@ -1604,30 +1676,29 @@ def check_k12(dev, gen, label, b, h, d, l, valid, pack4, i_dim, act, dtype, iter
         sr = a.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
         return torch.clamp(torch.round(a / sr), -127, 127)
     moved = (codes(att_k) - codes(att)).abs()
+    info = fused_layer.fused_layer_tail_info(b, h, d, l, i_dim, pack4, dtype, dtype, dev)
+    plan = fused_layer.fused_layer_tail_plan(b, h, d, l, i_dim, pack4, sms=info["sms"])
+    rows = plan["scratch"]
+    k6 = int4.fused_mlp_int4_parts(inp["mlp"], y._base[rows["hn"]], act)
+    same_k6 = torch.equal(y._base[rows["parts"]:rows["rows"]], k6)
+    keys = ("blocks", "blocks_per_sm", "smem", "rows_per_pass", "hn_held")
+    same_plan = all(info[k] == plan[k] for k in keys)
     ok = (max_err <= BF16_MAX_ABS * scale and mean_err <= BF16_MEAN_ABS * scale
           and att_err <= QUANT_FP32_REL and float(moved.max()) <= 1
-          and float((moved > 0).float().mean()) <= K12_CODE_FLIPS)
+          and float((moved > 0).float().mean()) <= K12_CODE_FLIPS and same_k6 and same_plan)
     log(f"  fused_layer_tail {label} {str(dtype)[6:]} check max_abs={max_err:.3e} "
         f"mean_abs={mean_err:.3e} (output scale {scale:.3g}); attention rows max_rel="
         f"{att_err:.3e}; o-proj codes moved {int((moved > 0).sum())} of {moved.numel()} "
-        f"(max {int(moved.max())}) -> {'ok' if ok else 'FAIL'}")
+        f"(max {int(moved.max())}); MLP partials equal K6's on its hn: {same_k6}; launch "
+        f"{info['blocks']} blocks ({info['blocks_per_sm']} an SM), {info['smem']} bytes of "
+        f"shared memory, hn held there: {bool(info['hn_held'])}, the plan's: {same_plan} -> "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"fused_layer_tail disagrees with its plain version ({label})")
+        raise AssertionError(f"fused_layer_tail disagrees with its plain version or its "
+                             f"launch with its plan ({label})")
     if iters == 0:
         return None
-
-    def unfused():
-        a = fa.decode_attention_q(q, *cache, mask, n_kv=h, head_dim=d, pack4=pack4, layer=0,
-                                  valid_len=valid)
-        x2 = x + nn.linear(o, a)
-        return x2 + int4.fused_mlp_int4(mlp, nn.rms_norm({"scale": pn}, x2, eps=1e-6), act)
-    width = kq.shape[-1]
-    nb = (nbytes(x, q8, qs, o["w_q"], o["w_scale"], pn, *_leaves(mlp))
-          + 2 * b * valid * (width + 2 * h) + b * valid + 4 * b * hd)
-    n_mat = 3 if act == "silu" else 2
-    ops = 4.0 * b * hd * valid + 2.0 * b * hd * hd + 2.0 * n_mat * b * hd * i_dim
-    res = measure(f"fused_layer_tail {label}", run, plain, None, (nb, ops, torch.bfloat16),
-                  iters, 4, plain_ms)
+    res = measure(f"fused_layer_tail {label}", run, plain, None, cost, iters, 4, plain_ms)
     res["unfused_ms"] = cuda_ms(unfused, iters)
     log(f"  fused_layer_tail {label}: the unfused sequence on the card (K4, a8 o-proj, "
         f"rms_norm, K6) unfused_ms={res['unfused_ms']:.4f}")
@@ -1652,11 +1723,12 @@ def k13b_case(dev, gen, m, k, n, bias, act, dtype):
 
 
 def check_k13(dev, gen, label, m, k, n, bias, act, dtype, iters):
-    """K13a bit for bit and K13b against their plain versions at one
-    product [m, k] x [k, n] of a ViT-H block (random x and weights in the
-    W8A8 format); K13b within one bf16 step (fp32: rtol 1e-6) of the output
-    (erff / tanhf last places), and equal to its first design
-    (w8a8_gemm_mma_sync) bit for bit. Then (iters > 0) both kernels'
+    """K13a bit for bit (its launch quantize_tokens_plan's) and K13b
+    against their plain versions at one product [m, k] x [k, n] of a
+    ViT-H block (random x and weights in the W8A8 format); K13b within
+    one bf16 step (fp32: rtol 1e-6) of the output (erff / tanhf last
+    places), and equal to its first design (w8a8_gemm_mma_sync) bit for
+    bit. Then (iters > 0) both kernels'
     numbers: K13a has no one-call library counterpart, K13b's is
     torch._int_mm on the same codes; K13b's first design is timed beside."""
     grun, gplain, library, gcost, x, w, b = k13b_case(dev, gen, m, k, n, bias, act, dtype)
@@ -1668,15 +1740,18 @@ def check_k13(dev, gen, label, m, k, n, bias, act, dtype, iters):
     (wq, ws), qplain_ms = host_ms(qplain)
     want, gplain_ms = host_ms(gplain)
     same = torch.equal(xq, wq) and torch.equal(sx, ws)
+    same_plan = (int8_gemm.quantize_tokens_info(m, k, dtype)
+                 == int8_gemm.quantize_tokens_plan(m, k, dtype))
     same_first = torch.equal(y, y_first)
     max_err, mean_err = errors(y, want)
     scale = float(want.float().abs().max())
     tol = (1e-6 if dtype == torch.float32 else 2.0 ** -8) * scale
-    ok = same and same_first and max_err <= tol
+    ok = same and same_plan and same_first and max_err <= tol
     route = int8_gemm.w8a8_gemm_plan(m, k, n)["route"]
     log(f"  quantize_tokens / w8a8_gemm {label} {str(dtype)[6:]} ({route}): codes and scales "
-        f"identical={same}; equal to the first design={same_first}; output max_abs="
-        f"{max_err:.3e} mean_abs={mean_err:.3e} (limit {tol:.3e}) -> {'ok' if ok else 'FAIL'}")
+        f"identical={same}; K13a's launch the plan's={same_plan}; equal to the first design="
+        f"{same_first}; output max_abs={max_err:.3e} mean_abs={mean_err:.3e} (limit "
+        f"{tol:.3e}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"K13a/K13b disagree with their plain versions or K13b with its "
                              f"first design ({label})")
@@ -1704,6 +1779,14 @@ def phase_tail_gemm_kernels(dev, seed):
     check_k12(dev, gen, "int8_flat gelu", 2, 8, 128, 256, 200, False, 2816, "gelu", bf16, 20)
     check_k12(dev, gen, "ragged", 3, 5, 24, 64, 40, True, 384, "silu", f32, 0)
     check_k12(dev, gen, "ragged int8 gelu", 2, 2, 8, 16, 16, False, 96, "gelu", f32, 0)
+    # more rows, from a generator of their own (the checks above and below
+    # see the draws they always saw): the 7B step at 4 rows, and batches
+    # whose rows once outgrew K12's shared memory
+    more = torch.Generator(device=dev).manual_seed(seed + 41)
+    check_k12(dev, more, "7B int4x 4 rows", 4, 32, 128, 512, 480, True, 11008, "silu", bf16, 20)
+    check_k12(dev, more, "7B int4x 32 rows", 32, 32, 128, 512, 480, True, 11008, "silu", bf16, 0)
+    check_k12(dev, more, "13B int4x 16 rows", 16, 40, 128, 512, 480, True, 13824, "silu", bf16,
+              0)
     torch.cuda.empty_cache()
     # the four products of a ViT-H block for 2 images at 1024^2: a windowed
     # block's qkv and proj take 2 x 25 windows of 14 x 14 (the 64 x 64 grid
@@ -1712,6 +1795,8 @@ def phase_tail_gemm_kernels(dev, seed):
                                       ("ViT-H proj", 9800, 1280, 1280, False, None),
                                       ("ViT-H fc1", 8192, 1280, 5120, True, "gelu_exact"),
                                       ("ViT-H fc2", 8192, 5120, 1280, False, None)):
+        # K13a's time at fc2's input [8192, 5120] is logged here too; its
+        # kernel alone at fc1 and fc2 in phase 2g
         qres, gres = check_k13(dev, gen, label, m, k, n, bias, act, bf16, 20)
         if label == "ViT-H fc1":
             results.update(quantize_tokens=qres, w8a8_gemm=gres)

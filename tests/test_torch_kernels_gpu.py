@@ -27,9 +27,15 @@ relative to their largest magnitude (at least 1), 2e-2 max and 2e-3 mean,
 one bf16 rounding step of the gradient. K12 rounds x2, the normed row and the MLP's
 intermediate to bf16 inside, in fp32 models too: its output takes the bf16
 bounds relative to its largest magnitude, whatever x's dtype, and its
-attention rows K4's fp32 bound. K13a's codes and scales are the plain
+attention rows K4's fp32 bound, their o-proj codes within one of the
+plain rows' and at most 1% of them moved; its MLP phases run K6's passes,
+so its tiles' partials equal K6's on its own normed rows bit for bit, up
+to 32 rows at 7B and 16 at 13B; fused_layer_tail_plan equals the launch
+the runtime plans (fused_layer_tail_info).
+K13a's codes and scales are the plain
 version's bit for bit (same fp32 division, same rounding to x's dtype, same
-half-to-even round); K13b's int32 sums are exact and its epilogue is the
+half-to-even round), and quantize_tokens_plan equals the launch its C
+entry plans (quantize_tokens_info); K13b's int32 sums are exact and its epilogue is the
 plain version's operation for operation, so its outputs agree to erff /
 tanhf last places: rtol 1e-6 in fp32, one bf16 step (2^-8) in bf16.
 K11's bf16 route (csrc/decode_flat.cuh) repeats the walk's expressions in
@@ -910,6 +916,116 @@ def test_k12_kernel_matches_plain(dev, b, h, d, l, block, valid, pack4, i_dim, a
     att = fa.decode_attention_q_reference(q, kq, ks, vq, vs, mask, n_kv=h, head_dim=d,
                                           pack4=pack4, layer=1, block=block, valid_len=valid)
     _close_scaled(y._base[0], att, torch.float32)
+
+
+# K12_SHAPES: (b, h, d, l, block, valid, pack4, i_dim, act, x_dtype, pn_dtype)
+K12_SHAPES = [
+    (2, 2, 8, 16, 8, 7, True, 96, "gelu", torch.float32, torch.float32),
+    (3, 5, 24, 64, 64, 40, True, 384, "silu", torch.float32, torch.bfloat16),
+    (2, 8, 128, 256, 256, 200, False, 2816, "gelu", torch.bfloat16, torch.bfloat16),
+    (2, 32, 128, 512, 256, 480, True, 11008, "silu", torch.bfloat16, torch.bfloat16),
+    (4, 32, 128, 512, 256, 480, True, 11008, "silu", torch.bfloat16, torch.bfloat16),
+    (32, 32, 128, 512, 256, 480, True, 11008, "silu", torch.bfloat16, torch.bfloat16),
+    (16, 40, 128, 512, 256, 480, True, 13824, "silu", torch.bfloat16, torch.bfloat16)]
+
+
+def _k12_run(dev, b, h, d, l, block, valid, pack4, i_dim, act, x_dtype, pn_dtype):
+    """K12 on random inputs: (y, q, cache, mask, mlp, kw)."""
+    g = torch.Generator(device=dev).manual_seed(b * h * d + i_dim)
+    hd = h * d
+    kq, ks, vq, vs = _flat_cache(dev, g, b, l, h, d, pack4)
+    q = torch.randn(b, hd, generator=g, device=dev)
+    mask = torch.arange(l, device=dev)[None] < torch.tensor([[valid]] * b, device=dev)
+    x = (torch.randn(b, hd, generator=g, device=dev) * 0.5).to(x_dtype)
+    o = quant.convert_proj({"w": torch.randn(hd, hd, generator=g, device=dev) * 0.05}, True)
+    pn = (1.0 + 0.1 * torch.randn(hd, generator=g, device=dev)).to(pn_dtype)
+    mlp = _mlp(dev, g, hd, i_dim, act, "int4")
+    q8, qs = fa.banded_q8(q, n_kv=h, head_dim=d)
+    kw = dict(n_kv=h, head_dim=d, pack4=pack4, layer=1, act=act, norm_eps=1e-6, block=block,
+              valid_len=valid)
+    y = fused_layer.fused_layer_tail(x, q8, qs, kq, ks, vq, vs, mask, o, pn, mlp, **kw)
+    torch.cuda.synchronize()
+    return y, q, (kq, ks, vq, vs), mask, mlp, kw
+
+
+@pytest.mark.parametrize("b,h,d,l,block,valid,pack4,i_dim,act,x_dtype,pn_dtype", K12_SHAPES)
+def test_k12_attention_rows_and_oproj_codes(dev, b, h, d, l, block, valid, pack4, i_dim, act,
+                                            x_dtype, pn_dtype):
+    """K12's attention rows (scratch row 0) within chip_smoke's
+    QUANT_FP32_REL (1e-3) of K4's plain version on the same q, relative to
+    their largest magnitude; their o-proj codes (the TPU kernel's quantizer)
+    within one of the plain rows' and at most chip_smoke's K12_CODE_FLIPS
+    (1e-2) of them moved."""
+    y, q, cache, mask, _, kw = _k12_run(dev, b, h, d, l, block, valid, pack4, i_dim, act,
+                                        x_dtype, pn_dtype)
+    att = fa.decode_attention_q_reference(q, *cache, mask, n_kv=h, head_dim=d, pack4=pack4,
+                                          layer=1, block=block, valid_len=valid)
+    got = y._base[fused_layer.SCRATCH_ROWS["attention"]]
+    err = (got - att).abs().max() / max(1.0, float(att.abs().max()))
+    assert err <= 1e-3, err
+
+    def codes(a):
+        sr = a.abs().amax(-1, keepdim=True).clamp_min(1e-8) * (1.0 / 127.0)
+        return torch.clamp(torch.round(a / sr), -127, 127)
+    moved = (codes(got) - codes(att)).abs()
+    assert moved.max() <= 1 and (moved > 0).float().mean() <= 1e-2
+
+
+@pytest.mark.parametrize("b,h,d,l,block,valid,pack4,i_dim,act,x_dtype,pn_dtype", K12_SHAPES)
+def test_k12_mlp_partials_equal_k6_on_its_normed_rows(dev, b, h, d, l, block, valid, pack4,
+                                                      i_dim, act, x_dtype, pn_dtype):
+    """K12's MLP phases run K6's two passes: its tiles' partials equal K6's
+    (its C entry on the scratch's hn row) bit for bit, and y is x2 plus
+    them in tile order."""
+    y, _, _, _, mlp, _ = _k12_run(dev, b, h, d, l, block, valid, pack4, i_dim, act, x_dtype,
+                                  pn_dtype)
+    rows = fused_layer.fused_layer_tail_plan(b, h, d, l, i_dim, pack4, block)["scratch"]
+    parts = y._base[rows["parts"]:rows["rows"]]
+    assert torch.equal(parts, int4.fused_mlp_int4_parts(mlp, y._base[rows["hn"]], act))
+    want = y._base[rows["x2"]].clone()
+    for t in range(parts.shape[0]):
+        want = want + parts[t]
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("b,h,d,l,block,valid,pack4,i_dim,act,x_dtype,pn_dtype", K12_SHAPES)
+def test_k12_plan_mirror_matches_the_launch(dev, b, h, d, l, block, valid, pack4, i_dim, act,
+                                            x_dtype, pn_dtype):
+    """fused_layer_tail_plan gives the launch the CUDA runtime plans
+    (fused_layer_tail_info): blocks, blocks an SM, shared memory, rows per
+    pass and whether hn is held in shared memory; two blocks an SM at D =
+    128, whatever the rows."""
+    info = fused_layer.fused_layer_tail_info(b, h, d, l, i_dim, pack4, x_dtype, pn_dtype, dev,
+                                             block)
+    plan = fused_layer.fused_layer_tail_plan(b, h, d, l, i_dim, pack4, block, info["sms"])
+    for key in ("blocks", "blocks_per_sm", "smem", "rows_per_pass", "hn_held"):
+        assert info[key] == plan[key], (key, info[key], plan[key])
+    if d == 128:
+        assert info["blocks_per_sm"] == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k", [(37, 96), (37, 100), (130, 260), (8192, 1280), (8192, 5120),
+                                 (4, 40000)])
+def test_k13a_plan_mirror_matches_the_launch(dev, dtype, m, k):
+    """quantize_tokens_plan gives the launch csrc/int8_gemm.cu plans
+    (quantize_tokens_info), key for key."""
+    assert int8_gemm.quantize_tokens_info(m, k, dtype) == int8_gemm.quantize_tokens_plan(m, k,
+                                                                                          dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8192, 1280), (8192, 5120), (37, 100), (130, 260)])
+def test_k13a_one_pass_matches_plain_bit_for_bit(dev, dtype, shape):
+    """K13a at ViT-H fc1's and fc2's inputs and at K % 16 != 0 (4-value
+    segments): codes and scales the plain version's bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(sum(shape) + 1)
+    x = (torch.randn(*shape, generator=g, device=dev) * 3).to(dtype)
+    x[1, 7:] = 0.0                                           # a row's tail of zeros
+    xq, sx = int8_gemm.quantize_tokens(x)
+    torch.cuda.synchronize()
+    want_q, want_s = int8_gemm.quantize_tokens_reference(x)
+    assert torch.equal(xq, want_q) and torch.equal(sx, want_s)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -14,8 +14,8 @@
 // few. Design: the bf16 cache runs decode_flat.cuh (blocks split by value
 // slices, the cache streamed by cp.async DF_ST - 1 tiles ahead, the scores'
 // butterflies taken 8 keys at a time), which gives the bits of the first
-// engine, decode_walk.cuh (one block per (row, kv head); K12's attention
-// phase runs it too). The fp32 cache stays on the walk, and
+// engine, decode_walk.cuh (one block per (row, kv head)). The fp32 cache
+// stays on the walk, and
 // wg_decode_attention_walk runs the bf16 cache there for comparisons.
 #include "decode_flat.cuh"
 

@@ -3,13 +3,16 @@
 // of speculative decode) and of K4 (wg_decode_attention_q, one decode step
 // over the same cache with an arbitrary key mask, Tc = 1) in every mode but
 // the int8 value product (pv_int8, off on the main path), which stays on
-// decode_walk.cuh with K11 and K12's attention phase. This engine reproduces
+// decode_walk.cuh with K11's fp32 cache, and of K12's attention phase
+// (fused_layer.cu, which calls chunk_block from its own cooperative kernel
+// on banded_q8's codes and scales, fp32 rows out). This engine reproduces
 // walk_block's arithmetic exactly, per DECODE_BLOCK block and in block
 // order, so K4 here equals K4 on the walk bit for bit (the walk route stays
 // reachable as wg_decode_attention_q_walk for that comparison), and chunk
 // token t equals K4 at position cache_len + t bit for bit:
 //   * Q_INT8: q8 = rint(q / qs), qs = max(|q|max, 1e-20) * (1/127), per
-//     (token, head); s = int(q8 . k) * (ks * (qs * scale)); Q_BF16: s =
+//     (token, head) (or q8 and qs given: K12's input); s = int(q8 . k) *
+//     (ks * (qs * scale)); Q_BF16: s =
 //     bf16(q) . k in fp32, summed lane-strided over D then by the xor
 //     butterfly (walk_block's warp_sum), times (ks * scale);
 //   * the Rule says which keys a query row attends: K8's CausalChunk (slot
@@ -63,6 +66,8 @@ constexpr int DC_KCH = 8;      // 16-byte key chunks a thread holds ahead
 
 struct ChunkArgs {
   const void* q;                 // [B, Tc, H*D] in T
+  const int8_t* q8;              // Q_INT8 only: q already quantized [B, Tc, H*D] with
+  const float* qsc;              // its scales [B, Tc, H], or both null
   const int8_t* k;               // the layer's cache values [B, L, width]
   const int8_t* v;
   const __nv_bfloat16* ks;       // [B, n_kv, L]
@@ -178,18 +183,19 @@ __device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4], cons
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Block (b * n_kv + kv, query group, value slice of DS dims). T: q/out
+// One block's work: row b, kv head kv, query group gy (rows [gy * qg, ...)
+// of that kv head), value dims [d0, d0 + DS), with ChunkSmem's bytes of
+// shared memory at dsm (all DC_NT threads of the block call it). T: q/out
 // type; QM: Q_INT8 or Q_BF16; VEC: chunk_vec(a); Rule: CausalChunk (K8) or
-// KeyMask (K4); DS: DC_DS, or DC_DS_STEP for K4 at few query rows (each
-// thread still owns at most two value chains).
+// KeyMask (K4, K12); DS: DC_DS, or DC_DS_STEP for K4 and K12 at few query
+// rows (each thread still owns at most two value chains).
 template <typename T, int QM, bool VEC, class Rule, int DS>
-__global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
+__device__ __forceinline__ void chunk_block(const ChunkArgs& a, int b, int kv, int gy, int d0,
+                                            unsigned char* dsm) {
   constexpr int VCH = DS / 16;   // 16-byte value chunks a thread holds ahead
-  extern __shared__ __align__(16) unsigned char dsm[];
   const int n_rep = a.H / a.n_kv, D = a.D, bl = a.bl, L = a.L;
-  const int b = blockIdx.x / a.n_kv, kv = blockIdx.x - b * a.n_kv;
-  const int g0 = blockIdx.y * a.qg, nq = min(a.qg, a.Tc * n_rep - g0);
-  const int d0 = blockIdx.z * DS, dsw = min(DS, D - d0);
+  const int g0 = gy * a.qg, nq = min(a.qg, a.Tc * n_rep - g0);
+  const int dsw = min(DS, D - d0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const ChunkSmem sm(D, bl, a.qg, QM == Q_INT8, DS);
   const int KS = sm.KS, spS = sm.spS, blp = (bl + 7) & ~7;
@@ -212,7 +218,9 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
   };
   auto valid = [&](int qi, int key) { return rule.valid(qi, key); };
 
-  // zero the key tile (padding dims and keys stay zero) and the query tile
+  // zero the key tile (padding dims and keys stay zero) and the query tile,
+  // once the block's previous item is done with shared memory
+  __syncthreads();
   for (int i = tid * 16; i < sm.sp; i += DC_NT * 16)
     *reinterpret_cast<uint4*>(dsm + i) = make_uint4(0, 0, 0, 0);
   if (QM == Q_INT8)
@@ -223,14 +231,17 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
   for (int qi = warp; qi < nq; qi += DC_NW) {
     const T* qr = qb + q_off(qi);
     float qs = 1.f;
-    if (QM == Q_INT8) {
+    if (QM == Q_INT8 && a.q8) {
+      qs = a.qsc[q_off(qi) / D];
+    } else if (QM == Q_INT8) {
       float mx = 0.f;
       for (int d = lane; d < D; d += 32) mx = fmaxf(mx, fabsf(to_f(qr[d])));
       mx = warp_max(mx);
       qs = fmaxf(mx, 1e-20f) * (1.0f / 127.0f);
     }
     for (int d = lane; d < D; d += 32) {
-      if (QM == Q_INT8) qt[qi * KS + d] = int8_t(rintf(to_f(qr[d]) / qs));
+      if (QM == Q_INT8 && a.q8) qt[qi * KS + d] = a.q8[q_off(qi) + d];
+      else if (QM == Q_INT8) qt[qi * KS + d] = int8_t(rintf(to_f(qr[d]) / qs));
       else qv[qi * D + d] = round_to<__nv_bfloat16>(to_f(qr[d]));
     }
     if (lane == 0) {
@@ -399,6 +410,15 @@ __global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
           from_f<T>(acc[h] / fmaxf(round_to<__nv_bfloat16>(l), 1e-30f));
     }
   }
+}
+
+// Grid (B * n_kv, query groups, value slices of DS dims).
+template <typename T, int QM, bool VEC, class Rule, int DS>
+__global__ void __launch_bounds__(DC_NT, 2) chunk_walk(ChunkArgs a) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  const int b = blockIdx.x / a.n_kv;
+  chunk_block<T, QM, VEC, Rule, DS>(a, b, blockIdx.x - b * a.n_kv, blockIdx.y, blockIdx.z * DS,
+                                    dsm);
 }
 
 // Launch over grid (B * n_kv, query groups of DC_QG, value slices of DS):

@@ -1,10 +1,9 @@
-// The decode-attention engine of K11 (decode_attention.cu), of the
-// attention phase of K12 (fused_layer.cu, which calls walk_block from its
-// own cooperative kernel) and of K4's int8 value product (pv_int8, off on
-// the main path) and walk route (decode_attention_q.cu:
-// wg_decode_attention_q_walk, the reference the chunk engine is held to).
-// K4's other modes and K8 run decode_chunk.cuh, which repeats this
-// engine's arithmetic per block bit for bit.
+// The decode-attention engine of K11's fp32 cache (decode_attention.cu) and
+// of K4's int8 value product (pv_int8, off on the main path) and walk route
+// (decode_attention_q.cu: wg_decode_attention_q_walk, the reference the
+// chunk engine is held to). K4's other modes, K8 and K12's attention phase
+// run decode_chunk.cuh, and K11's bf16 cache decode_flat.cuh, which repeat
+// this engine's arithmetic per block bit for bit.
 //
 // A block of 256 threads takes one (row, kv head) and up to `qg` of its
 // query rows: the n_rep query heads of that kv head for each of the Tc
@@ -16,8 +15,7 @@
 // per token. The rounding points are those of the TPU kernels the engine
 // replaces, per `bl`-key block:
 //   * scores: Q_INT8: q quantized per (token, head), qs = max(|q|max, 1e-20)
-//     * (1/127), q8 = round(q / qs) (or q8 and qs given: K12's banded_q8
-//     input), an exact integer q8 . k, then
+//     * (1/127), q8 = round(q / qs), an exact integer q8 . k, then
 //     s * (ks * (qs * scale)); Q_BF16: bf16(q) . k in fp32, then
 //     s * (ks * scale); Q_F32 (K11): (q * scale) . k in fp32, no scales;
 //   * invalid keys get the finite -1e30 and p = 0;
@@ -53,8 +51,6 @@ enum QMode { Q_INT8 = 0, Q_BF16 = 1, Q_F32 = 2 };
 
 struct DecodeArgs {
   const void* q;                 // [B, Tc, H*D] in T
-  const int8_t* q8;              // Q_INT8 only: q already quantized [B, Tc, H*D] with
-  const float* qsc;              // its scales [B, Tc, H], or both null
   const void* k;                 // the layer's cache values [B, L, width]
   const void* v;
   const __nv_bfloat16* ks;       // [B, n_kv, L] per (token, kv head), or null
@@ -145,17 +141,14 @@ __device__ void walk_block(const DecodeArgs& a, int b, int kv, int g0, float* sm
   for (int qi = warp; qi < nq; qi += DW_NW) {
     const T* qr = qb + q_off(qi);
     float qs = 1.f;
-    if (QM == Q_INT8 && a.q8) {
-      qs = a.qsc[q_off(qi) / D];
-    } else if (QM == Q_INT8) {
+    if (QM == Q_INT8) {
       float mx = 0.f;
       for (int d = lane; d < D; d += 32) mx = fmaxf(mx, fabsf(to_f(qr[d])));
       mx = warp_max(mx);
       qs = fmaxf(mx, 1e-20f) * (1.0f / 127.0f);
     }
     for (int d = lane; d < D; d += 32) {
-      qv[qi * D + d] = QM == Q_INT8 && a.q8 ? float(a.q8[q_off(qi) + d])
-                     : QM == Q_INT8 ? rintf(to_f(qr[d]) / qs)
+      qv[qi * D + d] = QM == Q_INT8 ? rintf(to_f(qr[d]) / qs)
                      : QM == Q_BF16 ? round_to<__nv_bfloat16>(to_f(qr[d]))
                      : to_f(qr[d]) * a.scale;
       acc[qi * D + d] = 0.f;

@@ -22,8 +22,17 @@
 // bf16 is 126 MB, about 38 us at 3.35 TB/s). K13b's qkv, fc1 and fc2 are
 // bound by operations (fc1 [8192, 1280] x [1280, 5120]: 107 G int8
 // operations, about 54 us at 1,979 TOP/s).
-// Design. K13a: one warp per row (8 rows per block of 256 threads), two
-// passes over the row (absmax, then codes), 4 values per lane per load.
+// Design. K13a (quantize_rows) reads each row from device memory once: a
+// row is held in registers between its absmax and its codes. A thread
+// takes segments of 16 values (K % 16 == 0: two or four 16-byte loads, one
+// 16-byte store of codes) or else of 4 (one 8- or 16-byte load, a 4-byte
+// store), segment s of a row going to thread s mod TPR of the row's TPR
+// threads (a warp, or 2, 4 or 8 warps for long rows, 256 / TPR rows a
+// block); every load of a thread is issued before the reduction (the max
+// by shuffles, then across the row's warps through shared memory). A row
+// longer than 256 threads can hold (16384 bf16 or 8192 fp32 values at 16
+// a segment) is read twice, 256 threads a row. The plan is mirrored by
+// ops/int8_gemm.py:quantize_tokens_plan.
 // K13b (wg_w8a8_gemm_tc) in three launches on the wrapper's scratch: K13a's
 // quantize_rows writes the codes xq [M, K] and sx [M] once (the first
 // design recomputed every row's absmax and codes in each of the N / 128
@@ -53,7 +62,7 @@ namespace {
 
 using namespace wgt;
 
-constexpr int QNT = 256;            // K13a: threads per block, a warp per row
+constexpr int QNT = 256;            // K13a: threads per block
 constexpr int GNT = 256;            // K13b: threads per block (2 x 4 warps)
 constexpr int GBM = 64;             // K13b: output rows per block
 constexpr int GBN = 128;            // K13b: output columns per block
@@ -107,22 +116,176 @@ __device__ __forceinline__ uint32_t quant_word(const float v[4], float inv) {
   return w;
 }
 
-template <typename T>
+// K13a's plan: values a segment, threads a row, segments a thread (a
+// power of two) and whether the row is held (else read twice)
+struct QuantPlan {
+  int seg, tpr, spt, held;
+};
+
+// segments a thread may hold: 64 registers of raw values
+__host__ __device__ constexpr int quant_spt_max(int seg, int elem) {
+  return seg == 16 && elem == 4 ? 4 : 8;
+}
+
+inline QuantPlan quant_plan(int K, int elem) {
+  QuantPlan p{};
+  p.seg = K % 16 == 0 ? 16 : 4;
+  const int nseg = K / p.seg, smax = quant_spt_max(p.seg, elem);
+  p.tpr = 32;
+  while (p.tpr < QNT && p.tpr * smax < nseg) p.tpr *= 2;
+  p.held = p.tpr * smax >= nseg;
+  const int need = (nseg + p.tpr - 1) / p.tpr;
+  p.spt = 1;
+  while (p.held && p.spt < need) p.spt *= 2;
+  return p;
+}
+
+// a segment of SEG values of T as raw 32-bit words
+template <typename T, int SEG>
+struct Seg {
+  static constexpr int W = SEG * int(sizeof(T)) / 4;
+  uint32_t w[W];
+};
+
+// 16 bytes read once (no L1 allocation)
+__device__ __forceinline__ uint4 ld_once16(const void* p) {
+  uint4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
+  return r;
+}
+
+// segment s of a row (16-byte loads; 8 bytes for 4 bf16 values)
+template <typename T, int SEG>
+__device__ __forceinline__ void load_seg(Seg<T, SEG>& g, const T* row, int s) {
+  const T* p = row + size_t(s) * SEG;
+  if constexpr (Seg<T, SEG>::W >= 4) {
+#pragma unroll
+    for (int i = 0; i < Seg<T, SEG>::W / 4; ++i) {
+      const uint4 v = ld_once16(reinterpret_cast<const char*>(p) + 16 * i);
+      g.w[4 * i] = v.x; g.w[4 * i + 1] = v.y; g.w[4 * i + 2] = v.z; g.w[4 * i + 3] = v.w;
+    }
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    g.w[0] = v.x; g.w[1] = v.y;
+  }
+}
+
+// value j of a segment as fp32 (a bf16 value is the high half of its fp32)
+template <typename T, int SEG>
+__device__ __forceinline__ float seg_val(const Seg<T, SEG>& g, int j) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(g.w[j]);
+  } else {
+    const uint32_t w = g.w[j >> 1];
+    return __uint_as_float(j & 1 ? w & 0xFFFF0000u : w << 16);
+  }
+}
+
+template <typename T, int SEG>
+__device__ __forceinline__ float seg_absmax(const Seg<T, SEG>& g, float mx) {
+#pragma unroll
+  for (int j = 0; j < SEG; ++j) mx = fmaxf(mx, fabsf(seg_val(g, j)));
+  return mx;
+}
+
+// the codes of segment s of a row into its codes row (16- or 4-byte stores)
+template <typename T, int SEG>
+__device__ __forceinline__ void store_codes(const Seg<T, SEG>& g, float inv, int8_t* qrow, int s) {
+  uint32_t c[SEG / 4];
+#pragma unroll
+  for (int k = 0; k < SEG / 4; ++k) {
+    const float v[4] = {seg_val(g, 4 * k), seg_val(g, 4 * k + 1), seg_val(g, 4 * k + 2),
+                        seg_val(g, 4 * k + 3)};
+    c[k] = quant_word<T>(v, inv);
+  }
+  int8_t* q = qrow + size_t(s) * SEG;
+  if constexpr (SEG == 16)
+    *reinterpret_cast<uint4*>(q) = make_uint4(c[0], c[1], c[2], c[3]);
+  else
+    *reinterpret_cast<uint32_t*>(q) = c[0];
+}
+
+// K13a: rows of K values (K % 4 == 0; 16-byte aligned x, and rows 8-byte
+// aligned for bf16) to codes xq [M, K] and scales sx [M]. TPR threads a row
+// (a power of two from 32 to QNT); HELD: segment s of a row to thread s mod
+// TPR, at most SPT a thread, all loaded before the row's absmax; else the
+// row is read twice (absmax, then codes), TPR = QNT.
+template <typename T, int SEG, int SPT, bool HELD>
 __global__ void __launch_bounds__(QNT)
 quantize_rows(const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ sx, int M,
-              int K) {
-  const int lane = threadIdx.x & 31;
-  const int m = blockIdx.x * (QNT / 32) + (threadIdx.x >> 5);
-  if (m >= M) return;
-  const T* row = x + size_t(m) * K;
-  const float inv = quant_inv<T>(row_absmax(row, K, lane));
-  uint32_t* out = reinterpret_cast<uint32_t*>(xq + size_t(m) * K);
-  float v[4];
-  for (int k = 4 * lane; k < K; k += 128) {
-    load4(row + k, v);
-    out[k / 4] = quant_word<T>(v, inv);
+              int K, int TPR) {
+  __shared__ float red[QNT / 32];
+  const int nseg = K / SEG, rpb = QNT / TPR;
+  const int t = threadIdx.x % TPR, r = threadIdx.x / TPR, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * rpb + r;
+  const bool live = m < M;
+  const T* row = x + size_t(live ? m : 0) * K;
+  Seg<T, SEG> g[HELD ? SPT : 1];
+  float mx = 0.f;
+  if (HELD) {
+#pragma unroll
+    for (int i = 0; i < SPT; ++i)
+      if (live && t + i * TPR < nseg) load_seg(g[i], row, t + i * TPR);
+#pragma unroll
+    for (int i = 0; i < SPT; ++i)
+      if (live && t + i * TPR < nseg) mx = seg_absmax(g[i], mx);
+  } else {
+    for (int s = t; live && s < nseg; s += TPR) {
+      load_seg(g[0], row, s);
+      mx = seg_absmax(g[0], mx);
+    }
   }
-  if (lane == 0) sx[m] = __fdiv_rn(1.0f, inv);
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (TPR > 32) {
+    if (lane == 0) red[threadIdx.x >> 5] = mx;
+    __syncthreads();
+    const int w0 = r * (TPR / 32);
+    for (int w = 0; w < TPR / 32; ++w) mx = fmaxf(mx, red[w0 + w]);
+  }
+  if (!live) return;
+  const float inv = quant_inv<T>(mx);
+  int8_t* qrow = xq + size_t(m) * K;
+  if (HELD) {
+#pragma unroll
+    for (int i = 0; i < SPT; ++i)
+      if (t + i * TPR < nseg) store_codes(g[i], inv, qrow, t + i * TPR);
+  } else {
+    for (int s = t; s < nseg; s += TPR) {
+      load_seg(g[0], row, s);
+      store_codes(g[0], inv, qrow, s);
+    }
+  }
+  if (t == 0) sx[m] = __fdiv_rn(1.0f, inv);
+}
+
+template <typename T, int SEG, int SPT, bool HELD>
+cudaError_t quant_go(const T* x, int8_t* xq, float* sx, int M, int K, int tpr, cudaStream_t st) {
+  const int rpb = QNT / tpr;
+  quantize_rows<T, SEG, SPT, HELD><<<(M + rpb - 1) / rpb, QNT, 0, st>>>(x, xq, sx, M, K, tpr);
+  return cudaGetLastError();
+}
+
+template <typename T, int SEG>
+cudaError_t quant_seg(const T* x, int8_t* xq, float* sx, int M, int K, const QuantPlan& p,
+                      cudaStream_t st) {
+  constexpr int SMAX = quant_spt_max(SEG, int(sizeof(T)));
+  if (!p.held) return quant_go<T, SEG, 1, false>(x, xq, sx, M, K, p.tpr, st);
+  switch (p.spt) {
+    case 1: return quant_go<T, SEG, 1, true>(x, xq, sx, M, K, p.tpr, st);
+    case 2: return quant_go<T, SEG, 2, true>(x, xq, sx, M, K, p.tpr, st);
+    case 4: return quant_go<T, SEG, 4, true>(x, xq, sx, M, K, p.tpr, st);
+    default: return quant_go<T, SEG, (SMAX > 4 ? 8 : 4), true>(x, xq, sx, M, K, p.tpr, st);
+  }
+}
+
+// K13a's launch (also K13b's first on the tensor-core route)
+template <typename T>
+cudaError_t quantize(const T* x, int8_t* xq, float* sx, int M, int K, cudaStream_t st) {
+  const QuantPlan p = quant_plan(K, int(sizeof(T)));
+  return p.seg == 16 ? quant_seg<T, 16>(x, xq, sx, M, K, p, st)
+                     : quant_seg<T, 4>(x, xq, sx, M, K, p, st);
 }
 
 // the TPU kernel's activations (walkgpt_tpu/ops/int8_gemm.py _ACTS):
@@ -470,9 +633,10 @@ int kmajor_map(CUtensorMap* map, const void* p, int rows, int K) {
 template <typename T>
 int w8a8_tc(const T* x, const int8_t* w, const float* ws, const float* bias, int8_t* xq,
             float* sx, int8_t* wt, T* out, int M, int K, int N, int act, cudaStream_t st) {
-  quantize_rows<T><<<(M + QNT / 32 - 1) / (QNT / 32), QNT, 0, st>>>(x, xq, sx, M, K);
+  cudaError_t err = quantize(x, xq, sx, M, K, st);
+  if (err != cudaSuccess) return int(err);
   transpose_w<<<dim3((N + 63) / 64, (K + 63) / 64), 256, 0, st>>>(w, wt, K, N);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
   CUtensorMap ta, tb;
   int rc = kmajor_map(&ta, xq, M, K);
@@ -495,18 +659,29 @@ extern "C" int wg_quantize_tokens(const void* x, void* xq, void* sx, int M, int 
                                   void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(M, K)) return int(cudaErrorInvalidValue);
-  const int blocks = (M + QNT / 32 - 1) / (QNT / 32);
   if (dtype == 0)
-    quantize_rows<float><<<blocks, QNT, 0, st>>>(static_cast<const float*>(x),
-                                                 static_cast<int8_t*>(xq),
-                                                 static_cast<float*>(sx), M, K);
-  else if (dtype == 1)
-    quantize_rows<__nv_bfloat16><<<blocks, QNT, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(sx),
-        M, K);
-  else
-    return int(cudaErrorInvalidValue);
-  return int(cudaGetLastError());
+    return int(quantize(static_cast<const float*>(x), static_cast<int8_t*>(xq),
+                        static_cast<float*>(sx), M, K, st));
+  if (dtype == 1)
+    return int(quantize(static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq),
+                        static_cast<float*>(sx), M, K, st));
+  return int(cudaErrorInvalidValue);
+}
+
+// K13a's launch for x [M, K] in dtype, without launching: info[0..4] =
+// values a segment, threads a row, segments a thread, whether a row is held
+// in registers (1) or read twice (0), blocks. Returns 0 or the error the
+// launch would meet for these shapes.
+extern "C" int wg_quantize_tokens_info(int M, int K, int dtype, int* info) {
+  if (bad_shape(M, K) || dtype < 0 || dtype > 1) return int(cudaErrorInvalidValue);
+  const QuantPlan p = quant_plan(K, dtype == 0 ? 4 : 2);
+  const int rpb = QNT / p.tpr;
+  info[0] = p.seg;
+  info[1] = p.tpr;
+  info[2] = p.held ? p.spt : (K / p.seg + p.tpr - 1) / p.tpr;
+  info[3] = p.held;
+  info[4] = (M + rpb - 1) / rpb;
+  return 0;
 }
 
 // x: [M, K] (dtype 0 = float32, 1 = bfloat16); w: [K, N] int8; ws: [N]

@@ -1,8 +1,9 @@
 // The tile code of K6 (fused_mlp_int4.cu): the int4 MLP of a decode step in
 // three launches that stream the packed weights through every SM. Its
-// product loop (stream_nibbles) is also K5's (int4_matmul.cu).
-// Semantics (walkgpt_tpu/ops/int4.py _fused_mlp_kernel, as mlp4_tile.cuh,
-// which K12 keeps):
+// product loop (stream_nibbles) is also K5's (int4_matmul.cu), and its two
+// passes (gate_up_item, down_item) are also K12's MLP phases
+// (fused_layer.cu), which run them grid-strided inside one cooperative
+// launch. Semantics (walkgpt_tpu/ops/int4.py _fused_mlp_kernel):
 //   * gate and up are packed in half pairs (byte [i, c] = rows i, i + H/2);
 //     g = (x lo + x hi) * gs in fp32, act = silu(g) or exact gelu(g), times
 //     (x lo + x hi of up) * us;
@@ -137,29 +138,32 @@ inline size_t down_smem_floats(int MB, int TI) {
   return size_t(MB) * TI + size_t(DN_RL) * MB * DN_NW;
 }
 
-// x: [M, H] (T); gp, up: [H/2, I] packed (up null: gelu MLP); gs, us: [I];
-// h: [M, I] bf16 out. vec: I % 16 == 0 and gp, up 16-byte aligned.
-template <typename T, int MB>
-__global__ void __launch_bounds__(S4_NT)
-mlp4_gate_up(const T* __restrict__ x, const int8_t* __restrict__ gp,
-             const float* __restrict__ gs, const int8_t* __restrict__ up,
-             const float* __restrict__ us, __nv_bfloat16* __restrict__ h, int M, int H, int I,
-             int gelu, int vec) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int RS = gu_rs(MB), U = s4_u(MB);
+// One gate/up item: columns [c0, c0 + GU_CW) of I for every row. xload(r,
+// i) gives element i of input row r as fp32; gp, up: [H/2, I] packed (up
+// null: gelu MLP); gs, us: [I]; h: [M, I] bf16 out; smem:
+// gate_up_smem_floats(MB, H) floats. vec: I % 16 == 0 and gp, up 16-byte
+// aligned. Every thread of the block calls it.
+template <int MB, int U, class XLoad>
+__device__ __forceinline__ void gate_up_item(XLoad xload, int c0, const int8_t* __restrict__ gp,
+                                             const float* __restrict__ gs,
+                                             const int8_t* __restrict__ up,
+                                             const float* __restrict__ us,
+                                             __nv_bfloat16* __restrict__ h, int M, int H, int I,
+                                             int gelu, int vec, float* smem) {
+  constexpr int RS = gu_rs(MB);
   const int H2 = H / 2, tid = threadIdx.x;
   const int half = tid / (S4_NT / 2), rl = (tid % (S4_NT / 2)) / 2, ch = tid % 2;
-  const int c0 = blockIdx.x * GU_CW, col = c0 + ch * 16;
+  const int col = c0 + ch * 16;
   const int8_t* w = half ? up : gp;
   const bool active = w != nullptr && col < I;
   const bool v16 = vec && col + 16 <= I;
   const int8_t* wp = active ? w + col : nullptr;
   for (int m0 = 0; m0 < M; m0 += MB) {
     const int mb = min(MB, M - m0);
-    __syncthreads();                       // the previous pass is done with smem
+    __syncthreads();                       // the previous pass or item is done with smem
     for (int i = tid; i < MB * H; i += S4_NT) {
       const int m = i / H;
-      smem[i] = m < mb ? to_f(x[size_t(m0 + m) * H + (i - m * H)]) : 0.f;
+      smem[i] = m < mb ? xload(m0 + m, i - m * H) : 0.f;
     }
     __syncthreads();
     float acc[MB][16];
@@ -194,30 +198,31 @@ mlp4_gate_up(const T* __restrict__ x, const int8_t* __restrict__ gp,
   }
 }
 
-// h: [M, I] bf16; dp: [I/2, H] tile-local packed; ds: [H]; parts: [I/TI, M, H]
-// fp32 out. Grid (ceil(H / DN_NW), I / TI). vec: H % 16 == 0 and dp 16-byte
-// aligned.
-template <int MB>
-__global__ void __launch_bounds__(S4_NT)
-mlp4_down(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ dp,
-          const float* __restrict__ ds, float* __restrict__ parts, int M, int H, int I, int TI,
-          int vec) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int U = s4_u(MB);
+// One down item: tile t, output columns [n0, n0 + DN_NW). h: [M, I] bf16
+// (read through L2: in K12 another block of the same launch wrote it); dp:
+// [I/2, H] tile-local packed; ds: [H]; parts: [I/TI, M, H] fp32 out; smem:
+// down_smem_floats(MB, TI) floats. vec: H % 16 == 0 and dp 16-byte
+// aligned. Every thread of the block calls it.
+template <int MB, int U>
+__device__ __forceinline__ void down_item(const __nv_bfloat16* h, int t, int n0,
+                                          const int8_t* __restrict__ dp,
+                                          const float* __restrict__ ds, float* __restrict__ parts,
+                                          int M, int H, int I, int TI, int vec, float* smem) {
   float* hs = smem;                          // [MB][TI]
   float* red = smem + MB * TI;               // [DN_RL][MB][DN_NW]
-  const int tid = threadIdx.x, t = blockIdx.y, half = TI / 2;
+  const int tid = threadIdx.x, half = TI / 2;
   const int cg = tid % 32, rl = tid / 32;
-  const int n0 = blockIdx.x * DN_NW, col = n0 + cg * 16;
+  const int col = n0 + cg * 16;
   const bool active = col < H, v16 = vec && col + 16 <= H;
   const int8_t* wp = dp + size_t(t) * half * H + col;
   for (int m0 = 0; m0 < M; m0 += MB) {
     const int mb = min(MB, M - m0);
-    __syncthreads();
+    __syncthreads();                         // the previous pass or item is done with smem
     for (int i = tid; i < MB * TI; i += S4_NT) {
       const int m = i / TI;
-      hs[i] = m < mb ? __bfloat162float(h[size_t(m0 + m) * I + size_t(t) * TI + (i - m * TI)])
-                     : 0.f;
+      hs[i] = m < mb
+          ? __bfloat162float(__ldcg(h + size_t(m0 + m) * I + size_t(t) * TI + (i - m * TI)))
+          : 0.f;
     }
     __syncthreads();
     float acc[MB][16];
@@ -245,6 +250,29 @@ mlp4_down(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ dp,
       parts[(size_t(t) * M + m0 + m) * H + n] = s * ds[n];
     }
   }
+}
+
+// x: [M, H] (T); the rest as gate_up_item's. A block per GU_CW columns.
+template <typename T, int MB>
+__global__ void __launch_bounds__(S4_NT)
+mlp4_gate_up(const T* __restrict__ x, const int8_t* __restrict__ gp,
+             const float* __restrict__ gs, const int8_t* __restrict__ up,
+             const float* __restrict__ us, __nv_bfloat16* __restrict__ h, int M, int H, int I,
+             int gelu, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  gate_up_item<MB, s4_u(MB)>([&](int r, int i) { return to_f(x[size_t(r) * H + i]); },
+                             blockIdx.x * GU_CW, gp, gs, up, us, h, M, H, I, gelu, vec, smem);
+}
+
+// down_item's arguments. Grid (ceil(H / DN_NW), I / TI).
+template <int MB>
+__global__ void __launch_bounds__(S4_NT)
+mlp4_down(const __nv_bfloat16* __restrict__ h, const int8_t* __restrict__ dp,
+          const float* __restrict__ ds, float* __restrict__ parts, int M, int H, int I, int TI,
+          int vec) {
+  extern __shared__ __align__(16) float smem[];
+  down_item<MB, s4_u(MB)>(h, blockIdx.y, blockIdx.x * DN_NW, dp, ds, parts, M, H, I, TI, vec,
+                          smem);
 }
 
 // parts [n_tiles, MH] -> out [MH], the tiles in tile order

@@ -371,6 +371,31 @@ def fused_mlp_int4(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
 fused_mlp_int4.launches = 0
 
 
+def fused_mlp_int4_parts(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    """K6's launches on x [M, H] (CUDA tensors only), returning the tiles'
+    scaled partials [n_tiles, M, H] fp32 from its scratch: what K12's MLP
+    phases, which run K6's two passes, are held to bit for bit
+    (chip_smoke.py, tests/test_torch_kernels_gpu.py). fused_mlp_int4 never
+    calls it, and it counts no launches."""
+    first, up, down, gelu = _mlp_parts(mlp_params, act)
+    if x.device.type != "cuda" or x.dim() != 2:
+        raise ValueError("fused_mlp_int4_parts: a CUDA tensor [M, H]")
+    dt = _check_rows("fused_mlp_int4_parts", x)
+    m, h = x.shape
+    i_dim = first["w_p4"].shape[1]
+    plan = fused_mlp_int4_plan(m, h, i_dim)
+    ups = (up["w_p4"], up["w_scale"]) if up is not None else (None, None)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32, device=x.device)
+    y = torch.empty((m, h), dtype=x.dtype, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    cuda_build.launch("fused_mlp_int4", "wg_fused_mlp_int4", [_P] * 9 + [_I] * 6 + [_P],
+                      x.device, x.contiguous().data_ptr(), first["w_p4"].data_ptr(),
+                      first["w_scale"].data_ptr(), ptr(ups[0]), ptr(ups[1]),
+                      down["w_p4t"].data_ptr(), down["w_scale"].data_ptr(),
+                      scratch.data_ptr(), y.data_ptr(), m, h, i_dim, plan["tile"], int(gelu), dt)
+    return scratch[:plan["h_offset"]].view(plan["n_tiles"], m, h)
+
+
 # ---------------------------------------------------------------------------
 # K7: one-launch W8A8 MLP
 # ---------------------------------------------------------------------------

@@ -4,7 +4,10 @@ counterpart of walkgpt_tpu/ops/int8_gemm.py).
 K13a quantize_tokens (csrc/int8_gemm.cu)
     Replaces walkgpt_tpu/ops/int8_gemm.py:quantize_tokens (_quant_kernel):
     x [..., K] -> (int8 codes [..., K], fp32 scales [..., 1]) with
-    core/nn.linear's "a8" decisions (core/nn.quantize_a8).
+    core/nn.linear's "a8" decisions (core/nn.quantize_a8). One pass over x
+    (quantize_tokens_plan): a row is held in registers, 16 values a
+    segment in 16-byte loads and code stores where K % 16 == 0, between its
+    absmax and its codes.
 K13b w8a8_gemm (csrc/int8_gemm.cu)
     Replaces walkgpt_tpu/ops/int8_gemm.py:w8a8_gemm (_w8a8_kernel): the same
     quantization, the exact int32 product with an int8 weight, then
@@ -32,6 +35,7 @@ ops/cuda_build.py at first use) or raises. Each counts its launches in
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -88,6 +92,53 @@ def quantize_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 quantize_tokens.launches = 0
+
+# K13a's launch plan (csrc/int8_gemm.cu quantize_rows): QUANT_THREADS-thread
+# blocks; a thread holds at most 8 segments of a row (4 of 16 fp32 values:
+# 64 registers either way)
+QUANT_THREADS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def quantize_tokens_plan(m: int, k: int, dtype: torch.dtype) -> Dict[str, object]:
+    """K13a's launch for x [m, k] in dtype, as csrc/int8_gemm.cu takes it:
+    segments of 16 values (k % 16 == 0: 16-byte loads and a 16-byte store
+    of codes) or else of 4; threads_per_row (a power of two, 32 to
+    QUANT_THREADS) with segment s of a row on thread s mod threads_per_row;
+    held "registers" (at most segments_per_thread, a power of two, a
+    thread, all loaded before the row's absmax) or, for rows longer than a
+    block holds, "two passes" (the row read for its absmax, then again for
+    its codes); rows_per_block and blocks."""
+    elem = 4 if dtype == torch.float32 else 2
+    seg = 16 if k % 16 == 0 else 4
+    nseg = k // seg
+    smax = 4 if seg == 16 and elem == 4 else 8
+    tpr = 32
+    while tpr < QUANT_THREADS and tpr * smax < nseg:
+        tpr *= 2
+    held = tpr * smax >= nseg
+    spt = 1
+    while held and spt < -(-nseg // tpr):
+        spt *= 2
+    rows = QUANT_THREADS // tpr
+    return dict(segment=seg, segments=nseg, threads_per_row=tpr, rows_per_block=rows,
+                segments_per_thread=spt if held else -(-nseg // tpr),
+                held="registers" if held else "two passes", blocks=-(-m // rows))
+
+
+def quantize_tokens_info(m: int, k: int, dtype: torch.dtype) -> Dict[str, object]:
+    """K13a's launch for x [m, k] in dtype as csrc/int8_gemm.cu plans it,
+    from its C entry (the built library; no launch, no device): the keys of
+    quantize_tokens_plan, which mirrors it."""
+    info = (ctypes.c_int * 5)()
+    entry = cuda_build.entry("int8_gemm", "wg_quantize_tokens_info", [_I] * 3 + [_P])
+    rc = entry(m, k, _DTYPES[dtype], ctypes.addressof(info))
+    if rc != 0:
+        raise RuntimeError(f"wg_quantize_tokens_info: CUDA error {rc}")
+    seg, tpr, spt, held, blocks = list(info)
+    return dict(segment=seg, segments=k // seg, threads_per_row=tpr,
+                rows_per_block=QUANT_THREADS // tpr, segments_per_thread=spt,
+                held="registers" if held else "two passes", blocks=blocks)
 
 
 def w8a8_gemm_reference(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,

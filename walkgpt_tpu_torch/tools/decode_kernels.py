@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """K5 (int4_matmul_pallas), K6 (fused_mlp_int4), K7 (fused_mlp_int8), K8
-(decode_attention_q_chunk), K4 (decode_attention_q) and K11
-(decode_attention) at the decode path's shapes, and K13b (w8a8_gemm) at the
-ViT-H block's, timed on one GPU, for the package's sources and for other
-copies of `walkgpt_tpu_torch/csrc` (an older tree's, an edited one's).
+(decode_attention_q_chunk), K4 (decode_attention_q), K11
+(decode_attention) and K12 (fused_layer_tail) at the decode path's shapes,
+and K13a (quantize_tokens) and K13b (w8a8_gemm) at the ViT-H block's, timed
+on one GPU, for the package's sources and for other copies of
+`walkgpt_tpu_torch/csrc` (an older tree's, an edited one's).
 
-    python3 walkgpt_tpu_torch/tools/decode_kernels.py [--csrc DIR ...] [--rounds 2]
+    python3 walkgpt_tpu_torch/tools/decode_kernels.py [--csrc DIR ...]
+        [--k12-build EDIT|MACRO=VALUE[,...] ...] [--k12-phase-times]
+        [--only K12,K13a] [--rounds 2]
 
 For each source tree (the package's first, then each --csrc directory,
 built into build/decode_kernels/<n>/), on the same bf16 inputs:
@@ -18,7 +21,9 @@ built into build/decode_kernels/<n>/), on the same bf16 inputs:
     valid, K11 on the dense 7B step (2 rows, 480 of 512 slots valid,
     bf16), K13b on the four products of a ViT-H block (qkv 9800 x 1280 x
     3840 with bias, proj 9800 x 1280 x 1280, fc1 8192 x 1280 x 5120 with
-    bias and gelu_exact, fc2 8192 x 5120 x 1280; bf16): ms per call by CUDA
+    bias and gelu_exact, fc2 8192 x 5120 x 1280; bf16), K12 on the 7B
+    int4x step (2 and 4 rows, 480 of 512 slots valid), K13a on ViT-H fc1's
+    and fc2's inputs ([8192, 1280] and [8192, 5120] bf16): ms per call by CUDA
     events (100 calls after a warm-up), the trees taken in turns for
     `--rounds` rounds (a, b, ..., b, a, ...); in the package's tree also K4
     and K11 on their walk routes (decode_attention_q_walk,
@@ -31,10 +36,20 @@ built into build/decode_kernels/<n>/), on the same bf16 inputs:
     K7 run three launches): each kernel alone beside the other trees', and
     K4's against the walk's;
   * every tree's outputs are the package's bit for bit (K6, K7, K8, K4,
-    K11, K13b and their walk or first-design routes) or within
-    chip_smoke's bf16 bounds of the plain
-    version, relative to the output's largest magnitude (K5, whose sums
-    another tree may take in another order), else it exits non-zero;
+    K11, K13a's codes and scales, K13b and their walk or first-design
+    routes; K12's attention rows and x2) or within chip_smoke's bf16 bounds
+    of the plain version, relative to the output's largest magnitude (K5,
+    whose sums another tree may take in another order, and K12's output,
+    whose MLP a tree older than the redesign sums in another order), else
+    it exits non-zero;
+  * --k12-build adds a copy of the package's csrc with fused_layer.cu
+    edited so as another tree: the named edits of K12_EDITS (no-prefetch:
+    no L2 prefetch of the o weight) and build switches set (MACRO=VALUE);
+    K12's launch with every
+    phase empty (its grid barriers alone) is timed in each tree that has
+    it; --k12-phase-times times K12's phases (the global timer at each grid
+    barrier, FL_PHASE_TIMES) in each tree that has the switch; --only
+    keeps the cases whose labels start with the given prefixes;
   * K4's host microseconds per call at the 7B step (200 calls, no
     synchronisation inside), its C entry bound once (cuda_build.launch)
     against bound on every call with the device entered each time (the
@@ -43,6 +58,7 @@ Needs nvcc and a CUDA GPU. Prints the card's name and power limit first.
 """
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -53,16 +69,17 @@ REPO = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
-from walkgpt_tpu_torch.ops import cuda_build, int8_gemm  # noqa: E402
+from walkgpt_tpu_torch.ops import cuda_build, fused_layer, int8_gemm  # noqa: E402
 
 NAMES = ("int4_matmul", "fused_mlp_int4", "fused_mlp_int8", "decode_attention_q",
-         "decode_attention", "int8_gemm")
+         "decode_attention", "int8_gemm", "fused_layer")
 # K13b on the ViT-H block's products: (label, m, k, n, bias, act)
 K13B = (("K13b ViT-H qkv", 9800, 1280, 3840, True, None),
         ("K13b ViT-H proj", 9800, 1280, 1280, False, None),
         ("K13b ViT-H fc1", 8192, 1280, 5120, True, "gelu_exact"),
         ("K13b ViT-H fc2", 8192, 5120, 1280, False, None))
-# held to the plain version's bf16 bounds; every other case to the package's bits
+# held to the plain version's bf16 bounds; every other case to the package's
+# bits (K12: its attention rows and x2; its output to the bf16 bounds)
 WITHIN_BOUNDS = ("K5",)
 PACKAGE = (cuda_build.CSRC, cuda_build.BUILD_DIR)
 
@@ -102,6 +119,17 @@ def cases(dev):
                                     torch.Generator(device=dev).manual_seed(110), walk)
     out["K11 7B bf16"] = same(False)
     package_only["K11 7B bf16 (walk)"] = (same(True), "K11 7B bf16")
+    for b in (2, 4):
+        run, plain, _, cost, inp = cs.k12_case(dev, gen, b, 32, 128, 512, 480, True, 11008, "silu",
+                                               bf16)
+        out[f"K12 7B int4x M={b}"] = (lambda run: lambda: run()._base)(run), plain, None, cost
+        K12_ARGS[f"K12 7B int4x M={b}"] = inp
+    for label, k in (("fc1", 1280), ("fc2", 5120)):
+        x = torch.randn(8192, k, generator=gen, device=dev).to(bf16)
+        out[f"K13a ViT-H {label}"] = ((lambda x: lambda: int8_gemm.quantize_tokens(x))(x),
+                                     (lambda x: lambda: int8_gemm.quantize_tokens_reference(x))(x),
+                                     None, (cs.nbytes(x) + 8192 * k + 4 * 8192, 4.0 * 8192 * k,
+                                            torch.float32))
     other = {}
     for label, m, k, n, bias, act in K13B:
         run, plain, library, cost, x, w, b = cs.k13b_case(dev, gen, m, k, n, bias, act, bf16)
@@ -111,6 +139,81 @@ def cases(dev):
         package_only[label + " (first design)"] = ((first, plain, library, cost), label)
         other[label] = first
     return out, package_only, other
+
+
+# K12's inputs by label, for its launch with every phase empty
+K12_ARGS = {}
+
+
+def agrees(label, got, want, plain):
+    """Whether another run's outputs hold against the package's (want)."""
+    if label.startswith("K12"):
+        ref = plain()
+        err = (got[2] - ref).abs()
+        scale = max(1.0, float(ref.abs().max()))
+        return bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+                    and err.max() <= cs.BF16_MAX_ABS * scale
+                    and err.mean() <= cs.BF16_MEAN_ABS * scale)
+    if isinstance(got, tuple):
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+    if label.startswith(WITHIN_BOUNDS):
+        ref = plain()
+        err = (got.float() - ref.float()).abs()
+        scale = max(1.0, float(ref.float().abs().max()))
+        return bool(err.max() <= cs.BF16_MAX_ABS * scale and err.mean() <= cs.BF16_MEAN_ABS * scale)
+    return torch.equal(got, want)
+
+
+# measurement builds of fused_layer.cu by edits of its text: name ->
+# (text, replacement)
+K12_EDITS = {
+    "no-prefetch": ("    prefetch_weights(a);\n", ""),
+}
+
+
+def k12_variant(csrc_from, settings, edits=()):
+    """A copy of csrc_from whose fused_layer.cu sets the build switches
+    {MACRO: value} and takes the named K12_EDITS: its tree (csrc, build
+    dir)."""
+    name = "_".join([f"{k}{v}" for k, v in sorted(settings.items())] + sorted(edits))
+    root = REPO / "build" / "decode_kernels" / f"{csrc_from.parent.name}_{name}"
+    csrc = root / "csrc"
+    csrc.mkdir(parents=True, exist_ok=True)
+    for src in csrc_from.iterdir():
+        text = src.read_text()
+        if src.name == "fused_layer.cu":
+            for macro, value in settings.items():
+                found = re.search(rf"#define {macro} \S+", text)
+                if not found:
+                    raise RuntimeError(f"fused_layer.cu: no default of {macro} to edit")
+                text = text.replace(found.group(0), f"#define {macro} {value}")
+            for edit in edits:
+                old, new = K12_EDITS[edit]
+                if text.count(old) != 1:
+                    raise RuntimeError(f"fused_layer.cu: the text of edit {edit} is not there once")
+                text = text.replace(old, new)
+        (csrc / src.name).write_text(text)
+    return csrc, root / "kernels"
+
+
+def phase_times(tag, tree, n=20):
+    """K12's phases in `tree` built with FL_PHASE_TIMES: the medians (us)
+    over n launches of each K12 case."""
+    use(k12_variant(tree[0], {"FL_PHASE_TIMES": 1}))
+    cuda_build.build(["fused_layer"])
+    for label, inp in K12_ARGS.items():
+        runs = []
+        for _ in range(n):
+            y = fused_layer.fused_layer_tail(*inp["args"], **inp["kw"])
+            torch.cuda.synchronize()
+            row = y._base[fused_layer.SCRATCH_ROWS["hn"]].reshape(-1)
+            runs.append(row[:12].contiguous().view(torch.int64).cpu().tolist())
+        ts = torch.tensor(runs, dtype=torch.float64)
+        d = (ts[:, 1:] - ts[:, :-1]).median(0).values / 1e3
+        total = float((ts[:, 5] - ts[:, 0]).median()) / 1e3
+        print(f"{label} phases (us, median of {n}; {tag}): attention {d[0]:.1f}, o-proj "
+              f"{d[1]:.1f}, norm + gate/up {d[2]:.1f}, down {d[3]:.1f}, sum {d[4]:.1f}; "
+              f"total {total:.1f}", flush=True)
 
 
 def launch_rebinding(lib, fn_name, argtypes, device, *args):
@@ -141,6 +244,12 @@ def binding_host_us(run):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--csrc", action="append", default=[], help="another csrc directory")
+    ap.add_argument("--k12-build", action="append", default=[],
+                    help="add the package's csrc with fused_layer.cu edited so (a K12_EDITS "
+                         "name or MACRO=VALUE, comma-separated)")
+    ap.add_argument("--k12-phase-times", action="store_true",
+                    help="time K12's phases in each tree that has FL_PHASE_TIMES")
+    ap.add_argument("--only", default="", help="comma-separated label prefixes of the cases")
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -152,12 +261,24 @@ def main(argv=None) -> int:
     trees = [("package", PACKAGE)]
     for i, d in enumerate(args.csrc):
         trees.append((d, (Path(d).resolve(), REPO / "build" / "decode_kernels" / str(i))))
+    for spec in args.k12_build:
+        parts = spec.split(",")
+        settings = dict(kv.split("=") for kv in parts if "=" in kv)
+        edits = [e for e in parts if "=" not in e]
+        unknown = set(edits) - set(K12_EDITS)
+        if unknown:
+            ap.error(f"--k12-build: no edit named {sorted(unknown)}")
+        trees.append((f"K12 {spec}", k12_variant(cuda_build.CSRC, settings, edits)))
     for tag, tree in trees:
         use(tree)
         print(f"{tag}:", flush=True)
         cs.ptxas_summary(cuda_build.build(NAMES))
     dev = torch.device("cuda")
     runs, walks, other = cases(dev)
+    if args.only:
+        keep = tuple(args.only.split(","))
+        runs = {k: v for k, v in runs.items() if k.startswith(keep)}
+        walks = {k: v for k, v in walks.items() if k.startswith(keep) and v[1] in runs}
     want = {}
     use(PACKAGE)
     for label, (run, plain, _, cost) in runs.items():
@@ -183,14 +304,7 @@ def main(argv=None) -> int:
             for label, (run, plain, _, _) in tree_runs(tag).items():
                 got = run()
                 torch.cuda.synchronize()
-                if not label.startswith(WITHIN_BOUNDS):
-                    same = torch.equal(got, want[label])
-                else:
-                    ref = plain()
-                    err = (got.float() - ref.float()).abs()
-                    scale = max(1.0, float(ref.float().abs().max()))
-                    same = bool(err.max() <= cs.BF16_MAX_ABS * scale
-                                and err.mean() <= cs.BF16_MEAN_ABS * scale)
+                same = agrees(label, got, want[label], plain)
                 ok &= same
                 times[(tag, label)].append(cs.cuda_ms(run, 100))
                 if not same:
@@ -199,6 +313,16 @@ def main(argv=None) -> int:
         print(label + ": " + "; ".join(
             f"{tag} ms " + " ".join(f"{t:.4f}" for t in times[(tag, label)])
             for tag, _ in trees if (tag, label) in times))
+    # K12's launch with every phase empty, in the trees that have it
+    empties = {(tag, label): (tree, (lambda inp: lambda: fused_layer.fused_layer_tail_barriers(
+        *inp["args"], **inp["kw"]))(inp))
+        for tag, tree in trees
+        if "wg_fused_layer_tail_barriers" in (tree[0] / "fused_layer.cu").read_text()
+        for label, inp in K12_ARGS.items()}
+    for (tag, label), (tree, empty) in empties.items():
+        use(tree)
+        print(f"{label} with every phase empty (the launch and its grid barriers): {tag} ms "
+              f"{cs.cuda_ms(empty, 100):.4f}", flush=True)
     for tag, tree in trees:
         use(tree)
         for label, (run, *_rest) in tree_runs(tag).items():
@@ -208,7 +332,20 @@ def main(argv=None) -> int:
                      .replace("void ", "")[:60] for n in kernels}
             parts = ", ".join(f"{names[n]} {ms:.4f}" for n, ms in kernels.items())
             print(f"  {tag} {label} kernels (ms, one call): {parts}")
+    for (tag, label), (tree, empty) in empties.items():
+        use(tree)
+        kernels = {}
+        cs.profiled(empty, kernels)
+        print(f"  {tag} {label} with every phase empty, kernels (ms, one call): "
+              + ", ".join(f"{n.split('(')[0][-40:]} {ms:.4f}" for n, ms in kernels.items()))
+    if args.k12_phase_times:
+        for tag, tree in trees:
+            if "FL_PHASE_TIMES" in (tree[0] / "fused_layer.cu").read_text():
+                phase_times(tag, tree)
     use(PACKAGE)
+    if "K4 7B int4_flat" not in runs:
+        print("ok" if ok else "FAIL")
+        return 0 if ok else 1
     us = binding_host_us(runs["K4 7B int4_flat"][0])
     print("K4 7B int4_flat host us per call: " + "; ".join(
         f"{k} " + " ".join(f"{v:.1f}" for v in vals) for k, vals in us.items()), flush=True)
