@@ -18,7 +18,10 @@ Phases (any failure raises and the script exits non-zero):
      K5, K6 and K7 also at the server's pool of 4 rows, each row of which
      must equal the row called alone, and a second call the first, bit for
      bit (K4's rows and the decode step's RMSNorm the same way, logged,
-     not held), and K4's chunk engine against its walk route bit for bit
+     not held; and the decode step's token pick, argmax over fp32 logits,
+     at a planted exact tie in every row at 1, 4 and 8 rows, each row
+     against the row alone, logged), and K4's chunk engine against its walk
+     route bit for bit
      (7B at 2 and 4 rows, 1B, ragged GQA; int8 and bf16 scores) with its
      host microseconds per call (2b); K8
      (decode_attention_q_chunk) at the speculative chunk of both, K8's
@@ -143,6 +146,34 @@ Phases (any failure raises and the script exits non-zero):
      with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4),
      and the same backward warm under the profiler (device ms, and K2's,
      K3's, K2b's and K3b's shares, by problem name).
+  6. (after 5) the PAVE evaluation entry point: a synthetic manifest (16
+     samples, 24 questions, .pt label maps of 480 x 640 with several class
+     ids and 255 pixels, no frames: the dataset's dummy images), then
+     a. runtime/evaluate.main at WalkGPT-7B int4x (--quant int4x --kv_cache
+        int4_flat --sam_quant int8 --precision bf16, 2 images a batch, 64
+        new tokens, random weights from seed 0) on all 16 samples (8
+        batches, so that the median batch is a steady rate): the native
+        preprocessing library loaded, the metric line's keys, one response
+        per question in the "Question: ... | Answer: ..." form, K1-K6
+        launched and no plain version called; images/s, steady images/s,
+        count_params;
+     b. the CLI's first batch: its tokens against generate_and_segment
+        called directly on the same inputs (and replayed warm under the
+        profiler, which must show K1-K6's kernels; walls, device ms and
+        busy shares of both passes) and with precomputed_sam from
+        encode_sam, bit for bit; device_mask_counts against the host's
+        intersection_and_union on the read-back canvases, exactly; each
+        real row decoded alone for 16 steps (logged);
+     c. the CLI's SAM encoder (int8 blocks) in the block_runs layout
+        against the blocks layout on one 1024^2 image, bit for bit;
+     d. validate at demo_config in the same format (fp32) on the card and
+        on the CPU, the first 4 samples, 16 new tokens: every batch's
+        generated tokens and lengths equal in the rows of its questions
+        (the padding rows of the row bucket, which nothing reads, logged),
+        and identical responses;
+        per-mask counts equal once the pixels whose logit lies within the
+        mask tolerance of 0 on either side are left out (their number
+        printed).
 Then one JSON line with every kernel's numbers and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
@@ -153,9 +184,11 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -166,12 +199,14 @@ from walkgpt_tpu_torch.core.config import demo_config, flagship_1b_config, walkg
 from walkgpt_tpu_torch.core import nn
 from walkgpt_tpu_torch.core.nn import int8_matmul, unpack4
 from walkgpt_tpu_torch.core.tree import leaves_with_path, map_with_path
-from walkgpt_tpu_torch.data import conversation, tokenizer
+from walkgpt_tpu_torch.data import conversation, native_loader, pave, tokenizer
+from walkgpt_tpu_torch.eval import metrics as eval_metrics
 from walkgpt_tpu_torch.models import llm, sam, sam_encoder, walkgpt
 from walkgpt_tpu_torch.models.projectors import ctp_apply
 from walkgpt_tpu_torch.ops import attention, cuda_build, fused_layer, int4, int8_gemm, quant
 from walkgpt_tpu_torch.ops import flash_attention as fa
-from walkgpt_tpu_torch.runtime import generate, lora, serving, train
+from walkgpt_tpu_torch.runtime import evaluate, generate, lora, serving, train
+from walkgpt_tpu_torch.tools import synthetic_pave
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, int8 tensor
 # cores, fp32 outside the tensor cores, HBM3
@@ -988,6 +1023,7 @@ def phase_quant_kernels(dev, seed):
           "7B mlp, 4 rows (the serving pool)")
     torch.cuda.empty_cache()
     quant_rows_checks(dev, gen)
+    tie_pick_check(dev, gen)
     check("decode_attention_q", k4_case(dev, bf16, 2, 16, 16, 128, 512, 480, False, gen),
           bf16, 200, "1B int8_flat")
     k4_host_us(dev, gen)
@@ -3278,6 +3314,328 @@ def phase_train(dev, seed):
     return {f.__name__: f.launches for f in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the PAVE evaluation entry point (runtime/evaluate.main)
+# ---------------------------------------------------------------------------
+
+# the CUDA kernel (or its problem) by which the profiler shows each kernel
+# of the evaluation's path
+EVAL_SYMBOLS = {"flash_attention": "FlashMma", "sam_window_attention_packed": "WindowMma",
+                "sam_flash_attention": "GlobalMma", "decode_attention_q": "chunk_walk",
+                "int4_matmul_pallas": "int4_mm_stream", "fused_mlp_int4": "mlp4_gate_up"}
+# the plain versions of those kernels, which their wrappers call only on
+# CPU tensors
+PLAIN_VERSIONS = ((fa, "flash_attention_reference"),
+                  (fa, "sam_window_attention_packed_reference"),
+                  (fa, "sam_flash_attention_reference"), (fa, "decode_attention_q_reference"),
+                  (int4, "int4_matmul_pallas_reference"), (int4, "fused_mlp_int4_reference"))
+
+
+# 6a's samples (8 batches of 2: a median batch past the first one's warm-up)
+# and 6d's (the CPU's plain versions run them too)
+EVAL_SAMPLES, DEMO_SAMPLES = 16, 4
+
+
+class EvalSpy:
+    """While active, evaluate.main's build_model and its two passes
+    (_eval_fns) are wrapped: the spy keeps the params and config main built
+    and every teacher-forced and generating call's arguments and output,
+    and counts the calls of the kernels' plain versions."""
+
+    def __enter__(self):
+        self.params, self.cfg, self.fwd, self.gen = None, None, [], []
+        self.plain_calls = 0
+        self._saved = [(evaluate, "build_model", evaluate.build_model),
+                       (evaluate, "_eval_fns", evaluate._eval_fns)]
+        self._saved += [(mod, name, getattr(mod, name)) for mod, name in PLAIN_VERSIONS]
+        build, fns = evaluate.build_model, evaluate._eval_fns
+
+        def build_model(*a, **k):
+            self.params = build(*a, **k)
+            return self.params
+
+        def eval_fns(cfg, device):
+            self.cfg = cfg
+            fwd, gen = fns(cfg, device)
+
+            def fwd_spy(max_segs):
+                f = fwd(max_segs)
+                return lambda *a: self._keep(self.fwd, (max_segs,), f, a)
+
+            def gen_spy(*key):
+                g = gen(*key)
+                return lambda *a: self._keep(self.gen, key, g, a)
+            return fwd_spy, gen_spy
+
+        def counted(fn):
+            def call(*a, **k):
+                self.plain_calls += 1
+                return fn(*a, **k)
+            return call
+        evaluate.build_model, evaluate._eval_fns = build_model, eval_fns
+        for mod, name in PLAIN_VERSIONS:
+            setattr(mod, name, counted(getattr(mod, name)))
+        return self
+
+    @staticmethod
+    def _keep(store, key, fn, args):
+        out = fn(*args)
+        store.append((key, fn, args, out))
+        return out
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def eval_argv(root, out, size, precision, max_new, samples, batch=2):
+    return ["--val_dataset", "PAVE|val", "--dataset_dir", root, "--model_size", size,
+            "--quant", "int4x", "--kv_cache", "int4_flat", "--sam_quant", "int8",
+            "--precision", precision, "--val_batch_size", str(batch),
+            "--max_new_tokens", str(max_new), "--max_samples", str(samples), "--no_console_text",
+            "--save_responses_path", out]
+
+
+def check_responses(label, path, n_questions):
+    data = json.load(open(path))
+    ok = (len(data) == n_questions
+          and all(d["response"].startswith("Question: ") and "| Answer:" in d["response"]
+                  for d in data))
+    log(f"  {label}: {len(data)} responses for {n_questions} questions, each 'Question: ... "
+        f"| Answer: ...': {ok}; first: {data[0]['response'][:160]!r}")
+    if not ok:
+        raise AssertionError(f"{label}: the responses JSON is malformed")
+
+
+def phase_eval(dev, seed):
+    """6a: evaluate.main at WalkGPT-7B int4x on a synthetic manifest; 6b:
+    its first batch against generate_and_segment called directly (also with
+    precomputed_sam, under the profiler), its device IoU counts against the
+    host's, each real row against the row alone (logged); 6c: the SAM
+    encoder's block_runs layout against blocks; 6d: validate at demo_config
+    in the same format, the card against the CPU. Returns the launches of
+    6a's run."""
+    log("== phase 6: the PAVE evaluation entry point (runtime/evaluate.main)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory() as root:
+        samples = synthetic_pave.write_manifest(os.path.join(root, "data"), EVAL_SAMPLES,
+                                                seed=seed, height=480, width=640)
+        n_q = [len(s["question"]) if isinstance(s["question"], list) else 1 for s in samples]
+        n_questions = sum(n_q)
+        native = native_loader.available()
+        log(f"  manifest: {EVAL_SAMPLES} samples, {n_questions} questions, .pt label maps 480 x "
+            f"640 (ids and 255), no frames (the dummy-image path); native preprocessing: "
+            f"{native}")
+        if not native:
+            raise AssertionError("the native preprocessing library did not build or load")
+        out = os.path.join(root, "responses_7b.json")
+        for f in KERNELS:
+            f.launches = 0
+        with EvalSpy() as spy:
+            t0 = time.perf_counter()
+            res = evaluate.main(eval_argv(os.path.join(root, "data"), out, "7b", "bf16", 64,
+                                          EVAL_SAMPLES))
+            wall = time.perf_counter() - t0
+        launches = {f.__name__: f.launches for f in KERNELS}
+        total = nn.count_params(spy.params)
+        log(f"  6a: {card}; WalkGPT-7B int4x + int4_flat + int8 SAM, bf16, {EVAL_SAMPLES} "
+            f"images, 2 a batch ({len(spy.gen)} batches), 64 new tokens: images/s "
+            f"{res['images_per_sec']:.4f}, steady images/s {res['images_per_sec_steady']:.4f}; "
+            f"parameters (count_params) {total:,}; main "
+            f"{wall:.1f} s (model build included)")
+        line = evaluate.format_metric_line("PAVE|val", res)
+        log(f"  6a metric line: {line}")
+        keys = ("giou", "ciou", "ap50", "depth_acc", "depth_mae", "depth_match_rate",
+                "depth_block_rate", "depth_n_classes")
+        ran = {k: launches[k] for k in EVAL_SYMBOLS}
+        log(f"  6a launches: {ran}; plain versions called {spy.plain_calls} times")
+        if not (all(k in res for k in keys) and "depth-acc" in line and min(ran.values()) > 0
+                and spy.plain_calls == 0):
+            raise AssertionError("6a: a metric is missing, a kernel of the path never "
+                                 "launched, or a plain version ran")
+        check_responses("6a", out, n_questions)
+        eval_first_batch(dev, spy)
+        eval_block_runs(spy)
+        del spy
+        torch.cuda.empty_cache()
+        eval_card_against_cpu(dev, os.path.join(root, "data"), sum(n_q[:DEMO_SAMPLES]))
+    return launches
+
+
+def eval_first_batch(dev, spy):
+    """6b on the CLI's first batch and params: its tokens against
+    generate_and_segment called directly (under the profiler, which must
+    show K1-K6) and with precomputed_sam; device_mask_counts against the
+    host's intersection_and_union on the read-back canvases; each real row
+    alone (logged)."""
+    params, cfg = spy.params, spy.cfg
+    (max_new, max_segs, eos_id, spec), _, gargs, cli = spy.gen[0]
+    _, images, ids, mask, rows, hw = gargs
+    kw = dict(input_ids=ids, attention_mask=mask, row_image_idx=rows, pixel_hw=hw,
+              max_new_tokens=max_new, max_segs=max_segs, eos_id=eos_id, speculative_k=spec,
+              device=dev)
+    run_gen = lambda: walkgpt.generate_and_segment(params, cfg, images=images, **kw)
+    (_, fwd, fargs, _) = spy.fwd[0]
+    direct, gen_wall = host_ms(run_gen)
+    _, fwd_wall = host_ms(lambda: fwd(*fargs))
+    kernels = {}
+    _, gen_dev = profiled(run_gen, kernels)
+    _, fwd_dev = profiled(lambda: fwd(*fargs), kernels)
+    seen = {k: any(s in n for n in kernels if is_package_kernel(n))
+            for k, s in EVAL_SYMBOLS.items()}
+    pre = walkgpt.encode_sam(params, cfg, images)
+    split = walkgpt.generate_and_segment(params, cfg, images=None, precomputed_sam=pre, **kw)
+    same = [torch.equal(cli.tokens, o.tokens) and torch.equal(cli.lengths, o.lengths)
+            for o in (direct, split)]
+    log(f"  6b: the CLI's first batch ({ids.shape[0]} rows, {images.shape[0]} images): tokens "
+        f"equal generate_and_segment's {same[0]}, with precomputed_sam {same[1]}; the profiler "
+        f"shows {seen}")
+    log(f"  6b: the first batch replayed, warm: the teacher-forced pass {fwd_wall:.1f} ms wall, "
+        f"{fwd_dev:.1f} ms on the card (busy {fwd_dev / fwd_wall:.3f}); generate_and_segment "
+        f"{gen_wall:.1f} ms wall, {gen_dev:.1f} ms on the card (busy {gen_dev / gen_wall:.3f}); "
+        f"device time by the profiler in a second replay")
+    if not (all(same) and all(seen.values())):
+        raise AssertionError("6b: the CLI's tokens differ from a direct call, or a kernel of "
+                             "the path did not show in the profiler")
+    fout, counts = spy.fwd[0][3]
+    _, _, _, _, _, frows, gt, fhw = fargs
+    pred = fout.pred_masks.float().cpu().numpy()
+    gt = gt.cpu().numpy()
+    img = frows.cpu().numpy()[fout.seg_rows.cpu().numpy()]
+    hws = fhw.cpu().numpy()
+    host = np.stack([np.stack(eval_metrics.intersection_and_union(
+        (pred[k, :hws[img[k]][0], :hws[img[k]][1]] > 0).astype(np.int64),
+        gt[k, :hws[img[k]][0], :hws[img[k]][1]].astype(np.int64), 2, 255))
+        for k in range(pred.shape[0])])
+    exact = np.array_equal(counts.cpu().numpy(), host)
+    log(f"  6b: device_mask_counts of {pred.shape[0]} masks equal the host's "
+        f"intersection_and_union exactly: {exact}")
+    if not exact:
+        raise AssertionError("6b: the device IoU counts differ from the host's")
+    real = [int(r) for r in torch.nonzero(mask.sum(1) > 1).flatten()]
+    steps = 16
+    for r in real:
+        i = int(rows[r])
+        alone = walkgpt.generate_and_segment(
+            params, cfg, images=images[i:i + 1], **{**kw, "input_ids": ids[r:r + 1],
+                                                     "attention_mask": mask[r:r + 1],
+                                                     "row_image_idx": torch.zeros_like(rows[:1]),
+                                                     "pixel_hw": hw[i:i + 1],
+                                                     "max_new_tokens": steps})
+        a, b = alone.tokens[0, :steps], cli.tokens[r, :steps]
+        diff = torch.nonzero(a != b).flatten()
+        log(f"  6b: row {r} alone (1 row against {ids.shape[0]}), the first {steps} steps: "
+            f"tokens equal {not len(diff)}"
+            + (f", first apart at step {int(diff[0])}" if len(diff) else "")
+            + " (logged, not held)")
+
+
+def eval_block_runs(spy):
+    """6c: the CLI's SAM encoder (WalkGPT-7B, int8 blocks) in the block_runs
+    layout against the blocks layout on one 1024^2 image, bit for bit."""
+    cfg, enc = spy.cfg, spy.params["sam"]["image_encoder"]
+    image = spy.gen[0][2][1][:1]
+    stacked = sam_encoder.stack_for_scan(enc, cfg.sam)
+    with torch.inference_mode():
+        a = sam_encoder.apply(enc, cfg.sam, image, use_flash=True, fast_gelu=cfg.fast_gelu)
+        b = sam_encoder.apply(stacked, cfg.sam, image, use_flash=True, fast_gelu=cfg.fast_gelu)
+    same = torch.equal(a, b)
+    log(f"  6c: SAM ViT-H (int8 blocks) block_runs {len(stacked['block_runs'])} runs against "
+        f"blocks on one {image.shape[1]}^2 image: bit for bit {same}")
+    if not same:
+        raise AssertionError("6c: the block_runs layout differs from the blocks layout")
+
+
+def eval_card_against_cpu(dev, data, n_questions):
+    """6d: validate at demo_config in the 7B int4x format (fp32, the
+    kernels on the card, their plain versions on the CPU), the manifest's
+    first DEMO_SAMPLES samples: every batch's generated tokens and lengths
+    equal, bit for bit, in the rows of its questions (the bucket's padding
+    rows, one live token each and never read, logged), and identical
+    responses; the per-mask counts equal once the
+    pixels where either logit lies within the mask tolerance of 0 are left
+    out (1e-3 with the format's weight-only int8 SAM blocks, phase 3b's
+    limit for float SAM blocks; QUANT_MASK_REL of the masks' scale with W8A8
+    ones), every other pixel on the same side of 0."""
+    args = evaluate.parse_args(eval_argv(data, "", "demo", "fp32", 16, DEMO_SAMPLES))
+    conversation.set_default_conversation(args.conv_type)
+    tok = tokenizer.ByteTokenizer(args.model_max_length)
+    seg = tokenizer.setup_walkgpt_tokens(tok).seg_token_idx
+    cfg = evaluate.build_config(args, seg).replace(use_flash_attention=True)
+    ds = pave.PAVEDataset(os.path.join(data, "val.jsonl"), os.path.join(data, "labelmap.json"),
+                          image_size=cfg.sam.img_size, pad_size=cfg.sam.img_size, is_val=True)
+    params = evaluate.build_model(args, cfg, device=dev)
+    runs = []
+    for where, p in ((dev, params), ("cpu", to_device(params, "cpu"))):
+        with EvalSpy() as spy:
+            t0 = time.perf_counter()
+            res, text = evaluate.validate(args, cfg, p, tok, ds, logger=lambda *_: None,
+                                          device=where)
+            runs.append((res, text, spy.fwd, spy.gen, time.perf_counter() - t0))
+    del params
+    (cres, ctext, cfwd, cgen, cs), (hres, htext, hfwd, hgen, hs) = runs
+    same_text = json.dumps(ctext) == json.dumps(htext) and len(ctext) == n_questions
+    # the rows the harvest reads (one per question) held bit for bit; the
+    # padding rows of the 8-row bucket (one live token, never read) logged
+    same_tokens, pad_apart = len(cgen) == len(hgen), []
+    for (_, _, gargs, c), (_, _, _, h) in zip(cgen, hgen):
+        real = gargs[3].sum(1).cpu() > 1
+        ct, cl = c.tokens.cpu(), c.lengths.cpu()
+        same_tokens &= torch.equal(ct[real], h.tokens[real]) and torch.equal(cl[real],
+                                                                              h.lengths[real])
+        for r in torch.nonzero(~real).flatten().tolist():
+            diff = torch.nonzero(ct[r] != h.tokens[r]).flatten()
+            if len(diff):
+                pad_apart.append(int(diff[0]))
+    w8a8_sam = args.quant == "w8a8"
+    near, moved, worst, counts_ok = 0, 0, 0.0, True
+    for (_, _, fargs, (co, _)), (_, _, _, (ho, _)) in zip(cfwd, hfwd):
+        frows, gt, fhw = (fargs[i].cpu() for i in (5, 6, 7))
+        pc, ph = co.pred_masks.float().cpu(), ho.pred_masks.float()
+        tol = QUANT_MASK_REL * float(ph.abs().max()) if w8a8_sam else 1e-3
+        worst = max(worst, float((pc - ph).abs().max()))
+        edge = (pc.abs() <= tol) | (ph.abs() <= tol)
+        near += int(edge.sum())
+        moved += int(((pc > 0) != (ph > 0)).sum())
+        # the pixels near 0 become ignored ones (255) on both sides
+        gt_kept = torch.where(edge, 255.0, gt.float())
+        counts_ok &= (torch.equal(co.seg_rows.cpu(), ho.seg_rows) and torch.equal(
+            eval_metrics.device_mask_counts(pc, gt_kept, ho.seg_rows, frows, fhw),
+            eval_metrics.device_mask_counts(ph, gt_kept, ho.seg_rows, frows, fhw)))
+    log(f"  6d: demo_config, 7B int4x format, fp32, {DEMO_SAMPLES} samples, "
+        f"{args.max_new_tokens} new tokens: tokens and lengths of the question rows of "
+        f"{len(cgen)} batches equal {same_tokens}; padding rows apart {len(pad_apart)} (first "
+        f"at steps {sorted(set(pad_apart))}; logged, not held); responses identical {same_text} ({len(ctext)}); masks max_abs "
+        f"{worst:.3e}; {near} pixels within the tolerance of 0 left out, {moved} on the other "
+        f"side of 0; the other pixels' counts equal {counts_ok}; giou card {cres['giou']:.6f} CPU {hres['giou']:.6f} (validate: card "
+        f"{cs:.1f} s, CPU {hs:.1f} s)")
+    if not (same_tokens and same_text and counts_ok):
+        raise AssertionError("6d: the card and the CPU disagree")
+
+
+def tie_pick_check(dev, gen):
+    """The decode step's token pick (runtime/generate._picker: argmax over a
+    row's fp32 logits) at a planted exact tie of two logits in every row, at
+    1, 4 and 8 rows (8: the eval's row bucket): does each row pick as it does
+    alone, and the first of the tied indices (logged, not held)."""
+    v = 32016
+    logits = torch.randn(8, v, generator=gen, device=dev).to(torch.bfloat16).float()
+    pairs = [(5, 30000), (100, 101), (16000, 16001), (31999, 32015), (0, 31), (7, 8192),
+             (4095, 4096), (20000, 20001)]
+    for r, (i, j) in enumerate(pairs):
+        top = float(logits[r].max()) + 1.0
+        logits[r, i] = logits[r, j] = top
+    alone = torch.cat([logits[r:r + 1].argmax(-1) for r in range(8)])
+    first = torch.tensor([i for i, _ in pairs], device=dev)
+    for n in (1, 4, 8):
+        pick = logits[:n].argmax(-1)
+        log(f"  argmax at a planted tie, {n} rows: each row as alone "
+            f"{torch.equal(pick, alone[:n])}, the first tied index {torch.equal(pick, first[:n])}"
+            f" (logged, not held)")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3458,6 +3816,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches = add(launches, phase_train(dev, args.seed))
     log(f"  training: phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches = add(launches, phase_eval(dev, args.seed))
+    log(f"  PAVE evaluation: phase {time.perf_counter() - t0:.1f} s")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
 

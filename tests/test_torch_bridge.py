@@ -92,7 +92,10 @@ def test_port_imports_without_jax():
         "import walkgpt_tpu_torch\n"
         "from walkgpt_tpu_torch.models import walkgpt, sam, llm, projectors\n"
         "from walkgpt_tpu_torch.runtime import generate, lora, serving, train\n"
-        "from walkgpt_tpu_torch.data import conversation, tokenizer\n"
+        "from walkgpt_tpu_torch.data import conversation, tokenizer, pave, collate, prefetch\n"
+        "from walkgpt_tpu_torch.data import transforms, native_loader\n"
+        "from walkgpt_tpu_torch.eval import metrics\n"
+        "from walkgpt_tpu_torch.runtime import batching, checkpoint, evaluate\n"
         "from walkgpt_tpu_torch.ops import flash_attention, cuda_build, losses, quant\n"
         "assert not any(m.split('.')[0] in ('jax', 'walkgpt_tpu') for m in sys.modules)\n"
         "print('ok')\n")
@@ -126,3 +129,39 @@ def test_entry_points_default_to_cuda(monkeypatch):
             input_ids=np.array([[1, -200, 5]]), attention_mask=np.ones((1, 3), bool),
             row_image_idx=np.zeros(1, np.int64), pixel_hw=np.array([[64, 64]]),
             max_new_tokens=2, max_segs=2, eos_id=2)
+    from walkgpt_tpu_torch.runtime import evaluate
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--model_size", "tiny"])
+    args = evaluate.parse_args([])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.build_model(args, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.validate(args, cfg, params, None, [])
+
+
+def test_native_loader_builds_from_the_port_only():
+    """The port's preprocessing library is compiled from its own copy of the
+    source, inside walkgpt_tpu_torch/, into the repository's ignored build
+    directory; never from walkgpt_tpu/_native or the top-level symlink."""
+    from walkgpt_tpu_torch.data import native_loader
+    port = (REPO / "walkgpt_tpu_torch").resolve()
+    assert native_loader.SOURCE.resolve().is_relative_to(port)
+    assert native_loader.SOURCE.exists()
+    assert native_loader.library_path().parent == REPO / "build" / "native"
+    text = (REPO / "walkgpt_tpu_torch" / "data" / "native_loader.py").read_text()
+    assert "walkgpt_tpu/_native" not in text and "WALKGPT_NATIVE_DIR" not in text
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["--mesh", "1,2"], "Multi-device"),
+    (["--visual_stream", "clip"], "CLIP stream"),
+    (["--val_dataset", "MultiReasonSeg|val"], "SAM extras and Hungarian eval"),
+    (["--tokenizer", "bpe"], "Eval CLI, data and checkpoints")])
+def test_eval_refuses_unported_options_at_startup(argv, item, monkeypatch):
+    """Each option whose code the port lacks raises before anything is
+    built (the device check included), naming its ROADMAP.md Queue 1 item."""
+    from walkgpt_tpu_torch.runtime import evaluate
+    monkeypatch.setattr(evaluate, "build_model", lambda *a, **k: pytest.fail("built"))
+    with pytest.raises(NotImplementedError, match=re.escape(item)):
+        evaluate.main(argv + ["--device", "cpu"])

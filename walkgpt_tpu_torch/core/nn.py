@@ -334,3 +334,35 @@ def relu_mlp_stack(p: Params, x: torch.Tensor, *,
     if sigmoid_output:
         x = torch.sigmoid(x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# parameter trees
+# ---------------------------------------------------------------------------
+
+def count_params(tree) -> int:
+    """Logical parameter count of a tree: nibble-packed int4 buffers
+    ("w_p4", "w_p4t") hold two weights per byte and count double, so a 7B
+    model reports 7B whether dense, int8 or int4-packed. Bool markers and
+    None leaves count nothing."""
+    def walk(node, key):
+        if isinstance(node, dict):
+            return sum(walk(v, k) for k, v in node.items())
+        if isinstance(node, (list, tuple)):
+            return sum(walk(v, key) for v in node)
+        if isinstance(node, torch.Tensor):
+            return node.numel() * (2 if key in ("w_p4", "w_p4t") else 1)
+        return 0
+    return walk(tree, None)
+
+
+def cast_tree(tree, dtype: torch.dtype):
+    """The tree with every floating tensor leaf cast to dtype (integer codes,
+    bools and None as they are)."""
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree

@@ -4,7 +4,9 @@ NHWC activations end to end; windows are folded into the batch axis; the
 rel-pos bias enters either through the attention kernels (use_flash: K2 for
 the windowed blocks over the packed qkv layout, K3 for the global blocks) or
 as an additive bias to the plain einsum attention. The neck runs in fp32.
-Parameters use the `blocks` layout (one dict per block).
+Parameters use the `blocks` layout (one dict per block) or the stacked
+`block_runs` layout of `stack_for_scan` (one stacked dict per run of
+windowed blocks, looped over its leading axis; the same arithmetic).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from ..core import nn
 from ..core.config import SAMEncoderConfig
+from ..core.tree import leaves_with_path
 from ..ops.attention import (decomposed_rel_pos_bias, get_rel_pos, merge_heads, mha,
                              split_heads, window_partition, window_unpartition)
 from ..ops.flash_attention import sam_flash_attention, sam_window_attention_packed
@@ -120,18 +123,101 @@ def _block(p, x: torch.Tensor, cfg: SAMEncoderConfig, window: int,
     return x + nn.mlp(p["mlp"], nn.layer_norm(p["ln2"], x), act=act)
 
 
+def _scan_plan(cfg: SAMEncoderConfig):
+    """The block sequence as runs [(window, n), ...]: maximal runs of
+    consecutive windowed blocks (window = window_size) broken by the global
+    blocks (window 0, n = 1). ViT-H (global 7, 15, 23, 31): [(14, 7),
+    (0, 1)] x 4."""
+    plan = []
+    i = 0
+    while i < cfg.depth:
+        if i in cfg.global_attn_indexes:
+            plan.append((0, 1))
+            i += 1
+        else:
+            j = i
+            while j < cfg.depth and j not in cfg.global_attn_indexes:
+                j += 1
+            plan.append((cfg.window_size, j - i))
+            i = j
+    return plan
+
+
+def _stack(group):
+    """Blocks of one run -> one dict whose tensor leaves are stacked on a
+    new leading axis; bool markers (the "a8" of a W8A8 projection) and None
+    stay as they are."""
+    first = group[0]
+    if isinstance(first, dict):
+        return {k: _stack([g[k] for g in group]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([g[i] for g in group]) for i in range(len(first)))
+    if isinstance(first, torch.Tensor):
+        return torch.stack(group)
+    if any(g != first for g in group):
+        raise ValueError(f"blocks of one run differ in a marker: {group}")
+    return first
+
+
+def _run_block(run, i: int):
+    """Block i of a stacked run: each tensor leaf's slice i (a view)."""
+    if isinstance(run, dict):
+        return {k: _run_block(v, i) for k, v in run.items()}
+    if isinstance(run, (list, tuple)):
+        return type(run)(_run_block(v, i) for v in run)
+    return run[i] if isinstance(run, torch.Tensor) else run
+
+
+def stack_for_scan(params, cfg: SAMEncoderConfig):
+    """The `block_runs` layout: "blocks" replaced by one entry per
+    _scan_plan run, the plain block dict for a global block and the run's
+    blocks stacked on a leading axis for a windowed run. Plain and
+    quantized (ops/quant.py) block leaves stack alike. apply() loops over
+    each run's leading axis, so the result equals the `blocks` layout's bit
+    for bit."""
+    blocks = params["blocks"]
+    if len(blocks) != cfg.depth:
+        raise ValueError(f"{len(blocks)} blocks for a depth of {cfg.depth}")
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    runs, i = [], 0
+    for _, n in _scan_plan(cfg):
+        group = blocks[i:i + n]
+        i += n
+        runs.append(group[0] if n == 1 else _stack(group))
+    out["block_runs"] = runs
+    return out
+
+
+def _blocks(params, cfg: SAMEncoderConfig):
+    """(block params, window) in order, from either layout."""
+    if "block_runs" not in params:
+        for i, blk in enumerate(params["blocks"]):
+            yield blk, (0 if i in cfg.global_attn_indexes else cfg.window_size)
+        return
+    plan = _scan_plan(cfg)
+    if len(params["block_runs"]) != len(plan):
+        raise ValueError(f"stacked params were built under another config "
+                         f"({len(params['block_runs'])} runs against the plan {plan})")
+    for (window, n), run in zip(plan, params["block_runs"]):
+        if n == 1:
+            yield run, window
+            continue
+        lead = next(x for x in leaves_with_path(run).values()
+                    if isinstance(x, torch.Tensor)).shape[0]
+        if lead != n:
+            raise ValueError(f"a stacked run has a leading axis of {lead}, the plan {n}")
+        for i in range(n):
+            yield _run_block(run, i), window
+
+
 def apply(params, cfg: SAMEncoderConfig, images: torch.Tensor, *,
           use_flash: bool = False, fast_gelu: bool = False) -> torch.Tensor:
     """images: [B, img, img, 3] NHWC (normalized, padded). Returns
     [B, grid, grid, out_chans] NHWC feature maps."""
-    if "blocks" not in params:
-        raise NotImplementedError("only the `blocks` parameter layout is ported; "
-                                  "the stacked `block_runs` layout is not")
     x = nn.conv2d(params["patch_embed"], images,
                   stride=(cfg.patch_size, cfg.patch_size), padding="VALID")
     x = x + params["pos_embed"].to(x.dtype)
-    for i, blk in enumerate(params["blocks"]):
-        window = 0 if i in cfg.global_attn_indexes else cfg.window_size
+    for blk, window in _blocks(params, cfg):
         x = _block(blk, x, cfg, window, use_flash, fast_gelu)
     # neck in fp32 (the upstream encoder's overflow guard)
     n = params["neck"]

@@ -444,7 +444,7 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
                          images, input_ids, attention_mask, row_image_idx, pixel_hw,
                          max_new_tokens: int, max_segs: int, eos_id: int,
                          speculative_k: int = 0, fused_layer: bool = False,
-                         device=None) -> EvaluateOutput:
+                         precomputed_sam=None, device=None) -> EvaluateOutput:
     """The PAVE evaluate pipeline on the SAM visual stream: encode, splice,
     greedy (or, with speculative_k > 0, speculative) decode, [SEG] gather,
     CTP, mask decode.
@@ -461,11 +461,16 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
     runs K12 (attention, o-proj, residual, post-norm and MLP in one launch)
     on the layers of the int4x format over a flat quantized cache
     (llm.decode_step); the speculative chunks never fuse, as in the JAX
-    package, so with speculative_k > 0 it changes nothing."""
+    package, so with speculative_k > 0 it changes nothing.
+    precomputed_sam: (feats, sam_tokens) from encode_sam of these images,
+    which the call then does not encode again (images is not read)."""
     dev = resolve_device(device)
-    x = _as_inputs(dev, images=images, input_ids=input_ids, attention_mask=attention_mask,
+    x = _as_inputs(dev, input_ids=input_ids, attention_mask=attention_mask,
                    row_image_idx=row_image_idx, pixel_hw=pixel_hw)
-    feats, sam_tokens = encode_sam(params, cfg, x["images"])
+    if precomputed_sam is not None:
+        feats, sam_tokens = (torch.as_tensor(t, device=dev) for t in precomputed_sam)
+    else:
+        feats, sam_tokens = encode_sam(params, cfg, torch.as_tensor(images, device=dev))
     res = _generate(params, cfg, sam_tokens, x["input_ids"], x["attention_mask"],
                     x["row_image_idx"], max_new_tokens, eos_id, speculative_k, fused_layer)
     seg_valid, seg_rows, pred_embeddings = _seg_gather(params, cfg, res.tokens,

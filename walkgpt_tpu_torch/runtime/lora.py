@@ -77,12 +77,14 @@ def _copy_layers(llm_params: Dict) -> Dict:
 
 def attach_lora(llm_params: Dict, lora: Dict[int, Dict]) -> Dict:
     """The LLM tree with extract_lora's adapters on its projections (as
-    tensors on the base weights' device)."""
+    tensors on the base weights' device; on the CPU over a converter's
+    numpy tree)."""
     p = _copy_layers(llm_params)
     for i, projs in lora.items():
         attn = p["layers"][i]["attn"]
         for proj, slot in projs.items():
-            dev = next(v.device for v in attn[proj].values() if isinstance(v, torch.Tensor))
+            dev = next((v.device for v in attn[proj].values() if isinstance(v, torch.Tensor)),
+                       "cpu")
             attn[proj].update({k: torch.as_tensor(v, device=dev) for k, v in slot.items()})
     return p
 
@@ -143,14 +145,15 @@ def merge_lora(llm_params: Dict) -> Dict:
     scale, the sum in fp32 (the JAX package's fp32 lora_scale promotes it
     there) and cast back to W's dtype, and drop the adapter leaves (peft
     merge_and_unload). A projection without a dense "w" keeps its
-    adapter."""
+    adapter. A numpy "w" (a converter's tree) merges on the CPU."""
     def merge(proj):
         if not isinstance(proj, dict) or "lora_a" not in proj or proj.get("w") is None:
             return proj
+        w0 = torch.as_tensor(proj["w"])
         a, b = nn._promote(proj["lora_a"], proj["lora_b"])
-        w = proj["w"].float() + (a @ b).float() * proj.get("lora_scale", 1.0)
+        w = w0.float() + (a @ b).float() * proj.get("lora_scale", 1.0)
         out = {k: v for k, v in proj.items() if k not in LORA_KEYS}
-        out["w"] = w.to(proj["w"].dtype)
+        out["w"] = w.to(w0.dtype)
         return out
 
     p = dict(llm_params)
