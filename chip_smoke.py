@@ -173,7 +173,38 @@ Phases (any failure raises and the script exits non-zero):
         and identical responses;
         per-mask counts equal once the pixels whose logit lies within the
         mask tolerance of 0 on either side are left out (their number
-        printed).
+        printed);
+     e. the CLIP stream: runtime/evaluate.main --visual_stream clip at
+        WalkGPT-7B int4x (6a's flags, CLIP ViT-L/14-448) on 4 samples, 64
+        new tokens: 6a's keys and response checks, K1-K6 launched and no
+        plain version called, images/s; then generate_and_segment(
+        visual_stream="clip") at demo_config in the 7B int4x format, the
+        card against the CPU: identical tokens, lengths and [SEG] rows.
+  7. (after 6) the training entry point, runtime/train_cli.main:
+     a. at WalkGPT-7B full width (--model_size 7b --precision bf16
+        --dataset PAVE --lora_r 8 --batch_size 2 --epochs 1
+        --steps_per_epoch 3 --eval_samples 2, its defaults otherwise) on a
+        synthetic manifest, random weights from seed 0; the free bytes of
+        the temporary directory and the state's and best checkpoint's
+        bytes reckoned from the tree first (1b instead only if the disk
+        cannot hold both); held: every train/* and metrics/* tag finite
+        for steps 1-3, the val/* tags, `latest` naming global_step3 and
+        its state loading back bit for bit, the projector artifact
+        reloading through evaluate.build_model --projector_ckpt, the LoRA
+        adapters and trained groups moved and every frozen leaf (the CLIP
+        tower included) unchanged bit for bit, K1, K1b, K2 and K3 launched
+        and no plain version called; s/step (median of steps 2-3), peak
+        memory, each checkpoint's bytes and save seconds, the state's load
+        seconds, count_params;
+     b. at demo_config in fp32 (TF32 off), the card against --device cpu
+        from one checkpoint: the LoRA leg (2 steps, then --auto_resume
+        --epochs 2 for 2 more) and the QLoRA leg (--quant_base int4x, 2
+        steps, --no_eval): the losses of every step within LOSS_RTOL and
+        the trainable leaves at the end within phase 3d's tolerance (the
+        steps with nce_topk None, for 3d's reason).
+  8. (after 7b) parity_cli record at demo_config in the 7B int4x format
+     on the card and on the CPU from 7b's checkpoint, 3 samples of 16
+     tokens: compare returns 0 (identical tokens, masks within gIoU 1e-3).
 Then one JSON line with every kernel's numbers and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
@@ -186,6 +217,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -195,7 +227,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from walkgpt_tpu_torch.core.config import demo_config, flagship_1b_config, walkgpt_7b_config
+from walkgpt_tpu_torch.core.config import (LossWeights, demo_config, flagship_1b_config,
+                                            walkgpt_7b_config)
+from walkgpt_tpu_torch.core import config as config_module
 from walkgpt_tpu_torch.core import nn
 from walkgpt_tpu_torch.core.nn import int8_matmul, unpack4
 from walkgpt_tpu_torch.core.tree import leaves_with_path, map_with_path
@@ -205,7 +239,8 @@ from walkgpt_tpu_torch.models import llm, sam, sam_encoder, walkgpt
 from walkgpt_tpu_torch.models.projectors import ctp_apply
 from walkgpt_tpu_torch.ops import attention, cuda_build, fused_layer, int4, int8_gemm, quant
 from walkgpt_tpu_torch.ops import flash_attention as fa
-from walkgpt_tpu_torch.runtime import evaluate, generate, lora, serving, train
+from walkgpt_tpu_torch.runtime import (checkpoint, evaluate, generate, lora, parity_cli,
+                                       serving, train, train_cli)
 from walkgpt_tpu_torch.tools import synthetic_pave
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, int8 tensor
@@ -3323,12 +3358,6 @@ def phase_train(dev, seed):
 EVAL_SYMBOLS = {"flash_attention": "FlashMma", "sam_window_attention_packed": "WindowMma",
                 "sam_flash_attention": "GlobalMma", "decode_attention_q": "chunk_walk",
                 "int4_matmul_pallas": "int4_mm_stream", "fused_mlp_int4": "mlp4_gate_up"}
-# the plain versions of those kernels, which their wrappers call only on
-# CPU tensors
-PLAIN_VERSIONS = ((fa, "flash_attention_reference"),
-                  (fa, "sam_window_attention_packed_reference"),
-                  (fa, "sam_flash_attention_reference"), (fa, "decode_attention_q_reference"),
-                  (int4, "int4_matmul_pallas_reference"), (int4, "fused_mlp_int4_reference"))
 
 
 # 6a's samples (8 batches of 2: a median batch past the first one's warm-up)
@@ -3339,15 +3368,12 @@ EVAL_SAMPLES, DEMO_SAMPLES = 16, 4
 class EvalSpy:
     """While active, evaluate.main's build_model and its two passes
     (_eval_fns) are wrapped: the spy keeps the params and config main built
-    and every teacher-forced and generating call's arguments and output,
-    and counts the calls of the kernels' plain versions."""
+    and every teacher-forced and generating call's arguments and output."""
 
     def __enter__(self):
         self.params, self.cfg, self.fwd, self.gen = None, None, [], []
-        self.plain_calls = 0
         self._saved = [(evaluate, "build_model", evaluate.build_model),
                        (evaluate, "_eval_fns", evaluate._eval_fns)]
-        self._saved += [(mod, name, getattr(mod, name)) for mod, name in PLAIN_VERSIONS]
         build, fns = evaluate.build_model, evaluate._eval_fns
 
         def build_model(*a, **k):
@@ -3366,15 +3392,7 @@ class EvalSpy:
                 g = gen(*key)
                 return lambda *a: self._keep(self.gen, key, g, a)
             return fwd_spy, gen_spy
-
-        def counted(fn):
-            def call(*a, **k):
-                self.plain_calls += 1
-                return fn(*a, **k)
-            return call
         evaluate.build_model, evaluate._eval_fns = build_model, eval_fns
-        for mod, name in PLAIN_VERSIONS:
-            setattr(mod, name, counted(getattr(mod, name)))
         return self
 
     @staticmethod
@@ -3433,7 +3451,7 @@ def phase_eval(dev, seed):
         out = os.path.join(root, "responses_7b.json")
         for f in KERNELS:
             f.launches = 0
-        with EvalSpy() as spy:
+        with EvalSpy() as spy, PlainSpy() as plain:
             t0 = time.perf_counter()
             res = evaluate.main(eval_argv(os.path.join(root, "data"), out, "7b", "bf16", 64,
                                           EVAL_SAMPLES))
@@ -3450,9 +3468,9 @@ def phase_eval(dev, seed):
         keys = ("giou", "ciou", "ap50", "depth_acc", "depth_mae", "depth_match_rate",
                 "depth_block_rate", "depth_n_classes")
         ran = {k: launches[k] for k in EVAL_SYMBOLS}
-        log(f"  6a launches: {ran}; plain versions called {spy.plain_calls} times")
+        log(f"  6a launches: {ran}; plain versions called {plain.calls} times")
         if not (all(k in res for k in keys) and "depth-acc" in line and min(ran.values()) > 0
-                and spy.plain_calls == 0):
+                and plain.calls == 0):
             raise AssertionError("6a: a metric is missing, a kernel of the path never "
                                  "launched, or a plain version ran")
         check_responses("6a", out, n_questions)
@@ -3461,6 +3479,7 @@ def phase_eval(dev, seed):
         del spy
         torch.cuda.empty_cache()
         eval_card_against_cpu(dev, os.path.join(root, "data"), sum(n_q[:DEMO_SAMPLES]))
+        launches = add(launches, phase_clip(dev, os.path.join(root, "data"), card))
     return launches
 
 
@@ -3471,7 +3490,7 @@ def eval_first_batch(dev, spy):
     host's intersection_and_union on the read-back canvases; each real row
     alone (logged)."""
     params, cfg = spy.params, spy.cfg
-    (max_new, max_segs, eos_id, spec), _, gargs, cli = spy.gen[0]
+    (max_new, max_segs, eos_id, spec, _), _, gargs, cli = spy.gen[0]
     _, images, ids, mask, rows, hw = gargs
     kw = dict(input_ids=ids, attention_mask=mask, row_image_idx=rows, pixel_hw=hw,
               max_new_tokens=max_new, max_segs=max_segs, eos_id=eos_id, speculative_k=spec,
@@ -3613,6 +3632,429 @@ def eval_card_against_cpu(dev, data, n_questions):
         f"{cs:.1f} s, CPU {hs:.1f} s)")
     if not (same_tokens and same_text and counts_ok):
         raise AssertionError("6d: the card and the CPU disagree")
+
+
+# ---------------------------------------------------------------------------
+# phase 6e: the CLIP stream; phases 7 and 8: the training CLI and parity_cli
+# ---------------------------------------------------------------------------
+
+# 6e's samples at WalkGPT-7B int4x (2 batches of 2)
+CLIP_SAMPLES = 4
+# the modules of the kernels, whose plain versions (`*_reference`) their
+# wrappers call only on CPU tensors
+PLAIN_MODULES = (fa, int4, fused_layer, int8_gemm)
+
+
+class PlainSpy:
+    """While active, every plain version of a kernel counts its calls."""
+
+    def __enter__(self):
+        self.calls = 0
+        self._saved = [(mod, name, getattr(mod, name)) for mod in PLAIN_MODULES
+                       for name in dir(mod) if name.endswith("_reference")]
+
+        def counted(fn):
+            def call(*a, **k):
+                self.calls += 1
+                return fn(*a, **k)
+            return call
+        for mod, name, fn in self._saved:
+            setattr(mod, name, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+class Patched:
+    """Module attributes replaced while active: Patched((mod, name, value), ...)."""
+
+    def __init__(self, *items):
+        self.items = items
+
+    def __enter__(self):
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self.items]
+        for mod, name, value in self.items:
+            setattr(mod, name, value)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def smi_line():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def with_kernels(build_config):
+    """evaluate.build_config with the kernels' path on (use_flash_attention,
+    as phase 6d sets it: demo_config runs the einsum attention by default)."""
+    return lambda *a, **k: build_config(*a, **k).replace(use_flash_attention=True)
+
+
+def phase_clip(dev, data, card):
+    """6e: evaluate.main --visual_stream clip at WalkGPT-7B int4x (CLIP
+    ViT-L/14-448, phase 6a's flags) on CLIP_SAMPLES samples, 64 new tokens;
+    then generate_and_segment(visual_stream="clip") at demo_config in the 7B
+    int4x format, the card against the CPU. Returns the 7B run's launches."""
+    log("== phase 6e: the CLIP stream")
+    t0 = time.perf_counter()
+    out = os.path.join(os.path.dirname(data), "responses_clip.json")
+    for f in KERNELS:
+        f.launches = 0
+    with EvalSpy() as spy, PlainSpy() as plain:
+        res = evaluate.main(eval_argv(data, out, "7b", "bf16", 64, CLIP_SAMPLES)
+                            + ["--visual_stream", "clip"])
+    launches = {f.__name__: f.launches for f in KERNELS}
+    ran = {k: launches[k] for k in EVAL_SYMBOLS}
+    streams = {key[4] for key, _, _, _ in spy.gen}
+    clip_in = all(len(args) == 8 and args[6].shape[1:] == (448, 448, 3)
+                  for _, _, args, _ in spy.gen)
+    log(f"  6e: {card}; WalkGPT-7B int4x, --visual_stream clip (CLIP ViT-L/14-448), bf16, "
+        f"{CLIP_SAMPLES} images, 2 a batch ({len(spy.gen)} batches), 64 new tokens: images/s "
+        f"{res['images_per_sec']:.4f}, steady images/s {res['images_per_sec_steady']:.4f}; "
+        f"parameters (count_params) {nn.count_params(spy.params):,}; streams {streams}, CLIP "
+        f"pixels 448^2 passed: {clip_in}; launches {ran}; plain versions called "
+        f"{plain.calls} times")
+    keys = ("giou", "ciou", "ap50", "depth_acc", "depth_mae")
+    n_q = sum(1 for _ in json.load(open(out)))
+    if not (all(k in res for k in keys) and streams == {"clip"} and clip_in
+            and min(ran.values()) > 0 and plain.calls == 0):
+        raise AssertionError("6e: a metric is missing, the CLIP stream did not run, a kernel "
+                             "of the path never launched, or a plain version ran")
+    check_responses("6e", out, n_q)
+    del spy
+    torch.cuda.empty_cache()
+
+    # demo_config in the 7B int4x format: the card against the CPU
+    cfg = demo_config().replace(use_flash_attention=True, kv_quant_cache="int4_flat")
+    params = walkgpt.init_quantized(cfg, seed=5, dtype=torch.float32, device=dev, **FORMAT_7B)
+    s = cfg.clip.image_size
+    gen = torch.Generator(device=dev).manual_seed(6)
+    clip_kw = dict(visual_stream="clip",
+                   images_clip=torch.randn(2, s, s, 3, generator=gen, device=dev),
+                   clip_resize_hw=torch.tensor([[s, s], [s, s // 2]], device=dev))
+    kw, cfg = demo_request(params, cfg, dev, 7, **clip_kw)
+    for f in KERNELS:
+        f.launches = 0
+    with PlainSpy() as plain:
+        c = walkgpt.generate_and_segment(params, cfg, device=dev, **kw)
+    launched = _nonzero({f.__name__: f.launches for f in KERNELS})
+    h = walkgpt.generate_and_segment(to_device(params, "cpu"), cfg, device="cpu",
+                                     **to_device(kw, "cpu"))
+    sam = walkgpt.generate_and_segment(params, cfg, device=dev,
+                                       **{k: v for k, v in kw.items() if k not in clip_kw})
+    same = all(torch.equal(getattr(c, k).cpu(), getattr(h, k))
+               for k in ("tokens", "lengths", "seg_valid", "seg_rows"))
+    log(f"  6e: demo_config, 7B int4x format, fp32, clip stream: tokens, lengths and [SEG] "
+        f"rows of the card equal the CPU's {same} ({int(c.seg_valid.sum())} [SEG]); masks "
+        f"max_abs {float((c.pred_masks.cpu() - h.pred_masks).abs().max()):.3e} (logged); "
+        f"tokens differ from the SAM stream's {not torch.equal(c.tokens, sam.tokens)}; "
+        f"launches {launched}; plain versions called on the card {plain.calls}")
+    if not (same and plain.calls == 0 and launched.get("fused_mlp_int4")):
+        raise AssertionError("6e: the clip stream's card and CPU tokens differ")
+    log(f"  CLIP stream: phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _scalars(path):
+    out = {}
+    for line in open(path):
+        d = json.loads(line)
+        out[(d["tag"], d["step"])] = d["value"]
+    return out
+
+
+TRAIN_TAGS = ("train/loss", "train/ce_loss", "train/mask_bce_loss", "train/mask_dice_loss",
+              "train/nce_loss", "train/mask_loss")
+METRIC_TAGS = ("metrics/total_secs_per_batch", "metrics/data_secs_per_batch")
+VAL_TAGS = ("val/giou", "val/ciou", "val/miou_inclusive", "val/miou_exclusive", "val/miou",
+            "val/ap50_inclusive", "val/recall_inclusive")
+
+
+def _tree_bytes(tree):
+    return sum(x.numel() * x.element_size() for x in leaves_with_path(tree).values()
+               if isinstance(x, torch.Tensor))
+
+
+def _same_tree(a, b):
+    """Two trees equal bit for bit: tensors (dtype, values), numbers."""
+    la, lb = leaves_with_path(a), leaves_with_path(b)
+    if list(la) != list(lb):
+        return False
+    return all(x.dtype == lb[k].dtype and torch.equal(x, lb[k]) if isinstance(x, torch.Tensor)
+               else x == lb[k] for k, x in la.items())
+
+
+def state_bytes_7b(dev, seed):
+    """(train state bytes, best checkpoint bytes, count_params) of the 7B
+    LoRA run, reckoned from the tree: the bf16 model with its r=8 adapters,
+    plus AdamW's two moments of every trainable leaf."""
+    params = walkgpt.init(walkgpt_7b_config(), seed=seed, dtype=torch.bfloat16, device=dev)
+    count = nn.count_params(params)
+    params["llm"] = lora.init_lora(params["llm"], torch.Generator(device=dev).manual_seed(0),
+                                   r=8, alpha=16.0)
+    mask = leaves_with_path(train.trainable_mask(params, train.TrainConfig()))
+    leaves = leaves_with_path(params)
+    trainable = sum(x.numel() * x.element_size() for p, x in leaves.items() if mask[p])
+    total = _tree_bytes(params)
+    del params, leaves
+    torch.cuda.empty_cache()
+    return total + 2 * trainable, total, count
+
+
+def phase_train_cli(dev, seed):
+    """7a: train_cli.main at WalkGPT-7B full width (LoRA r=8, bf16, PAVE, 2
+    images a step, 3 steps, validation on 2 samples), random weights from
+    seed 0; its scalars, checkpoint, projector artifact and leaves held;
+    s/step, peak memory, checkpoint bytes and seconds. Returns launches."""
+    log("== phase 7a: train_cli.main at WalkGPT-7B, full width")
+    t_phase = time.perf_counter()
+    card = smi_line()
+    tmp = tempfile.gettempdir()
+    state_b, best_b, count = state_bytes_7b(dev, seed)
+    free = shutil.disk_usage(tmp).free
+    size = "7b" if free > 1.1 * (state_b + best_b) else "1b"
+    log(f"  temporary directory {tmp}: {free:,} bytes free; the 7B train state {state_b:,} "
+        f"bytes and the best checkpoint {best_b:,} bytes, reckoned from the tree "
+        f"(count_params {count:,}); runs --model_size {size}"
+        + ("" if size == "7b" else ": the disk cannot hold both"))
+    spy = argparse.Namespace(params=None, saves=[], lora_a=None)
+    real_build, real_save, real_lora = evaluate.build_model, checkpoint.save, lora.init_lora
+
+    def build_model(*a, **k):
+        spy.params = real_build(*a, **k)
+        spy.count = nn.count_params(spy.params)
+        spy.sums = {p: (x, float(x.float().sum()))
+                    for p, x in leaves_with_path(spy.params).items()
+                    if isinstance(x, torch.Tensor)}
+        return spy.params
+
+    def save(path, tree):
+        t0 = time.perf_counter()
+        real_save(path, tree)
+        spy.saves.append((path, time.perf_counter() - t0,
+                          os.path.getsize(os.path.join(path, checkpoint.PARAMS_FILE))))
+
+    def init_lora(*a, **k):
+        out = real_lora(*a, **k)
+        spy.lora_a = {p: x.clone() for p, x in leaves_with_path(out).items() if "lora_a" in p}
+        return out
+
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        synthetic_pave.write_manifest(data, 8, seed=seed, height=480, width=640)
+        runs = os.path.join(root, "runs")
+        argv = ["--model_size", size, "--precision", "bf16", "--dataset", "PAVE", "--lora_r",
+                "8", "--batch_size", "2", "--epochs", "1", "--steps_per_epoch", "3",
+                "--eval_samples", "2", "--dataset_dir", data, "--log_base_dir", runs]
+        for f in KERNELS:
+            f.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with Patched((evaluate, "build_model", build_model), (checkpoint, "save", save),
+                     (lora, "init_lora", init_lora)), PlainSpy() as plain:
+            state = train_cli.main(argv)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = {f.__name__: f.launches for f in KERNELS}
+        run_dir = os.path.join(runs, "walkgpt_train")
+        sc = _scalars(os.path.join(run_dir, "scalars.jsonl"))
+        steps_ok = all(math.isfinite(sc.get((t, s), math.nan))
+                       for t in TRAIN_TAGS + METRIC_TAGS for s in (1, 2, 3))
+        val_ok = all(any(k[0] == t for k in sc) for t in VAL_TAGS)
+        sps = sorted(sc[("metrics/total_secs_per_batch", s)] for s in (2, 3))
+        latest = open(os.path.join(run_dir, "ckpt_model", "latest")).read()
+        state_dir = os.path.join(run_dir, "ckpt_model", latest, "state")
+        t0 = time.perf_counter()
+        back = checkpoint.load(state_dir, like=state)
+        load_s = time.perf_counter() - t0
+        same = (back.step == state.step and _same_tree(back.params, state.params)
+                and _same_tree(back.opt_state, state.opt_state))
+        del back
+        torch.cuda.empty_cache()
+        state_save = [s for s in spy.saves if s[0] == state_dir]
+        best = [s for s in spy.saves if "best_ckpt_model" in s[0]]
+        log(f"  7a: {card}; --model_size {size}: {state.step} steps, s/step (median of steps "
+            f"2-3) {sps[0] + (sps[1] - sps[0]) / 2:.3f} (steps: "
+            + ", ".join(f"{sc[('metrics/total_secs_per_batch', s)]:.3f}" for s in (1, 2, 3))
+            + f"); max_memory_allocated {peak:.2f} GB; main {wall:.1f} s with the model "
+            f"build, validation and checkpoints; count_params {spy.count:,}")
+        log("  7a losses: " + "; ".join(
+            f"step {s}: " + " ".join(f"{t.split('/')[1]}={sc[(t, s)]:.5f}" for t in TRAIN_TAGS)
+            for s in (1, 2, 3)) + "; val: " + " ".join(
+            f"{t.split('/')[1]}={sc[(t, 0)]:.4f}" for t in VAL_TAGS if (t, 0) in sc))
+        for path, secs, nb in spy.saves:
+            log(f"  7a checkpoint {os.path.relpath(path, run_dir)}: {nb:,} bytes, saved in "
+                f"{secs:.2f} s ({nb / secs / 1e9:.2f} GB/s; {card})")
+        log(f"  7a: latest names {latest!r}; the state loads back in {load_s:.2f} s "
+            f"({state_save[0][2] / load_s / 1e9:.2f} GB/s, warm; {card}) and equals main's bit for "
+            f"bit: {same}; every train/* and metrics/* tag finite for steps 1-3: {steps_ok}; "
+            f"val/* tags: {val_ok}; best checkpoints {len(best)}")
+
+        # the leaves: frozen ones (the CLIP tower included) unchanged, the
+        # LoRA adapters and the trained groups moved
+        now = leaves_with_path(state.params)
+        mask = leaves_with_path(train.trainable_mask(state.params, train.TrainConfig()))
+        frozen_ok = all(now[p] is x and float(x.float().sum()) == c
+                        for p, (x, c) in spy.sums.items() if not mask[p])
+        clip_ok = all(now[p] is x for p, (x, _) in spy.sums.items() if p.startswith("clip/"))
+        moved = {p: not torch.equal(now[p], x) for p, (x, _) in spy.sums.items() if mask[p]}
+        lora_a = all(not torch.equal(now["llm/" + p].cpu(), x) for p, x in spy.lora_a.items())
+        lora_b = all(bool(x.abs().max() > 0) for p, x in now.items() if "lora_b" in p)
+        groups = {g: any(m for p, m in moved.items() if p.startswith(g))
+                  for g in ("llm/embed_tokens", "llm/lm_head", "sam/mask_decoder", "ctp/",
+                            "msqp/")}
+        still = sorted(p for p, m in moved.items() if not m)
+        log(f"  7a leaves: frozen ({sum(1 for p in spy.sums if not mask[p])}) unchanged bit for "
+            f"bit {frozen_ok}, the CLIP tower among them {clip_ok}; lora_a moved {lora_a}, "
+            f"lora_b moved {lora_b}; trained groups moved {groups}; trainable leaves that did "
+            f"not move (no gradient, or an update under their bf16 step): {still[:6]}{' ...' if len(still) > 6 else ''}")
+
+        # the projector artifact through evaluate.build_model --projector_ckpt
+        proj = os.path.join(run_dir, "ckpt_model", latest, "out_mm_projector")
+        pargs = evaluate.parse_args(["--model_size", size, "--precision", "bf16",
+                                     "--projector_ckpt", proj])
+        tok = tokenizer.ByteTokenizer(2048)
+        seg = tokenizer.setup_walkgpt_tokens(tok).seg_token_idx
+        reload = evaluate.build_model(pargs, evaluate.build_config(pargs, seg), device=dev)
+        proj_ok = all(_same_tree(reload[k], state.params[k]) for k in ("msqp", "mm_projector"))
+        del reload
+        torch.cuda.empty_cache()
+        ran = {k: launches[k] for k in ("flash_attention", "flash_attention_bwd",
+                                        "sam_window_attention_packed", "sam_flash_attention")}
+        log(f"  7a: the projector artifact (msqp, mm_projector) reloads through "
+            f"evaluate.build_model --projector_ckpt equal: {proj_ok}; launches "
+            f"{_nonzero(launches)}; plain versions called {plain.calls} times")
+        if not (state.step == 3 and latest == "global_step3" and same and steps_ok and val_ok
+                and best and frozen_ok and clip_ok and lora_a and lora_b and all(groups.values())
+                and proj_ok and min(ran.values()) > 0 and plain.calls == 0):
+            raise AssertionError("7a: train_cli.main at full width failed a check")
+        del state, spy
+        torch.cuda.empty_cache()
+    log(f"  training CLI at full width: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_train_cli_parity(dev, seed):
+    """7b: train_cli.main at demo_config in fp32 (TF32 off) on the card and
+    with --device cpu, from one checkpoint: the LoRA leg (2 steps, then
+    --auto_resume --epochs 2 for 2 more) and the QLoRA leg (--quant_base
+    int4x, 2 steps, --no_eval). Then phase 8: parity_cli record at
+    demo_config in the 7B int4x format on the card and on the CPU from the
+    same checkpoint, and compare.
+
+    The steps run with nce_topk None, for phase 3d's reason: the top-k
+    refinement of InfoNCE is a hard selection, discontinuous where two SAM
+    tokens' weights tie, so a last-place difference of the features can
+    move the loss by 1e-2."""
+    log("== phase 7b: demo_config fp32 train_cli.main, the card against the CPU")
+    t_phase = time.perf_counter()
+    tok = tokenizer.ByteTokenizer(2048)
+    seg = tokenizer.setup_walkgpt_tokens(tok).seg_token_idx
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        synthetic_pave.write_manifest(data, 4, seed=seed, height=120, width=160)
+        # one checkpoint for both devices, in the port's own format; the
+        # head's [SEG] column raised so that the runs write masks
+        params = walkgpt.init(demo_config(), seed=seed, dtype=torch.float32, device=dev)
+        w = params["llm"]["lm_head"]["w"]
+        w[:, seg] = 4.0 * w.abs().amax(dim=1)
+        weights = os.path.join(root, "weights")
+        checkpoint.save(weights, params)
+        del params
+        common = ["--model_size", "demo", "--precision", "fp32", "--dataset", "PAVE",
+                  "--lora_r", "8", "--batch_size", "2", "--steps_per_epoch", "2",
+                  "--eval_samples", "1", "--dataset_dir", data, "--weight", weights]
+        legs = (("lora", ["--epochs", "1"]), ("lora", ["--epochs", "2", "--auto_resume"]),
+                ("qlora", ["--epochs", "1", "--quant_base", "int4x", "--no_eval"]))
+        runs = {}
+        no_topk = lambda *a, **k: LossWeights(*a, **{"nce_topk": None, **k})
+        for where in ("card", "cpu"):
+            d = "cuda" if where == "card" else "cpu"
+            for f in KERNELS:
+                f.launches = 0
+            t0 = time.perf_counter()
+            states = []
+            with Patched((evaluate, "build_config", with_kernels(evaluate.build_config)),
+                         (config_module, "LossWeights", no_topk)), PlainSpy() as plain:
+                for exp, extra in legs:
+                    states.append(train_cli.main(common + extra + [
+                        "--exp_name", exp, "--log_base_dir", os.path.join(root, where),
+                        "--device", d]))
+            runs[where] = dict(states=states, secs=time.perf_counter() - t0,
+                               plain=plain.calls,
+                               launches=_nonzero({f.__name__: f.launches for f in KERNELS}),
+                               lora=_scalars(os.path.join(root, where, "lora", "scalars.jsonl")),
+                               qlora=_scalars(os.path.join(root, where, "qlora",
+                                                           "scalars.jsonl")))
+        card, cpu = runs["card"], runs["cpu"]
+        loss_ok, lines = True, []
+        for leg, steps in (("lora", (1, 2, 3, 4)), ("qlora", (1, 2))):
+            for s in steps:
+                pairs = [(card[leg][(t, s)], cpu[leg][(t, s)]) for t in TRAIN_TAGS]
+                loss_ok &= all(abs(c - h) <= LOSS_RTOL * abs(h) for c, h in pairs)
+                lines.append(f"{leg} step {s}: " + " ".join(
+                    f"{t.split('/')[1]}={c:.6f}/{h:.6f}" for t, (c, h) in zip(TRAIN_TAGS, pairs)))
+        for line in lines:
+            log(f"  {line} (card/CPU)")
+        leaf_ok, notes = True, []
+        for label, i in (("LoRA after the resumed epoch", 1), ("QLoRA", 2)):
+            cs, hs = card["states"][i], cpu["states"][i]
+            mask = leaves_with_path(train.trainable_mask(hs.params, train.TrainConfig()))
+            cp = {p: x for p, x in leaves_with_path(cs.params).items() if mask.get(p)}
+            hp = {p: x for p, x in leaves_with_path(hs.params).items() if mask.get(p)}
+            out, worst = _leaf_errors(cp, hp)
+            n_el = sum(x.numel() for x in hp.values())
+            lr2 = 2 * train.TrainConfig().lr
+            leaf_ok &= (cs.step == hs.step and out <= LEAF_OUTLIERS * n_el and worst <= lr2)
+            notes.append(f"{label} (step {cs.step}/{hs.step}): {len(hp)} trainable leaves, "
+                         f"{n_el} elements, {out} outside rtol {LEAF_RTOL} / atol {LEAF_ATOL}, "
+                         f"max_abs {worst:.3e}")
+        val = [(card["lora"].get(("val/giou", e)), cpu["lora"].get(("val/giou", e)))
+               for e in (0, 1)]
+        log("  7b trainable leaves: " + "; ".join(notes) + f"; val/giou per epoch card/CPU "
+            f"{val} (logged); card launches {card['launches']}, plain versions called on the "
+            f"card {card['plain']}; main's three legs: card {card['secs']:.1f} s, CPU "
+            f"{cpu['secs']:.1f} s")
+        need = {"flash_attention", "flash_attention_bwd", "sam_window_attention_packed",
+                "sam_flash_attention"}
+        if not (loss_ok and leaf_ok and card["plain"] == 0 and need <= set(card["launches"])):
+            raise AssertionError("7b: train_cli.main on the card and on the CPU disagree")
+        log(f"  training CLI, card against CPU: phase {time.perf_counter() - t_phase:.1f} s")
+        phase_parity_cli(data, weights)
+
+
+def phase_parity_cli(data, weights):
+    """8: parity_cli record at demo_config in the 7B int4x format, fp32, on
+    the card and on the CPU from the same checkpoint; compare must return 0
+    (identical tokens, masks within gIoU 1e-3)."""
+    log("== phase 8: parity_cli record on the card and on the CPU, compare")
+    t0 = time.perf_counter()
+    root = os.path.dirname(data)
+    base = ["record", "--samples", "3", "--dataset_dir", data, "--model_size", "demo",
+            "--precision", "fp32", "--quant", "int4x", "--kv_cache", "int4_flat",
+            "--sam_quant", "int8", "--max_new_tokens", "16", "--weight", weights]
+    with Patched((evaluate, "build_config", with_kernels(evaluate.build_config))):
+        for f in KERNELS:
+            f.launches = 0
+        with PlainSpy() as plain:
+            parity_cli.main(base + ["--out", os.path.join(root, "card.npz"), "--device", "cuda"])
+        launched = _nonzero({f.__name__: f.launches for f in KERNELS})
+        parity_cli.main(base + ["--out", os.path.join(root, "cpu.npz"), "--device", "cpu"])
+    rc = parity_cli.main(["compare", "--a", os.path.join(root, "card.npz"),
+                          "--b", os.path.join(root, "cpu.npz")])
+    rec = np.load(os.path.join(root, "card.npz"))
+    n_masks = sum(rec[f"masks_{i}"].shape[0] for i in range(len(rec["sample_keys"])))
+    log(f"  8: compare returned {rc} ({len(rec['sample_keys'])} samples, {n_masks} masks); "
+        f"card launches {launched}; plain versions called on the card {plain.calls}; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    if not (rc == 0 and plain.calls == 0 and launched.get("decode_attention_q")):
+        raise AssertionError("8: the card's and the CPU's recordings differ")
 
 
 def tie_pick_check(dev, gen):
@@ -3820,6 +4262,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     launches = add(launches, phase_eval(dev, args.seed))
     log(f"  PAVE evaluation: phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    launches = add(launches, phase_train_cli(dev, args.seed))
+    torch.cuda.empty_cache()
+    phase_train_cli_parity(dev, args.seed)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
 

@@ -61,7 +61,7 @@ def test_from_numpy_tree_bf16_and_dtype_cast():
 
 @pytest.mark.parametrize("factory", ["tiny_config", "demo_config"])
 def test_port_init_matches_jax_layout(factory):
-    jc = getattr(jcfg, factory)().replace(clip=None)
+    jc = getattr(jcfg, factory)()
     tc = getattr(tcfg, factory)()
     jshapes = jax.eval_shape(lambda: jwalk.init(jax.random.PRNGKey(0), jc))
     tp = twalk.init(tc, seed=0, device="cpu")
@@ -155,7 +155,6 @@ def test_native_loader_builds_from_the_port_only():
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh", "1,2"], "Multi-device"),
-    (["--visual_stream", "clip"], "CLIP stream"),
     (["--val_dataset", "MultiReasonSeg|val"], "SAM extras and Hungarian eval"),
     (["--tokenizer", "bpe"], "Eval CLI, data and checkpoints")])
 def test_eval_refuses_unported_options_at_startup(argv, item, monkeypatch):

@@ -64,7 +64,8 @@ def setup(tmp_path_factory):
                root / "mp_rank_00_model_states.pt")
     jck.save_orbax(str(root / "projector_jax"),
                    {"msqp": tree["msqp"], "mm_projector": tree["mm_projector"]})
-    tck.save(str(root / "projector_torch"), {"msqp": from_numpy_tree(tree["msqp"], "cpu")})
+    tck.save(str(root / "projector_torch"),
+             from_numpy_tree({"msqp": tree["msqp"], "mm_projector": tree["mm_projector"]}, "cpu"))
     return root
 
 
@@ -112,8 +113,8 @@ def test_responses_byte_identical_to_jax(setup, jax_run):
 
 def test_no_init_leaf_survives_the_checkpoints(setup):
     """build_model with the CLI's checkpoints leaves no leaf at its random
-    init: the port's whole tree, and JAX's but for the CLIP tower (the CLIP
-    stream is not ported, the reference state dict does not hold it)."""
+    init but the CLIP tower's, which the reference state dict does not
+    hold: in the port's whole tree and in JAX's, the same leaves."""
     targs = tev.parse_args(_argv(setup, "torch", setup / "x.json") + ["--device", "cpu"])
     tok = ByteTokenizer(2048)
     seg = setup_walkgpt_tokens(tok).seg_token_idx
@@ -122,7 +123,8 @@ def test_no_init_leaf_survives_the_checkpoints(setup):
     init = leaves_with_path(twalk.init(tcfg, seed=0, device="cpu"))
     assert list(loaded) == list(init)
     same = [k for k in init if torch.equal(loaded[k], init[k])]
-    assert not same, same
+    assert same and all(k.startswith("clip/") for k in same), same
+    assert "mm_projector/w" in init and "mm_projector/w" not in same
 
     jargs = jev.parse_args(_argv(setup, "jax", setup / "x.json"))
     jcfg_ = jev.build_config(jargs, seg)
@@ -132,6 +134,7 @@ def test_no_init_leaf_survives_the_checkpoints(setup):
     kept = [jax.tree_util.keystr(p) for p, x in jl
             if np.array_equal(np.asarray(x), np.asarray(ji[p]))]
     assert kept and all(k.startswith("['clip']") for k in kept), kept
+    assert len(kept) == len(same)
 
 
 def test_validate_batch_of_one_equals_batch_of_two(setup):
@@ -163,7 +166,8 @@ def test_build_model_quantized_scan_layout_matches_jax(setup):
     """build_model with --quant int4x --sam_quant int8 --sam_scan over the
     CLI's checkpoints: the same tree layout as JAX's (the LLM's packed int4
     and W8A8 leaves, the SAM encoder's stacked block_runs of weight-only
-    int8 blocks) and the same count_params."""
+    int8 blocks, the CLIP tower and the mm_projector) and the same
+    count_params."""
     from walkgpt_tpu.core import nn as jnn
     from walkgpt_tpu_torch.core import nn as tnn
     from walkgpt_tpu_torch.core.tree import tree_paths
@@ -175,7 +179,7 @@ def test_build_model_quantized_scan_layout_matches_jax(setup):
     tparams = tev.build_model(targs, tev.build_config(targs, seg))
     jargs = jev.parse_args(_argv(setup, "jax", setup / "x.json") + extra)
     jparams = jax.device_get(jev.build_model(jargs, jev.build_config(jargs, seg)))
-    jparams = {k: v for k, v in jparams.items() if k not in ("clip", "mm_projector")}
+    assert "clip" in tparams and "mm_projector" in tparams
     assert "block_runs" in tparams["sam"]["image_encoder"]
     assert tree_paths(tparams) == tree_paths(from_numpy_tree(jparams, "cpu"))
     assert tnn.count_params(tparams) == jnn.count_params(jparams)

@@ -232,7 +232,7 @@ def test_quantize_llm_and_sam_encoder_bit_exact():
 def test_init_quantized_layout_matches_jax(fmt):
     """Key paths, shapes and dtypes of the port's own init_quantized are the
     JAX package's (values differ: other generators)."""
-    jc = jcfg.tiny_config().replace(clip=None)
+    jc = jcfg.tiny_config()
     tc = tcfg.tiny_config()
     want = jax.device_get(jax.eval_shape(
         lambda k: jwalk.init_quantized(k, jc, dtype=jnp.bfloat16, **fmt),

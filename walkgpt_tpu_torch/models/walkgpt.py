@@ -1,5 +1,5 @@
-"""WalkGPT grounded-navigation inference (PyTorch counterpart of
-walkgpt_tpu/models/walkgpt.py, SAM visual stream).
+"""WalkGPT grounded-navigation inference and training (PyTorch counterpart
+of walkgpt_tpu/models/walkgpt.py).
 
     SAM ViT encode ─┬─> MSQP -> 6x6 tokens -> bilinear 16x16 -> splice at <image>
                     │      -> LLaMA prefill (K1) + greedy decode
@@ -17,8 +17,13 @@ greedy or speculative (`speculative_k`).
 
 Training: `model_forward` is the teacher-forced forward with the losses
 (token CE, mask BCE and dice, InfoNCE) that runtime/train.py differentiates;
-the LLM's attention runs K1 with its backward K1b. The CLIP visual stream is
-not ported yet.
+the LLM's attention runs K1 with its backward K1b.
+
+The CLIP visual stream (`generate_and_segment(visual_stream="clip")`): the
+CLIP-448 pixels go through the CLIP tower (models/clip_vit.py, plain
+attention as in the JAX package) and the mm_projector, are bilinearly
+downsampled to the visual grid and spliced with their padding mask; the
+masks still decode against the SAM features.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core import nn
 from ..core.config import WalkGPTConfig
 from ..core.tree import leaves_with_path, resolve_device
 from ..ops.flash_attention import flash_attention
@@ -34,7 +40,7 @@ from ..ops.losses import cross_entropy_with_smoothing, infonce_loss
 from ..ops.quant import quantize_sam_encoder, quantized_llm_init
 from ..ops.resize import bilinear_resize
 from ..runtime.generate import GenerateResult, greedy_generate, speculative_generate
-from . import llm, sam
+from . import clip_vit, llm, sam
 from .projectors import ctp_apply, ctp_init, msqp_apply, msqp_init, tiny_xattn_init
 
 IMAGE_TOKEN_INDEX = -200
@@ -48,20 +54,27 @@ def sam_config(cfg: WalkGPTConfig) -> sam.SamConfig:
 
 def init(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.float32, device=None,
          llm_init=None) -> Dict:
-    """Random parameters with the JAX package's tree layout (without the CLIP
-    tower and its projector, whose stream is not ported yet), built leaf by
+    """Random parameters with the JAX package's tree layout, built leaf by
     leaf on `device` (default CUDA) from a seeded torch.Generator.
-    llm_init(g, cfg.llm, dtype), when given, builds the LLM subtree."""
+    llm_init(g, cfg.llm, dtype), when given, builds the LLM subtree. With
+    cfg.clip set, the CLIP tower and the CLIP->LLM mm_projector are drawn
+    after every other leaf, so those keep their values for a given seed."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    return {
+    params = {
         "llm": (llm_init or llm.init)(g, cfg.llm, dtype),
         "sam": sam.init(g, sam_config(cfg), dtype),
         "msqp": msqp_init(g, cfg.msqp, cfg.llm.hidden_size, dtype),
         "ctp": [ctp_init(g, cfg.ctp, cfg.llm.hidden_size, dtype)],
         "tiny_xattn": tiny_xattn_init(g, cfg.msqp.sam_dim, dtype),
     }
+    if cfg.clip is not None:
+        params["clip"] = clip_vit.init(g, cfg.clip, dtype)
+        # the CLIP->LLM projector of the LLaVA layer (llava_arch.py:30-88)
+        params["mm_projector"] = nn.linear_init(g, cfg.clip.hidden_size,
+                                                cfg.llm.hidden_size, dtype=dtype)
+    return params
 
 
 def init_quantized(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.bfloat16,
@@ -75,7 +88,8 @@ def init_quantized(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.bfloat16,
     fused q/k/v and the lm_head as int4, attn_int4_proj each attention
     projection on its own; quantize_lm_head=False keeps a dense head.
     sam_int8 quantizes the SAM encoder blocks' projections (W8A8 with
-    act_quant).
+    act_quant). The CLIP tower and the mm_projector stay as `init` builds
+    them.
 
     WalkGPT-7B's production format: act_quant, mlp_int4, attn_int4,
     head_int4 and sam_int8 (with kv_quant_cache "int4_flat"); WalkGPT-1B's:
@@ -133,44 +147,84 @@ class Spliced(NamedTuple):
     labels: Optional[torch.Tensor] = None   # [R, T-1+V] when labels are given
 
 
-def splice_visual(params, cfg: WalkGPTConfig, input_ids: torch.Tensor,
-                  vis_tokens: torch.Tensor,
-                  attention_mask: Optional[torch.Tensor] = None,
-                  labels: Optional[torch.Tensor] = None) -> Spliced:
-    """Replace each row's <image> sentinel by the V visual tokens (+V-1 net
-    growth). Rows without a sentinel get the block appended at their first
-    pad slot with attention masked off (text-only rows). labels [R, T],
-    when given, follow the tokens; inside the visual block they are
-    IGNORE_INDEX."""
-    r, t = input_ids.shape
-    v = cfg.visual_tokens
+def _splice_block(embeds: torch.Tensor, sentinels: torch.Tensor, attn: torch.Tensor,
+                  labels: Optional[torch.Tensor], vis: torch.Tensor,
+                  vis_mask: Optional[torch.Tensor] = None):
+    """Expand the FIRST sentinel of each row of an embedding timeline with the
+    visual block `vis` [R, V, H] (+V-1 net growth). `sentinels` is a bool
+    [R, T] map; rows with no sentinel get the block at their first pad slot
+    with attention masked off, so no real token leaves the timeline.
+    Inside the block labels are IGNORE_INDEX, and attention is the row's
+    having a sentinel, and with vis_mask [R, V] the visual token's validity.
+    Returns (embeds', sentinels', attn', labels', image_pos)."""
+    r, t, hd = embeds.shape
+    v = vis.shape[1]
     out_len = t - 1 + v
-    dev = input_ids.device
-    if attention_mask is None:
-        attention_mask = torch.ones((r, t), dtype=torch.bool, device=dev)
-    is_img = input_ids == IMAGE_TOKEN_INDEX
-    has_img = is_img.any(dim=1)
-    pos = torch.where(has_img, is_img.int().argmax(dim=1),
-                      attention_mask.long().sum(-1).clamp_max(t - 1))       # [R]
-    tok_embeds = llm.embed(params["llm"], input_ids.clamp_min(0))           # [R, T, H]
-
-    j = torch.arange(out_len, device=dev)[None]
+    has_img = sentinels.any(dim=1)
+    pos = torch.where(has_img, sentinels.int().argmax(dim=1),
+                      attn.long().sum(-1).clamp_max(t - 1))
+    j = torch.arange(out_len, device=embeds.device)[None]
     p = pos[:, None]
     before = j < p
     inside = (j >= p) & (j < p + v)
     tok_idx = torch.where(before, j, j - (v - 1)).clamp(0, t - 1)
     vis_idx = (j - p).clamp(0, v - 1)
-    hd = tok_embeds.shape[-1]
-    g_tok = torch.gather(tok_embeds, 1, tok_idx[..., None].expand(r, out_len, hd))
-    g_vis = torch.gather(vis_tokens.to(g_tok.dtype), 1,
-                         vis_idx[..., None].expand(r, out_len, hd))
-    embeds = torch.where(inside[..., None], g_vis, g_tok)
-    attn_tok = torch.gather(attention_mask, 1, tok_idx)
-    attn = torch.where(inside, has_img[:, None], attn_tok)
-    labels_out = None
+    g_tok = torch.gather(embeds, 1, tok_idx[..., None].expand(r, out_len, hd))
+    g_vis = torch.gather(vis.to(g_tok.dtype), 1, vis_idx[..., None].expand(r, out_len, hd))
+    embeds2 = torch.where(inside[..., None], g_vis, g_tok)
+    vis_ok = has_img[:, None]
+    if vis_mask is not None:
+        vis_ok = vis_ok & torch.gather(vis_mask.bool(), 1, vis_idx)
+    attn2 = torch.where(inside, vis_ok, torch.gather(attn, 1, tok_idx))
+    sent2 = torch.where(inside, False, torch.gather(sentinels, 1, tok_idx))
+    labels2 = None
     if labels is not None:
-        labels_out = torch.where(inside, IGNORE_INDEX, torch.gather(labels, 1, tok_idx))
+        labels2 = torch.where(inside, IGNORE_INDEX, torch.gather(labels, 1, tok_idx))
+    return embeds2, sent2, attn2, labels2, pos
+
+
+def splice_visual(params, cfg: WalkGPTConfig, input_ids: torch.Tensor,
+                  vis_tokens: torch.Tensor,
+                  attention_mask: Optional[torch.Tensor] = None,
+                  labels: Optional[torch.Tensor] = None,
+                  vis_mask: Optional[torch.Tensor] = None) -> Spliced:
+    """Replace each row's <image> sentinel by the V visual tokens (+V-1 net
+    growth). Rows without a sentinel get the block appended at their first
+    pad slot with attention masked off (text-only rows). labels [R, T],
+    when given, follow the tokens; inside the visual block they are
+    IGNORE_INDEX. vis_mask [R, V] (optional): per-visual-token validity,
+    the CLIP pixel path's padding mask on the visual grid
+    (vit_attention_mask_for_llm, llava_arch.py:176-181), masking padded
+    patch positions out of attention."""
+    r, t = input_ids.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((r, t), dtype=torch.bool, device=input_ids.device)
+    embeds, _, attn, labels_out, pos = _splice_block(
+        llm.embed(params["llm"], input_ids.clamp_min(0)), input_ids == IMAGE_TOKEN_INDEX,
+        attention_mask, labels, vis_tokens, vis_mask)
     return Spliced(embeds=embeds, attention_mask=attn, image_pos=pos, labels=labels_out)
+
+
+def splice_visual_multi(params, cfg: WalkGPTConfig, input_ids: torch.Tensor,
+                        vis_tokens: torch.Tensor,
+                        attention_mask: Optional[torch.Tensor] = None,
+                        labels: Optional[torch.Tensor] = None) -> Spliced:
+    """Multiple <image> sentinels per row (llava_arch.py's while-loop over
+    image_token_indices, :291-389): sentinel k is expanded with image k's
+    visual block, left to right. vis_tokens: [R, max_images, V, H]; rows with
+    fewer sentinels get masked-off blocks appended (uniform lengths)."""
+    r, t = input_ids.shape
+    if attention_mask is None:
+        attention_mask = torch.ones((r, t), dtype=torch.bool, device=input_ids.device)
+    embeds = llm.embed(params["llm"], input_ids.clamp_min(0))
+    sentinels = input_ids == IMAGE_TOKEN_INDEX
+    attn, lab, first_pos = attention_mask, labels, None
+    for k in range(vis_tokens.shape[1]):
+        embeds, sentinels, attn, lab, pos = _splice_block(embeds, sentinels, attn, lab,
+                                                          vis_tokens[:, k])
+        if first_pos is None:
+            first_pos = pos
+    return Spliced(embeds=embeds, attention_mask=attn, image_pos=first_pos, labels=lab)
 
 
 def seg_timeline_mask(input_ids: torch.Tensor, seg_token_id, cfg: WalkGPTConfig
@@ -415,20 +469,20 @@ def _as_inputs(dev, **arrays):
     return out
 
 
-def _generate(params, cfg: WalkGPTConfig, sam_tokens, input_ids, attention_mask,
-              row_image_idx, max_new_tokens: int, eos_id: int, speculative_k: int,
-              fused_layer: bool = False) -> GenerateResult:
-    """MSQP tokens -> splice -> greedy decode (with fused_layer, K12 in its
-    steps), or speculative decode with `speculative_k` drafts per iteration
-    whose lookup history is the textual prompt (the <image> sentinel and
-    pad positions excluded)."""
+def _generate(params, cfg: WalkGPTConfig, vis_rows, input_ids, attention_mask,
+              max_new_tokens: int, eos_id: int, speculative_k: int,
+              fused_layer: bool = False, vis_mask_rows=None) -> GenerateResult:
+    """Visual tokens per row -> splice -> greedy decode (with fused_layer,
+    K12 in its steps), or speculative decode with `speculative_k` drafts per
+    iteration whose lookup history is the textual prompt (the <image>
+    sentinel and pad positions excluded)."""
     if cfg.decode_cache_grow:
         raise NotImplementedError("the growing KV cache (decode_cache_grow) is not ported")
     flash_fn = None
     if cfg.use_flash_attention:
         flash_fn = lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
-    vis_rows = visual_tokens(params, cfg, sam_tokens)[row_image_idx]
-    sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask)
+    sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask,
+                       vis_mask=vis_mask_rows)
     kw = dict(max_new_tokens=max_new_tokens, eos_id=eos_id, flash_fn=flash_fn,
               kv_quant=cfg.kv_quant_cache or "", prefill_chunk=cfg.prefill_chunk)
     if speculative_k > 0:
@@ -444,10 +498,19 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
                          images, input_ids, attention_mask, row_image_idx, pixel_hw,
                          max_new_tokens: int, max_segs: int, eos_id: int,
                          speculative_k: int = 0, fused_layer: bool = False,
-                         precomputed_sam=None, device=None) -> EvaluateOutput:
-    """The PAVE evaluate pipeline on the SAM visual stream: encode, splice,
-    greedy (or, with speculative_k > 0, speculative) decode, [SEG] gather,
-    CTP, mask decode.
+                         precomputed_sam=None, images_clip=None, clip_resize_hw=None,
+                         visual_stream: str = "sam", device=None) -> EvaluateOutput:
+    """The PAVE evaluate pipeline: encode, splice, greedy (or, with
+    speculative_k > 0, speculative) decode, [SEG] gather, CTP, mask decode.
+
+    visual_stream selects the generation-time visual tokens:
+      "sam"  — SAM-MSQP tokens (the PAVE validate route);
+      "clip" — images_clip [B, S_clip, S_clip, 3] (CLIP-448 pixels, fp32 as
+               the data path gives them) through the CLIP tower and the
+               mm_projector, with clip_resize_hw [B, 2] (each image's valid
+               (h, w) on the CLIP canvas), when given, masking the padded
+               patches in the tower and on the visual grid.
+    Either way the masks decode against the SAM features of `images`.
 
     images [B, S, S, 3] (its dtype is the activation dtype of the encoder);
     input_ids [R, T] prompts with the <image> sentinel, right-padded;
@@ -471,8 +534,22 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
         feats, sam_tokens = (torch.as_tensor(t, device=dev) for t in precomputed_sam)
     else:
         feats, sam_tokens = encode_sam(params, cfg, torch.as_tensor(images, device=dev))
-    res = _generate(params, cfg, sam_tokens, x["input_ids"], x["attention_mask"],
-                    x["row_image_idx"], max_new_tokens, eos_id, speculative_k, fused_layer)
+    rows, vis_mask_rows = x["row_image_idx"], None
+    if visual_stream == "clip":
+        if images_clip is None:
+            raise ValueError("the clip stream needs images_clip")
+        hw = None if clip_resize_hw is None else torch.as_tensor(clip_resize_hw, device=dev)
+        clip_toks, llm_mask = clip_visual_tokens(
+            params, cfg, torch.as_tensor(images_clip, device=dev), hw)
+        vis_rows = clip_toks[rows]
+        if llm_mask is not None:
+            vis_mask_rows = llm_mask[rows]
+    elif visual_stream == "sam":
+        vis_rows = visual_tokens(params, cfg, sam_tokens)[rows]
+    else:
+        raise ValueError(f"visual_stream {visual_stream!r}")
+    res = _generate(params, cfg, vis_rows, x["input_ids"], x["attention_mask"],
+                    max_new_tokens, eos_id, speculative_k, fused_layer, vis_mask_rows)
     seg_valid, seg_rows, pred_embeddings = _seg_gather(params, cfg, res.tokens,
                                                        res.pred_hidden, max_segs)
     pred_canvas, score = decode_seg_masks(params, cfg, feats, pred_embeddings,
@@ -492,8 +569,9 @@ def generate_seg_embeds(params, cfg: WalkGPTConfig, *, sam_tokens, input_ids,
     dev = resolve_device(device)
     x = _as_inputs(dev, sam_tokens=sam_tokens, input_ids=input_ids,
                    attention_mask=attention_mask, row_image_idx=row_image_idx)
-    res = _generate(params, cfg, x["sam_tokens"], x["input_ids"], x["attention_mask"],
-                    x["row_image_idx"], max_new_tokens, eos_id, speculative_k)
+    vis_rows = visual_tokens(params, cfg, x["sam_tokens"])[x["row_image_idx"]]
+    res = _generate(params, cfg, vis_rows, x["input_ids"], x["attention_mask"],
+                    max_new_tokens, eos_id, speculative_k)
     seg_valid, seg_rows, emb = _seg_gather(params, cfg, res.tokens, res.pred_hidden, max_segs)
     return SegEmbeds(tokens=res.tokens, lengths=res.lengths, seg_valid=seg_valid,
                      seg_rows=seg_rows, pred_embeddings=emb)
@@ -505,3 +583,70 @@ def finalize_masks(pred_canvas: torch.Tensor, input_hw: Tuple[int, int],
     original image size."""
     x = pred_canvas[:, :input_hw[0], :input_hw[1]][..., None]
     return bilinear_resize(x, tuple(original_hw))[..., 0]
+
+
+# ---------------------------------------------------------------------------
+# the CLIP stream: pixels -> CLIP tower -> mm_projector -> [B, V, H] tokens
+# ---------------------------------------------------------------------------
+
+def clip_padding_masks(cfg: WalkGPTConfig, clip_resize_hw: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Padding masks for the padded-CLIP pixel path (llava_arch.py:160-193):
+    clip_resize_hw [B, 2] valid (h, w) per image ->
+      (token mask [B, 1+P] over [class]+patch tokens,
+       LLM-side mask [B, visual_tokens] nearest-downsampled to the grid).
+    A patch row / column is valid when its nearest source pixel (floor
+    indexing) lies inside (h, w)."""
+    if cfg.clip is None:
+        raise ValueError("the config has no CLIP tower")
+    g = cfg.clip.grid
+    b = clip_resize_hw.shape[0]
+    dev = clip_resize_hw.device
+    idx = torch.floor(torch.arange(g, device=dev) * (cfg.clip.image_size / g)).long()
+    rows = idx[None, :] < clip_resize_hw[:, 0, None]
+    cols = idx[None, :] < clip_resize_hw[:, 1, None]
+    patch_valid = rows[:, :, None] & cols[:, None, :]                    # [B, g, g]
+    cls = torch.ones((b, 1), dtype=torch.bool, device=dev)
+    token_mask = torch.cat([cls, patch_valid.reshape(b, g * g)], dim=1)
+    t = cfg.visual_grid
+    tr = torch.floor(torch.arange(t, device=dev) * (g / t)).long()
+    llm_mask = patch_valid[:, tr[:, None], tr[None, :]].reshape(b, t * t)
+    return token_mask, llm_mask
+
+
+def encode_clip_tokens(params, cfg: WalkGPTConfig, images_clip: torch.Tensor, *,
+                       attention_mask: Optional[torch.Tensor] = None,
+                       clip_resize_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CLIP pixel path: tower (with the padding mask from clip_resize_hw when
+    no attention_mask is given) -> select_layer patch features ->
+    mm_projector, [B, P, H]. The projector is applied, as the JAX package
+    applies it (the reference's code has it commented out, and its raw
+    tower features could not splice into an H_llm timeline)."""
+    if cfg.clip is None or "clip" not in params:
+        raise ValueError("CLIP tower not built")
+    if attention_mask is None and clip_resize_hw is not None:
+        attention_mask, _ = clip_padding_masks(cfg, clip_resize_hw)
+    hs = clip_vit.apply(params["clip"], cfg.clip, images_clip, attention_mask=attention_mask)
+    feats, _aux = clip_vit.select_features(hs, cfg.clip)
+    return nn.linear(params["mm_projector"], feats)
+
+
+def clip_visual_tokens(params, cfg: WalkGPTConfig, images_clip: torch.Tensor,
+                       clip_resize_hw: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """CLIP pixels -> spliceable LLM tokens: encode_clip_tokens, then a
+    bilinear downsample of the patch grid to the visual grid
+    (llava_arch.py:251-259), plus the LLM-side validity mask
+    (vit_attention_mask_for_llm, :176-181). Returns (tokens [B, V, H],
+    llm_mask [B, V] bool, or None without clip_resize_hw)."""
+    toks = encode_clip_tokens(params, cfg, images_clip, clip_resize_hw=clip_resize_hw)
+    b, l, h = toks.shape
+    g = int(round(l ** 0.5))
+    if g * g != l:
+        raise ValueError(f"CLIP token count {l} is not square")
+    t = cfg.visual_grid
+    grid = bilinear_resize(toks.reshape(b, g, g, h), (t, t))
+    llm_mask = None
+    if clip_resize_hw is not None:
+        _, llm_mask = clip_padding_masks(cfg, clip_resize_hw)
+    return grid.reshape(b, t * t, h), llm_mask

@@ -8,13 +8,15 @@ The reference persists these checkpoint formats (SURVEY §5):
 
 Here:
   * `save` / `load` are the port's own checkpoint format, in place of the
-    JAX package's Orbax one: a directory holding the parameter tree (dense,
-    int8 and packed int4 leaves, bool markers) in one `torch.save` file,
-    read back bit for bit;
+    JAX package's Orbax one: a directory holding a tree (dense, int8 and
+    packed int4 leaves, bool markers, Python numbers; a NamedTuple such as
+    runtime/train.TrainState kept as the dict of its fields) in one
+    `torch.save` file, read back bit for bit;
   * the converters map state dicts ({name: numpy array}) into the
     parameter tree's NHWC / (in, out) layout as numpy arrays, the JAX
-    package's converters line for line: SAM `sam_vit_h.pth`, HF LLaMA,
-    WalkGPT task modules; LoRA adapters go through runtime/lora.py;
+    package's converters line for line: SAM `sam_vit_h.pth`, HF LLaMA, the
+    HF CLIP vision tower, WalkGPT task modules; LoRA adapters go through
+    runtime/lora.py;
   * `load_into` overlays converted subtrees onto a tree of tensors.
 
 Layout rules (single source of truth for all converters):
@@ -34,7 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.tree import leaves_with_path, map_with_path
+from ..core.tree import leaves_with_path
 # runtime/lora.py's helpers, also reached here as in the JAX package's module
 from .lora import attach_lora, extract_lora, merge_lora  # noqa: F401
 
@@ -45,13 +47,25 @@ PARAMS_FILE = "params.pt"
 # the port's checkpoint format
 # ---------------------------------------------------------------------------
 
+def _host(tree: Any) -> Any:
+    """The tree with every tensor copied to the host as it is and every
+    NamedTuple as the dict of its fields."""
+    if hasattr(tree, "_fields"):
+        return {f: _host(getattr(tree, f)) for f in tree._fields}
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host(v) for v in tree)
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
 def save(path: str, tree: Any) -> None:
-    """Write a parameter tree (dicts, lists, tensors of any dtype, bools,
-    None) to the directory `path` as one file, every tensor copied to the
-    host as it is."""
+    """Write a tree (dicts, lists, NamedTuples, tensors of any dtype, bools,
+    numbers, None) to the directory `path` as one file, every tensor copied
+    to the host as it is. A whole runtime/train.TrainState (the parameters,
+    the optimizer's moments and counters, the step) goes in as it is."""
     os.makedirs(path, exist_ok=True)
-    host = map_with_path(lambda _, x: x.detach().cpu() if isinstance(x, torch.Tensor) else x,
-                         tree)
+    host = _host(tree)
     tmp = os.path.join(path, PARAMS_FILE + ".tmp")
     torch.save(host, tmp)
     os.replace(tmp, os.path.join(path, PARAMS_FILE))
@@ -63,12 +77,18 @@ def load(path: str, like: Optional[Any] = None) -> Any:
     floating leaf then takes its like leaf's dtype; every other leaf must
     have its like leaf's dtype and every leaf its shape, or the load
     raises. Keys of the file that like lacks are left out; keys of like
-    that the file lacks raise."""
+    that the file lacks raise. A NamedTuple in like (a TrainState) comes
+    back as one, from the dict of its fields."""
     tree = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu", weights_only=True)
     if like is None:
         return tree
 
     def rec(want, got, where):
+        if hasattr(want, "_fields"):
+            if not isinstance(got, dict) or any(f not in got for f in want._fields):
+                raise ValueError(f"{path}: {where or '/'} lacks the fields {want._fields}")
+            return type(want)(**{f: rec(getattr(want, f), got[f], f"{where}/{f}")
+                                 for f in want._fields})
         if isinstance(want, dict):
             if not isinstance(got, dict):
                 raise ValueError(f"{path}: {where or '/'} is {type(got).__name__}, not a dict")
@@ -410,6 +430,42 @@ def convert_llama(sd: Dict[str, np.ndarray], *, num_layers: int,
 
 
 # ---------------------------------------------------------------------------
+# CLIP vision tower (HF CLIPVisionModel layout)
+# ---------------------------------------------------------------------------
+
+def convert_clip_vision(sd: Dict[str, np.ndarray], *, num_layers: int,
+                        src_grid: int = 16, dst_grid: Optional[int] = None) -> Dict:
+    """HF CLIPVisionModel state dict -> models/clip_vit's tree (numpy); the
+    position embeddings resized from src_grid to dst_grid, when given, by
+    clip_vit.resize_pos_embed in fp32."""
+    from ..models.clip_vit import resize_pos_embed
+    r = SDReader(strip_prefixes(sd))
+    v = r.sub("vision_model.") if r.has("vision_model.embeddings.class_embedding") else r
+    pos = v.get("embeddings.position_embedding.weight")
+    if dst_grid is not None and dst_grid != src_grid:
+        pos = resize_pos_embed(torch.from_numpy(np.asarray(pos)), src_grid, dst_grid).numpy()
+    p: Dict = {
+        "patch_embed": {"w": v.get("embeddings.patch_embedding.weight", _conv_w)},
+        "class_embed": v.get("embeddings.class_embedding"),
+        "pos_embed": pos,
+        "pre_ln": _ln(v, "pre_layrnorm") if v.has("pre_layrnorm.weight")
+        else _ln(v, "pre_layernorm"),
+        "layers": [],
+    }
+    for i in range(num_layers):
+        l = v.sub(f"encoder.layers.{i}.")
+        p["layers"].append({
+            "ln1": _ln(l, "layer_norm1"),
+            "attn": {"q": _linear(l, "self_attn.q_proj"), "k": _linear(l, "self_attn.k_proj"),
+                     "v": _linear(l, "self_attn.v_proj"),
+                     "out": _linear(l, "self_attn.out_proj")},
+            "ln2": _ln(l, "layer_norm2"),
+            "mlp": {"fc1": _linear(l, "mlp.fc1"), "fc2": _linear(l, "mlp.fc2")},
+        })
+    return p
+
+
+# ---------------------------------------------------------------------------
 # WalkGPT task modules (MSQP / CTP / TinyCrossAttn)
 # ---------------------------------------------------------------------------
 
@@ -494,8 +550,8 @@ def convert_walkgpt_state(sd: Dict[str, np.ndarray], cfg, *,
                                                                     stripped)
     The LLM subtree comes back as numpy arrays, or, with LoRA adapters,
     with those adapters as CPU tensors on their projections (merge_lora
-    folds them); the CLIP tower is not converted (its stream is not
-    ported).
+    folds them); the CLIP tower is not converted, as in the JAX package
+    (convert_clip_vision reads an HF CLIP checkpoint).
     """
     flat = strip_prefixes(sd)
     r = SDReader(flat)

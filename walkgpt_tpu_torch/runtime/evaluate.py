@@ -6,8 +6,9 @@ Per PAVE val sample:
      scored against the GT planes (the reference's mask-metric path, which
      evaluates masks under teacher forcing — SURVEY §3.2 note), the IoU
      histograms reduced on the device (`device_mask_counts`);
-  2. the generation path (SAM->MSQP tokens, greedy or speculative decode)
-     produces the text answer recorded as "Question: ... | Answer: ..." in
+  2. the generation path (SAM->MSQP tokens, or with --visual_stream clip the
+     CLIP-448 pixels through the CLIP tower and mm_projector; greedy or
+     speculative decode) produces the text answer recorded as "Question: ... | Answer: ..." in
      the responses JSON — byte-compatible with --save_responses_path
      artifacts.
 
@@ -17,8 +18,8 @@ union==0 -> giou+=1 rule, reported as "{dataset}, giou: %.4f, ciou: %.4f".
 
 The CLI runs on the CUDA GPU unless --device names another device; it raises
 when CUDA is asked for and absent. Options whose code is not ported yet
-(--mesh, --visual_stream clip, MultiReasonSeg data, --tokenizer bpe) are
-refused at startup, naming their item of ROADMAP.md's Queue 1.
+(--mesh, MultiReasonSeg data, --tokenizer bpe) are refused at startup,
+naming their item of ROADMAP.md's Queue 1.
 
 Usage:
   python -m walkgpt_tpu_torch.runtime.evaluate --val_dataset "PAVE|val" \\
@@ -98,7 +99,10 @@ def parse_args(argv):
                    help="images per device batch for BOTH the teacher-forced "
                         "and generation passes")
     p.add_argument("--visual_stream", default="sam", choices=["sam", "clip"],
-                   help="generation-time visual stream ('clip' is not ported)")
+                   help="generation-time visual stream: 'sam' = SAM->MSQP "
+                        "tokens (the PAVE route), 'clip' = CLIP-448 pixels -> "
+                        "CLIP tower -> mm_projector (masks still decode "
+                        "against the SAM features)")
     p.add_argument("--max_samples", default=-1, type=int,
                    help="limit evaluated samples (smoke runs)")
     p.add_argument("--mesh", default="", help="sharded inference (not ported)")
@@ -120,11 +124,11 @@ def refuse_unported(args) -> None:
     naming its item of ROADMAP.md's Queue 1. Nothing falls back."""
     name = args.val_dataset.split("|")[0]
     for on, what, item in (
-            (bool(args.mesh), "--mesh (sharded inference)", "Multi-device"),
-            (args.visual_stream == "clip", "--visual_stream clip", "CLIP stream"),
+            (bool(getattr(args, "mesh", "")), "--mesh (sharded inference)", "Multi-device"),
             (name == "MultiReasonSeg", "MultiReasonSeg data (ar_validate)",
              "SAM extras and Hungarian eval"),
-            (args.tokenizer == "bpe", "--tokenizer bpe (needs the tokenizers package)",
+            (getattr(args, "tokenizer", "byte") == "bpe",
+             "--tokenizer bpe (needs the tokenizers package)",
              "Eval CLI, data and checkpoints: what is left")):
         if on:
             raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1, "
@@ -271,8 +275,9 @@ def _eval_fns(cfg, device):
     attention_mask, row_image_idx, gt_masks, pixel_hw) -> (ForwardOutput,
     [M, 3, 2] IoU counts), the teacher-forced model_forward with the
     histograms reduced on the device; gen(max_new_tokens, max_segs, eos_id,
-    speculative_k)(params, images, input_ids, attention_mask,
-    row_image_idx, pixel_hw) -> generate_and_segment's EvaluateOutput."""
+    speculative_k, visual_stream)(params, images, input_ids, attention_mask,
+    row_image_idx, pixel_hw[, images_clip, clip_resize_hw]) ->
+    generate_and_segment's EvaluateOutput."""
     from ..eval.metrics import device_mask_counts
     from ..models import walkgpt
 
@@ -292,14 +297,16 @@ def _eval_fns(cfg, device):
             return out, counts
         return f
 
-    def gen(max_new_tokens, max_segs, eos_id, speculative_k=0):
-        def g(params, images, input_ids, attention_mask, row_image_idx, pixel_hw):
+    def gen(max_new_tokens, max_segs, eos_id, speculative_k=0, visual_stream="sam"):
+        def g(params, images, input_ids, attention_mask, row_image_idx, pixel_hw,
+              images_clip=None, clip_resize_hw=None):
             return walkgpt.generate_and_segment(
                 params, cfg, images=images, input_ids=input_ids,
                 attention_mask=attention_mask, row_image_idx=row_image_idx,
                 pixel_hw=pixel_hw, max_new_tokens=max_new_tokens,
                 max_segs=max_segs, eos_id=eos_id, speculative_k=speculative_k,
-                device=device)
+                images_clip=images_clip, clip_resize_hw=clip_resize_hw,
+                visual_stream=visual_stream, device=device)
         return g
 
     return fwd, gen
@@ -329,6 +336,7 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
     sid = cfg.seg_token_id
     bs = max(1, int(getattr(args, "val_batch_size", 1)))
     img_dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    stream = getattr(args, "visual_stream", "sam")
 
     def load(group):
         samples = [dataset[i] for i in group]
@@ -354,6 +362,11 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
             "gt_masks": up(db.gt_masks.astype(np.uint8)),
             "pixel_hw": up(db.pixel_hw),
         }
+        if stream == "clip":
+            # the CLIP pixels as the data path gives them (fp32), with each
+            # image's valid (h, w) on the CLIP canvas
+            tensors["images_clip"] = up(batch["images_clip"], torch.float32)
+            tensors["clip_resize_hw"] = up(np.asarray(batch["clip_resize_list"], np.int64))
         return samples, batch, db, tensors
 
     shard = shard_indices(n)
@@ -418,11 +431,12 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
         ids_p = _pad_prompt_rows(rows, tokenizer.pad_token_id,
                                  multiple=128 if bs > 1 else 64,
                                  row_count=int(db.row_image_idx.shape[0]))
+        clip_args = ((x["images_clip"], x["clip_resize_hw"]) if stream == "clip" else ())
         ev = gen_fn(args.max_new_tokens, db.max_segs, tokenizer.eos_token_id,
-                    int(getattr(args, "speculative", 0)))(
+                    int(getattr(args, "speculative", 0)), stream)(
             params, x["images"], torch.as_tensor(ids_p, device=dev),
             torch.as_tensor(ids_p != tokenizer.pad_token_id, device=dev),
-            x["row_image_idx"], x["pixel_hw"])
+            x["row_image_idx"], x["pixel_hw"], *clip_args)
         # harvest the PREVIOUS batch now that this one is queued
         if pending is not None:
             harvest(*pending)
@@ -443,7 +457,7 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
     steady = 0.0
     if n_images:
         logger(f"[val] {n_images} images in {wall:.1f}s = "
-               f"{n_images / wall:.3f} img/s (batch {bs}, stream sam)")
+               f"{n_images / wall:.3f} img/s (batch {bs}, stream {stream})")
         if len(group_secs) > 1:
             # the first batch carries the warm-up (kernel loads, allocator
             # growth); the median per-image batch time is the streaming rate
