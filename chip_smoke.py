@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of WalkGPT on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py [--seed 0] [--max-new-tokens 64]
+    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32]
+
+The script must end within 20 minutes on hosts whose CPU runs at half the
+speed of others (its host-side work and the CPU halves of the card-against-
+CPU checks scale with it), so the paths of phases 4 and 6 are cut in depth:
+phase 4 decodes 32 new tokens a request (64 before), its server caps the
+budgets at 64 (128 before), 6a reads 8 samples (16), 6d 2 (4) and 6e 2
+(4); PERF.md has the runs that set these.
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card's name and power limit; build the CUDA kernels
@@ -146,12 +153,12 @@ Phases (any failure raises and the script exits non-zero):
      with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4),
      and the same backward warm under the profiler (device ms, and K2's,
      K3's, K2b's and K3b's shares, by problem name).
-  6. (after 5) the PAVE evaluation entry point: a synthetic manifest (16
-     samples, 24 questions, .pt label maps of 480 x 640 with several class
+  6. (after 5) the PAVE evaluation entry point: a synthetic manifest (8
+     samples, 12 questions, .pt label maps of 480 x 640 with several class
      ids and 255 pixels, no frames: the dataset's dummy images), then
      a. runtime/evaluate.main at WalkGPT-7B int4x (--quant int4x --kv_cache
         int4_flat --sam_quant int8 --precision bf16, 2 images a batch, 64
-        new tokens, random weights from seed 0) on all 16 samples (8
+        new tokens, random weights from seed 0) on 8 samples (4
         batches, so that the median batch is a steady rate): the native
         preprocessing library loaded, the metric line's keys, one response
         per question in the "Question: ... | Answer: ..." form, K1-K6
@@ -167,7 +174,7 @@ Phases (any failure raises and the script exits non-zero):
      c. the CLI's SAM encoder (int8 blocks) in the block_runs layout
         against the blocks layout on one 1024^2 image, bit for bit;
      d. validate at demo_config in the same format (fp32) on the card and
-        on the CPU, the first 4 samples, 16 new tokens: every batch's
+        on the CPU, the first 2 samples, 16 new tokens: every batch's
         generated tokens and lengths equal in the rows of its questions
         (the padding rows of the row bucket, which nothing reads, logged),
         and identical responses;
@@ -175,7 +182,7 @@ Phases (any failure raises and the script exits non-zero):
         mask tolerance of 0 on either side are left out (their number
         printed);
      e. the CLIP stream: runtime/evaluate.main --visual_stream clip at
-        WalkGPT-7B int4x (6a's flags, CLIP ViT-L/14-448) on 4 samples, 64
+        WalkGPT-7B int4x (6a's flags, CLIP ViT-L/14-448) on 2 samples, 64
         new tokens: 6a's keys and response checks, K1-K6 launched and no
         plain version called, images/s; then generate_and_segment(
         visual_stream="clip") at demo_config in the 7B int4x format, the
@@ -205,6 +212,29 @@ Phases (any failure raises and the script exits non-zero):
   8. (after 7b) parity_cli record at demo_config in the 7B int4x format
      on the card and on the CPU from 7b's checkpoint, 3 samples of 16
      tokens: compare returns 0 (identical tokens, masks within gIoU 1e-3).
+  9. (after 8) the SAM predictor surface, MultiReasonSeg evaluation and the
+     checkpoint tools:
+     a. SamPredictor at SAM ViT-H (fp32 weights, random from --seed) on a
+        768 x 1024 image (its longest side already 1024: no resampling):
+        set_image (K2 28 and K3 4 launches held exactly), then predict with
+        a point, a box, and a point with the previous low-res mask; wall
+        and device ms;
+     b. SamAutomaticMaskGenerator on the same image (16^2 points, 64 a
+        batch, both thresholds off, min_mask_region_area 100): records,
+        wall seconds and the host's share, one set_image's launches;
+     c. a small SamConfig.for_encoder in fp32 (TF32 off), the card against
+        the CPU: predictor masks and IoU predictions within 1e-3, the AMG's
+        records and boxes equal, the multi-scale decoder at levels 0 and 1
+        and SAMVisionTower within 1e-3, the exported mask decoder equal to
+        decode_masks;
+     d. evaluate.ar_validate at WalkGPT-7B int4x + int4_flat + int8 SAM
+        (bf16, 64 new tokens) on a synthetic MUSE manifest of 4 samples
+        (480 x 640 .npy images, 2-3 RLE targets each), [SEG] the token a
+        first run emits most: K1-K6 launches held exactly, no plain version
+        called; images/s, the metric line, target_count_acc;
+     e. merge_lora_cli and consolidate_cli (with and without --with_init)
+        at demo_config on one LoRA state dict, the card against --device
+        cpu: the checkpoint's leaves within 1e-6 relative.
 Then one JSON line with every kernel's numbers and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
@@ -233,14 +263,16 @@ from walkgpt_tpu_torch.core import config as config_module
 from walkgpt_tpu_torch.core import nn
 from walkgpt_tpu_torch.core.nn import int8_matmul, unpack4
 from walkgpt_tpu_torch.core.tree import leaves_with_path, map_with_path
-from walkgpt_tpu_torch.data import conversation, native_loader, pave, tokenizer
+from walkgpt_tpu_torch.data import conversation, native_loader, pave, rle, seg_datasets, tokenizer
 from walkgpt_tpu_torch.eval import metrics as eval_metrics
-from walkgpt_tpu_torch.models import llm, sam, sam_encoder, walkgpt
+from walkgpt_tpu_torch.models import (llm, sam, sam_decoder_multiscale, sam_encoder, sam_predictor,
+                                      sam_tower, walkgpt)
 from walkgpt_tpu_torch.models.projectors import ctp_apply
 from walkgpt_tpu_torch.ops import attention, cuda_build, fused_layer, int4, int8_gemm, quant
 from walkgpt_tpu_torch.ops import flash_attention as fa
-from walkgpt_tpu_torch.runtime import (checkpoint, evaluate, generate, lora, parity_cli,
-                                       serving, train, train_cli)
+from walkgpt_tpu_torch.runtime import (checkpoint, consolidate_cli, evaluate, export, generate,
+                                       lora, merge_lora_cli, parity_cli, serving, train,
+                                       train_cli)
 from walkgpt_tpu_torch.tools import synthetic_pave
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, int8 tensor
@@ -2715,7 +2747,7 @@ def pave_prompt_ids(tok):
     return out
 
 
-def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=128, segment=32):
+def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=64, segment=32):
     """The continuous-batching server at full width: eight text requests
     (PAVE questions in the llava_v1 template, each paired with one of
     n_images random 1024^2 images, every image encoded once), MSQP and
@@ -3360,9 +3392,9 @@ EVAL_SYMBOLS = {"flash_attention": "FlashMma", "sam_window_attention_packed": "W
                 "int4_matmul_pallas": "int4_mm_stream", "fused_mlp_int4": "mlp4_gate_up"}
 
 
-# 6a's samples (8 batches of 2: a median batch past the first one's warm-up)
+# 6a's samples (4 batches of 2: a median batch past the first one's warm-up)
 # and 6d's (the CPU's plain versions run them too)
-EVAL_SAMPLES, DEMO_SAMPLES = 16, 4
+EVAL_SAMPLES, DEMO_SAMPLES = 8, 2
 
 
 class EvalSpy:
@@ -3638,8 +3670,8 @@ def eval_card_against_cpu(dev, data, n_questions):
 # phase 6e: the CLIP stream; phases 7 and 8: the training CLI and parity_cli
 # ---------------------------------------------------------------------------
 
-# 6e's samples at WalkGPT-7B int4x (2 batches of 2)
-CLIP_SAMPLES = 4
+# 6e's samples at WalkGPT-7B int4x (1 batch of 2)
+CLIP_SAMPLES = 2
 # the modules of the kernels, whose plain versions (`*_reference`) their
 # wrappers call only on CPU tensors
 PLAIN_MODULES = (fa, int4, fused_layer, int8_gemm)
@@ -4078,6 +4110,401 @@ def tie_pick_check(dev, gen):
             f" (logged, not held)")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the SAM predictor surface, MultiReasonSeg evaluation, the tools
+# ---------------------------------------------------------------------------
+
+# 9a/9b's image: 768 x 1024, its longest side already SAM's 1024, so
+# set_image resizes nothing (transforms.resize_longest_side returns it as
+# it is, PIL's result at equal size)
+PRED_HW = (768, 1024)
+AMG_KW = dict(points_per_side=16, points_per_batch=64, pred_iou_thresh=-1e9,
+              stability_score_thresh=-1e9, min_mask_region_area=100, crop_n_layers=0)
+# 9c's small SAM: a 16 x 16 grid, windows of 7 (padded to 21, as ViT-H's 64
+# pads to 70), two global blocks
+SMALL_SAM = config_module.SAMEncoderConfig(img_size=256, patch_size=16, embed_dim=128, depth=4,
+                                           num_heads=4, out_chans=64, window_size=7,
+                                           global_attn_indexes=(1, 3))
+SAM_TOL = 1e-3
+# 9d: the MUSE manifest's samples and their size
+MUSE_SAMPLES, MUSE_HW = 4, (480, 640)
+TOOLS_RTOL = 1e-6
+
+
+def encode_launches(cfg_enc, n_images=1):
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    counts["sam_window_attention_packed"] = n_images * (cfg_enc.depth
+                                                        - len(cfg_enc.global_attn_indexes))
+    counts["sam_flash_attention"] = n_images * len(cfg_enc.global_attn_indexes)
+    return counts
+
+
+def launched():
+    return {f.__name__: f.launches for f in KERNELS}
+
+
+def phase_sam_tools(dev, seed, card):
+    """Phase 9: 9a/9b the predictor and the AMG at SAM ViT-H, 9c the card
+    against the CPU at a small SAM, 9d ar_validate at WalkGPT-7B int4x, 9e
+    the merge and consolidate CLIs. Returns the launches of 9a, 9b and 9d."""
+    t_phase = time.perf_counter()
+    launches = predictor_vit_h(dev, seed, card)
+    torch.cuda.empty_cache()
+    sam_card_against_cpu(dev, seed)
+    torch.cuda.empty_cache()
+    launches = add(launches, phase_ar_validate(dev, seed, card))
+    torch.cuda.empty_cache()
+    tools_card_against_cpu(dev, seed)
+    log(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def predictor_vit_h(dev, seed, card):
+    """9a: SamPredictor at SAM ViT-H (fp32 weights, random from the seed):
+    set_image on a 768 x 1024 image, then predict with a point, a box, and
+    a point with the previous low-res mask; K2 28 and K3 4 launches per
+    set_image held exactly, wall and device ms. 9b: the automatic mask
+    generator on the same image (AMG_KW), its records, wall seconds and the
+    host's share."""
+    log("== phase 9a: SamPredictor at SAM ViT-H (fp32), 768 x 1024")
+    cfg = sam.SamConfig.vit_h()
+    params = sam.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    image = (np.random.RandomState(seed).rand(*PRED_HW, 3) * 255).astype(np.uint8)
+    pred = sam_predictor.SamPredictor(params, cfg, device=dev)
+    want = encode_launches(cfg.encoder)
+    for f in KERNELS:
+        f.launches = 0
+    with PlainSpy() as plain:
+        _, cold = host_ms(lambda: pred.set_image(image))
+        first = launched()
+        _, warm = host_ms(lambda: pred.set_image(image))
+    total = launched()
+    kernels = {}
+    _, enc_dev = profiled(lambda: pred.set_image(image), kernels)
+    point = dict(point_coords=np.array([[512.0, 384.0]]), point_labels=np.array([1]))
+    box = dict(box=np.array([200.0, 150.0, 700.0, 600.0]))
+    outs, walls = {}, {}
+    for name, kw in (("point", point), ("box", box)):
+        outs[name], walls[name] = host_ms(lambda: pred.predict(**kw))
+    low = outs["point"][2][int(np.argmax(outs["point"][1]))]
+    kw_mask = dict(point, mask_input=low, multimask_output=False)
+    outs["mask_input"], walls["mask_input"] = host_ms(lambda: pred.predict(**kw_mask))
+    _, pred_dev = profiled(lambda: pred.predict(**point), {})
+    ok = all(o[0].shape[1:] == PRED_HW and o[0].dtype == bool and np.isfinite(o[1]).all()
+             for o in outs.values()) and outs["mask_input"][0].shape[0] == 1
+    log(f"  9a: {card}; SAM ViT-H fp32 set_image at {PRED_HW[0]} x {PRED_HW[1]}: "
+        f"{cold:.1f} ms cold, {warm:.1f} ms warm wall, {enc_dev:.1f} ms on the card "
+        f"(profiler); predict point {walls['point']:.1f} ms, box {walls['box']:.1f} ms, "
+        f"point + mask_input {walls['mask_input']:.1f} ms wall, a point's predict "
+        f"{pred_dev:.2f} ms on the card; launches per set_image {_nonzero(first)}; plain "
+        f"versions called {plain.calls}; iou {outs['point'][1].round(4).tolist()}, mask "
+        f"areas {[int(m.sum()) for m in outs['point'][0]]}")
+    if not (ok and first == want and total == add(want, want) and plain.calls == 0):
+        raise AssertionError(f"9a: launches per set_image {first}, expected {_nonzero(want)}, "
+                             f"or the predictor's outputs are malformed")
+    launches = total
+
+    log("== phase 9b: SamAutomaticMaskGenerator at SAM ViT-H on the same image")
+    amg = sam_predictor.SamAutomaticMaskGenerator(params, cfg, device=dev, **AMG_KW)
+    device_s = [0.0]
+
+    def timed(fn):
+        def call(*a, **k):
+            out, ms = host_ms(lambda: fn(*a, **k))
+            device_s[0] += ms / 1e3
+            return out
+        return call
+    amg._decode_batch = timed(amg._decode_batch)
+    amg.predictor.set_image = timed(amg.predictor.set_image)
+    for f in KERNELS:
+        f.launches = 0
+    t0 = time.perf_counter()
+    records = amg.generate(image)
+    wall = time.perf_counter() - t0
+    got = launched()
+    areas = [r["area"] for r in records]
+    ok = (records and all(r["segmentation"]["size"] == list(PRED_HW) for r in records)
+          and min(areas) >= 1 and all(np.isfinite(r["predicted_iou"]) for r in records))
+    log(f"  9b: {card}; AMG at {AMG_KW['points_per_side']}^2 = "
+        f"{AMG_KW['points_per_side'] ** 2} points ({AMG_KW['points_per_batch']} a batch, "
+        f"thresholds off, min_mask_region_area {AMG_KW['min_mask_region_area']}): "
+        f"{len(records)} records, areas {min(areas) if areas else 0}..{max(areas) if areas else 0}; "
+        f"{wall:.2f} s wall a image; encode and batch decodes (to the kept masks on the host) "
+        f"{device_s[0]:.2f} s, the host's share {1 - device_s[0] / wall:.3f}; launches "
+        f"{_nonzero(got)}")
+    if not (ok and got == want):
+        raise AssertionError("9b: no records, malformed records, or launches other than one "
+                             "set_image's")
+    del amg, pred, params
+    return add(launches, got)
+
+
+def sam_card_against_cpu(dev, seed):
+    """9c: SamConfig.for_encoder(SMALL_SAM) in fp32 (TF32 off), the kernels
+    on the card and their plain versions on the CPU: the predictor's masks
+    (logits) and IoU predictions within SAM_TOL, the AMG's record count and
+    boxes equal, the multi-scale decoder at levels 0 and 1 within SAM_TOL,
+    SAMVisionTower's tokens within SAM_TOL, and the exported mask decoder
+    equal to decode_masks."""
+    log("== phase 9c: the predictor surface at a small SAM, the card against the CPU (fp32)")
+    cfg = sam.SamConfig.for_encoder(SMALL_SAM)
+    cpu = sam.init(torch.Generator().manual_seed(seed), cfg)
+    card = to_device(cpu, dev)
+    s = SMALL_SAM.img_size
+    image = (np.random.RandomState(seed + 1).rand(s * 3 // 4, s, 3) * 255).astype(np.uint8)
+    preds = [sam_predictor.SamPredictor(p, cfg, device=d) for p, d in ((card, dev), (cpu, "cpu"))]
+    for f in KERNELS:
+        f.launches = 0
+    with PlainSpy() as plain:
+        preds[0].set_image(image)
+    ran = _nonzero(launched())
+    preds[1].set_image(image)
+    worst = {}
+    point = dict(point_coords=np.array([[100.0, 90.0], [30.0, 150.0]]),
+                 point_labels=np.array([1, 0]))
+    for name, kw in (("point", point), ("box", dict(box=np.array([20.0, 30.0, 200.0, 170.0]))),
+                     ("point+box", dict(point, box=np.array([20.0, 30.0, 200.0, 170.0])))):
+        (mc, ic, lc), (mh, ih, lh) = (p.predict(return_logits=True, **kw) for p in preds)
+        worst[name] = max(float(np.abs(mc - mh).max()), float(np.abs(ic - ih).max()))
+    kw = dict(point, mask_input=lh[0], multimask_output=False)
+    (mc, ic, _), (mh, ih, _) = (p.predict(return_logits=True, **kw) for p in preds)
+    worst["mask_input"] = max(float(np.abs(mc - mh).max()), float(np.abs(ic - ih).max()))
+
+    amg_kw = dict(points_per_side=8, pred_iou_thresh=-1e9, stability_score_thresh=-1e9,
+                  min_mask_region_area=20)
+    rec = [sam_predictor.SamAutomaticMaskGenerator(p, cfg, device=d, **amg_kw).generate(image)
+           for p, d in ((card, dev), (cpu, "cpu"))]
+    same_amg = len(rec[0]) == len(rec[1]) and all(
+        a["bbox"] == b["bbox"] for a, b in zip(*rec))
+    same_rle = same_amg and all(a["segmentation"] == b["segmentation"] for a, b in zip(*rec))
+    apart = f"; RLE strings equal {same_rle} (logged)"
+    if not same_amg:
+        k = next((i for i, (a, b) in enumerate(zip(*rec)) if a["bbox"] != b["bbox"]),
+                 min(len(rec[0]), len(rec[1])))
+        apart += f"; first apart at record {k} of {len(rec[0])} / {len(rec[1])}"
+        if k < min(len(rec[0]), len(rec[1])):
+            a, b = rec[0][k], rec[1][k]
+            point_k = np.array(a["point_coords"])
+            logits = preds[0].predict(point_coords=point_k, point_labels=np.array([1]),
+                                      return_logits=True)[0]
+            moved = rle.decode(a["segmentation"]) != rle.decode(b["segmentation"])
+            margin = float(np.abs(logits[:, moved]).min()) if moved.any() else float("nan")
+            apart += (f" (boxes {a['bbox']} / {b['bbox']}, {int(moved.sum())} pixels apart, "
+                      f"their least |logit| at the card's point {margin:.3e})")
+
+    mcfg = cfg.decoder
+    gen = torch.Generator().manual_seed(seed + 2)
+    ms_cpu = sam_decoder_multiscale.init(gen, mcfg, image_feature_scale_num=2)
+    g = SMALL_SAM.grid
+    c = mcfg.transformer_dim
+    x = dict(image_embeddings=torch.randn(1, g, g, c, generator=gen),
+             image_pe=torch.randn(1, g, g, c, generator=gen),
+             sparse_prompt=torch.randn(3, 2, c, generator=gen),
+             dense_prompt=torch.randn(3, g, g, c, generator=gen))
+    ms = []
+    for p, d in ((to_device(ms_cpu, dev), dev), (ms_cpu, "cpu")):
+        xd = to_device(x, d)
+        m0, i0 = sam_decoder_multiscale.apply(p, mcfg, multimask_output=False, level_num=0, **xd)
+        m1, i1 = sam_decoder_multiscale.apply(p, mcfg, multimask_output=True, level_num=1,
+                                              previous_masks=m0, **xd)
+        ms.append([t.cpu() for t in (m0, i0, m1, i1)])
+    worst["multiscale"] = max(float((a - b).abs().max()) for a, b in zip(*ms))
+
+    pix = torch.randn(2, s, s, 3, generator=gen)
+    toks = [sam_tower.SAMVisionTower(p["image_encoder"], cfg.encoder, use_flash=True)(
+        pix.to(d)).tokens.cpu() for p, d in ((card, dev), (cpu, "cpu"))]
+    worst["tower"] = float((toks[0] - toks[1]).abs().max())
+
+    with tempfile.TemporaryDirectory() as d:
+        path = export.export_mask_decoder(card, cfg, os.path.join(d, "decoder.pt2"), max_prompts=4)
+        fn = export.load_exported(path)
+        feats = torch.randn(1, g, g, c, generator=gen).to(dev)
+        text = torch.randn(4, 1, c, generator=gen).to(dev)
+        got = fn(feats, text)
+        with torch.inference_mode():
+            ref = sam.decode_masks(card, cfg, feats, text_embeds=text)
+    exported_diff = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    log(f"  9c: SamConfig.for_encoder(grid {g}, width {SMALL_SAM.embed_dim}, {SMALL_SAM.depth} "
+        f"blocks), fp32: the card launched {ran} in set_image, plain versions on the card "
+        f"{plain.calls}; max_abs card against CPU "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; AMG records {len(rec[0])} / {len(rec[1])}, boxes equal {same_amg}{apart}; the "
+        f"exported decoder against decode_masks max_abs {exported_diff:.3e}")
+    if not (max(worst.values()) <= SAM_TOL and same_amg and exported_diff == 0.0
+            and plain.calls == 0 and ran == _nonzero(encode_launches(SMALL_SAM))):
+        raise AssertionError("9c: the card and the CPU disagree")
+
+
+class NpyMuseDataset(seg_datasets.MultiReasonSegValDataset):
+    """MUSE items whose images are .npy arrays (RGB uint8): the package's
+    reader decodes JPEGs with cv2, which a machine with the card may lack."""
+
+    def _read_image(self, path):
+        return np.load(path)
+
+
+def write_muse(root, n, seed, hw):
+    """A MUSE json of n samples, each an RGB image as .npy and 2-3 targets
+    as compressed RLE (rectangles and ellipses)."""
+    rng = np.random.RandomState(seed)
+    items = []
+    h, w = hw
+    yy, xx = np.mgrid[:h, :w]
+    names = ("curb", "bench", "pole", "crosswalk", "stairs", "bollard")
+    for i in range(n):
+        img = (rng.rand(h, w, 3) * 255).astype(np.uint8)
+        np.save(os.path.join(root, f"img{i}.npy"), img)
+        targets = []
+        for k in range(rng.randint(2, 4)):
+            cy, cx = rng.randint(h // 6, 5 * h // 6), rng.randint(w // 6, 5 * w // 6)
+            ry, rx = rng.randint(20, h // 4), rng.randint(20, w // 4)
+            if k % 2:
+                m = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+            else:
+                m = (abs(yy - cy) <= ry) & (abs(xx - cx) <= rx)
+            enc = rle.encode(m.astype(np.uint8))
+            targets.append({"name": names[(i + k) % len(names)],
+                            "rle": {"size": [h, w], "counts": enc["counts"].decode("ascii")}})
+        items.append({"image": f"img{i}.npy",
+                      "question": f"<image>\nWhich obstacles are ahead? ({i})",
+                      "targets": targets})
+    with open(os.path.join(root, "muse_val.json"), "w") as f:
+        json.dump(items, f)
+
+
+def phase_ar_validate(dev, seed, card):
+    """9d: evaluate.ar_validate at WalkGPT-7B int4x + int4_flat + int8 SAM
+    (bf16, 64 new tokens, random weights from seed 0) on a synthetic MUSE
+    manifest of MUSE_SAMPLES samples. A first sample's run picks [SEG] as
+    the token the random weights emit most, so the masks and the Hungarian
+    matching run; then all samples: K1-K6 launched exactly as
+    generate_and_segment's requests, no plain version called; images/s,
+    the metric line, target_count_acc and the artifacts."""
+    log("== phase 9d: ar_validate (MultiReasonSeg) at WalkGPT-7B int4x + int4_flat + int8 SAM")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        write_muse(root, MUSE_SAMPLES, seed, MUSE_HW)
+        argv = ["--val_dataset", "MultiReasonSeg|val", "--dataset_dir", root, "--model_size",
+                "7b", "--quant", "int4x", "--kv_cache", "int4_flat", "--sam_quant", "int8",
+                "--precision", "bf16", "--max_new_tokens", "64", "--no_console_text",
+                "--log_base_dir", os.path.join(root, "runs"), "--exp_name", "ar"]
+        args = evaluate.parse_args(argv + ["--max_samples", "1"])
+        conversation.set_default_conversation(args.conv_type)
+        tok = tokenizer.ByteTokenizer(args.model_max_length)
+        st = tokenizer.setup_walkgpt_tokens(tok)
+        cfg = evaluate.build_config(args, st.seg_token_idx)
+        params = evaluate.build_model(args, cfg, device=dev)
+        build = time.perf_counter() - t0
+        ds = NpyMuseDataset(root, json_name="muse_val.json", image_size=cfg.sam.img_size,
+                            pad_size=cfg.sam.img_size)
+        quiet = lambda *_: None
+        with EvalSpy() as spy:
+            evaluate.ar_validate(args, cfg, params, tok, ds, logger=quiet, device=dev)
+        vals, counts = torch.unique(spy.gen[0][3].tokens[0], return_counts=True)
+        cfg = cfg.replace(seg_token_id=int(vals[counts.argmax()]))
+        args = evaluate.parse_args(argv)
+        lines = []
+        for f in KERNELS:
+            f.launches = 0
+        with PlainSpy() as plain:
+            t1 = time.perf_counter()
+            res, records = evaluate.ar_validate(args, cfg, params, tok, ds, logger=lines.append,
+                                                device=dev)
+            wall = time.perf_counter() - t1
+        got = launched()
+        want = {k: MUSE_SAMPLES * v for k, v in expected_launches(cfg, params, 64).items()}
+        files = [os.path.exists(os.path.join(root, "runs", "ar", f"{n}_0.json"))
+                 for n in ("out_file", "acc_list")]
+        acc_list = json.load(open(os.path.join(root, "runs", "ar", "acc_list_0.json")))
+    log(f"  9d: {card}; {MUSE_SAMPLES} samples of {MUSE_HW[0]} x {MUSE_HW[1]}, 64 new tokens, "
+        f"[SEG] = token {cfg.seg_token_id}: {MUSE_SAMPLES / wall:.4f} images/s ({wall:.1f} s; "
+        f"model build {build:.1f} s); pred / gt counts "
+        f"{[(r['pred_count'], r['gt_count']) for r in records]}, matched IoUs "
+        f"{[[round(x, 4) for x in r['ious']] for r in records]}; target_count_acc "
+        f"{res['target_count_acc']:.4f}; artifacts written {files}, acc_list "
+        f"{[[round(a, 4), round(b, 4), n] for a, b, n, _ in acc_list]}")
+    log(f"  9d metric line: {lines[-1] if lines else ''}")
+    log(f"  9d launches {_nonzero(got)}; plain versions called {plain.calls}")
+    if not (got == want and plain.calls == 0 and all(files) and len(records) == MUSE_SAMPLES
+            and "target_count_acc" in res and any(r["ious"] for r in records)):
+        raise AssertionError(f"9d: launches {_nonzero(got)}, expected {_nonzero(want)}, a "
+                             f"plain version ran, an artifact is missing or nothing matched")
+    del params
+    return got
+
+
+def llm_state_dict(llm_params, lora):
+    """The reference's peft key layout of a dense LLM tree, LoRA adapters
+    {(layer, proj): (A [r, in], B [out, r])} on the attention projections."""
+    t = lambda w: w.detach().cpu().T.contiguous()
+    pre = "module.base_model.model."
+    sd = {pre + "model.embed_tokens.weight": llm_params["embed_tokens"]["w"].cpu(),
+          pre + "model.norm.weight": llm_params["final_norm"]["scale"].cpu(),
+          pre + "lm_head.weight": t(llm_params["lm_head"]["w"])}
+    for i, layer in enumerate(llm_params["layers"]):
+        b = f"{pre}model.layers.{i}."
+        sd[b + "input_layernorm.weight"] = layer["input_norm"]["scale"].cpu()
+        sd[b + "post_attention_layernorm.weight"] = layer["post_norm"]["scale"].cpu()
+        for p in ("q", "k", "v", "o"):
+            sd[b + f"self_attn.{p}_proj.weight"] = t(layer["attn"][p]["w"])
+        for p in ("gate", "up", "down"):
+            sd[b + f"mlp.{p}_proj.weight"] = t(layer["mlp"][p]["w"])
+        for p in ("q", "v"):
+            a, bb = lora[(i, p)]
+            sd[b + f"self_attn.{p}_proj.lora_A.default.weight"] = a
+            sd[b + f"self_attn.{p}_proj.lora_B.default.weight"] = bb
+    return sd
+
+
+def tools_card_against_cpu(dev, seed):
+    """9e: merge_lora_cli and consolidate_cli (--with_init and without) at
+    demo_config on one LoRA state dict, --device cuda against --device cpu
+    (fp32, TF32 off): every leaf from the checkpoint within TOOLS_RTOL
+    relative (the LoRA folded on each device); the init leaves come from
+    each device's generator and are logged only."""
+    log("== phase 9e: merge_lora_cli and consolidate_cli at demo_config, the card against the CPU")
+    cfg = demo_config()
+    src = walkgpt.init(cfg, seed=seed + 3, device="cpu")["llm"]
+    gen = torch.Generator().manual_seed(seed + 4)
+    h = cfg.llm.hidden_size
+    lora = {(i, p): (0.05 * torch.randn(8, h, generator=gen), 0.05 * torch.randn(h, 8, generator=gen))
+            for i in range(cfg.llm.num_layers) for p in ("q", "v")}
+    worst = {}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "mp_rank_00_model_states.pt")
+        torch.save({"module": llm_state_dict(src, lora)}, path)
+        runs = {}
+        for device in (dev.type, "cpu"):
+            t0 = time.perf_counter()
+            runs[("merge", device)] = merge_lora_cli.main(
+                ["--weight", path, "--model_size", "demo", "--device", device,
+                 "--save_path", os.path.join(root, f"merged_{device}")])
+            runs[("consolidate", device)] = consolidate_cli.main(
+                ["--src", path, "--dst", os.path.join(root, f"cons_{device}"), "--model_size",
+                 "demo", "--device", device])
+            runs[("consolidate --with_init", device)] = consolidate_cli.main(
+                ["--src", path, "--dst", os.path.join(root, f"init_{device}"), "--model_size",
+                 "demo", "--device", device, "--with_init"])
+            log(f"  9e: the three CLIs on {device}: {time.perf_counter() - t0:.1f} s")
+        on_card = all(x.device.type == dev.type
+                      for x in leaves_with_path(runs[("merge", dev.type)]["llm"]).values())
+        for name in ("merge", "consolidate", "consolidate --with_init"):
+            a = leaves_with_path(runs[(name, dev.type)]["llm"])
+            b = leaves_with_path(runs[(name, "cpu")]["llm"])
+            if sorted(a) != sorted(b) or any("lora" in k for k in a):
+                raise AssertionError(f"9e: {name}: the trees differ in structure")
+            worst[name] = max(float(((a[k].cpu() - b[k]).abs()
+                                     / b[k].abs().clamp(min=1e-30)).max()) for k in a)
+        folded = leaves_with_path(runs[("merge", "cpu")]["llm"])["layers/0/attn/q/w"]
+    moved = float((folded - src["layers"][0]["attn"]["q"]["w"]).abs().max())
+    log(f"  9e: demo_config LoRA r=8 on q and v: the LLM leaves of --device cuda against "
+        f"--device cpu, max relative difference "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; merged on the card {on_card}; the fold moved q by {moved:.3e}")
+    if not (max(worst.values()) <= TOOLS_RTOL and on_card and moved > 0):
+        raise AssertionError("9e: the card's trees differ from the CPU's")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4178,7 +4605,7 @@ def ptxas_summary(logs):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-new-tokens", type=int, default=64)
+    ap.add_argument("--max-new-tokens", type=int, default=32)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4266,6 +4693,8 @@ def main(argv=None) -> int:
     launches = add(launches, phase_train_cli(dev, args.seed))
     torch.cuda.empty_cache()
     phase_train_cli_parity(dev, args.seed)
+    torch.cuda.empty_cache()
+    launches = add(launches, phase_sam_tools(dev, args.seed, smi_line()))
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the main paths never launched: {launches}")
 

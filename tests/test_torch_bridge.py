@@ -96,6 +96,9 @@ def test_port_imports_without_jax():
         "from walkgpt_tpu_torch.data import transforms, native_loader\n"
         "from walkgpt_tpu_torch.eval import metrics\n"
         "from walkgpt_tpu_torch.runtime import batching, checkpoint, evaluate\n"
+        "from walkgpt_tpu_torch.runtime import consolidate_cli, export, merge_lora_cli\n"
+        "from walkgpt_tpu_torch.models import sam_predictor, sam_decoder_multiscale, sam_tower\n"
+        "from walkgpt_tpu_torch.eval import matcher\n"
         "from walkgpt_tpu_torch.ops import flash_attention, cuda_build, losses, quant\n"
         "assert not any(m.split('.')[0] in ('jax', 'walkgpt_tpu') for m in sys.modules)\n"
         "print('ok')\n")
@@ -155,7 +158,7 @@ def test_native_loader_builds_from_the_port_only():
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh", "1,2"], "Multi-device"),
-    (["--val_dataset", "MultiReasonSeg|val"], "SAM extras and Hungarian eval"),
+    (["--val_dataset", "MultiReasonSeg|val", "--mesh", "1,2"], "Multi-device"),
     (["--tokenizer", "bpe"], "Eval CLI, data and checkpoints")])
 def test_eval_refuses_unported_options_at_startup(argv, item, monkeypatch):
     """Each option whose code the port lacks raises before anything is

@@ -26,6 +26,10 @@ def get_preprocess_shape(oldh: int, oldw: int, target: int, *,
 
 
 def _pil_resize(image: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """PIL bilinear resize; at the image's own size PIL returns a copy, and so
+    does this, without PIL."""
+    if tuple(size_hw) == image.shape[:2]:
+        return image.copy()
     from PIL import Image
     pil = Image.fromarray(image)
     return np.array(pil.resize((size_hw[1], size_hw[0]), Image.BILINEAR))

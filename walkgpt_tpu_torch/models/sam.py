@@ -1,5 +1,6 @@
-"""SAM composition: encoder + prompt encoder + mask decoder (PyTorch
-counterpart of walkgpt_tpu/models/sam.py)."""
+"""SAM composition: encoder + prompt encoder + mask decoder, with preprocess
+and postprocess (PyTorch counterpart of walkgpt_tpu/models/sam.py) and the
+ViT-H / L / B registry."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,7 +10,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.config import (MaskDecoderConfig, PromptEncoderConfig, SAMEncoderConfig,
-                           SAM_VIT_H)
+                           SAM_VIT_B, SAM_VIT_H, SAM_VIT_L)
+from ..ops.resize import bilinear_resize
 from . import sam_decoder, sam_encoder, sam_prompt
 
 SAM_PIXEL_MEAN = (123.675, 116.28, 103.53)
@@ -22,6 +24,30 @@ class SamConfig:
     prompt: PromptEncoderConfig = PromptEncoderConfig()
     decoder: MaskDecoderConfig = MaskDecoderConfig()
     mask_threshold: float = 0.0
+
+    @classmethod
+    def vit_h(cls): return cls(encoder=SAM_VIT_H)
+    @classmethod
+    def vit_l(cls): return cls(encoder=SAM_VIT_L)
+    @classmethod
+    def vit_b(cls): return cls(encoder=SAM_VIT_B)
+
+    @classmethod
+    def for_encoder(cls, enc: SAMEncoderConfig, **kw):
+        """A prompt encoder and mask decoder sized to `enc` (its grid, input
+        size and output channels)."""
+        grid = enc.grid
+        return cls(encoder=enc,
+                   prompt=PromptEncoderConfig(
+                       embed_dim=enc.out_chans,
+                       image_embedding_size=(grid, grid),
+                       input_image_size=(enc.img_size, enc.img_size),
+                       mask_in_chans=max(4, enc.out_chans // 16)),
+                   decoder=MaskDecoderConfig(
+                       transformer_dim=enc.out_chans,
+                       transformer_mlp_dim=max(64, enc.out_chans * 8),
+                       transformer_num_heads=min(8, enc.out_chans // 16)),
+                   **kw)
 
 
 def init(g: torch.Generator, cfg: SamConfig, dtype=torch.float32):
@@ -41,9 +67,13 @@ def encode_image(params, cfg: SamConfig, images: torch.Tensor, *,
 
 def decode_masks(params, cfg: SamConfig, image_embeddings: torch.Tensor, *,
                  text_embeds: Optional[torch.Tensor] = None,
+                 points=None, boxes=None, masks=None,
                  multimask_output: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Prompt-encode + mask-decode. Returns (low_res_masks [B,T,4g,4g], iou)."""
+    """Prompt-encode + mask-decode. points = (coords [B, N, 2], labels
+    [B, N]) and boxes [B, 4] in the input frame, masks [B, 4g, 4g, 1] low-res
+    logits. Returns (low_res_masks [B,T,4g,4g], iou)."""
     sparse, dense = sam_prompt.apply(params["prompt_encoder"], cfg.prompt,
+                                     points=points, boxes=boxes, masks=masks,
                                      text_embeds=text_embeds)
     image_pe = sam_prompt.get_dense_pe(params["prompt_encoder"], cfg.prompt)
     return sam_decoder.apply(params["mask_decoder"], cfg.decoder,
@@ -59,3 +89,16 @@ def preprocess(images: torch.Tensor, img_size: int) -> torch.Tensor:
     x = (images - mean) / std
     h, w = x.shape[1], x.shape[2]
     return F.pad(x, (0, 0, 0, img_size - w, 0, img_size - h))
+
+
+def postprocess_masks(masks: torch.Tensor, *, img_size: int,
+                      input_size: Tuple[int, int],
+                      original_size: Tuple[int, int]) -> torch.Tensor:
+    """Upscale low-res masks to img_size, crop the padding, resize to the
+    original size. masks: [B, T, h, w] -> [B, T, *original_size]."""
+    b, t = masks.shape[:2]
+    x = masks.reshape(b * t, *masks.shape[2:])[..., None]       # [BT, h, w, 1]
+    x = bilinear_resize(x, (img_size, img_size))
+    x = x[:, :input_size[0], :input_size[1]]
+    x = bilinear_resize(x, tuple(original_size))
+    return x[..., 0].reshape(b, t, *original_size)

@@ -17,7 +17,11 @@ Here:
     package's converters line for line: SAM `sam_vit_h.pth`, HF LLaMA, the
     HF CLIP vision tower, WalkGPT task modules; LoRA adapters go through
     runtime/lora.py;
-  * `load_into` overlays converted subtrees onto a tree of tensors.
+  * `load_into` overlays converted subtrees onto a tree of tensors;
+  * `apply_delta` / `make_delta` are the Vicuna-style delta transforms
+    (vocab-extended rows padded), and `consolidate` turns a torch state dict
+    or a directory `save` wrote into one canonical checkpoint in the port's
+    format (where the JAX package writes Orbax), LoRA merged.
 
 Layout rules (single source of truth for all converters):
   torch Linear weight (out, in)        -> ours (in, out)       [transpose]
@@ -36,7 +40,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from ..core.tree import leaves_with_path
+from ..core.tree import (from_numpy_tree, leaves_with_path, map_with_path, resolve_device,
+                         tree_paths)
 # runtime/lora.py's helpers, also reached here as in the JAX package's module
 from .lora import attach_lora, extract_lora, merge_lora  # noqa: F401
 
@@ -598,3 +603,83 @@ def load_into(params: Dict, converted: Dict) -> Dict:
         else:
             out[k] = _fresh(v, device)
     return out
+
+
+# ---------------------------------------------------------------------------
+# deltas and consolidation
+# ---------------------------------------------------------------------------
+
+def _map2(fn, a: Any, b: Any) -> Any:
+    """fn over the leaves of two trees of one structure (None stays None)."""
+    other = leaves_with_path(b)
+    return map_with_path(lambda path, x: fn(x, other[path]), a)
+
+
+def _pad_rows(b: torch.Tensor, rows: int) -> torch.Tensor:
+    """b with zero rows appended up to `rows` (a vocab-extended embedding or
+    lm_head; the reference's apply_delta pads the base the same way)."""
+    if b.ndim != 2 or rows < b.shape[0]:
+        raise ValueError(f"base {tuple(b.shape)} cannot pad to {rows} rows")
+    return torch.cat([b, b.new_zeros((rows - b.shape[0], b.shape[1]))], dim=0)
+
+
+def apply_delta(base: Dict, delta: Dict) -> Dict:
+    """Vicuna-style delta application: target = base + delta, leaf-wise; a
+    delta leaf with extra vocab rows pads the base with zeros first."""
+    def add(b, d):
+        b, d = torch.as_tensor(b), torch.as_tensor(d)
+        if b.shape != d.shape:
+            if b.shape[1:] != d.shape[1:]:
+                raise ValueError(f"delta {tuple(d.shape)} against base {tuple(b.shape)}")
+            b = _pad_rows(b, d.shape[0])
+        return b + d
+    return _map2(add, base, delta)
+
+
+def make_delta(base: Dict, target: Dict) -> Dict:
+    """The inverse of apply_delta: target - base (the base padded to the
+    target's rows)."""
+    def sub(b, t):
+        b, t = torch.as_tensor(b), torch.as_tensor(t)
+        if b.shape != t.shape:
+            b = _pad_rows(b, t.shape[0])
+        return t - b
+    return _map2(sub, base, target)
+
+
+def consolidate(src: str, dst: str, cfg, *, init_params: Optional[Dict] = None,
+                device=None) -> Dict:
+    """Canonicalize a checkpoint into one directory in the port's format
+    (`save`; the JAX package writes Orbax): a directory `save` wrote (read
+    in init_params' structure when given), or a torch state-dict file
+    (mp_rank_00_model_states.pt / .bin / .safetensors) converted, its LoRA
+    merged on `device` (default init_params' device, else CUDA). With
+    init_params the converted leaves overlay that tree (an adapter-only
+    checkpoint then folds into its base weights); without, a partial
+    checkpoint raises. Returns the tree written."""
+    if device is None and init_params is not None:
+        device = _device(init_params)
+    dev = resolve_device(device)
+    if os.path.isdir(src):
+        tree = load(src, like=init_params)
+    else:
+        sd = load_torch_state_dict(src)
+        tree = convert_walkgpt_state(sd, cfg, lenient=True)
+        if init_params is None:
+            missing = [k for k, v in tree_paths(tree).items() if v is None]
+            if missing:
+                raise ValueError(
+                    f"source checkpoint is partial ({len(missing)} missing leaves, e.g. "
+                    f"{missing[:3]}); pass init_params (CLI: --with_init) to fill the "
+                    f"holes before consolidating")
+        tree = from_numpy_tree(tree, dev)
+        if "llm" in tree:
+            tree["llm"] = merge_lora(tree["llm"])
+        if init_params is not None:
+            tree = load_into(init_params, tree)
+            # an adapter-only checkpoint keeps its LoRA unmerged until the
+            # overlay supplies real base weights: fold it now (idempotent)
+            if "llm" in tree:
+                tree["llm"] = merge_lora(tree["llm"])
+    save(dst, tree)
+    return tree

@@ -16,10 +16,17 @@ Metric accumulation follows evaluation_walkgpt.py:895-981: per-mask binary
 {bg, fg} intersection/union histograms (ignore 255), float64 totals, the
 union==0 -> giou+=1 rule, reported as "{dataset}, giou: %.4f, ciou: %.4f".
 
+With --val_dataset "MultiReasonSeg|<split>" (MUSE json, muse_<split>.json)
+the loop is `ar_validate` instead: per sample, generate, decode every [SEG]
+mask, assign predictions to the GT masks by Hungarian matching on
+point-sampled BCE + dice costs (eval/matcher.py), score the matched pairs
+(unmatched ones against an empty mask, padded to max(#pred, #gt)), and write
+out_file_{rank}.json and acc_list_{rank}.json under log_base_dir/exp_name.
+
 The CLI runs on the CUDA GPU unless --device names another device; it raises
 when CUDA is asked for and absent. Options whose code is not ported yet
-(--mesh, MultiReasonSeg data, --tokenizer bpe) are refused at startup,
-naming their item of ROADMAP.md's Queue 1.
+(--mesh, --tokenizer bpe) are refused at startup, naming their item of
+ROADMAP.md's Queue 1.
 
 Usage:
   python -m walkgpt_tpu_torch.runtime.evaluate --val_dataset "PAVE|val" \\
@@ -122,11 +129,8 @@ def parse_args(argv):
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for an option whose code the port lacks,
     naming its item of ROADMAP.md's Queue 1. Nothing falls back."""
-    name = args.val_dataset.split("|")[0]
     for on, what, item in (
             (bool(getattr(args, "mesh", "")), "--mesh (sharded inference)", "Multi-device"),
-            (name == "MultiReasonSeg", "MultiReasonSeg data (ar_validate)",
-             "SAM extras and Hungarian eval"),
             (getattr(args, "tokenizer", "byte") == "bpe",
              "--tokenizer bpe (needs the tokenizers package)",
              "Eval CLI, data and checkpoints: what is left")):
@@ -490,6 +494,110 @@ def format_metric_line(dataset_name: str, res: dict) -> str:
     return line
 
 
+def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
+    """Hungarian-matched multi-mask evaluation for MultiReasonSeg-style data
+    (the JAX package's ar_validate) on one device (args.device, default
+    CUDA): per sample, generate and decode every [SEG] mask, assign the
+    predictions to the GT masks (eval/matcher.match_pred, costs on the
+    device, the assignment on the host), score matched IoU; per-rank JSON
+    artifacts. Images go up in the compute dtype, as `validate` sends them.
+    Returns (metrics, records)."""
+    from ..data.collate import collate_batch
+    from ..data.prefetch import prefetch_map, shard_indices
+    from ..data.tokenizer import tokenizer_image_token
+    from ..eval.matcher import match_pred
+    from ..eval.metrics import IoUAccumulator, _allreduce_f64, intersection_and_union
+    from .batching import prepare_batch
+
+    refuse_unported(args)
+    dev = resolve_device(device if device is not None else getattr(args, "device", None))
+    _, gen_fn = _eval_fns(cfg, dev)
+    img_dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
+    acc = IoUAccumulator()
+    records = []
+    acc_list = []                  # per sample [giou_bg, giou_fg, max_num, image_path]
+    count_correct = 0              # target-count accuracy: #pred == #gt
+    count_total = 0
+    n = len(dataset) if args.max_samples < 0 else min(args.max_samples, len(dataset))
+
+    def load(i):
+        sample = dataset[i]
+        batch = collate_batch([sample], tokenizer, conv_type=args.conv_type,
+                              use_mm_start_end=args.use_mm_start_end)
+        db = prepare_batch(batch, img_size=cfg.sam.img_size, seg_token_id=cfg.seg_token_id)
+        return batch, db, torch.as_tensor(db.images).to(device=dev, dtype=img_dtype)
+
+    for batch, db, images in prefetch_map(load, shard_indices(n), depth=2):
+        prompts, _ = _question_prompts(batch, args.conv_type, args.use_mm_start_end)
+        rows = [tokenizer_image_token(p, tokenizer, return_np=True) for p in prompts]
+        ids = _pad_prompt_rows(rows, tokenizer.pad_token_id)
+        ev = gen_fn(args.max_new_tokens, db.max_segs, tokenizer.eos_token_id,
+                    int(getattr(args, "speculative", 0)), "sam")(
+            params, images, torch.as_tensor(ids, device=dev),
+            torch.as_tensor(ids != tokenizer.pad_token_id, device=dev),
+            torch.as_tensor(db.row_image_idx, dtype=torch.long, device=dev),
+            torch.as_tensor(db.pixel_hw, device=dev))
+
+        n_pred = int(ev.seg_valid.sum())
+        n_gt = int(sum(m.shape[0] for m in batch["masks_list"]))
+        h, w = db.resize_list[0]
+        gt_b = np.asarray(db.gt_masks)[:n_gt][:, :h, :w]
+        pred = ev.pred_masks[:n_pred, :h, :w].float()
+        pred_b = (pred > 0).cpu().numpy().astype(np.int64)
+        empty = np.zeros((h, w), np.int64)
+        sample_ious = []
+        # the assignment padded to max_num: unmatched GT scores against an
+        # empty prediction, unmatched predictions against an empty GT
+        pairs = []
+        if n_pred > 0 and n_gt > 0:
+            pi, ti = match_pred(pred, torch.as_tensor(gt_b, device=dev))
+            for p_idx, t_idx in zip(pi, ti):
+                pairs.append((pred_b[p_idx], gt_b[t_idx].astype(np.int64)))
+                inter = ((pred_b[p_idx] > 0) & (gt_b[t_idx] > 0.5)).sum()
+                union = ((pred_b[p_idx] > 0) | (gt_b[t_idx] > 0.5)).sum()
+                sample_ious.append(float(inter / (union + 1e-10)))
+            matched_p, matched_t = set(int(i) for i in pi), set(int(i) for i in ti)
+            pairs += [(empty, gt_b[t].astype(np.int64)) for t in range(n_gt)
+                      if t not in matched_t]
+            pairs += [(pred_b[p], empty) for p in range(n_pred) if p not in matched_p]
+        elif n_gt > 0:
+            pairs = [(empty, gt_b[t].astype(np.int64)) for t in range(n_gt)]
+        elif n_pred > 0:
+            pairs = [(pred_b[p], empty) for p in range(n_pred)]
+
+        sample_acc = np.zeros((2,), np.float64)
+        for pb, gb in pairs:
+            acc.add_mask(pb, gb)
+            inter, union, _tgt = intersection_and_union(pb, gb, 2)
+            iou = inter / (union + 1e-5)
+            iou[union == 0] += 1.0       # the no-object rule
+            sample_acc += iou
+        max_num = max(n_pred, n_gt, 1)
+        acc_list.append([float(sample_acc[0] / max_num), float(sample_acc[1] / max_num),
+                         max_num, db.image_paths[0]])
+        count_total += 1
+        count_correct += int(n_pred == n_gt)
+        answer = decode_answer(tokenizer, ev.tokens[0].cpu().numpy(), int(ev.lengths[0]))
+        records.append({"image_path": db.image_paths[0], "pred_count": n_pred,
+                        "gt_count": n_gt, "ious": sample_ious, "answer": answer})
+
+    acc.all_reduce()
+    res = acc.results()
+    counts = np.array([count_correct, count_total], np.float64)
+    reduced = _allreduce_f64(counts)
+    counts = reduced if reduced is not None else counts
+    res["target_count_acc"] = (counts[0] / counts[1]) if counts[1] else float("nan")
+    out_dir = os.path.join(args.log_base_dir, args.exp_name)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"out_file_{args.local_rank}.json"), "w") as f:
+        json.dump(records, f, indent=2)
+    with open(os.path.join(out_dir, f"acc_list_{args.local_rank}.json"), "w") as f:
+        json.dump(acc_list, f)
+    logger(format_metric_line(f"{args.val_dataset} [ar]", res)
+           + f", target-count-acc: {res['target_count_acc']:.4f}")
+    return res, records
+
+
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
     refuse_unported(args)
@@ -510,14 +618,22 @@ def main(argv=None):
     cfg = build_config(args, st.seg_token_idx)
     params = build_model(args, cfg)
 
+    name = args.val_dataset.split("|")[0]
     split = args.val_dataset.split("|")[1] if "|" in args.val_dataset else "val"
-    labelmap = args.labelmap or os.path.join(args.dataset_dir, "labelmap.json")
-    jsonl = os.path.join(args.dataset_dir, f"{split}.jsonl")
-    dataset = PAVEDataset(jsonl, labelmap,
-                          image_size=min(args.image_size, cfg.sam.img_size),
-                          pad_size=cfg.sam.img_size,
-                          is_val=True, seg_token_num=args.seg_token_num,
-                          clip_image_size=(cfg.clip.image_size if cfg.clip else 448))
+    if name == "MultiReasonSeg":
+        from ..data.seg_datasets import MultiReasonSegValDataset
+        dataset = MultiReasonSegValDataset(
+            args.dataset_dir, json_name=f"muse_{split}.json",
+            image_size=min(args.image_size, cfg.sam.img_size),
+            pad_size=cfg.sam.img_size)
+    else:
+        labelmap = args.labelmap or os.path.join(args.dataset_dir, "labelmap.json")
+        jsonl = os.path.join(args.dataset_dir, f"{split}.jsonl")
+        dataset = PAVEDataset(jsonl, labelmap,
+                              image_size=min(args.image_size, cfg.sam.img_size),
+                              pad_size=cfg.sam.img_size,
+                              is_val=True, seg_token_num=args.seg_token_num,
+                              clip_image_size=(cfg.clip.image_size if cfg.clip else 448))
 
     # parameter/FLOPs banner (evaluation_walkgpt.py:999-1015)
     total = nn.count_params(params)
@@ -525,7 +641,10 @@ def main(argv=None):
     print(f"Estimated compute per batch (FLOPs, seq_len="
           f"{args.model_max_length}): {6 * total * args.model_max_length:,}")
 
-    res, text_log = validate(args, cfg, params, tokenizer, dataset)
+    if name == "MultiReasonSeg":
+        res, text_log = ar_validate(args, cfg, params, tokenizer, dataset)
+    else:
+        res, text_log = validate(args, cfg, params, tokenizer, dataset)
 
     if args.save_responses_path:
         os.makedirs(os.path.dirname(args.save_responses_path) or ".",
