@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of WalkGPT on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py [--seed 0] [--max-new-tokens 32]
+    python3 chip_smoke.py [--seed 0] [--max-new-tokens 16]
 
 The script must end within 20 minutes on hosts whose CPU runs at half the
 speed of others (its host-side work and the CPU halves of the card-against-
-CPU checks scale with it), so the paths of phases 4 and 6 are cut in depth:
-phase 4 decodes 32 new tokens a request (64 before), its server caps the
-budgets at 64 (128 before), 6a reads 8 samples (16), 6d 2 (4) and 6e 2
+CPU checks scale with it), so the paths of phases 4, 6, 9 and 10 are cut in
+depth: phase 4 (and 10) decodes 16 new tokens a request (32 before PR 18,
+64 before PR 17), its server caps the budgets at 32 (64, 128), 6a, 6e and
+9d decode 32 new tokens (64), 6a reads 8 samples (16), 6d 2 (4) and 6e 2
 (4); PERF.md has the runs that set these.
 
 Phases (any failure raises and the script exits non-zero):
@@ -157,7 +158,7 @@ Phases (any failure raises and the script exits non-zero):
      samples, 12 questions, .pt label maps of 480 x 640 with several class
      ids and 255 pixels, no frames: the dataset's dummy images), then
      a. runtime/evaluate.main at WalkGPT-7B int4x (--quant int4x --kv_cache
-        int4_flat --sam_quant int8 --precision bf16, 2 images a batch, 64
+        int4_flat --sam_quant int8 --precision bf16, 2 images a batch, 32
         new tokens, random weights from seed 0) on 8 samples (4
         batches, so that the median batch is a steady rate): the native
         preprocessing library loaded, the metric line's keys, one response
@@ -182,7 +183,7 @@ Phases (any failure raises and the script exits non-zero):
         mask tolerance of 0 on either side are left out (their number
         printed);
      e. the CLIP stream: runtime/evaluate.main --visual_stream clip at
-        WalkGPT-7B int4x (6a's flags, CLIP ViT-L/14-448) on 2 samples, 64
+        WalkGPT-7B int4x (6a's flags, CLIP ViT-L/14-448) on 2 samples, 32
         new tokens: 6a's keys and response checks, K1-K6 launched and no
         plain version called, images/s; then generate_and_segment(
         visual_stream="clip") at demo_config in the 7B int4x format, the
@@ -228,20 +229,57 @@ Phases (any failure raises and the script exits non-zero):
         and SAMVisionTower within 1e-3, the exported mask decoder equal to
         decode_masks;
      d. evaluate.ar_validate at WalkGPT-7B int4x + int4_flat + int8 SAM
-        (bf16, 64 new tokens) on a synthetic MUSE manifest of 4 samples
+        (bf16, 32 new tokens) on a synthetic MUSE manifest of 4 samples
         (480 x 640 .npy images, 2-3 RLE targets each), [SEG] the token a
         first run emits most: K1-K6 launches held exactly, no plain version
         called; images/s, the metric line, target_count_acc;
      e. merge_lora_cli and consolidate_cli (with and without --with_init)
         at demo_config on one LoRA state dict, the card against --device
         cpu: the checkpoint's leaves within 1e-6 relative.
-Then one JSON line with every kernel's numbers and, last, the device line.
+  10. (after 4) the model variants and switches:
+     a. the fp16 routes against their plain versions at the main path's
+        shapes, with kernel, plain, library times and the bound: K1 at the
+        7B prefill (and ragged), K4 at the 7B int4_flat step (and ragged
+        GQA), K5 at the 7B qkv4 and lm_head, K6 at the 7B MLP; K6's gelu
+        route at MPT-7B widths (2 rows, H 4096, I 16384) in bf16; every
+        kernel without an fp16 route raises ValueError on fp16 inputs;
+     b. WalkGPT on MPT-7B (ALiBi, 32 layers of 4096, the MLP without
+        biases as published), random weights: two bf16 requests over the
+        heads cache (no K1: the bias takes the plain attention), then one
+        with int4 weights (attn_int4 + mlp_int4, the tied head) over the
+        int8 heads cache (K5 and K6's gelu route counted exactly), each
+        with its decode step's wall and device ms; MPT at demo_config's
+        widths in fp32, dense and int4, the card against the CPU;
+     c. --precision fp16 at WalkGPT-7B (fp16 weights, fp32 images: the SAM
+        encoder on K2/K3's fp32 routes): two dense requests (K1 in fp16),
+        two in int4x over int4_flat with weight-only int8 SAM blocks (K1,
+        K4, K5, K6 in fp16), outputs finite, launches held exactly; the card
+        against the CPU at demo_config's widths in fp16 (greedy over the
+        spliced prompt, dense and int4x): tokens identical, or parted only
+        where the predictor hidden states up to the parting agree within
+        FLOAT_PART_REL (a near tie);
+     d. the growing cache: the dense fp16 request with decode_cache_grow
+        16 (launches held), and greedy_generate with cache_grow_step 16
+        against 0 on its spliced prompt (as c's comparison);
+     e. the decode switches, one request each at full width with launches
+        held: WalkGPT-7B int4x with DECODE_QDOT8 off, DECODE_PVDOT8 on,
+        DECODE_BLOCK 128 and 512; WalkGPT-1B w8a8 with _FUSED_MLP8 off
+        (no K7) and a speculative request with DECODE_QDOT8 off (K8); each
+        at demo_config on the card against the CPU (phase 3b's and 3c's
+        holds);
+     f. (within b) one ViT-H encode (bf16) through the einsum attention's
+        fast branch against the kernels' route: the drift reported, K2/K3
+        idle, outputs finite.
+Then one JSON line with every kernel's numbers (K1's, K4's, K5's and K6's
+with their fp16 route's numbers and launches under "fp16", K6's gelu route
+at MPT-7B widths under "gelu_mpt7b_bf16") and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -275,9 +313,10 @@ from walkgpt_tpu_torch.runtime import (checkpoint, consolidate_cli, evaluate, ex
                                        train_cli)
 from walkgpt_tpu_torch.tools import synthetic_pave
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, int8 tensor
-# cores, fp32 outside the tensor cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and fp16 tensor cores, int8
+# tensor cores, fp32 outside the tensor cores, HBM3
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12, torch.int8: 1979e12,
+              torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 KERNELS = fa.KERNELS + int4.KERNELS + fused_layer.KERNELS + int8_gemm.KERNELS
 SPEC_K = 8                  # drafts per verify iteration (the JAX sweep's draft_k)
@@ -294,6 +333,12 @@ FORMAT_1B = dict(act_quant=True, sam_int8=True)
 # of order one (2^-8 relative), more where an fp32 sum straddles a rounding
 # boundary of p.
 BF16_MAX_ABS, BF16_MEAN_ABS = 3e-2, 3e-3
+# fp16 comparison of a kernel that computes in fp32 and rounds its output to
+# fp16 once (K1, K5): about one fp16 step (2^-11 relative) where an fp32
+# sum in another order straddles a rounding boundary. K4 and K6 round to bf16
+# inside whatever their input type (the TPU kernels' points) and take the
+# bf16 bounds in fp16 too.
+FP16_MAX_ABS, FP16_MEAN_ABS = 4e-3, 4e-4
 # K1b's, K2b's and K3b's dq, dk and dv against float64 products of their
 # own fp32 p and ds (all rounded to bf16): the kernel's mean error stays
 # this many times under that of rounding p and ds to bf16 alone
@@ -669,6 +714,7 @@ def log_kernel_alone(label, fn, n=20):
     log(f"    {label}: " + "; ".join(
         f"{k.replace('(anonymous namespace)::', '').replace('void ', '').split('(')[0]} "
         f"{v:.4f} ms" for k, v in ours.items()) + f" (total {sum(ours.values()):.4f} ms)")
+    return sum(ours.values())
 
 
 def is_package_kernel(name):
@@ -765,12 +811,14 @@ def k3_case(dev, dtype, b, h, gh, gw, d, gen, strided=False):
     return run, plain, library, cost
 
 
-def check_kernel(name, case, dtype, iters, plain_iters, label="", relative=False):
+def check_kernel(name, case, dtype, iters, plain_iters, label="", relative=False,
+                 bf16_inside=False):
     """A kernel's wrapper against its plain version on the same inputs (and
     its lse where it returns one), then (iters > 0) kernel, plain and
     library times and the bound. relative: errors are taken relative to the
     output's largest magnitude (at least 1), fp32 ones within
-    QUANT_FP32_REL."""
+    QUANT_FP32_REL. fp16 outputs take the FP16 bounds, or with bf16_inside
+    (a kernel rounding to bf16 inside) the bf16 ones."""
     run, plain, library, (nb, ops, ops_type) = case
     out = run()
     torch.cuda.synchronize()
@@ -782,6 +830,9 @@ def check_kernel(name, case, dtype, iters, plain_iters, label="", relative=False
     if dtype == torch.float32:
         ok = (max_err <= (QUANT_FP32_REL if relative else FP32_ATOL) * scale
               and lse_err <= FP32_ATOL)
+    elif dtype == torch.float16 and not bf16_inside:
+        ok = (max_err <= FP16_MAX_ABS * scale and mean_err <= FP16_MEAN_ABS * scale
+              and lse_err <= 1e-2)
     else:
         ok = (max_err <= BF16_MAX_ABS * scale and mean_err <= BF16_MEAN_ABS * scale
               and lse_err <= 1e-2)
@@ -969,28 +1020,33 @@ def k5_case(dev, dtype, m, k, n, gen):
     return run, plain, library, (nb, 2.0 * m * k * n, torch.bfloat16)
 
 
-def mlp_case(dev, dtype, fmt, m, h, i_dim, gen):
-    """K6 (fmt "int4") or K7 ("int8") on a silu MLP with random weights."""
-    ws = {n: torch.randn(*shape, generator=gen, device=dev) * 0.02 for n, shape in
-          (("gate", (h, i_dim)), ("up", (h, i_dim)), ("down", (i_dim, h)))}
+def mlp_case(dev, dtype, fmt, m, h, i_dim, gen, act="silu"):
+    """K6 (fmt "int4") or K7 ("int8") on a silu MLP (act "gelu": MPT's
+    fc1 / fc2 MLP) with random weights."""
+    shapes = ((("gate", (h, i_dim)), ("up", (h, i_dim)), ("down", (i_dim, h))) if act == "silu"
+              else (("fc1", (h, i_dim)), ("fc2", (i_dim, h))))
+    ws = {n: torch.randn(*shape, generator=gen, device=dev) * 0.02 for n, shape in shapes}
     x = torch.randn(m, 1, h, generator=gen, device=dev).to(dtype)
     if fmt == "int4":
         p = quant.convert_mlp_int4({n: {"w": w} for n, w in ws.items()})
-        run = lambda: int4.fused_mlp_int4(p, x, "silu")
-        plain = lambda: int4.fused_mlp_int4_reference(p, x, "silu")
-        deq = {"gate": int4.dequantize4(p["gate"]), "up": int4.dequantize4(p["up"]),
-               "down": int4.dequantize_down4(p["down"])}
+        run = lambda: int4.fused_mlp_int4(p, x, act)
+        plain = lambda: int4.fused_mlp_int4_reference(p, x, act)
+        deq = {n: (int4.dequantize_down4(v) if "w_p4t" in v else int4.dequantize4(v))
+               for n, v in p.items()}
         ops_type = torch.bfloat16
     else:
         p = {n: quant.convert_proj({"w": w}, True) for n, w in ws.items()}
-        run = lambda: int4.fused_mlp_int8(p, x, "silu")
-        plain = lambda: int4.fused_mlp_int8_reference(p, x, "silu")
+        run = lambda: int4.fused_mlp_int8(p, x, act)
+        plain = lambda: int4.fused_mlp_int8_reference(p, x, act)
         deq = {n: v["w_q"].float() * v["w_scale"] for n, v in p.items()}
         ops_type = torch.int8
-    wg, wu, wd = (deq[n].to(dtype) for n in ("gate", "up", "down"))
-    library = lambda: (F.silu(x @ wg) * (x @ wu)) @ wd
+    deq = {n: w.to(dtype) for n, w in deq.items()}
+    if act == "silu":
+        library = lambda: (F.silu(x @ deq["gate"]) * (x @ deq["up"])) @ deq["down"]
+    else:
+        library = lambda: nn.gelu_exact(x @ deq["fc1"]) @ deq["fc2"]
     nb = nbytes(x, *_leaves(p)) + x.numel() * x.element_size()
-    return run, plain, library, (nb, 6.0 * m * h * i_dim, ops_type)
+    return run, plain, library, (nb, 2.0 * len(shapes) * m * h * i_dim, ops_type)
 
 
 def rows_check(label, fn, hold=True):
@@ -2382,10 +2438,11 @@ def w8a8_edge(params, cfg, dev, kw, card_records, cpu_records):
                              "that is not on a rounding edge")
 
 
-def demo_request(params, cfg, dev, seed, **extra):
+def demo_request(params, cfg, dev, seed, probe=True, **extra):
     """A demo_config request of 2 images and 3 prompt rows, 16 new tokens, no
     EOS (all steps compared), and cfg with [SEG] set to the token a probe
-    run emits most, so the mask path runs on real [SEG] states."""
+    run emits most, so the mask path runs on real [SEG] states (probe
+    False: no probe run, cfg as it is)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     s = cfg.sam.img_size
     images = torch.randn(2, s, s, 3, generator=gen, device=dev)
@@ -2394,6 +2451,8 @@ def demo_request(params, cfg, dev, seed, **extra):
               row_image_idx=torch.tensor([0, 1, 1], device=dev),
               pixel_hw=torch.tensor([[s, s], [s * 3 // 4, s]], device=dev),
               max_new_tokens=16, max_segs=8, eos_id=-1, **extra)
+    if not probe:
+        return kw, cfg
     probe = walkgpt.generate_and_segment(params, cfg, device=dev, **kw).tokens
     vals, counts = torch.unique(probe, return_counts=True)
     return kw, cfg.replace(seg_token_id=int(vals[counts.argmax()]))
@@ -2412,7 +2471,9 @@ def expected_launches(cfg, params, n_new, n_iters=None, fuse=False):
     windowed/global SAM block. Greedy (n_iters None): per decode step and
     layer K4 (flat quantized cache) or K11 (fused_decode), K5 (fused int4
     q/k/v), K6 or K7 (int4 or W8A8 MLP); K5 for the int4 head once per token
-    picked (n_new + 1). With fuse (generate_and_segment's fused_layer) over
+    picked (n_new + 1); K7 only under llm._FUSED_MLP8, K1 only for rope
+    models (ALiBi's bias takes the plain attention). With fuse
+    (generate_and_segment's fused_layer) over
     a flat quantized cache, a layer that layer_tail_supported accepts (every
     layer of the int4x format) runs K12 in place of K4 and K6, and K5 still
     takes its fused q/k/v. Speculative: per verify iteration and layer K8
@@ -2422,14 +2483,14 @@ def expected_launches(cfg, params, n_new, n_iters=None, fuse=False):
     branches. K13a/K13b run in no request."""
     n_layers = cfg.llm.num_layers
     layer = params["llm"]["layers"][0]
-    head4 = "w_p4" in params["llm"]["lm_head"]
+    head4 = "w_p4" in params["llm"].get("lm_head", {})        # a tied head has none
     qkv4, mlp4, w8a8 = ("qkv4" in layer["attn"], int4.mlp_is_int4(layer["mlp"]),
-                        int4.mlp_is_w8a8(layer["mlp"]))
+                        int4.mlp_is_w8a8(layer["mlp"]) and llm._FUSED_MLP8)
     flat_q = cfg.kv_quant_cache in ("int8_flat", "int4_flat")
     tail = fuse and flat_q and fused_layer.layer_tail_supported(layer, cfg.llm)
     counts = dict.fromkeys(KERNEL_INFO, 0)          # no backward kernel in inference
     counts.update({
-        "flash_attention": n_layers,
+        "flash_attention": n_layers * (cfg.llm.pos_emb == "rope"),     # ALiBi: plain attention
         "sam_window_attention_packed": cfg.sam.depth - len(cfg.sam.global_attn_indexes),
         "sam_flash_attention": len(cfg.sam.global_attn_indexes),
     })
@@ -2747,7 +2808,7 @@ def pave_prompt_ids(tok):
     return out
 
 
-def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=64, segment=32):
+def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=32, segment=32):
     """The continuous-batching server at full width: eight text requests
     (PAVE questions in the llava_v1 template, each paired with one of
     n_images random 1024^2 images, every image encoded once), MSQP and
@@ -3395,6 +3456,9 @@ EVAL_SYMBOLS = {"flash_attention": "FlashMma", "sam_window_attention_packed": "W
 # 6a's samples (4 batches of 2: a median batch past the first one's warm-up)
 # and 6d's (the CPU's plain versions run them too)
 EVAL_SAMPLES, DEMO_SAMPLES = 8, 2
+# new tokens a request of the eval CLI decodes (6a, 6e, 9d): the production
+# budget of 512 is cut to keep the run inside its time limit
+EVAL_NEW_TOKENS = 32
 
 
 class EvalSpy:
@@ -3485,13 +3549,13 @@ def phase_eval(dev, seed):
             f.launches = 0
         with EvalSpy() as spy, PlainSpy() as plain:
             t0 = time.perf_counter()
-            res = evaluate.main(eval_argv(os.path.join(root, "data"), out, "7b", "bf16", 64,
-                                          EVAL_SAMPLES))
+            res = evaluate.main(eval_argv(os.path.join(root, "data"), out, "7b", "bf16",
+                                          EVAL_NEW_TOKENS, EVAL_SAMPLES))
             wall = time.perf_counter() - t0
         launches = {f.__name__: f.launches for f in KERNELS}
         total = nn.count_params(spy.params)
         log(f"  6a: {card}; WalkGPT-7B int4x + int4_flat + int8 SAM, bf16, {EVAL_SAMPLES} "
-            f"images, 2 a batch ({len(spy.gen)} batches), 64 new tokens: images/s "
+            f"images, 2 a batch ({len(spy.gen)} batches), {EVAL_NEW_TOKENS} new tokens: images/s "
             f"{res['images_per_sec']:.4f}, steady images/s {res['images_per_sec_steady']:.4f}; "
             f"parameters (count_params) {total:,}; main "
             f"{wall:.1f} s (model build included)")
@@ -3730,7 +3794,7 @@ def with_kernels(build_config):
 
 def phase_clip(dev, data, card):
     """6e: evaluate.main --visual_stream clip at WalkGPT-7B int4x (CLIP
-    ViT-L/14-448, phase 6a's flags) on CLIP_SAMPLES samples, 64 new tokens;
+    ViT-L/14-448, phase 6a's flags) on CLIP_SAMPLES samples, EVAL_NEW_TOKENS new tokens;
     then generate_and_segment(visual_stream="clip") at demo_config in the 7B
     int4x format, the card against the CPU. Returns the 7B run's launches."""
     log("== phase 6e: the CLIP stream")
@@ -3739,7 +3803,7 @@ def phase_clip(dev, data, card):
     for f in KERNELS:
         f.launches = 0
     with EvalSpy() as spy, PlainSpy() as plain:
-        res = evaluate.main(eval_argv(data, out, "7b", "bf16", 64, CLIP_SAMPLES)
+        res = evaluate.main(eval_argv(data, out, "7b", "bf16", EVAL_NEW_TOKENS, CLIP_SAMPLES)
                             + ["--visual_stream", "clip"])
     launches = {f.__name__: f.launches for f in KERNELS}
     ran = {k: launches[k] for k in EVAL_SYMBOLS}
@@ -3747,7 +3811,8 @@ def phase_clip(dev, data, card):
     clip_in = all(len(args) == 8 and args[6].shape[1:] == (448, 448, 3)
                   for _, _, args, _ in spy.gen)
     log(f"  6e: {card}; WalkGPT-7B int4x, --visual_stream clip (CLIP ViT-L/14-448), bf16, "
-        f"{CLIP_SAMPLES} images, 2 a batch ({len(spy.gen)} batches), 64 new tokens: images/s "
+        f"{CLIP_SAMPLES} images, 2 a batch ({len(spy.gen)} batches), {EVAL_NEW_TOKENS} new "
+        f"tokens: images/s "
         f"{res['images_per_sec']:.4f}, steady images/s {res['images_per_sec_steady']:.4f}; "
         f"parameters (count_params) {nn.count_params(spy.params):,}; streams {streams}, CLIP "
         f"pixels 448^2 passed: {clip_in}; launches {ran}; plain versions called "
@@ -4374,7 +4439,7 @@ def write_muse(root, n, seed, hw):
 
 def phase_ar_validate(dev, seed, card):
     """9d: evaluate.ar_validate at WalkGPT-7B int4x + int4_flat + int8 SAM
-    (bf16, 64 new tokens, random weights from seed 0) on a synthetic MUSE
+    (bf16, EVAL_NEW_TOKENS new tokens, random weights from seed 0) on a synthetic MUSE
     manifest of MUSE_SAMPLES samples. A first sample's run picks [SEG] as
     the token the random weights emit most, so the masks and the Hungarian
     matching run; then all samples: K1-K6 launched exactly as
@@ -4386,7 +4451,8 @@ def phase_ar_validate(dev, seed, card):
         write_muse(root, MUSE_SAMPLES, seed, MUSE_HW)
         argv = ["--val_dataset", "MultiReasonSeg|val", "--dataset_dir", root, "--model_size",
                 "7b", "--quant", "int4x", "--kv_cache", "int4_flat", "--sam_quant", "int8",
-                "--precision", "bf16", "--max_new_tokens", "64", "--no_console_text",
+                "--precision", "bf16", "--max_new_tokens", str(EVAL_NEW_TOKENS),
+                "--no_console_text",
                 "--log_base_dir", os.path.join(root, "runs"), "--exp_name", "ar"]
         args = evaluate.parse_args(argv + ["--max_samples", "1"])
         conversation.set_default_conversation(args.conv_type)
@@ -4412,11 +4478,13 @@ def phase_ar_validate(dev, seed, card):
                                                 device=dev)
             wall = time.perf_counter() - t1
         got = launched()
-        want = {k: MUSE_SAMPLES * v for k, v in expected_launches(cfg, params, 64).items()}
+        want = {k: MUSE_SAMPLES * v
+                for k, v in expected_launches(cfg, params, EVAL_NEW_TOKENS).items()}
         files = [os.path.exists(os.path.join(root, "runs", "ar", f"{n}_0.json"))
                  for n in ("out_file", "acc_list")]
         acc_list = json.load(open(os.path.join(root, "runs", "ar", "acc_list_0.json")))
-    log(f"  9d: {card}; {MUSE_SAMPLES} samples of {MUSE_HW[0]} x {MUSE_HW[1]}, 64 new tokens, "
+    log(f"  9d: {card}; {MUSE_SAMPLES} samples of {MUSE_HW[0]} x {MUSE_HW[1]}, "
+        f"{EVAL_NEW_TOKENS} new tokens, "
         f"[SEG] = token {cfg.seg_token_id}: {MUSE_SAMPLES / wall:.4f} images/s ({wall:.1f} s; "
         f"model build {build:.1f} s); pred / gt counts "
         f"{[(r['pred_count'], r['gt_count']) for r in records]}, matched IoUs "
@@ -4602,10 +4670,516 @@ def ptxas_summary(logs):
             f"spill stores {spills} bytes")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the model variants and switches (MPT's ALiBi, --precision fp16,
+# the growing cache, the decode switches, the fast einsum SAM attention)
+# ---------------------------------------------------------------------------
+
+# two float runs that may part (the card against the CPU in fp16, the
+# growing cache against the single allocation): tokens identical and the
+# predictor hidden states within FLOAT_PART_REL of their largest magnitude,
+# or, in a row whose tokens part, every step up to the first parting within
+# it, so that the parting is a near tie that a rounding moved (fp16 rounds
+# every op's output to 11 bits, 5e-4 relative, through 4 to 32 layers)
+FLOAT_PART_REL = 5e-2
+# the fp16 routes in the kernels line, and the kernels that have none
+FP16_ROUTES = ("flash_attention", "decode_attention_q", "int4_matmul_pallas", "fused_mlp_int4")
+# MPT at demo_config's LLM widths (MPT-7B's MLP ratio of 4)
+MPT_DEMO = dataclasses.replace(config_module.MPT_7B, hidden_size=512, intermediate_size=2048,
+                               num_layers=4, num_heads=8, num_kv_heads=8, vocab_size=32016)
+
+
+@contextlib.contextmanager
+def switched(*items):
+    """Sets module attributes (the decode switches) for a with-block and
+    restores them after: switched((module, name, value), ...)."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in items]
+    for mod, name, value in items:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for mod, name, value in reversed(saved):
+            setattr(mod, name, value)
+
+
+def fp16_refusals(dev):
+    """Each kernel without an fp16 route raises ValueError on fp16 inputs (the
+    expected result, held)."""
+    h16 = lambda *shape: torch.zeros(*shape, dtype=torch.float16, device=dev)
+    i8 = lambda *shape: torch.zeros(*shape, dtype=torch.int8, device=dev)
+    bf = lambda *shape: torch.zeros(*shape, dtype=torch.bfloat16, device=dev)
+    f32 = lambda *shape: torch.zeros(*shape, dtype=torch.float32, device=dev)
+    q4, lse4 = h16(1, 1, 4, 8), f32(1, 1, 4)
+    rel4 = h16(1, 1, 4, 2)
+    mask = torch.ones(1, 64, dtype=torch.bool, device=dev)
+    mlp8 = {n: {} for n in ("gate", "up", "down")}
+    mlp4 = {"gate": {"w_p4": i8(4, 16)}, "up": {"w_p4": i8(4, 16)}, "down": {"w_p4t": i8(8, 8)}}
+    calls = {
+        "sam_window_attention_packed": lambda: fa.sam_window_attention_packed(
+            h16(1, 4, 48), h16(1, 4, 8), 2, 8, 2),
+        "sam_flash_attention": lambda: fa.sam_flash_attention(q4, q4, q4, rel4, rel4, (2, 2)),
+        "sam_window_attention": lambda: fa.sam_window_attention(q4, q4, q4, rel4, rel4, 2),
+        "fused_mlp_int8": lambda: int4.fused_mlp_int8(mlp8, h16(2, 1, 8), "silu"),
+        "decode_attention_q_chunk": lambda: fa.decode_attention_q_chunk(
+            h16(1, 2, 16), i8(1, 1, 64, 16), bf(1, 1, 1, 64), i8(1, 1, 64, 16), bf(1, 1, 1, 64),
+            torch.zeros(1, dtype=torch.long, device=dev), n_kv=1, head_dim=16),
+        "decode_attention": lambda: fa.decode_attention(h16(1, 16), h16(1, 1, 64, 16),
+                                                        h16(1, 1, 64, 16), mask, n_kv=1),
+        "fused_layer_tail": lambda: fused_layer.fused_layer_tail(
+            h16(1, 8), i8(1, 1, 1, 8), f32(1, 1), i8(1, 1, 64, 8), bf(1, 1, 1, 64),
+            i8(1, 1, 64, 8), bf(1, 1, 1, 64), mask, {"w_q": i8(8, 8), "w_scale": f32(8)},
+            h16(8), mlp4, n_kv=1, head_dim=8, pack4=False, layer=0, act="silu",
+            norm_eps=1e-6),
+        "quantize_tokens": lambda: int8_gemm.quantize_tokens(h16(2, 16)),
+        "w8a8_gemm": lambda: int8_gemm.w8a8_gemm(h16(2, 16), i8(16, 16), f32(16)),
+        "flash_attention_bwd": lambda: fa.flash_attention_bwd(q4, q4, q4, True, None, q4, lse4,
+                                                              q4),
+        "sam_window_attention_packed_bwd": lambda: fa.sam_window_attention_packed_bwd(
+            h16(1, 4, 48), h16(1, 4, 8), 2, 8, 2, h16(1, 4, 16), f32(1, 4, 2), h16(1, 4, 16)),
+        "sam_flash_attention_bwd": lambda: fa.sam_flash_attention_bwd(
+            q4, q4, q4, rel4, rel4, (2, 2), q4, lse4, q4),
+        "sam_window_attention_bwd": lambda: fa.sam_window_attention_bwd(
+            q4, q4, q4, rel4, rel4, 2, q4, lse4, q4),
+    }
+    said = {}
+    for name, call in calls.items():
+        try:
+            call()
+        except ValueError as e:
+            said[name] = str(e)
+            continue
+        raise AssertionError(f"{name} took fp16 inputs: it has no fp16 route")
+    log(f"  fp16 refused (ValueError) by the {len(said)} kernels without an fp16 route: "
+        f"{', '.join(said)}; e.g. {said['decode_attention']!r}")
+
+
+def phase_fp16_kernels(dev, seed):
+    """10a: the fp16 routes against their plain versions at the main path's
+    shapes, with times; K6's gelu route at MPT-7B widths in bf16; the fp16
+    refusals of every other kernel."""
+    log("== phase 10a: the fp16 routes of K1, K4, K5 and K6; K6's gelu route at MPT-7B widths")
+    gen = torch.Generator(device=dev).manual_seed(seed + 90)
+    f16, bf16 = torch.float16, torch.bfloat16
+    check = lambda name, case, iters, label, **kw: check_kernel(
+        name, case, f16, iters, 4, label + " fp16", **kw)
+    out = {
+        "flash_attention": check("flash_attention",
+                                 k1_case(dev, f16, 2, 32, 447, 128, [396, 375], gen), 50,
+                                 "7B prefill"),
+        "decode_attention_q": check(
+            "decode_attention_q", k4_case(dev, f16, 2, 32, 32, 128, 512, 480, True, gen), 200,
+            "7B int4_flat", relative=True, bf16_inside=True),
+        "int4_matmul_pallas": check("int4_matmul_pallas",
+                                    k5_case(dev, f16, 2, 4096, 12288, gen), 200, "7B qkv4",
+                                    relative=True),
+        "fused_mlp_int4": check("fused_mlp_int4",
+                                mlp_case(dev, f16, "int4", 2, 4096, 11008, gen), 50, "7B mlp",
+                                relative=True, bf16_inside=True),
+    }
+    check("int4_matmul_pallas", k5_case(dev, f16, 2, 4096, 32128, gen), 50, "7B lm_head",
+          relative=True)
+    check("flash_attention", k1_case(dev, f16, 2, 3, 130, 80, [130, 101], gen), 0,
+          "ragged N=130 D=80")
+    check("decode_attention_q", k4_case(dev, f16, 3, 6, 3, 40, 96, 70, True, gen), 0,
+          "ragged GQA int4", relative=True, bf16_inside=True)
+    out["fused_mlp_int4 gelu"] = check_kernel(
+        "fused_mlp_int4", mlp_case(dev, bf16, "int4", 2, 4096, 16384, gen, act="gelu"), bf16,
+        50, 4, "MPT-7B gelu mlp", relative=True)
+    torch.cuda.empty_cache()
+    fp16_against_bf16(dev, gen, out)
+    decode_blocks(dev, gen)
+    fp16_refusals(dev)
+    return out
+
+
+def fp16_against_bf16(dev, gen, out):
+    """Each fp16 route beside its bf16 route on the same shapes in one call,
+    in turns (fp16, bf16, bf16, fp16): CUDA events per call, then the
+    kernels alone (the profiler, 50 calls a turn); the means added to
+    out[name] as bf16_ms, kernel_alone_ms and bf16_kernel_alone_ms."""
+    log("  the fp16 routes beside the bf16 routes, same shapes, one call, in turns (fp16, "
+        "bf16, bf16, fp16): ms a call, then the kernels alone")
+    cases = {"flash_attention": lambda dt: k1_case(dev, dt, 2, 32, 447, 128, [396, 375], gen),
+             "decode_attention_q": lambda dt: k4_case(dev, dt, 2, 32, 32, 128, 512, 480, True,
+                                                      gen),
+             "int4_matmul_pallas": lambda dt: k5_case(dev, dt, 2, 4096, 12288, gen),
+             "fused_mlp_int4": lambda dt: mlp_case(dev, dt, "int4", 2, 4096, 11008, gen)}
+    for name, case in cases.items():
+        f16, b16 = case(torch.float16)[0], case(torch.bfloat16)[0]
+        order = (("fp16", f16), ("bf16", b16), ("bf16", b16), ("fp16", f16))
+        turns = [cuda_ms(fn, 50) for _, fn in order]
+        alone = [log_kernel_alone(f"{name} {dt}", fn, n=50) for dt, fn in order]
+        log(f"  {name}: fp16 {turns[0]:.4f} / {turns[3]:.4f} ms, bf16 {turns[1]:.4f} / "
+            f"{turns[2]:.4f} ms a call; kernels alone fp16 {alone[0]:.4f} / {alone[3]:.4f}, "
+            f"bf16 {alone[1]:.4f} / {alone[2]:.4f}")
+        out[name].update(bf16_ms=(turns[1] + turns[2]) / 2,
+                         kernel_alone_ms=(alone[0] + alone[3]) / 2,
+                         bf16_kernel_alone_ms=(alone[1] + alone[2]) / 2)
+
+
+def decode_blocks(dev, gen):
+    """The decode-attention kernels at blocks of 128 and 512 keys (the
+    default 256 runs everywhere else), 7B shapes over a 512-slot cache: K4
+    against its plain version and its walk, K8 against its plain version,
+    K11 against its walk, K12 against its plain version and its plan."""
+    bf16 = torch.bfloat16
+    for bl in (128, 512):
+        with switched((fa, "DECODE_BLOCK", bl)):
+            check_kernel("decode_attention_q", k4_case(dev, bf16, 2, 32, 32, 128, 512, 480, True,
+                                                       gen), bf16, 0, 1, f"block {bl}",
+                         relative=True)
+            k4_against_walk(dev, f"block {bl}", bf16, 2, 32, 32, 128, 512, 480, True, True, gen)
+            check_kernel("decode_attention_q_chunk",
+                         k8_case(dev, bf16, 2, SPEC_K + 1, 32, 32, 128, 512, [440, 375], True,
+                                 gen), bf16, 0, 1, f"block {bl}", relative=True)
+            k11_against_walk(dev, f"block {bl}", 2, 32, 32, 128, 512, [480, 480], gen)
+            check_k12(dev, gen, f"block {bl}", 2, 32, 128, 512, 480, True, 11008, "silu", bf16, 0)
+
+
+def full_width_request(cfg, dev, seed, max_new_tokens, image_dtype):
+    """phase 4's request at full width: 2 images of 1024^2 in image_dtype, 2
+    rows of 141 and 120 prompt tokens (447 spliced), EOS 2."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    s = cfg.sam.img_size
+    ids, mask = prompts(2, [141, 120], 192, cfg.llm.vocab_size, gen, dev)
+    images = torch.randn(2, s, s, 3, generator=gen, device=dev).to(image_dtype)
+    return dict(images=images, input_ids=ids, attention_mask=mask,
+                row_image_idx=torch.tensor([0, 1], device=dev),
+                pixel_hw=torch.tensor([[768, 1024], [768, 1024]], device=dev),
+                max_new_tokens=max_new_tokens, max_segs=16, eos_id=2, device=dev)
+
+
+def requests(params, cfg, kw, label, n=2, **expect_kw):
+    """n requests (the first warms up) with launches held per request as
+    expected_launches gives them; the last request's outputs checked.
+    Returns (launches of the n, the last output, its host ms, cfg)."""
+    expect = lambda out: expected_launches(cfg, params, kw["max_new_tokens"],
+                                           n_iters=out.n_iters, **expect_kw)
+    if n == 1:
+        for f in KERNELS:
+            f.launches = 0
+        out, ms = host_ms(lambda: walkgpt.generate_and_segment(params, cfg, **kw))
+        per = {f.__name__: f.launches for f in KERNELS}
+        log(f"  {label}: {ms:.1f} ms" + (f", n_iters {out.n_iters}" if out.n_iters else "")
+            + f", kernel launches {per}")
+        if per != expect(out):
+            raise AssertionError(f"{label}: launches {per}, expected {expect(out)}")
+        launches, e2e = per, [ms]
+    else:
+        launches, outs, e2e, cfg = run_requests(params, cfg, kw, label, expect)
+        out = outs[-1]
+    check_outputs(label, out, cfg, kw["max_new_tokens"], (768, 1024))
+    return launches, out, e2e[-1], cfg
+
+
+def demo_card_cpu(label, params, cfg, dev, seed, need, spec=0, records=False, never=()):
+    """demo_config on the card against the CPU (fp32 parameters; TF32 off):
+    tokens, lengths and [SEG] rows identical and masks within 1e-3; a W8A8
+    format (records) may part only at a rounding edge of its codes
+    (w8a8_edge). need: kernels that must have launched on the card; never:
+    kernels that must not have."""
+    cpu_params = to_device(params, "cpu")
+    extra = dict(speculative_k=spec) if spec else {}
+    kw, cfg = demo_request(params, cfg, dev, seed, **extra)
+    for f in KERNELS:
+        f.launches = 0
+    with _Quantizers() as card_codes:
+        card = walkgpt.generate_and_segment(params, cfg, device=dev, **kw)
+    launched = {f.__name__: f.launches for f in KERNELS if f.launches}
+    t0 = time.perf_counter()
+    with _Quantizers() as cpu_codes:
+        cpu = walkgpt.generate_and_segment(cpu_params, cfg, device="cpu",
+                                           **{k: to_device(v, "cpu") for k, v in kw.items()})
+    same = all(torch.equal(getattr(card, n).cpu(), getattr(cpu, n))
+               for n in ("tokens", "lengths", "seg_valid", "seg_rows"))
+    mask_err = float((card.pred_masks.cpu() - cpu.pred_masks).abs().max())
+    log(f"  {label}, demo_config, card against CPU: tokens/lengths/seg identical={same} "
+        f"mask max_abs={mask_err:.3e} kernel launches={launched} (CPU run "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not set(need) <= set(launched) or set(never) & set(launched):
+        raise AssertionError(f"{label}: kernels {launched}, need {need}, never {never}")
+    if same and mask_err <= 1e-3:
+        return
+    if records and not same:
+        w8a8_edge(params, cfg, dev, kw, card_codes.records, cpu_codes.records)
+        return
+    raise AssertionError(f"{label}: the card and the CPU disagree at demo_config")
+
+
+def same_or_edge(label, a, b, logits):
+    """a against b, two GenerateResults of float runs (FLOAT_PART_REL says
+    what is held); logits(hidden [N, H]) -> fp32 logits, to report how near
+    the tie was where a row's tokens part."""
+    ta, tb = a.tokens.cpu(), b.tokens.cpu()
+    ha, hb = a.pred_hidden.float().cpu(), b.pred_hidden.float().cpu()
+    if not (torch.isfinite(ha).all() and torch.isfinite(hb).all()):
+        raise AssertionError(f"{label}: predictor hidden states not finite")
+    scale = float(hb.abs().max())
+    worst, parts = 0.0, []
+    for r in range(ta.shape[0]):
+        differ = (ta[r] != tb[r]).nonzero()
+        s = int(differ[0]) if len(differ) else ta.shape[1] - 1
+        worst = max(worst, float((ha[r, :s + 1] - hb[r, :s + 1]).abs().max()))
+        if len(differ):
+            la, lb = logits(ha[r, s][None])[0], logits(hb[r, s][None])[0]
+            i, j = int(ta[r, s]), int(tb[r, s])
+            parts.append(f"row {r} step {s}: gaps {float(la[i] - la[j]):.3e} / "
+                         f"{float(lb[j] - lb[i]):.3e} of logits up to "
+                         f"{float(lb.abs().max()):.3g}")
+    ok = worst <= FLOAT_PART_REL * scale
+    log(f"  {label}: tokens identical={not parts}"
+        + (f" (parted: {'; '.join(parts)})" if parts else "")
+        + f"; predictor hidden states up to the parting max_abs={worst:.3e} (scale "
+          f"{scale:.3g}, limit {FLOAT_PART_REL * scale:.3e}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the runs part beyond rounding")
+
+
+def greedy_on(params, cfg, kw, dev, **gen_kw):
+    """greedy_generate over a request's spliced prompt (no EOS, K1 in the
+    prefill), on the device of `dev`."""
+    kw = {k: to_device(v, dev) for k, v in kw.items() if k != "device"}
+    sp = spliced(params, cfg, kw, walkgpt.encode_sam(params, cfg, kw["images"])[1])
+    flash_fn = lambda q, k, v, kv: fa.flash_attention(q, k, v, True, key_valid=kv)
+    return generate.greedy_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
+                                    max_new_tokens=kw["max_new_tokens"], eos_id=-1,
+                                    flash_fn=flash_fn, kv_quant=cfg.kv_quant_cache or "",
+                                    **gen_kw)
+
+
+def drop_mlp_biases(params):
+    """MPT's MLP without biases, as the published MPT-7B has it (the int4
+    packs are bias-free); in place."""
+    for layer in params["llm"]["layers"]:
+        for proj in layer["mlp"].values():
+            proj.pop("b", None)
+    return params
+
+
+def phase_mpt(dev, seed, max_new_tokens):
+    """10b: WalkGPT on MPT-7B (ALiBi, 32 layers of 4096) at full width, bf16
+    then int4 weights over the int8 heads cache, each with its step's wall
+    and device ms; 10f: the einsum fast SAM attention against the kernels
+    on a ViT-H encode; the card against the CPU at demo width."""
+    log("== phase 10b: WalkGPT on MPT-7B (ALiBi), random weights, bf16 and int4 weights")
+    cfg = walkgpt_7b_config().replace(llm=config_module.MPT_7B)
+    params = drop_mlp_biases(walkgpt.init(cfg, seed=seed, dtype=torch.bfloat16, device=dev))
+    kw = full_width_request(cfg, dev, seed, max_new_tokens, torch.bfloat16)
+    launches, out, ms, cfg = requests(params, cfg, kw, "MPT-7B bf16, heads cache")
+    step_times("MPT-7B bf16", params, cfg, kw, ms)
+    phase_fast_sam(params, cfg, kw)
+    params = dict(params, llm=quant.quantize_llm(params["llm"], act_quant=True, mlp_int4=True,
+                                                 attn_int4=True))
+    torch.cuda.empty_cache()
+    cfg = cfg.replace(kv_quant_cache="int8")
+    quantized, _, ms, _ = requests(params, cfg, kw, "MPT-7B int4 weights, int8 heads cache", n=1)
+    step_times("MPT-7B int4 weights", params, cfg, kw, ms)
+    launches = add(launches, quantized)
+    gelu = quantized["fused_mlp_int4"]
+    log(f"  K6's gelu route at MPT-7B widths on the model path: {gelu} launches "
+        f"(K5 {quantized['int4_matmul_pallas']})")
+    del params
+    torch.cuda.empty_cache()
+    demo = demo_config().replace(llm=MPT_DEMO, use_flash_attention=True)
+    mp = drop_mlp_biases(walkgpt.init(demo, seed=seed, dtype=torch.float32, device=dev))
+    demo_card_cpu("MPT dense", mp, demo, dev, seed + 91, ("sam_window_attention_packed",),
+                  never=("flash_attention",))
+    mp = dict(mp, llm=quant.quantize_llm(mp["llm"], act_quant=True, mlp_int4=True,
+                                         attn_int4=True))
+    demo_card_cpu("MPT int4 weights, int8 heads cache", mp, demo.replace(kv_quant_cache="int8"),
+                  dev, seed + 92, ("int4_matmul_pallas", "fused_mlp_int4"), records=True,
+                  never=("flash_attention", "decode_attention_q"))
+    return launches, gelu
+
+
+def step_times(label, params, cfg, kw, ms):
+    """The request replayed step by step twice (replay): wall ms on the host
+    clock, then device ms (the profiler); logs the decode step's and the
+    prefill's, beside the weights' bound of a step."""
+    n = kw["max_new_tokens"]
+    walls = replay(params, cfg, kw, host_ms)[0]
+    devices = replay(params, cfg, kw, lambda fn: profiled(fn, {}))[0]
+    step_bytes = nbytes(*_leaves(params["llm"])) - nbytes(params["llm"]["embed_tokens"]["w"])
+    log(f"  {label} request: end_to_end_ms={ms:.1f}; decode per step: wall_ms="
+        f"{walls['decode'] / n:.2f} device_ms={devices['decode'] / n:.2f} device_busy="
+        f"{devices['decode'] / walls['decode']:.3f} bound_ms={step_bytes / PEAK_BYTES * 1e3:.2f} "
+        f"(weights, {step_bytes / 1e9:.2f} GB); prefill wall_ms={walls['prefill']:.1f} "
+        f"device_ms={devices['prefill']:.1f} (plain attention)")
+
+
+def phase_fast_sam(params, cfg, kw):
+    """10f: one ViT-H encode (bf16) through the einsum attention's fast branch
+    (use_flash_attention off, fast_windowed_attention on) against the
+    kernels' route and the plain einsum branch; the drift is reported (the
+    JAX package's note expects about 7e-2 in bf16), the outputs held finite
+    and the kernels held idle on the einsum routes."""
+    img = kw["images"][:1]
+    kernel_cfg = cfg.replace(use_flash_attention=True)
+    fast_cfg = cfg.replace(use_flash_attention=False, fast_windowed_attention=True)
+    kernels = walkgpt.encode_sam(params, kernel_cfg, img)[0].float()
+    before = (fa.sam_window_attention_packed.launches, fa.sam_flash_attention.launches)
+    fast, fast_ms = host_ms(lambda: walkgpt.encode_sam(params, fast_cfg, img)[0])
+    plain = walkgpt.encode_sam(params, fast_cfg.replace(fast_windowed_attention=False), img)[0]
+    idle = before == (fa.sam_window_attention_packed.launches, fa.sam_flash_attention.launches)
+    scale = float(kernels.abs().max())
+    d_fast = float((fast.float() - kernels).abs().max())
+    d_plain = float((plain.float() - kernels).abs().max())
+    ok = bool(torch.isfinite(fast.float()).all()) and idle
+    log(f"== phase 10f: ViT-H encode (1 image, bf16), the einsum fast branch against the "
+        f"kernels: max_abs={d_fast:.3e} (relative {d_fast / scale:.3e}); the plain einsum "
+        f"branch {d_plain:.3e} ({d_plain / scale:.3e}); features up to {scale:.3g}; fast "
+        f"encode {fast_ms:.1f} ms; K2/K3 idle on the einsum routes: {idle} -> "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fast einsum SAM attention: not finite, or a kernel ran")
+
+
+def phase_fp16_paths(dev, seed, max_new_tokens):
+    """10c: --precision fp16 at WalkGPT-7B (fp16 parameters, fp32 images:
+    the SAM encoder in fp32 on K2/K3's fp32 routes, the LLM in fp16), dense
+    (K1 in fp16) and int4x over int4_flat with weight-only int8 SAM blocks
+    (K1, K4, K5, K6 in fp16), outputs finite; 10d: the growing cache
+    (decode_cache_grow 16) against the single allocation on the dense
+    request; the card against the CPU at demo_config's widths in fp16.
+    Returns (launches, the fp16 routes' launches)."""
+    log("== phase 10c: --precision fp16 at WalkGPT-7B, random weights")
+    f16 = torch.float16
+    cfg = walkgpt_7b_config()
+    params = walkgpt.init(cfg, seed=seed, dtype=f16, device=dev)
+    kw = full_width_request(cfg, dev, seed, max_new_tokens, torch.float32)
+    launches, out, ms, cfg = requests(params, cfg, kw, "WalkGPT-7B fp16 dense", n=1)
+    fp16_launches = dict.fromkeys(FP16_ROUTES, 0)
+    fp16_launches["flash_attention"] += launches["flash_attention"]
+    log("== phase 10d: the growing cache (decode_cache_grow 16) against one allocation, "
+        "WalkGPT-7B fp16 dense")
+    grow_launches = requests(params, cfg.replace(decode_cache_grow=16), kw,
+                             "decode_cache_grow=16", n=1)[0]
+    launches = add(launches, grow_launches)
+    base = greedy_on(params, cfg, kw, dev)
+    grown = greedy_on(params, cfg, kw, dev, cache_grow_step=16)
+    same_or_edge("greedy, cache_grow_step 16 against 0", grown, base,
+                 lambda h: llm.lm_logits(params["llm"], cfg.llm, h.to(dev, f16)).float().cpu())
+    del params
+    torch.cuda.empty_cache()
+    cfg = walkgpt_7b_config().replace(kv_quant_cache="int4_flat")
+    params = walkgpt.init_quantized(cfg, seed=seed, dtype=f16, device=dev,
+                                    **{**FORMAT_7B, "sam_int8": False})
+    params["sam"] = quant.quantize_sam_encoder(params["sam"])       # the CLI's --sam_quant int8
+    kw = full_width_request(cfg, dev, seed, max_new_tokens, torch.float32)
+    quant_launches = requests(params, cfg, kw, "WalkGPT-7B fp16 int4x + int4_flat", n=1)[0]
+    launches = add(launches, quant_launches)
+    for name in FP16_ROUTES:
+        fp16_launches[name] += quant_launches[name]
+    del params
+    torch.cuda.empty_cache()
+    log("  the card against the CPU in fp16, demo_config's LLM (greedy, K1 in the prefill)")
+    demo = demo_config().replace(use_flash_attention=True)
+    for label, fmt, kv in (("dense, heads cache", None, False),
+                           ("int4x, int4_flat", FORMAT_7B, "int4_flat")):
+        c = demo.replace(kv_quant_cache=kv)
+        if fmt is None:
+            p = walkgpt.init(c, seed=seed, dtype=f16, device=dev)
+        else:
+            p = walkgpt.init_quantized(c, seed=seed, dtype=f16, device=dev,
+                                       **{**fmt, "sam_int8": False})
+        kw_d = demo_request(p, c, dev, seed + 93, probe=False)[0]
+        cpu_p = to_device(p, "cpu")
+        card = greedy_on(p, c, kw_d, dev)
+        t0 = time.perf_counter()
+        cpu = greedy_on(cpu_p, c, kw_d, torch.device("cpu"))
+        same_or_edge(f"fp16 {label}, card against CPU (CPU run "
+                     f"{time.perf_counter() - t0:.1f} s)", card, cpu,
+                     lambda h: llm.lm_logits(cpu_p["llm"], c.llm, h.to(f16)).float())
+        del p, cpu_p
+    return launches, fp16_launches
+
+
+def phase_switches(dev, seed, max_new_tokens):
+    """10e: the decode switches, one request each at full width with launches
+    held (WalkGPT-7B int4x: QDOT8 off, PVDOT8 on, DECODE_BLOCK 128 and 512;
+    WalkGPT-1B w8a8: FUSED_MLP8 off greedy, QDOT8 off speculative through
+    K8), and each at demo_config on the card against the CPU."""
+    log("== phase 10e: the decode switches, full width and card against CPU")
+    bf16 = torch.bfloat16
+    k4 = ((fa, "DECODE_QDOT8", False), (fa, "DECODE_PVDOT8", True), (fa, "DECODE_BLOCK", 128),
+          (fa, "DECODE_BLOCK", 512))
+    cfg = walkgpt_7b_config().replace(kv_quant_cache="int4_flat")
+    params = walkgpt.init_quantized(cfg, seed=seed, dtype=bf16, device=dev, **FORMAT_7B)
+    kw = full_width_request(cfg, dev, seed, max_new_tokens, bf16)
+    launches = dict.fromkeys(KERNEL_INFO, 0)
+    for item in k4:
+        with switched(item):
+            launches = add(launches, requests(params, cfg, kw, f"7B int4x, {item[1]}={item[2]}",
+                                              n=1)[0])
+    del params
+    torch.cuda.empty_cache()
+    cfg = flagship_1b_config().replace(kv_quant_cache="int8_flat")
+    params = walkgpt.init_quantized(cfg, seed=seed, dtype=bf16, device=dev, **FORMAT_1B)
+    kw = full_width_request(cfg, dev, seed, max_new_tokens, bf16)
+    with switched((llm, "_FUSED_MLP8", False)):
+        launches = add(launches, requests(params, cfg, kw, "1B w8a8, _FUSED_MLP8=False", n=1)[0])
+    with switched((fa, "DECODE_QDOT8", False)):
+        launches = add(launches, requests(params, cfg, dict(kw, speculative_k=SPEC_K),
+                                          "1B w8a8 speculative, DECODE_QDOT8=False", n=1)[0])
+    del params
+    torch.cuda.empty_cache()
+    demo = demo_config().replace(use_flash_attention=True)
+    p = walkgpt.init_quantized(demo.replace(kv_quant_cache="int4_flat"), seed=seed,
+                               dtype=torch.float32, device=dev, **{**FORMAT_7B, "sam_int8": False})
+    for item in k4:
+        with switched(item):
+            demo_card_cpu(f"7B format, float SAM, {item[1]}={item[2]}", p,
+                          demo.replace(kv_quant_cache="int4_flat"), dev, seed + 94,
+                          ("decode_attention_q",), records=True)
+    p = walkgpt.init_quantized(demo.replace(kv_quant_cache="int8_flat"), seed=seed,
+                               dtype=torch.float32, device=dev, **{**FORMAT_1B, "sam_int8": False})
+    with switched((llm, "_FUSED_MLP8", False)):
+        demo_card_cpu("1B format, float SAM, _FUSED_MLP8=False", p,
+                      demo.replace(kv_quant_cache="int8_flat"), dev, seed + 95,
+                      ("decode_attention_q",), records=True)
+    p = walkgpt.init(demo.replace(kv_quant_cache="int8_flat"), seed=seed, dtype=torch.float32,
+                     device=dev)
+    with switched((fa, "DECODE_QDOT8", False)):
+        demo_card_cpu("dense, int8_flat, speculative, DECODE_QDOT8=False", p,
+                      demo.replace(kv_quant_cache="int8_flat"), dev, seed + 96,
+                      ("decode_attention_q_chunk",), spec=SPEC_K)
+    return launches
+
+
+def phase_variants(dev, seed, max_new_tokens, numbers):
+    """Phase 10 (10a-10f); adds the fp16 routes' and K6's gelu route's
+    numbers to `numbers` (the kernels line) and returns the launches."""
+    t0 = time.perf_counter()
+    times = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        times[name] = round(time.perf_counter() - t, 1)
+        return out
+    fp16 = timed("10a", lambda: phase_fp16_kernels(dev, seed))
+    launches, gelu = timed("10b", lambda: phase_mpt(dev, seed, max_new_tokens))
+    more, fp16_launches = timed("10c-d", lambda: phase_fp16_paths(dev, seed, max_new_tokens))
+    launches = add(launches, more)
+    launches = add(launches, timed("10e", lambda: phase_switches(dev, seed, max_new_tokens)))
+    for name in FP16_ROUTES:
+        if fp16_launches[name] <= 0:
+            raise AssertionError(f"{name}'s fp16 route never launched on the fp16 paths")
+        numbers[name]["fp16"] = dict(fp16[name], launches=fp16_launches[name])
+    if gelu <= 0:
+        raise AssertionError("K6's gelu route never launched on the MPT-7B path")
+    numbers["fused_mlp_int4"]["gelu_mpt7b_bf16"] = dict(fp16["fused_mlp_int4 gelu"],
+                                                        launches=gelu)
+    log(f"  phase 10 (variants and switches): {time.perf_counter() - t0:.1f} s ({times})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-new-tokens", type=int, default=32)
+    ap.add_argument("--max-new-tokens", type=int, default=16)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -4674,6 +5248,10 @@ def main(argv=None) -> int:
                                              make, **extra))
         torch.cuda.empty_cache()
         log(f"  {label}: phase {time.perf_counter() - t0:.1f} s")
+    # phase 10, after the model paths of phase 4 (its profiler readings
+    # among theirs)
+    launches = add(launches, phase_variants(dev, args.seed, args.max_new_tokens, numbers))
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches = add(launches, phase_w8a8_blocks(dev, args.seed))
     torch.cuda.empty_cache()

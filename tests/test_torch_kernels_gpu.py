@@ -55,6 +55,12 @@ that sees no valid key the mean of v over the keys of the tiles it visits
 (the CUDA-core engine's function), finite. K4 runs the chunk engine of K8
 (all modes but the int8 value product), which keeps the walk's rounding
 points in the same order: it equals K4 on the walk route bit for bit.
+K1, K4, K5 and K6 have fp16 routes: K1 and K5 round their output to fp16
+once (one fp16 step, 4e-3 max and 4e-4 mean relative to the output's
+largest magnitude), K4 and K6 round to bf16 inside as in bf16 (the bf16
+bounds); K4's fp16 chunk engine equals its walk bit for bit. The decode
+kernels K4, K8, K11 take blocks of 128, 256 and 512 keys within their
+bounds (K4 and K11 equal to their walks bit for bit).
 """
 import pytest
 import torch
@@ -182,8 +188,8 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     q = torch.zeros(1, 1, 4, 200, device=dev)              # D > 128: no kernel
     with pytest.raises(ValueError):
         fa.flash_attention(q, q, q, True, None)
-    with pytest.raises(ValueError):                         # fp16: no kernel
-        fa.flash_attention(q.half(), q.half(), q.half(), True, None)
+    with pytest.raises(ValueError):                         # mixed dtypes: no kernel
+        fa.flash_attention(q.half(), q.bfloat16(), q.half(), True, None)
     assert fa.flash_attention.launches == before
 
 
@@ -347,8 +353,9 @@ def test_int8_product_on_the_card_is_exact(dev, m, k, n):
 def test_quantized_wrappers_raise_instead_of_falling_back(dev):
     counts = [f.launches for f in (fa.decode_attention_q, *int4.KERNELS)]
     w = int4.quantize_weight4(torch.randn(64, 128, device=dev))
-    with pytest.raises(ValueError):                         # fp16: no kernel
-        int4.int4_matmul_pallas(torch.zeros(2, 64, device=dev).half(), w["w_p4"], w["w_scale"])
+    with pytest.raises(ValueError):                         # fp64: no kernel
+        int4.int4_matmul_pallas(torch.zeros(2, 64, device=dev).double(), w["w_p4"],
+                                w["w_scale"])
     kq = torch.zeros(1, 1, 256, 32, dtype=torch.int8, device=dev)
     ks = torch.zeros(1, 1, 2, 256, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):                         # fp32 scales: no kernel
@@ -1097,3 +1104,91 @@ def test_k12_k13_wrappers_raise_instead_of_falling_back(dev):
             torch.ones(2, 16, dtype=torch.bool, device=dev), {}, torch.ones(16, device=dev), {},
             n_kv=1, head_dim=8, pack4=True, layer=0, act="silu", norm_eps=1e-6)
     assert [f.launches for f in int8_gemm.KERNELS + fused_layer.KERNELS] == before
+
+
+# ---------------------------------------------------------------------------
+# the fp16 routes of K1, K4, K5, K6 and the decode blocks 128, 256, 512
+# ---------------------------------------------------------------------------
+
+def _close_fp16(got, want, bf16_inside):
+    """fp16 against the plain version, relative to the output's largest
+    magnitude (at least 1): one fp16 step (4e-3 max, 4e-4 mean) where the
+    kernel rounds once at its output (K1, K5); the bf16 bounds where it
+    rounds to bf16 inside (K4, K6)."""
+    assert got.dtype == torch.float16 and torch.isfinite(got.float()).all()
+    scale = max(1.0, float(want.float().abs().max()))
+    err = (got.float() - want.float()).abs() / scale
+    lim = (2e-2, 2e-3) if bf16_inside else (4e-3, 4e-4)
+    assert err.max() <= lim[0] and err.mean() <= lim[1], (err.max(), err.mean())
+
+
+@pytest.mark.parametrize("n,d,causal", [(37, 16, True), (130, 20, True), (447, 128, True),
+                                        (65, 64, False)])
+def test_k1_fp16_route_matches_plain(dev, n, d, causal):
+    g = torch.Generator(device=dev).manual_seed(n * d + 1)
+    q, k, v = (torch.randn(2, 3, n, d, generator=g, device=dev).half() for _ in range(3))
+    kv = torch.arange(n, device=dev)[None] < torch.tensor([[n], [n - 11]], device=dev)
+    out, lse = fa.flash_attention(q, k, v, causal, kv, return_lse=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal, kv)
+    _close_fp16(out, ref, False)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("h,n_kv,d,l,pack4", [(4, 2, 16, 48, False), (6, 3, 8, 24, True),
+                                               (32, 32, 128, 512, True)])
+@pytest.mark.parametrize("qdot8,pv8", [(True, False), (False, False), (True, True)])
+def test_k4_fp16_route_matches_plain(dev, h, n_kv, d, l, pack4, qdot8, pv8):
+    g = torch.Generator(device=dev).manual_seed(h * d + l + 2)
+    kq, ks, vq, vs = _flat_cache(dev, g, 2, l, n_kv, d, pack4)
+    q = torch.randn(2, h * d, generator=g, device=dev).half()
+    mask = torch.arange(l, device=dev)[None] < torch.tensor([[l * 3 // 4], [l // 2]], device=dev)
+    kw = dict(n_kv=n_kv, head_dim=d, pack4=pack4, layer=1, block=min(l, 256),
+              valid_len=l * 3 // 4, qdot_int8=qdot8, pv_int8=pv8)
+    out = fa.decode_attention_q(q, kq, ks, vq, vs, mask, **kw)
+    _close_fp16(out, fa.decode_attention_q_reference(q, kq, ks, vq, vs, mask, **kw), True)
+    assert torch.equal(out, fa.decode_attention_q_walk(q, kq, ks, vq, vs, mask, **kw))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 128), (2, 4096, 12288), (4, 4096, 32128)])
+def test_k5_fp16_route_matches_plain(dev, m, k, n):
+    g = torch.Generator(device=dev).manual_seed(m + k + n + 3)
+    w = int4.quantize_weight4(torch.randn(k, n, generator=g, device=dev) * 0.02)
+    x = torch.randn(m, k, generator=g, device=dev).half()
+    out = int4.int4_matmul_pallas(x, w["w_p4"], w["w_scale"])
+    _close_fp16(out, int4.int4_matmul_pallas_reference(x, w["w_p4"], w["w_scale"]), False)
+
+
+@pytest.mark.parametrize("m,h,i_dim,act", [(1, 64, 96, "silu"), (2, 4096, 11008, "silu"),
+                                           (3, 160, 200, "gelu"), (2, 4096, 16384, "gelu")])
+def test_k6_fp16_route_matches_plain(dev, m, h, i_dim, act):
+    g = torch.Generator(device=dev).manual_seed(m + h + i_dim + 4)
+    p = _mlp(dev, g, h, i_dim, act, "int4")
+    x = torch.randn(m, 1, h, generator=g, device=dev).half()
+    _close_fp16(int4.fused_mlp_int4(p, x, act), int4.fused_mlp_int4_reference(p, x, act), True)
+
+
+@pytest.mark.parametrize("block", [128, 256, 512])
+def test_decode_kernels_at_each_block(dev, block):
+    """K4 (against its plain version and its walk), K8, K11 (against its
+    walk) and K12 at the 7B step's shapes with blocks of 128, 256 and 512
+    keys over a 512-slot cache."""
+    g = torch.Generator(device=dev).manual_seed(block)
+    kq, ks, vq, vs = _flat_cache(dev, g, 2, 512, 32, 128, True)
+    q = torch.randn(2, 4096, generator=g, device=dev).bfloat16()
+    mask = torch.arange(512, device=dev)[None].expand(2, 512) < 480
+    kw = dict(n_kv=32, head_dim=128, pack4=True, layer=1, block=block, valid_len=480)
+    out = fa.decode_attention_q(q, kq, ks, vq, vs, mask, **kw)
+    _close_scaled(out, fa.decode_attention_q_reference(q, kq, ks, vq, vs, mask, **kw),
+                  torch.bfloat16)
+    assert torch.equal(out, fa.decode_attention_q_walk(q, kq, ks, vq, vs, mask, **kw))
+    qc = torch.randn(2, 9, 4096, generator=g, device=dev).bfloat16()
+    cl = torch.tensor([440, 375], device=dev)
+    kc = dict(n_kv=32, head_dim=128, pack4=True, layer=1, block=block)
+    _close_scaled(fa.decode_attention_q_chunk(qc, kq, ks, vq, vs, cl, **kc),
+                  fa.decode_attention_q_chunk_reference(qc, kq, ks, vq, vs, cl, **kc),
+                  torch.bfloat16)
+    kf = torch.randn(2, 2, 512, 4096, generator=g, device=dev).bfloat16()
+    vf = torch.randn(2, 2, 512, 4096, generator=g, device=dev).bfloat16()
+    assert torch.equal(fa.decode_attention(q, kf, vf, mask, n_kv=32, layer=1, block=block),
+                       fa.decode_attention_walk(q, kf, vf, mask, n_kv=32, layer=1, block=block))
+

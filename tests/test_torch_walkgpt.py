@@ -77,8 +77,11 @@ def test_generate_and_segment_matches_jax(setup, flash):
 
 def test_fast_windowed_attention_selects_nothing_under_the_kernels(setup):
     """As in the JAX package, fast_windowed_attention only changes the einsum
-    SAM attention; with use_flash_attention the kernels run either way. The
-    einsum branch it selects is not ported and raises."""
+    SAM attention; with use_flash_attention the kernels run either way.
+    Without them it selects the einsum attention's fast branch, held against
+    the JAX package's: tokens, lengths and seg rows identical, masks and
+    scores within atol 1e-4 in fp32 (as test_generate_and_segment_matches_jax;
+    the branch reorders the bias sum and the softmax's division)."""
     p, pt, inputs, seg, eos = setup
     tc = tcfg.tiny_config(seg_token_id=seg).replace(use_flash_attention=True)
     kw = dict(max_new_tokens=8, max_segs=8, eos_id=eos, device="cpu", **inputs)
@@ -86,6 +89,16 @@ def test_fast_windowed_attention_selects_nothing_under_the_kernels(setup):
     fast = twalk.generate_and_segment(pt, tc.replace(fast_windowed_attention=True), **kw)
     assert torch.equal(base.tokens, fast.tokens) and torch.equal(base.seg_rows, fast.seg_rows)
     assert torch.equal(base.pred_masks, fast.pred_masks)
-    with pytest.raises(NotImplementedError, match="fast_windowed"):
-        twalk.generate_and_segment(
-            pt, tc.replace(fast_windowed_attention=True, use_flash_attention=False), **kw)
+    jc = jcfg.tiny_config(seg_token_id=seg).replace(use_flash_attention=False, clip=None,
+                                                    fast_windowed_attention=True)
+    want = jwalk.generate_and_segment(
+        jax.tree_util.tree_map(jnp.asarray, p), jc, max_new_tokens=8, max_segs=8,
+        eos_id=eos, **{k: jnp.asarray(v) for k, v in inputs.items()})
+    got = twalk.generate_and_segment(
+        pt, tc.replace(fast_windowed_attention=True, use_flash_attention=False), **kw)
+    for name in ("tokens", "lengths", "seg_valid", "seg_rows"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)), err_msg=name)
+    for name in ("pred_masks", "mask_scores"):
+        np.testing.assert_allclose(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
+                                   atol=1e-4, rtol=0, err_msg=name)

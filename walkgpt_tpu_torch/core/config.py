@@ -5,10 +5,8 @@ defaults and factories, so that one configuration drives both packages and
 the tests can compare them field by field. The port keeps its own copy and
 never imports the JAX package.
 
-Fields that select a JAX/TPU-only code path (quantized caches, the fused
-flat-cache decode, scan segmentation, growing caches) are kept so the two
-configurations stay identical; the port raises where a value it has not
-ported yet is requested.
+Fields that select a JAX/TPU-only code path (scan segmentation) are kept so
+the two configurations stay identical; the port ignores them.
 """
 from __future__ import annotations
 
@@ -228,9 +226,9 @@ class WalkGPTConfig:
     # True: the attention kernels (LLM prefill, SAM window and global
     # attention); False: the plain einsum attention.
     use_flash_attention: bool = True
-    # bf16 bias/logits in the einsum SAM window attention (not ported yet).
-    # With use_flash_attention the kernels run and this selects nothing, as
-    # in the JAX package.
+    # bias/logits in the activation dtype in the einsum SAM window attention
+    # (fp32 softmax statistics only). With use_flash_attention the kernels
+    # run and this selects nothing, as in the JAX package.
     fast_windowed_attention: bool = False
     # tanh-approximate GELU in the SAM encoder MLPs.
     fast_gelu: bool = False
@@ -248,8 +246,9 @@ class WalkGPTConfig:
     # JAX decode-scan segmentation; the port decodes in a Python loop and
     # ignores it (tokens are identical by construction).
     decode_scan_segment: int = 256
-    # JAX growing-cache decode segments (not ported; must stay 0: the JAX
-    # package measured it as a regression).
+    # growing-cache decode: greedy segments of this many steps, each reading
+    # only the cache prefix it can attend (heads layout; 0 = off, the
+    # production setting: the JAX package measured it as a regression).
     decode_cache_grow: int = 0
 
     def replace(self, **kw) -> "WalkGPTConfig":

@@ -1,5 +1,5 @@
-// Tensor-core forward-attention engine (bf16), the Hopper redesign of
-// attention_tile.cuh for bf16 inputs. Built on it: K1
+// Tensor-core forward-attention engine (bf16; fp16 for K1 through the FP16
+// trait), the Hopper redesign of attention_tile.cuh for bf16 inputs. Built on it: K1
 // (flash_attention.cu), K3 (sam_flash_attention.cu), K2
 // (sam_window_attention.cu) and K10 (sam_window_attention_split.cu). Their
 // fp32 routes stay on attention_tile.cuh: the tensor cores have no exact
@@ -57,9 +57,19 @@
 //                 each, as the CUDA-core engine gives it (the fused form
 //                 s log2e - m log2e leaves the rounding error of a product
 //                 of magnitude 1e30 in the exponent)
+//   FP16          q, k, v and out are fp16 (the pointers keep the bf16 type:
+//                 the staging copies 16-bit values as they are): the
+//                 products are f16 mma.sync with fp32 sums, p's fragments
+//                 (and SPLIT_P's hi and lo) are rounded to fp16 and the
+//                 output is written in fp16; needs SCALE_ACC (K1's fp16
+//                 route). fp16's 11 significant bits make q . k exact in
+//                 fp32 as bf16's do, and hi + lo keeps about 22 bits of p
+//                 (a lo below fp16's normal range, 2^-14, loses bits: such
+//                 a term weighs at most 2^-25 of the row's sum)
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -98,13 +108,21 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
                : "r"(smem_addr(p)));
 }
 
-// c += a . b, bf16 operands, fp32 sums
+// c += a . b, bf16 operands (H: fp16), fp32 sums
+template <bool H = false>
 __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (H)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 16 bytes from global to shared; src_bytes 0 writes zeros
@@ -130,31 +148,47 @@ __device__ __forceinline__ float exp2_fast(float x) {
   return y;
 }
 
+// two floats rounded to bf16 (H: fp16), packed low half first
+template <bool H = false>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+  if constexpr (H) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // The A fragment of k-step j (keys 16 j .. +15) from a 16 x 64 fp32
 // accumulator: rounded to bf16 (hi), and the rounding error rounded to bf16
-// (lo), so that hi + lo keeps about 16 significant bits of x.
+// (lo), so that hi + lo keeps about 16 significant bits of x (H: fp16
+// halves, about 22 bits).
+template <bool H = false>
 __device__ __forceinline__ void a_frag(const float (&s)[NT][4], int j, uint32_t a[4]) {
-  a[0] = pack(s[2 * j][0], s[2 * j][1]);
-  a[1] = pack(s[2 * j][2], s[2 * j][3]);
-  a[2] = pack(s[2 * j + 1][0], s[2 * j + 1][1]);
-  a[3] = pack(s[2 * j + 1][2], s[2 * j + 1][3]);
+  a[0] = pack<H>(s[2 * j][0], s[2 * j][1]);
+  a[1] = pack<H>(s[2 * j][2], s[2 * j][3]);
+  a[2] = pack<H>(s[2 * j + 1][0], s[2 * j + 1][1]);
+  a[3] = pack<H>(s[2 * j + 1][2], s[2 * j + 1][3]);
 }
 // the rounding errors of a packed pair: (x0 - hi.x, x1 - hi.y), packed
+template <bool H = false>
 __device__ __forceinline__ uint32_t pack_lo(float x0, float x1, uint32_t hi) {
-  return pack(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
+  if constexpr (H) {
+    const float2 h = __half22float2(*reinterpret_cast<const __half2*>(&hi));
+    return pack<true>(x0 - h.x, x1 - h.y);
+  } else {
+    return pack(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
+  }
 }
+template <bool H = false>
 __device__ __forceinline__ void a_frag_split(const float (&s)[NT][4], int j, uint32_t hi[4],
                                              uint32_t lo[4]) {
-  a_frag(s, j, hi);
-  lo[0] = pack_lo(s[2 * j][0], s[2 * j][1], hi[0]);
-  lo[1] = pack_lo(s[2 * j][2], s[2 * j][3], hi[1]);
-  lo[2] = pack_lo(s[2 * j + 1][0], s[2 * j + 1][1], hi[2]);
-  lo[3] = pack_lo(s[2 * j + 1][2], s[2 * j + 1][3], hi[3]);
+  a_frag<H>(s, j, hi);
+  lo[0] = pack_lo<H>(s[2 * j][0], s[2 * j][1], hi[0]);
+  lo[1] = pack_lo<H>(s[2 * j][2], s[2 * j][3], hi[1]);
+  lo[2] = pack_lo<H>(s[2 * j + 1][0], s[2 * j + 1][1], hi[2]);
+  lo[3] = pack_lo<H>(s[2 * j + 1][2], s[2 * j + 1][3], hi[3]);
 }
 
 // 64 rows of D values (row stride ld elements in global memory) into a
@@ -264,8 +298,8 @@ __device__ __forceinline__ void mma_abt_scaled(float (&acc)[NT][4], const bf16* 
 
 // out[2 KD][4] (16 x DP) += A (k-step j of the fragments `a`, 16 x 16) .
 // B rows 16 j .. +15 of `b` [64][SS] (ldmatrix.trans: B's rows are the
-// product's k index).
-template <int KD, int SS>
+// product's k index). H: fp16 operands.
+template <int KD, int SS, bool H = false>
 __device__ __forceinline__ void mma_ab(float (&out)[2 * KD][4], const uint32_t a[4], const bf16* b,
                                        int j) {
   const int lane = threadIdx.x & 31;
@@ -274,13 +308,13 @@ __device__ __forceinline__ void mma_ab(float (&out)[2 * KD][4], const uint32_t a
     uint32_t bf[4];
     ldsm_x4_t(bf, b + (16 * j + (lane & 7) + ((lane >> 3) & 1) * 8) * SS + 16 * dp +
                       (lane >> 4) * 8);
-    mma(out[2 * dp], a, bf[0], bf[1]);
-    mma(out[2 * dp + 1], a, bf[2], bf[3]);
+    mma<H>(out[2 * dp], a, bf[0], bf[1]);
+    mma<H>(out[2 * dp + 1], a, bf[2], bf[3]);
   }
 }
 
 // out += (hi + lo) . B, as mma_ab with two A fragments and one B load
-template <int KD, int SS>
+template <int KD, int SS, bool H = false>
 __device__ __forceinline__ void mma_ab2(float (&out)[2 * KD][4], const uint32_t hi[4],
                                         const uint32_t lo[4], const bf16* b, int j) {
   const int lane = threadIdx.x & 31;
@@ -289,10 +323,10 @@ __device__ __forceinline__ void mma_ab2(float (&out)[2 * KD][4], const uint32_t 
     uint32_t bf[4];
     ldsm_x4_t(bf, b + (16 * j + (lane & 7) + ((lane >> 3) & 1) * 8) * SS + 16 * dp +
                       (lane >> 4) * 8);
-    mma(out[2 * dp], hi, bf[0], bf[1]);
-    mma(out[2 * dp + 1], hi, bf[2], bf[3]);
-    mma(out[2 * dp], lo, bf[0], bf[1]);
-    mma(out[2 * dp + 1], lo, bf[2], bf[3]);
+    mma<H>(out[2 * dp], hi, bf[0], bf[1]);
+    mma<H>(out[2 * dp + 1], hi, bf[2], bf[3]);
+    mma<H>(out[2 * dp], lo, bf[0], bf[1]);
+    mma<H>(out[2 * dp + 1], lo, bf[2], bf[3]);
   }
 }
 
@@ -304,6 +338,7 @@ __device__ __forceinline__ void mma_ab2(float (&out)[2 * KD][4], const uint32_t 
 WGT_FWD_TRAIT(SCALE_ACC)
 WGT_FWD_TRAIT(SPLIT_P)
 WGT_FWD_TRAIT(SUB_MAX)
+WGT_FWD_TRAIT(FP16)
 #undef WGT_FWD_TRAIT
 
 // bytes of the engine's own tiles: Q, and K and V twice each
@@ -328,6 +363,8 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
   constexpr bool SCALE_ACC = has_SCALE_ACC<Prob>::value;
   constexpr bool SPLIT_P = has_SPLIT_P<Prob>::value;
   constexpr bool SUB_MAX = has_SUB_MAX<Prob>::value;
+  constexpr bool H = has_FP16<Prob>::value;
+  static_assert(!H || SCALE_ACC, "the fp16 route stages q unscaled");
   load_rows<SS, DP, F>(Qs, pr.q, pr.sq, pr.nq, pr.D, pr.vec);
   load_rows<SS, DP, F>(Ks, pr.k, pr.sk, min(BK, pr.nk), pr.D, pr.vec);
   load_rows<SS, DP, F>(Vs, pr.v, pr.sv, min(BK, pr.nk), pr.D, pr.vec);
@@ -383,8 +420,8 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
         uint32_t bf[4];
         ldsm_x4(bf, Kb + (16 * np + (lane & 7) + ((lane >> 4) & 1) * 8) * SS + 16 * kk +
                         ((lane >> 3) & 1) * 8);
-        mma(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+        mma<H>(s[2 * np], qf[kk], bf[0], bf[1]);
+        mma<H>(s[2 * np + 1], qf[kk], bf[2], bf[3]);
       }
     }
     if constexpr (SCALE_ACC) {
@@ -443,18 +480,18 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
         acc[i][3] *= alpha[1];
       }
     }
-    // P.V with p rounded to bf16 (SPLIT_P: hi + lo), straight from the
-    // logits' registers
+    // P.V with p rounded to bf16 or fp16 (SPLIT_P: hi + lo), straight from
+    // the logits' registers
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
       if constexpr (SPLIT_P) {
         uint32_t hi[4], lo[4];
-        a_frag_split(s, j, hi, lo);
-        mma_ab2<KD, SS>(acc, hi, lo, Vb, j);
+        a_frag_split<H>(s, j, hi, lo);
+        mma_ab2<KD, SS, H>(acc, hi, lo, Vb, j);
       } else {
         uint32_t pa[4];
-        a_frag(s, j, pa);
-        mma_ab<KD, SS>(acc, pa, Vb, j);
+        a_frag<H>(s, j, pa);
+        mma_ab<KD, SS, H>(acc, pa, Vb, j);
       }
     }
   }
@@ -469,7 +506,15 @@ __device__ __forceinline__ void attention_mma_tile(const Prob& pr, char* smem) {
     for (int i = 0; i < 2 * KD; ++i) {
       const int d = 8 * i + 2 * t;
       const float x0 = acc[i][2 * h] / lm, x1 = acc[i][2 * h + 1] / lm;
-      if (pr.D % 2 == 0) {   // even D: every pair d, d + 1 is in the row, 4-byte aligned
+      if constexpr (H) {
+        __half* oh = reinterpret_cast<__half*>(o);
+        if (pr.D % 2 == 0) {
+          if (d < pr.D) *reinterpret_cast<__half2*>(oh + d) = __floats2half2_rn(x0, x1);
+        } else {
+          if (d < pr.D) oh[d] = __float2half_rn(x0);
+          if (d + 1 < pr.D) oh[d + 1] = __float2half_rn(x1);
+        }
+      } else if (pr.D % 2 == 0) {   // even D: every pair d, d + 1 is in the row, 4-byte aligned
         if (d < pr.D) *reinterpret_cast<__nv_bfloat162*>(o + d) = __floats2bfloat162_rn(x0, x1);
       } else {
         if (d < pr.D) o[d] = __float2bfloat16_rn(x0);

@@ -23,6 +23,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -37,11 +38,15 @@ constexpr float NEG_BIG = -1e30f;   // the JAX kernels' finite "masked" logit
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);   // round to nearest even, as JAX's astype
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);    // round to nearest even; past 65504 inf, as JAX's astype
 }
 
 // x rounded to T and back (identity for float).

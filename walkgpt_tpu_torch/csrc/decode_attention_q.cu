@@ -109,7 +109,9 @@ bool bad_shape(int B, int H, int n_kv, int D, int L, int bl) {
 
 // q: [B, H*D]; k, v: the layer's [B, L, width] int8; ks, vs: [B, n_kv, L] bf16;
 // mask: [B, L] bytes; out: [B, H*D] in q's dtype. nvb: key blocks to visit.
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q read and out written in
+// fp16; the bf16 q's rounding points otherwise). Returns cudaGetLastError()
+// after the launch.
 extern "C" int wg_decode_attention_q(const void* q, const void* k, const void* ks,
                                      const void* v, const void* vs, const void* mask, void* out,
                                      int B, int H, int n_kv, int D, int L, int bl, int nvb,
@@ -127,6 +129,7 @@ extern "C" int wg_decode_attention_q(const void* q, const void* k, const void* k
   c.nvb = nvb;
   if (dtype == 0) return run<float>(a, c, B, qdot8, pv8, st);
   if (dtype == 1) return run<__nv_bfloat16>(a, c, B, qdot8, pv8, st);
+  if (dtype == 2) return run<__half>(a, c, B, qdot8, pv8, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -146,6 +149,7 @@ extern "C" int wg_decode_attention_q_walk(const void* q, const void* k, const vo
   a.Tc = 1;
   if (dtype == 0) return run_walk<float>(a, B, qdot8, pv8, st);
   if (dtype == 1) return run_walk<__nv_bfloat16>(a, B, qdot8, pv8, st);
+  if (dtype == 2) return run_walk<__half>(a, B, qdot8, pv8, st);
   return int(cudaErrorInvalidValue);
 }
 

@@ -32,6 +32,12 @@
 //     Query tiles run heaviest first (grid (B*H, tiles), the last tile of
 //     each causal row first). N = 447 and 767 leave ragged tiles, so the
 //     engine's general (bounds-checked) instantiation runs at every shape.
+//   * fp16 (the prefill of `--precision fp16`) runs the bf16 route's
+//     problem on the same engine with its FP16 trait: f16 mma.sync with fp32
+//     sums, s from the scaled accumulator (fp16 products are exact in fp32
+//     too), p split as hi = fp16(p), lo = fp16(p - hi), the output in fp16.
+//     The TPU kernel upcasts q, k and v to fp32 whatever their type, so the
+//     route keeps its arithmetic: the split keeps about 22 bits of p;
 //   * fp32 (the fp32 parity runs, which need exact fp32 products) stays on
 //     the CUDA-core engine of attention_tile.cuh.
 #include "attention_mma.cuh"
@@ -98,13 +104,17 @@ struct FlashProb {
   __device__ void lse(int r, float x) const { lp[q0 + r] = x; }
 };
 
-// The bf16 route's problem on the tensor-core engine.
+// The bf16 route's problem on the tensor-core engine (F16: the fp16
+// route's; its pointers hold fp16 values under the bf16 type, which the
+// engine only copies).
+template <bool F16>
 struct FlashMma {
   using bf16 = tc::bf16;
   static constexpr bool FAST = false;
   static constexpr bool SCALE_ACC = true;
   static constexpr bool SPLIT_P = true;
   static constexpr bool SUB_MAX = true;
+  static constexpr bool FP16 = F16;
   struct Args {
     const bf16* q;
     const bf16* k;
@@ -177,18 +187,20 @@ struct FlashMma {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <bool F16>
 int launch_mma(const void* q, const void* k, const void* v, const void* key_valid, void* out,
                void* lse, int B, int H, int N, int D, const int64_t* s, int causal, float scale,
                cudaStream_t st) {
   using bf16 = tc::bf16;
+  using Prob = FlashMma<F16>;
   bool vec = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   for (int i = 0; i < 9; ++i) vec = vec && s[i] % 8 == 0;
-  FlashMma::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+  typename Prob::Args a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), static_cast<const uint8_t*>(key_valid),
                    static_cast<bf16*>(out), static_cast<float*>(lse), H, N, D, causal,
                    s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], scale, vec};
   const dim3 grid(B * H, (N + tc::BQ - 1) / tc::BQ);
-  return int(tc::launch_fwd<FlashMma>(a, D, grid, st));
+  return int(tc::launch_fwd<Prob>(a, D, grid, st));
 }
 
 template <typename T>
@@ -207,7 +219,8 @@ int run(const void* q, const void* k, const void* v, const void* key_valid, void
 }  // namespace
 
 // strides: int64[9] = (q: batch, head, row), (k: ...), (v: ...), in elements.
-// dtype: 0 = float32 (CUDA-core engine), 1 = bfloat16 (tensor-core engine).
+// dtype: 0 = float32 (CUDA-core engine), 1 = bfloat16, 2 = float16 (tensor-core
+// engine).
 // Returns cudaGetLastError() after the launch.
 extern "C" int wg_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       const void* key_valid, void* out, void* lse,
@@ -218,6 +231,10 @@ extern "C" int wg_flash_attention_fwd(const void* q, const void* k, const void* 
   if (dtype == 0)
     return run<float>(q, k, v, key_valid, out, lse, B, H, N, D, strides, causal, scale, st);
   if (dtype == 1)
-    return launch_mma(q, k, v, key_valid, out, lse, B, H, N, D, strides, causal, scale, st);
+    return launch_mma<false>(q, k, v, key_valid, out, lse, B, H, N, D, strides, causal, scale,
+                             st);
+  if (dtype == 2)
+    return launch_mma<true>(q, k, v, key_valid, out, lse, B, H, N, D, strides, causal, scale,
+                            st);
   return int(cudaErrorInvalidValue);
 }

@@ -79,7 +79,8 @@ int run(const void* x, const void* gp, const void* gs, const void* up, const voi
 
 }  // namespace
 
-// up/us may be null (the gelu MLP). dtype: 0 = float32, 1 = bfloat16.
+// up/us may be null (the gelu MLP). dtype: 0 = float32, 1 = bfloat16, 2 = float16
+// (h stays bf16, as in the TPU kernel).
 // Returns cudaGetLastError() after the launches.
 extern "C" int wg_fused_mlp_int4(const void* x, const void* gp, const void* gs, const void* up,
                                  const void* us, const void* dp, const void* ds, void* scratch,
@@ -91,5 +92,7 @@ extern "C" int wg_fused_mlp_int4(const void* x, const void* gp, const void* gs, 
     return run<float>(x, gp, gs, up, us, dp, ds, scratch, out, M, H, I, TI, gelu, st);
   if (dtype == 1)
     return run<__nv_bfloat16>(x, gp, gs, up, us, dp, ds, scratch, out, M, H, I, TI, gelu, st);
+  if (dtype == 2)
+    return run<__half>(x, gp, gs, up, us, dp, ds, scratch, out, M, H, I, TI, gelu, st);
   return int(cudaErrorInvalidValue);
 }

@@ -150,12 +150,14 @@ int run(const void* x, const void* p, const void* s, void* out, int M, int K2, i
 }  // namespace
 }  // namespace wgt
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns cudaGetLastError() after
+// the launch.
 extern "C" int wg_int4_matmul(const void* x, const void* p, const void* s, void* out, int M,
                               int K2, int N, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || K2 <= 0 || N <= 0) return int(cudaErrorInvalidValue);
   if (dtype == 0) return wgt::run<float>(x, p, s, out, M, K2, N, st);
   if (dtype == 1) return wgt::run<__nv_bfloat16>(x, p, s, out, M, K2, N, st);
+  if (dtype == 2) return wgt::run<__half>(x, p, s, out, M, K2, N, st);
   return int(cudaErrorInvalidValue);
 }

@@ -1,6 +1,8 @@
 """Transformer LLM decoder (PyTorch counterpart of walkgpt_tpu/models/llm.py).
 
-The rope family (LLaMA; StableLM's partial rope and GQA) with dense or
+The rope family (LLaMA; StableLM's partial rope and GQA) and MPT's ALiBi
+(LayerNorm, GELU MLP, tied embeddings; the bias enters the plain attention,
+never K1, and only the heads-layout caches decode it) with dense or
 quantized weights (W8A8 "a8", weight-only int8, packed int4: fused "qkv4" /
 "qkv8" projections, packed MLPs and lm_head; ops/quant.py, ops/int4.py).
 Inputs are embeddings, not ids (the multimodal splice happens in
@@ -20,12 +22,15 @@ launch.
 LoRA: a q/k/v projection with "lora_a" [in, r] and "lora_b" [r, out]
 leaves adds (x @ lora_a) @ lora_b * lora_scale in the activation dtype
 (runtime/lora.py makes and merges the adapters). `forward(remat=True)`
-recomputes each block in the backward pass (torch.utils.checkpoint). ALiBi
-(MPT) is not ported yet.
+recomputes each block in the backward pass (torch.utils.checkpoint).
+
+_FUSED_MLP8 (the JAX package's WALKGPT_FUSED_MLP8, read at import, default
+on): W8A8 MLPs take K7 on decode rows; off, the per-projection W8A8 path.
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -38,9 +43,14 @@ from ..ops import int4
 from ..ops.attention import merge_heads, mha, split_heads
 from ..ops.flash_attention import (banded_q8, decode_attention, decode_attention_q,
                                    decode_attention_q_chunk)
+from ..ops import fused_layer as fl
 from ..ops.fused_layer import fused_layer_tail, layer_tail_supported
 
 Params = Dict
+
+# K7 for W8A8 MLPs on decode rows (WALKGPT_FUSED_MLP8=0: the per-projection
+# W8A8 products), read at call time by _mlp
+_FUSED_MLP8 = os.environ.get("WALKGPT_FUSED_MLP8", "1") == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -120,13 +130,30 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return out
 
 
+def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
+    """The ALiBi slopes: powers of 2^(-8/n), with the interleaved fallback
+    for a head count that is not a power of two. [num_heads] fp32."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(math.log2(n) - 3)))
+        return [start * (start ** i) for i in range(n)]
+    if math.log2(num_heads).is_integer():
+        s = pow2_slopes(num_heads)
+    else:
+        closest = 2 ** math.floor(math.log2(num_heads))
+        s = pow2_slopes(closest) + pow2_slopes(2 * closest)[0::2][:num_heads - closest]
+    return torch.tensor(s, dtype=torch.float32, device=device)
+
+
+def alibi_bias(cfg: LLMConfig, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    """[H, Tq, Tk] additive bias: -slope * (q - k), 0 on and above the
+    diagonal. fp32."""
+    dist = (q_pos[:, None] - k_pos[None, :]).float().clamp_min(0.0)
+    return -alibi_slopes(cfg.num_heads, q_pos.device)[:, None, None] * dist[None]
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-
-def _check_supported(cfg: LLMConfig):
-    if cfg.pos_emb != "rope":
-        raise NotImplementedError(f"pos_emb={cfg.pos_emb!r} is not ported yet (rope only)")
 
 
 def _norm(p, x, cfg: LLMConfig):
@@ -137,11 +164,11 @@ def _norm(p, x, cfg: LLMConfig):
 
 def _mlp(p, x, cfg: LLMConfig):
     """Packed int4 MLPs take K6 on decode rows; W8A8 MLPs take K7 on decode
-    rows (fused_mlp_int8 returns None for longer inputs); the rest the
-    per-projection products."""
+    rows under _FUSED_MLP8 (fused_mlp_int8 returns None for longer inputs);
+    the rest the per-projection products."""
     if int4.mlp_is_int4(p):
         return int4.mlp_int4(p, x, cfg.act)
-    if int4.mlp_is_w8a8(p):
+    if _FUSED_MLP8 and int4.mlp_is_w8a8(p):
         y = int4.fused_mlp_int8(p, x, cfg.act)
         if y is not None:
             return y
@@ -190,27 +217,33 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def _qkv_rope(p, cfg: LLMConfig, x: torch.Tensor, cos, sin):
+    """q [B, H, T, D], k and v [B, n_kv, T, D]; roped unless cos is None
+    (ALiBi)."""
     qp, kp, vp = _qkv_proj(p, x, cfg)
     q = split_heads(qp, cfg.num_heads)
     k = split_heads(kp, cfg.num_kv_heads)
     v = split_heads(vp, cfg.num_kv_heads)
+    if cos is None:
+        return q, k, v
     rot_dim = int(cfg.head_dim * cfg.rope_pct)
     return apply_rope(q, cos, sin, rot_dim), apply_rope(k, cos, sin, rot_dim), v
 
 
 def _attention(p, cfg: LLMConfig, x: torch.Tensor, *, cos, sin,
                mask: torch.Tensor, flash_fn=None,
-               key_valid: Optional[torch.Tensor] = None):
+               key_valid: Optional[torch.Tensor] = None,
+               bias: Optional[torch.Tensor] = None):
     """Full-sequence self-attention. Returns (output, (k, v)) with the new
     keys/values [B, n_kv, T, D] (pre-repeat, post-rope) for the cache.
-    flash_fn(q, k, v, key_valid) implements causal attention (K1)."""
+    flash_fn(q, k, v, key_valid) implements causal attention (K1); with an
+    ALiBi bias the plain attention runs instead, as in the JAX package."""
     q, k, v = _qkv_rope(p, cfg, x, cos, sin)
     n_rep = cfg.num_heads // cfg.num_kv_heads
     kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    if flash_fn is not None:
+    if flash_fn is not None and bias is None:
         out = flash_fn(q, kr, vr, key_valid)
     else:
-        out = mha(q, kr, vr, mask=mask)
+        out = mha(q, kr, vr, mask=mask, bias=bias)
     return nn.linear(p["o"], merge_heads(out)), (k, v)
 
 
@@ -316,29 +349,36 @@ def _cache_format(kv_cache: Params, x: torch.Tensor):
     return x, None
 
 
-def _cache_kv(kv_cache: Params, i: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+def _cache_kv(kv_cache: Params, i: int, dtype, attend_len: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Layer i's heads-layout K/V [B, n_kv, L, D] in `dtype`; a quantized
-    cache is dequantized (codes times scales in fp32)."""
-    k, v = kv_cache["k"][i], kv_cache["v"][i]
+    cache is dequantized (codes times scales in fp32). attend_len: the
+    prefix [0, attend_len) of the length axis alone (a view)."""
+    al = slice(None, attend_len)
+    k, v = kv_cache["k"][i][:, :, al], kv_cache["v"][i][:, :, al]
     if "k_scale" in kv_cache:
-        k = k.float() * kv_cache["k_scale"][i][..., None].float()
-        v = v.float() * kv_cache["v_scale"][i][..., None].float()
+        k = k.float() * kv_cache["k_scale"][i][:, :, al, None].float()
+        v = v.float() * kv_cache["v_scale"][i][:, :, al, None].float()
     return k.to(dtype), v.to(dtype)
 
 
 def _int8_kv_decode_attention(q: torch.Tensor, k_q: torch.Tensor, ks: torch.Tensor,
                               v_q: torch.Tensor, vs: torch.Tensor,
-                              key_mask: torch.Tensor) -> torch.Tensor:
+                              key_mask: torch.Tensor,
+                              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token attention over a heads-layout quantized cache, the scales
-    folded outside the products: s = (q * scale) . k_q times ks, masked
-    logits -inf then a softmax, out = (p * vs in q's dtype) . v_q.
-    q: [B, H, 1, D]; k_q/v_q: [B, n_kv, L, D] codes; ks/vs: [B, n_kv, L];
-    key_mask: [B, L]. Returns [B, H, 1, D] in q's dtype."""
+    folded outside the products: s = (q * scale) . k_q times ks, plus the
+    ALiBi bias [B, H, 1, L] if any, masked logits -inf then a softmax, out
+    = (p * vs in q's dtype) . v_q. q: [B, H, 1, D]; k_q/v_q: [B, n_kv, L,
+    D] codes; ks/vs: [B, n_kv, L]; key_mask: [B, L]. Returns [B, H, 1, D]
+    in q's dtype."""
     b, h, _, d = q.shape
     n_kv = k_q.shape[1]
     qg = (q * (1.0 / math.sqrt(d))).reshape(b, n_kv, h // n_kv, d)
     s = torch.einsum("bkrd,bkld->bkrl", qg.float(), k_q.to(qg.dtype).float())
     s = s * ks.float()[:, :, None, :]
+    if bias is not None:
+        s = s + bias.reshape(b, n_kv, h // n_kv, k_q.shape[2])
     s = torch.where(key_mask[:, None, None, :], s, -torch.inf)
     pv = (torch.softmax(s, dim=-1) * vs.float()[:, :, None, :]).to(q.dtype)
     out = torch.einsum("bkrl,bkld->bkrd", pv.float(), v_q.to(pv.dtype).float())
@@ -390,9 +430,10 @@ def _put_chunk(buf: torch.Tensor, i: int, val: torch.Tensor, slots: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def _block(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos, sin, mask, flash_fn,
-           key_valid):
+           key_valid, bias):
     h, kv = _attention(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg),
-                       cos=cos, sin=sin, mask=mask, flash_fn=flash_fn, key_valid=key_valid)
+                       cos=cos, sin=sin, mask=mask, flash_fn=flash_fn, key_valid=key_valid,
+                       bias=bias)
     x = x + h
     return x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg), kv
 
@@ -410,9 +451,10 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
     mutable buffers). remat=True keeps only each block's input for the
     backward pass and recomputes the block there (torch.utils.checkpoint,
     the JAX package's jax.checkpoint with nothing saveable). Returns
-    (final-norm hidden states [B, T, H], kv_cache).
+    (final-norm hidden states [B, T, H], kv_cache). ALiBi models add the
+    bias of positions 0 .. T-1 (the JAX package's, whatever the mask) in
+    the plain attention; flash_fn is then not called.
     """
-    _check_supported(cfg)
     b, t, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     if positions is None:
@@ -423,7 +465,12 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
     mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=dev))[None, None]
     if attention_mask is not None:
         mask = mask & attention_mask[:, None, None, :]
-    cos, sin = rope_tables(cfg, positions)
+    cos = sin = bias = None
+    if cfg.pos_emb == "alibi":
+        pos = torch.arange(t, device=dev)
+        bias = alibi_bias(cfg, pos, pos)[None]
+    else:
+        cos, sin = rope_tables(cfg, positions)
 
     def put(buf, length_dim, val):
         if length_dim == 1:
@@ -433,7 +480,7 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
-        args = (layer, cfg, x, cos, sin, mask, flash_fn, attention_mask)
+        args = (layer, cfg, x, cos, sin, mask, flash_fn, attention_mask, bias)
         if remat:
             x, (k_new, v_new) = checkpoint(_block, *args, use_reentrant=False)
         else:
@@ -446,37 +493,58 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
 def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
                 inputs_embeds: torch.Tensor, cache_len: torch.Tensor,
                 key_mask: torch.Tensor, write_slot: Optional[int] = None,
+                attend_len: Optional[int] = None,
                 valid_len: Optional[int] = None,
-                fused_layer: bool = False) -> Tuple[torch.Tensor, Params]:
+                fused_layer: Optional[bool] = None) -> Tuple[torch.Tensor, Params]:
     """One decode step over any of the caches: heads layout (fp: einsum
     attention; quantized: _int8_kv_decode_attention), flat fp (K11) or flat
-    quantized (K4).
+    quantized (K4). ALiBi models decode over the heads layout alone.
 
-    fused_layer (the JAX package's WALKGPT_FUSED_LAYER): over a flat
-    quantized cache, each layer that ops/fused_layer.layer_tail_supported
-    accepts (W8A8 o-proj, int4 MLP, RMSNorm, MHA) runs its attention,
-    o-proj, residual, post-norm and MLP as one K12 launch; other layers and
-    caches take the unfused path.
+    fused_layer (default ops/fused_layer.FUSED_LAYER, the JAX package's
+    WALKGPT_FUSED_LAYER): over a flat quantized cache, each layer that
+    ops/fused_layer.layer_tail_supported accepts (W8A8 o-proj, int4 MLP,
+    RMSNorm, MHA) runs its attention, o-proj, residual, post-norm and MLP
+    as one K12 launch; other layers and caches take the unfused path.
 
     inputs_embeds: [B, 1, H]; cache_len: [B] int — logical position per row
-    (drives rope; the K/V land at cache_len unless write_slot is given);
-    key_mask: [B, L] bool — valid cache slots including this step.
-    write_slot: one slot for every row (greedy_generate's uniform layout).
-    valid_len: no slot at or past it is valid (flat quantized caches: K4
-    skips the length blocks past it).
+    (drives rope or ALiBi; the K/V land at cache_len unless write_slot is
+    given); key_mask: [B, attend_len or L] bool — valid cache slots
+    including this step. write_slot: one slot for every row
+    (greedy_generate's uniform layout). attend_len: the attention reads the
+    slots [0, attend_len) alone (heads layout; the caller guarantees every
+    valid slot is below it: greedy_generate's growing-cache segments);
+    writes still reach the whole buffer. valid_len: no slot at or past it
+    is valid (flat quantized caches: K4 skips the length blocks past it).
     The cache is updated in place. Returns (hidden [B, 1, H], kv_cache).
     """
-    _check_supported(cfg)
     b = inputs_embeds.shape[0]
-    cos, sin = rope_tables(cfg, cache_len[:, None])
     rows = torch.arange(b, device=inputs_embeds.device)
     n_rep = cfg.num_heads // cfg.num_kv_heads
     flat, quant = _cache_is_flat(kv_cache), "k_scale" in kv_cache
+    if fused_layer is None:
+        fused_layer = fl.FUSED_LAYER
+    cos = sin = bias = None
+    if flat and attend_len is not None:
+        raise ValueError("attend_len prefix reads are heads-layout only")
+    if flat and cfg.pos_emb == "alibi":
+        raise NotImplementedError("flat-cache decode supports rope/no-bias models; "
+                                  "use the heads-layout cache for ALiBi")
+    if cfg.pos_emb == "alibi":
+        # [B, H, 1, L]: -slope * max(cache_len - slot, 0) over every slot
+        k_pos = torch.arange(kv_cache["k"].shape[3], device=cache_len.device)
+        dist = (cache_len[:, None, None] - k_pos[None, None]).float().clamp_min(0.0)
+        bias = -alibi_slopes(cfg.num_heads, cache_len.device)[None, :, None, None] \
+            * dist[:, None]
+        if attend_len is not None:
+            bias = bias[..., :attend_len]
+    else:
+        cos, sin = rope_tables(cfg, cache_len[:, None])
     # per-row slots: a row at or past the cache's end (the continuous
     # batcher's rows that run past their budget within a segment, whose
     # outputs are dropped) writes the last slot, which it alone reads; the
     # JAX package drops that write. No index leaves the buffer.
     slot = cache_len.clamp_max(kv_cache["k"].shape[2 if flat else 3] - 1)
+    al = slice(None, attend_len)
 
     def put(buf, length_dim, val):                  # val [B, 1, ...]: one slot per row
         val = val[:, 0]
@@ -515,12 +583,13 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
                                    n_kv=cfg.num_kv_heads, layer=i)
         elif quant:
             att = merge_heads(_int8_kv_decode_attention(
-                q, kv_cache["k"][i], kv_cache["k_scale"][i], kv_cache["v"][i],
-                kv_cache["v_scale"][i], key_mask))[:, 0]
+                q, kv_cache["k"][i][:, :, al], kv_cache["k_scale"][i][:, :, al],
+                kv_cache["v"][i][:, :, al], kv_cache["v_scale"][i][:, :, al], key_mask,
+                bias=bias))[:, 0]
         else:
-            k_cache, v_cache = _cache_kv(kv_cache, i, q.dtype)
+            k_cache, v_cache = _cache_kv(kv_cache, i, q.dtype, attend_len=attend_len)
             att = merge_heads(mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
-                                  mask=key_mask[:, None, None, :]))[:, 0]
+                                  mask=key_mask[:, None, None, :], bias=bias))[:, 0]
         x = x + nn.linear(layer["attn"]["o"], att[:, None])
         x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
     return _norm(params["final_norm"], x, cfg), kv_cache
@@ -538,8 +607,10 @@ def decode_chunk(params: Params, cfg: LLMConfig, kv_cache: Params,
     quantized) run the einsum attention over the dequantized layer; the flat
     quantized caches run K8, which reads each cache block once per chunk.
     Writes past the cache's end are dropped (_chunk_slots). The cache is
-    updated in place. Returns (hidden [B, T, H], kv_cache)."""
-    _check_supported(cfg)
+    updated in place. Returns (hidden [B, T, H], kv_cache). Rope models
+    only, as in the JAX package."""
+    if cfg.pos_emb == "alibi":
+        raise NotImplementedError("speculative chunk decode: rope models")
     b, t, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     flat, quant = _cache_is_flat(kv_cache), "k_scale" in kv_cache

@@ -3,12 +3,17 @@
 NHWC activations end to end; windows are folded into the batch axis; the
 rel-pos bias enters either through the attention kernels (use_flash: K2 for
 the windowed blocks over the packed qkv layout, K3 for the global blocks) or
-as an additive bias to the plain einsum attention. The neck runs in fp32.
+as an additive bias to the plain einsum attention; with fast_windowed the
+windowed blocks' einsum attention keeps its bias and logits in the
+activation dtype, with fp32 softmax statistics only (the JAX package's fast
+branch). The neck runs in fp32.
 Parameters use the `blocks` layout (one dict per block) or the stacked
 `block_runs` layout of `stack_for_scan` (one stacked dict per run of
 windowed blocks, looped over its leading axis; the same arithmetic).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -83,9 +88,30 @@ def _rel_projections_packed(q_flat, rel_pos_h, rel_pos_w, ws, num_heads):
                       rel_w.reshape(bw, t, num_heads * ws)], dim=-1)
 
 
+def _fast_attention(p, q, k, v, h: int, w: int) -> torch.Tensor:
+    """The einsum attention's fast branch, in the JAX package's order of
+    casts: rel-pos projections and their sum, the bias, in the activation
+    dtype; logits (q / sqrt(D)) . k in that dtype plus the bias; p = exp of
+    (logits - max) in fp32, cast back; probs = p / sum(p), the sum cast to
+    the activation dtype first; out = probs . v. q, k, v: [B, H, N, D]."""
+    b, nh, _, d = q.shape
+    rh = get_rel_pos(h, h, p["rel_pos_h"]).to(q.dtype)
+    rw = get_rel_pos(w, w, p["rel_pos_w"]).to(q.dtype)
+    r_q = q.reshape(b, nh, h, w, d)
+    rel_h = torch.einsum("bnhwc,hkc->bnhwk", r_q, rh)
+    rel_w = torch.einsum("bnhwc,wkc->bnhwk", r_q, rw)
+    bias = (rel_h[..., :, None] + rel_w[..., None, :]).reshape(b, nh, h * w, h * w)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q / math.sqrt(d), k) + bias
+    m = logits.amax(-1, keepdim=True)
+    p_ = torch.exp((logits - m).float()).to(q.dtype)
+    probs = p_ / p_.sum(-1, keepdim=True).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
 def _attention(p, x: torch.Tensor, num_heads: int, use_rel_pos: bool,
-               use_flash: bool, windowed: bool = False) -> torch.Tensor:
-    """x: [B, H, W, C] (B may include folded windows)."""
+               use_flash: bool, windowed: bool = False, fast: bool = False) -> torch.Tensor:
+    """x: [B, H, W, C] (B may include folded windows). fast: the einsum
+    branch of _fast_attention where no kernel runs (rel-pos blocks)."""
     b, h, w, c = x.shape
     qkv = nn.linear(p["qkv"], x.reshape(b, h * w, c))
     if use_flash and use_rel_pos and windowed:
@@ -98,6 +124,8 @@ def _attention(p, x: torch.Tensor, num_heads: int, use_rel_pos: bool,
     if use_flash and use_rel_pos:
         rel_h, rel_w = _rel_projections(q, p["rel_pos_h"], p["rel_pos_w"], h, w)
         out = sam_flash_attention(q, k, v, rel_h.to(q.dtype), rel_w.to(q.dtype), (h, w))
+    elif fast and use_rel_pos:
+        out = _fast_attention(p, q, k, v, h, w)
     else:
         bias = None
         if use_rel_pos:
@@ -108,13 +136,15 @@ def _attention(p, x: torch.Tensor, num_heads: int, use_rel_pos: bool,
 
 
 def _block(p, x: torch.Tensor, cfg: SAMEncoderConfig, window: int,
-           use_flash: bool, fast_gelu: bool = False) -> torch.Tensor:
+           use_flash: bool, fast_windowed: bool = False,
+           fast_gelu: bool = False) -> torch.Tensor:
     shortcut = x
     x = nn.layer_norm(p["ln1"], x)
     if window > 0:
         h, w = x.shape[1], x.shape[2]
         x, pad_hw = window_partition(x, window)
-        x = _attention(p, x, cfg.num_heads, cfg.use_rel_pos, use_flash, windowed=True)
+        x = _attention(p, x, cfg.num_heads, cfg.use_rel_pos, use_flash, windowed=True,
+                       fast=fast_windowed)
         x = window_unpartition(x, window, pad_hw, (h, w))
     else:
         x = _attention(p, x, cfg.num_heads, cfg.use_rel_pos, use_flash)
@@ -211,14 +241,17 @@ def _blocks(params, cfg: SAMEncoderConfig):
 
 
 def apply(params, cfg: SAMEncoderConfig, images: torch.Tensor, *,
-          use_flash: bool = False, fast_gelu: bool = False) -> torch.Tensor:
+          use_flash: bool = False, fast_windowed: bool = False,
+          fast_gelu: bool = False) -> torch.Tensor:
     """images: [B, img, img, 3] NHWC (normalized, padded). Returns
-    [B, grid, grid, out_chans] NHWC feature maps."""
+    [B, grid, grid, out_chans] NHWC feature maps. fast_windowed: the
+    windowed blocks' einsum attention takes its fast branch (no effect with
+    use_flash, whose kernels run)."""
     x = nn.conv2d(params["patch_embed"], images,
                   stride=(cfg.patch_size, cfg.patch_size), padding="VALID")
     x = x + params["pos_embed"].to(x.dtype)
     for blk, window in _blocks(params, cfg):
-        x = _block(blk, x, cfg, window, use_flash, fast_gelu)
+        x = _block(blk, x, cfg, window, use_flash, fast_windowed, fast_gelu)
     # neck in fp32 (the upstream encoder's overflow guard)
     n = params["neck"]
     y = x.float()

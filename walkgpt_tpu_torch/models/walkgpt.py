@@ -111,14 +111,15 @@ def init_quantized(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.bfloat16,
 def encode_sam(params, cfg: WalkGPTConfig, images: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """images [B, S, S, 3] -> (feature maps [B, g, g, C], tokens [B, g*g, C]).
-    sam_encode_chunk > 0 encodes sub-batches one after the other."""
-    if cfg.fast_windowed_attention and not cfg.use_flash_attention:
-        raise NotImplementedError("fast_windowed_attention on the einsum attention "
-                                  "is not ported yet")
-
+    sam_encode_chunk > 0 encodes sub-batches one after the other;
+    fast_windowed_attention selects the einsum attention's fast branch in
+    the windowed blocks (the kernels' route, use_flash_attention, ignores
+    it, as in the JAX package)."""
     def enc(im):
         return sam.encode_image(params["sam"], sam_config(cfg), im,
-                                use_flash=cfg.use_flash_attention, fast_gelu=cfg.fast_gelu)
+                                use_flash=cfg.use_flash_attention,
+                                fast_windowed=cfg.fast_windowed_attention,
+                                fast_gelu=cfg.fast_gelu)
     b = images.shape[0]
     ch = cfg.sam_encode_chunk
     if ch and b > ch and b % ch == 0:
@@ -471,13 +472,12 @@ def _as_inputs(dev, **arrays):
 
 def _generate(params, cfg: WalkGPTConfig, vis_rows, input_ids, attention_mask,
               max_new_tokens: int, eos_id: int, speculative_k: int,
-              fused_layer: bool = False, vis_mask_rows=None) -> GenerateResult:
+              fused_layer: Optional[bool] = None, vis_mask_rows=None) -> GenerateResult:
     """Visual tokens per row -> splice -> greedy decode (with fused_layer,
-    K12 in its steps), or speculative decode with `speculative_k` drafts per
-    iteration whose lookup history is the textual prompt (the <image>
-    sentinel and pad positions excluded)."""
-    if cfg.decode_cache_grow:
-        raise NotImplementedError("the growing KV cache (decode_cache_grow) is not ported")
+    K12 in its steps; with cfg.decode_cache_grow, the growing cache), or
+    speculative decode with `speculative_k` drafts per iteration whose
+    lookup history is the textual prompt (the <image> sentinel and pad
+    positions excluded)."""
     flash_fn = None
     if cfg.use_flash_attention:
         flash_fn = lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
@@ -490,14 +490,15 @@ def _generate(params, cfg: WalkGPTConfig, vis_rows, input_ids, attention_mask,
         return speculative_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
                                     draft_k=speculative_k, prompt_ids=hist_ids, **kw)
     return greedy_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
-                           fused_layer=fused_layer, **kw)
+                           cache_grow_step=cfg.decode_cache_grow, fused_layer=fused_layer,
+                           **kw)
 
 
 @torch.inference_mode()
 def generate_and_segment(params, cfg: WalkGPTConfig, *,
                          images, input_ids, attention_mask, row_image_idx, pixel_hw,
                          max_new_tokens: int, max_segs: int, eos_id: int,
-                         speculative_k: int = 0, fused_layer: bool = False,
+                         speculative_k: int = 0, fused_layer: Optional[bool] = None,
                          precomputed_sam=None, images_clip=None, clip_resize_hw=None,
                          visual_stream: str = "sam", device=None) -> EvaluateOutput:
     """The PAVE evaluate pipeline: encode, splice, greedy (or, with
@@ -520,7 +521,8 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
     the SAM encoder K2/K3; a flat quantized cache runs K4 in every decode
     step and K8 in every speculative chunk, the flat bf16 cache of
     cfg.llm.fused_decode K11, and quantized weights K5-K7 (ops/int4.py).
-    fused_layer (the JAX package's WALKGPT_FUSED_LAYER): each greedy step
+    fused_layer (default ops/fused_layer.FUSED_LAYER, the JAX package's
+    WALKGPT_FUSED_LAYER): each greedy step
     runs K12 (attention, o-proj, residual, post-norm and MLP in one launch)
     on the layers of the int4x format over a flat quantized cache
     (llm.decode_step); the speculative chunks never fuse, as in the JAX

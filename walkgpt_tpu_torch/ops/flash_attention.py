@@ -15,7 +15,9 @@ K1 flash_attention (csrc/flash_attention.cu)
     tensor cores (csrc/attention_mma.cuh: s as scale times the fp32 sum of
     exact q . k products, as K1b forms it; p split hi + lo for the value
     product; query tiles heaviest first); fp32 stays on the CUDA-core
-    engine.
+    engine. fp16 (the LLM of `--precision fp16`) runs the same tensor-core
+    engine with f16 products: q . k of two fp16 values is exact in fp32
+    as for bf16, and p is split hi + lo in fp16.
 K2 sam_window_attention_packed (csrc/sam_window_attention.cu)
     Replaces walkgpt_tpu/ops/flash_attention.py:sam_window_attention_packed
     (_win_packed_fwd_kernel): whole-window attention with the decomposed
@@ -78,7 +80,10 @@ K4 decode_attention_q (csrc/decode_attention_q.cu)
     attention over the flat quantized cache (int8 rows, or packed int4 in
     global-halves order), walked in DECODE_BLOCK-key blocks. 7B, 2 rows,
     480 of 512 slots valid, packed int4: about 4.1 MB of k and v codes and
-    scales below valid_len, bound by bytes (about 1.2 us).
+    scales below valid_len, bound by bytes (about 1.2 us). An fp16 q (the
+    LLM of `--precision fp16`) takes the bf16 q's route: the TPU kernels
+    quantize q from fp32 or round it to bf16, and every other rounding
+    point is bf16 whatever q's type; only the output is fp16.
 K8 decode_attention_q_chunk (csrc/decode_attention_q.cu + decode_chunk.cuh)
     Replaces walkgpt_tpu/ops/flash_attention.py:decode_attention_q_chunk
     (_decode_attn_qc_kernel): the speculative verify, Tc tokens at once over
@@ -124,6 +129,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -131,7 +137,12 @@ import torch
 from ..core.nn import unpack4
 from . import cuda_build
 
+# the dtype codes of the C entries; K1 and K4 also take fp16 (code 2), every
+# other kernel float32 or bfloat16 alone
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES_F16 = {**_DTYPES, torch.float16: 2}
+_KERNEL_DTYPES = {"flash_attention": _DTYPES_F16, "decode_attention_q": _DTYPES_F16}
+_DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.float16: "float16"}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -170,9 +181,12 @@ def _check_cuda(name: str, *xs: torch.Tensor) -> int:
                              f"got {[(y.device, y.dtype) for y in xs]}")
     if dev.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {dev}")
-    if dt not in _DTYPES:
-        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, got {dt}")
-    return _DTYPES[dt]
+    table = _KERNEL_DTYPES.get(name, _DTYPES)
+    if dt not in table:
+        names = [_DTYPE_NAMES[t] for t in table]
+        raise ValueError(f"{name}: the kernel takes {', '.join(names[:-1])} or {names[-1]}, "
+                         f"got {dt}")
+    return table[dt]
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -836,11 +850,37 @@ sam_flash_attention.launches = 0
 # K4, K8, K11: decode attention over the flat caches
 # ---------------------------------------------------------------------------
 
-# Length-block size of the decode-attention walk. It is part of the
-# numerics (alpha and p are rounded to bf16 per block), and callers round
-# the cache length up to a multiple of it (runtime/generate.py).
-DECODE_BLOCK = 256
+# The JAX package's decode switches, read from the environment at import
+# with its names and defaults; the decode-attention wrappers (K4, K8, K11)
+# and their callers read these module constants at call time.
+# DECODE_BLOCK: the length-block size of the decode-attention walk. It is
+# part of the numerics (alpha and p are rounded to bf16 per block), and
+# callers round the cache length up to a multiple of it (runtime/generate.py,
+# runtime/serving.py).
+DECODE_BLOCK = int(os.environ.get("WALKGPT_DECODE_BLOCK", "256"))
+# DECODE_QDOT8: K4's and K8's int8 scores product on per-head-quantized q
+# (else the bf16 q's product); DECODE_PVDOT8: K4's int8 value product.
+DECODE_QDOT8 = os.environ.get("WALKGPT_QDOT8", "1") == "1"
+DECODE_PVDOT8 = os.environ.get("WALKGPT_PVDOT8", "0") == "1"
+# the blocks a decode-attention kernel is asked about when one does not fit
+DECODE_BLOCK_CHOICES = (64, 128, 256, 512, 1024)
 NEG_INF = -1e30
+
+
+def _switch(value, default):
+    """A decode switch given by the caller, or the module constant's value
+    at call time."""
+    return default if value is None else value
+
+
+def _check_block(name: str, bl: int, d: int, smem) -> None:
+    """Raise ValueError, naming the blocks that fit, when a block of bl keys
+    does not fit the kernel's shared memory (smem(block) -> bytes a block)."""
+    if smem(bl) <= _SMEM_MAX:
+        return
+    fits = [c for c in DECODE_BLOCK_CHOICES if smem(c) <= _SMEM_MAX]
+    raise ValueError(f"{name}: a block of {bl} keys at D={d} does not fit the kernel's "
+                     f"shared memory; it takes blocks of {fits} keys at this shape")
 
 
 def banded_q8_chunk(q: torch.Tensor, *, n_kv: int, head_dim: int
@@ -879,8 +919,10 @@ def _cache_rows(c: torch.Tensor, n_kv: int, d: int, pack4: bool) -> torch.Tensor
     return c.float().reshape(*c.shape[:2], n_kv, d)
 
 
-def _decode_blocks(l: int, block: int, valid_len: Optional[int]) -> Tuple[int, int]:
-    bl = min(block, l)
+def _decode_blocks(l: int, block: Optional[int], valid_len: Optional[int]) -> Tuple[int, int]:
+    """(keys a block, blocks to visit) of a cache of l slots: blocks of
+    min(block, l) keys (block None: DECODE_BLOCK), those below valid_len."""
+    bl = min(_switch(block, DECODE_BLOCK), l)
     if l % bl:
         raise ValueError(f"decode attention: cache length {l} is not a multiple of {bl}")
     nvb = l // bl if valid_len is None else min(-(-int(valid_len) // bl), l // bl)
@@ -968,12 +1010,16 @@ def _check_contiguous(name: str, dev: torch.device, *bufs: torch.Tensor) -> None
 
 def decode_attention_q_reference(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
                                  n_kv: int, head_dim: int, pack4: bool = False,
-                                 layer: int = 0, block: int = DECODE_BLOCK,
-                                 valid_len: Optional[int] = None, qdot_int8: bool = True,
-                                 pv_int8: bool = False) -> torch.Tensor:
+                                 layer: int = 0, block: Optional[int] = None,
+                                 valid_len: Optional[int] = None,
+                                 qdot_int8: Optional[bool] = None,
+                                 pv_int8: Optional[bool] = None) -> torch.Tensor:
     """Plain version of K4: the block walk of _quant_walk for one token over
     the key mask; blocks at or past ceil(valid_len / block) are skipped.
-    pv_int8 applies with qdot_int8 only, as in the TPU kernels."""
+    pv_int8 applies with qdot_int8 only, as in the TPU kernels; None reads
+    DECODE_QDOT8 / DECODE_PVDOT8."""
+    qdot_int8 = _switch(qdot_int8, DECODE_QDOT8)
+    pv_int8 = _switch(pv_int8, DECODE_PVDOT8)
     bl, nvb = _decode_blocks(k_cache.shape[2], block, valid_len)
     return _quant_walk(q[:, None], k_cache, k_scale, v_cache, v_scale,
                        lambda keys: key_mask[:, None, keys], nvb, n_kv=n_kv,
@@ -998,9 +1044,8 @@ def _decode_q(entry: str, q, k_cache, k_scale, v_cache, v_scale, key_mask, *, n_
                          f"{key_mask.dtype} for n_kv={n_kv}, D={d}")
     _check_quant_cache(name, b, n_kv, d, l, pack4, k_cache, k_scale, v_cache, v_scale)
     walk = entry == "wg_decode_attention_q_walk" or (qdot_int8 and pv_int8)
-    if decode_attention_q_plan(b, h, n_kv, d, bl, qdot_int8, pv_int8, walk)["smem"] > _SMEM_MAX:
-        raise ValueError(f"{name}: a block of {bl} keys at D={d} does not fit the kernel's "
-                         f"shared memory")
+    _check_block(name, bl, d, lambda c: decode_attention_q_plan(
+        b, h, n_kv, d, c, qdot_int8, pv_int8, walk)["smem"])
     bufs = [q, k_cache[layer], k_scale[layer], v_cache[layer], v_scale[layer], key_mask]
     _check_contiguous(name, q.device, *bufs)
     out = torch.empty((b, hd), dtype=q.dtype, device=q.device)
@@ -1012,8 +1057,9 @@ def _decode_q(entry: str, q, k_cache, k_scale, v_cache, v_scale, key_mask, *, n_
 
 def decode_attention_q(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
                        n_kv: int, head_dim: int, pack4: bool = False, layer: int = 0,
-                       block: int = DECODE_BLOCK, valid_len: Optional[int] = None,
-                       qdot_int8: bool = True, pv_int8: bool = False) -> torch.Tensor:
+                       block: Optional[int] = None, valid_len: Optional[int] = None,
+                       qdot_int8: Optional[bool] = None,
+                       pv_int8: Optional[bool] = None) -> torch.Tensor:
     """K4: one decode step of attention over a quantized flat cache.
 
     q: [B, H*D]; k_cache/v_cache: [layers, B, L, n_kv*D] int8, or with
@@ -1022,8 +1068,11 @@ def decode_attention_q(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
     kv head); key_mask: [B, L] bool with L a multiple of `block` and a valid
     key in every row's first block; valid_len: no key at or past it is
     valid (whole blocks past it are skipped). qdot_int8: int8 scores product
-    on per-head-quantized q; pv_int8: int8 value product. Returns [B, H*D]
-    in q's dtype."""
+    on per-head-quantized q; pv_int8: int8 value product. block, qdot_int8
+    and pv_int8 default to DECODE_BLOCK, DECODE_QDOT8 and DECODE_PVDOT8 at
+    call time. q in fp32, bf16 or fp16. Returns [B, H*D] in q's dtype."""
+    qdot_int8 = _switch(qdot_int8, DECODE_QDOT8)
+    pv_int8 = _switch(pv_int8, DECODE_PVDOT8)
     kw = dict(n_kv=n_kv, head_dim=head_dim, pack4=pack4, layer=layer, block=block,
               valid_len=valid_len, qdot_int8=qdot_int8, pv_int8=pv_int8)
     if q.device.type == "cpu":
@@ -1037,8 +1086,9 @@ def decode_attention_q(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
 
 def decode_attention_q_walk(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
                             n_kv: int, head_dim: int, pack4: bool = False, layer: int = 0,
-                            block: int = DECODE_BLOCK, valid_len: Optional[int] = None,
-                            qdot_int8: bool = True, pv_int8: bool = False) -> torch.Tensor:
+                            block: Optional[int] = None, valid_len: Optional[int] = None,
+                            qdot_int8: Optional[bool] = None,
+                            pv_int8: Optional[bool] = None) -> torch.Tensor:
     """K4 on the walk engine (csrc/decode_walk.cuh) in every mode, CUDA
     tensors only: the route decode_attention_q's chunk engine is held
     against, bit for bit (chip_smoke.py, tools/decode_kernels.py).
@@ -1046,6 +1096,8 @@ def decode_attention_q_walk(q, k_cache, k_scale, v_cache, v_scale, key_mask, *,
     yardstick, not a step of any path. Arguments as decode_attention_q's."""
     if q.device.type != "cuda":
         raise ValueError("decode_attention_q_walk: the walk takes CUDA tensors")
+    qdot_int8 = _switch(qdot_int8, DECODE_QDOT8)
+    pv_int8 = _switch(pv_int8, DECODE_PVDOT8)
     return _decode_q("wg_decode_attention_q_walk", q, k_cache, k_scale, v_cache, v_scale,
                      key_mask, n_kv=n_kv, head_dim=head_dim, pack4=pack4, layer=layer,
                      block=block, valid_len=valid_len, qdot_int8=qdot_int8, pv_int8=pv_int8)
@@ -1123,8 +1175,8 @@ def chunk_key_blocks(cache_len: int, tc: int, l: int, bl: int) -> int:
 
 def decode_attention_q_chunk_reference(q, k_cache, k_scale, v_cache, v_scale, cache_len, *,
                                        n_kv: int, head_dim: int, pack4: bool = False,
-                                       layer: int = 0, block: int = DECODE_BLOCK,
-                                       qdot_int8: bool = True) -> torch.Tensor:
+                                       layer: int = 0, block: Optional[int] = None,
+                                       qdot_int8: Optional[bool] = None) -> torch.Tensor:
     """Plain version of K8: the block walk of _quant_walk for Tc tokens, slot
     p valid for token t iff p < cache_len + t + 1, over the blocks below
     ceil((max cache_len + Tc) / block); a row's blocks past its own count
@@ -1132,6 +1184,7 @@ def decode_attention_q_chunk_reference(q, k_cache, k_scale, v_cache, v_scale, ca
     tc = q.shape[1]
     l = k_cache.shape[2]
     bl, _ = _decode_blocks(l, block, None)
+    qdot_int8 = _switch(qdot_int8, DECODE_QDOT8)
     cl = cache_len.to(device=q.device, dtype=torch.long)
     nvb = chunk_key_blocks(int(cl.max()), tc, l, bl)
     end = (cl[:, None] + torch.arange(tc, device=q.device)[None] + 1)[..., None]   # [B, Tc, 1]
@@ -1143,14 +1196,17 @@ def decode_attention_q_chunk_reference(q, k_cache, k_scale, v_cache, v_scale, ca
 
 def decode_attention_q_chunk(q, k_cache, k_scale, v_cache, v_scale, cache_len, *,
                              n_kv: int, head_dim: int, pack4: bool = False, layer: int = 0,
-                             block: int = DECODE_BLOCK, qdot_int8: bool = True) -> torch.Tensor:
+                             block: Optional[int] = None,
+                             qdot_int8: Optional[bool] = None) -> torch.Tensor:
     """K8: Tc-token chunk attention over a quantized flat cache (the verify
     pass of speculative decode). q: [B, Tc, H*D]; the cache as for
     decode_attention_q; cache_len: [B] int pre-chunk lengths. The chunk's
     K/V must already sit at slots [cache_len, cache_len + Tc) and the cache
     must be compact per row: token t attends slots < cache_len + t + 1.
     Token t's output is decode_attention_q's at the same position over the
-    same cache. Returns [B, Tc, H*D] in q's dtype."""
+    same cache. block and qdot_int8 default to DECODE_BLOCK and DECODE_QDOT8
+    at call time. Returns [B, Tc, H*D] in q's dtype."""
+    qdot_int8 = _switch(qdot_int8, DECODE_QDOT8)
     kw = dict(n_kv=n_kv, head_dim=head_dim, pack4=pack4, layer=layer, block=block,
               qdot_int8=qdot_int8)
     if q.device.type == "cpu":
@@ -1167,9 +1223,8 @@ def decode_attention_q_chunk(q, k_cache, k_scale, v_cache, v_scale, cache_len, *
         raise ValueError(f"{name}: bad q {tuple(q.shape)} or cache_len "
                          f"{tuple(cache_len.shape)} for n_kv={n_kv}, D={d}")
     _check_quant_cache(name, b, n_kv, d, l, pack4, k_cache, k_scale, v_cache, v_scale)
-    if decode_chunk_plan(b, tc, h, n_kv, d, bl, qdot_int8)["smem"] > _SMEM_MAX:
-        raise ValueError(f"{name}: a block of {bl} keys at D={d} does not fit the kernel's "
-                         f"shared memory")
+    _check_block(name, bl, d, lambda c: decode_chunk_plan(b, tc, h, n_kv, d, c,
+                                                          qdot_int8)["smem"])
     cl = cache_len.to(device=q.device, dtype=torch.int32).contiguous()
     bufs = [q, k_cache[layer], k_scale[layer], v_cache[layer], v_scale[layer], cl]
     _check_contiguous(name, q.device, *bufs)
@@ -1185,7 +1240,7 @@ decode_attention_q_chunk.launches = 0
 
 
 def decode_attention_reference(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0,
-                               block: int = DECODE_BLOCK) -> torch.Tensor:
+                               block: Optional[int] = None) -> torch.Tensor:
     """Plain version of K11, block by block as the TPU kernel walks the
     cache, every block visited: s = (fp32(q) * (1/sqrt(D))) . k in fp32,
     invalid logits -1e30 and p = 0, alpha = exp(m_old - m_new) unrounded, p
@@ -1270,11 +1325,9 @@ def _decode_flat(entry: str, q, k_cache, v_cache, key_mask, *, n_kv: int, layer:
             or tuple(key_mask.shape) != (b, l) or key_mask.dtype != torch.bool):
         raise ValueError(f"{name}: bad inputs q {tuple(q.shape)}, cache {tuple(k_cache.shape)}, "
                          f"mask {tuple(key_mask.shape)} {key_mask.dtype}, n_kv={n_kv}")
-    plan = decode_attention_plan(b, hd // d, n_kv, d, l, bl, q.dtype == torch.bfloat16,
-                                 entry == "wg_decode_attention_walk")
-    if plan["smem"] > _SMEM_MAX:
-        raise ValueError(f"{name}: a block of {bl} keys at D={d} does not fit the kernel's "
-                         f"shared memory")
+    _check_block(name, bl, d, lambda c: decode_attention_plan(
+        b, hd // d, n_kv, d, l, c, q.dtype == torch.bfloat16,
+        entry == "wg_decode_attention_walk")["smem"])
     bufs = [q, k_cache[layer], v_cache[layer], key_mask]
     _check_contiguous(name, q.device, *bufs)
     out = torch.empty((b, hd), dtype=q.dtype, device=q.device)
@@ -1284,7 +1337,7 @@ def _decode_flat(entry: str, q, k_cache, v_cache, key_mask, *, n_kv: int, layer:
 
 
 def decode_attention(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0,
-                     block: int = DECODE_BLOCK) -> torch.Tensor:
+                     block: Optional[int] = None) -> torch.Tensor:
     """K11: one decode step of attention over a flat fp cache (the cache of
     LLMConfig.fused_decode). q: [B, H*D]; k_cache/v_cache: [layers, B, L,
     n_kv*D] in q's dtype with L a multiple of `block`; key_mask: [B, L] bool
@@ -1300,7 +1353,7 @@ def decode_attention(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0
 
 
 def decode_attention_walk(q, k_cache, v_cache, key_mask, *, n_kv: int, layer: int = 0,
-                          block: int = DECODE_BLOCK) -> torch.Tensor:
+                          block: Optional[int] = None) -> torch.Tensor:
     """K11 on the walk engine (csrc/decode_walk.cuh) in both dtypes, CUDA
     tensors only: the route decode_attention's bf16 engine is held against,
     bit for bit (chip_smoke.py, tools/decode_kernels.py). decode_attention

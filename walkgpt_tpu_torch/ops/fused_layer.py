@@ -15,8 +15,8 @@ K12 fused_layer_tail (csrc/fused_layer.cu)
     o-proj's quantizer is the TPU kernel's, not nn.linear's: sr = max(|att|
     max, 1e-8) * (1/127), codes round(att / sr) with a true division.
 
-models/llm.decode_step takes it with `fused_layer=True` (the JAX package's
-WALKGPT_FUSED_LAYER) on the layers layer_tail_supported accepts: a W8A8
+models/llm.decode_step takes it with `fused_layer=True` (default FUSED_LAYER,
+read from the JAX package's WALKGPT_FUSED_LAYER at import) on the layers layer_tail_supported accepts: a W8A8
 o-proj, an int4 MLP, RMSNorm and MHA (n_kv * D == hidden). On the card it is
 one cooperative launch of two 256-thread blocks an SM whose blocks run the
 port's other engines grid-strided and meet at a grid barrier between the
@@ -32,14 +32,20 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import os
 from typing import Dict, Optional
 
 import torch
 
 from ..core.nn import int8_matmul
 from . import cuda_build, int4
-from .flash_attention import (DECODE_BLOCK, STEP_VALUE_DIMS, _check_contiguous,
-                              _check_quant_cache, _decode_blocks, _walk_blocks, decode_chunk_plan)
+from . import flash_attention as fa
+from .flash_attention import (DECODE_BLOCK_CHOICES, STEP_VALUE_DIMS,
+                              _check_contiguous, _check_quant_cache, _decode_blocks, _walk_blocks,
+                              decode_chunk_plan)
+
+# the default of llm.decode_step's fused_layer, as the JAX package reads it
+FUSED_LAYER = os.environ.get("WALKGPT_FUSED_LAYER", "0") == "1"
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -66,11 +72,11 @@ _DOWN_ROW_LANES = TAIL_THREADS // 32
 SCRATCH_ROWS = dict(attention=0, x2=1, y=2, hn=3, h=4)
 
 
-@functools.lru_cache(maxsize=None)
 def fused_layer_tail_plan(b: int, n_kv: int, d: int, l: int, i_dim: int, pack4: bool,
-                          block: int = DECODE_BLOCK, sms: int = H100_SMS) -> Dict[str, object]:
+                          block: Optional[int] = None, sms: int = H100_SMS) -> Dict[str, object]:
     """K12's launch for b rows, n_kv heads of d (MHA), a cache of l slots
-    (key blocks of min(block, l)) and an intermediate of i_dim on a card of
+    (key blocks of min(block, l); block None: DECODE_BLOCK at call time) and
+    an intermediate of i_dim on a card of
     `sms` SMs, as csrc/fused_layer.cu takes it: the items of each phase
     (attention per (row, kv head, ATT_VALUE_DIMS value dims); o-proj,
     gate/up and down column items; the sum's TAIL_THREADS elements a
@@ -82,10 +88,13 @@ def fused_layer_tail_plan(b: int, n_kv: int, d: int, l: int, i_dim: int, pack4: 
     hn_held: the gate/up phase holds hn [b, hd] in bf16 too, where that
     fits within it) and the scratch layout (rows of [b, hd] fp32). pack4
     changes neither items nor memory."""
-    del pack4
+    return _tail_plan(b, n_kv, d, l, i_dim, min(fa._switch(block, fa.DECODE_BLOCK), l), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_plan(b: int, n_kv: int, d: int, l: int, i_dim: int, bl: int, sms: int):
     hd = n_kv * d
     mb = b if b <= 2 else 4
-    bl = min(block, l)
     tile = int4.tile_for(i_dim)
     n_tiles = i_dim // tile
     gu_offset = -(-(TAIL_THREADS + b) // 4) * 4
@@ -138,7 +147,7 @@ def _check_mha(x: torch.Tensor, n_kv: int, head_dim: int) -> None:
 def fused_layer_tail_reference(x, q8, qs, k_cache, k_scale, v_cache, v_scale, key_mask,
                                o_p, post_norm_scale, mlp_p, *, n_kv: int, head_dim: int,
                                pack4: bool, layer: int, act: str, norm_eps: float,
-                               block: int = DECODE_BLOCK,
+                               block: Optional[int] = None,
                                valid_len: Optional[int] = None) -> torch.Tensor:
     """Plain version of K12, the TPU kernel's arithmetic step by step:
     the block walk on q8 (_walk_blocks), the fp32 rows; sr, the codes and
@@ -196,7 +205,12 @@ def _launch(entry: str, x, q8, qs, k_cache, k_scale, v_cache, v_scale, key_mask,
             x, o_p["w_q"], o_p["w_scale"], post_norm_scale, first["w_p4"], first["w_scale"],
             *[t for t in ups if t is not None], down["w_p4t"], down["w_scale"]]
     _check_contiguous(name, x.device, *bufs)
-    plan = fused_layer_tail_plan(b, n_kv, d, l, i_dim, pack4, block)
+    plan = fused_layer_tail_plan(b, n_kv, d, l, i_dim, pack4, bl)
+    if not plan["blocks_per_sm"]:
+        fits = [c for c in DECODE_BLOCK_CHOICES
+                if fused_layer_tail_plan(b, n_kv, d, l, i_dim, pack4, c)["blocks_per_sm"]]
+        raise ValueError(f"{name}: a block of {bl} keys at D={d} does not fit the kernel's "
+                         f"shared memory; it takes blocks of {fits} keys at this shape")
     rows = plan["scratch"]
     buf = torch.empty((rows["rows"], b, hd), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -216,7 +230,7 @@ def _launch(entry: str, x, q8, qs, k_cache, k_scale, v_cache, v_scale, key_mask,
 
 def fused_layer_tail(x, q8, qs, k_cache, k_scale, v_cache, v_scale, key_mask, o_p,
                      post_norm_scale, mlp_p, *, n_kv: int, head_dim: int, pack4: bool,
-                     layer: int, act: str, norm_eps: float, block: int = DECODE_BLOCK,
+                     layer: int, act: str, norm_eps: float, block: Optional[int] = None,
                      valid_len: Optional[int] = None) -> torch.Tensor:
     """K12: one decode layer's tail in one launch.
 
@@ -226,8 +240,9 @@ def fused_layer_tail(x, q8, qs, k_cache, k_scale, v_cache, v_scale, key_mask, o_
     (the step's K/V already written); o_p {"w_q" [H, H] int8, "w_scale" [H]
     fp32, "a8"}; post_norm_scale [H]; mlp_p {"gate", "up": {w_p4, w_scale},
     "down": {w_p4t, w_scale}} (act "silu") or {"fc1", "fc2"} (gelu);
-    valid_len: whole length blocks at or past it are skipped. Returns fp32
-    [B, H] = x2 + mlp(norm(x2)); on the card it is row 2 of the launch's
+    valid_len: whole length blocks at or past it are skipped; block: the
+    walk's (None: DECODE_BLOCK at call time). Returns fp32 [B, H] = x2 +
+    mlp(norm(x2)); on the card it is row 2 of the launch's
     scratch (its `_base`; fused_layer_tail_plan's layout: attention rows,
     x2, y, hn, h, the MLP tiles' partials), where a check can read the fp32
     attention rows and the other phases' outputs."""
@@ -250,19 +265,20 @@ def fused_layer_tail_barriers(*args, **kwargs) -> torch.Tensor:
     written; it counts no launches."""
     if args[0].device.type != "cuda":
         raise ValueError("fused_layer_tail_barriers: CUDA tensors only")
-    kwargs.setdefault("block", DECODE_BLOCK)
+    kwargs.setdefault("block", None)
     kwargs.setdefault("valid_len", None)
     return _launch("wg_fused_layer_tail_barriers", *args, **kwargs)
 
 
 def fused_layer_tail_info(b: int, n_kv: int, d: int, l: int, i_dim: int, pack4: bool,
                           x_dtype: torch.dtype, pn_dtype: torch.dtype, device: torch.device,
-                          block: int = DECODE_BLOCK) -> Dict[str, int]:
+                          block: Optional[int] = None) -> Dict[str, int]:
     """What K12's launch takes on `device` at these shapes, from the CUDA
     runtime (no launch): blocks, blocks an SM, SMs, registers a thread,
     dynamic shared memory a block in bytes, local (spilled) bytes a thread,
-    rows per pass, whether hn is held in shared memory."""
-    bl = min(block, l)
+    rows per pass, whether hn is held in shared memory. block None:
+    DECODE_BLOCK at call time."""
+    bl = min(fa._switch(block, fa.DECODE_BLOCK), l)
     info = (ctypes.c_int * 8)()
     entry = cuda_build.entry("fused_layer", "wg_fused_layer_tail_info", [_I] * 10 + [_P])
     with torch.cuda.device(device):

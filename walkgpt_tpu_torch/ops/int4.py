@@ -18,12 +18,14 @@ ops/cuda_build.py at first use) or raises. Each counts its launches in
 K5 int4_matmul_pallas (csrc/int4_matmul.cu on K6's mlp4_stream.cuh)
     Replaces walkgpt_tpu/ops/int4.py:int4_matmul_pallas (_mm_kernel): the
     fused int4 q/k/v and the int4 lm_head of a decode step, fp32 sums, then
-    (acc * scale) in x's dtype. Its sums run in an order fixed by the
-    shapes: a row's output does not depend on the other rows of the call.
+    (acc * scale) in x's dtype (fp32, bf16 or fp16). Its sums run in an
+    order fixed by the shapes: a row's output does not depend on the other
+    rows of the call.
 K6 fused_mlp_int4 (csrc/fused_mlp_int4.cu + mlp4_stream.cuh)
     Replaces walkgpt_tpu/ops/int4.py:fused_mlp_int4 (_fused_mlp_kernel):
     silu(x Wg) * (x Wu) Wd in one call; the intermediate goes through bf16
-    before the down product, each tile's partial is scaled before the sum.
+    before the down product (also for fp16 rows, as in the TPU kernel),
+    each tile's partial is scaled before the sum; x in fp32, bf16 or fp16.
     Every sum has an order fixed by the shapes: a row's output does not
     depend on the other rows of the call.
 K7 fused_mlp_int8 (csrc/fused_mlp_int8.cu)
@@ -54,7 +56,10 @@ DEFAULT_MM_TILE = 512
 # the plain products, as in the JAX package
 FUSED_MLP_MAX_ROWS = 256
 
+# the dtype codes of the C entries: K5 and K6 also take fp16 rows (code 2),
+# K7 float32 or bfloat16 alone
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES_F16 = {**_DTYPES, torch.float16: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -207,10 +212,13 @@ def _sum_tiles(parts: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _check_rows(name: str, x: torch.Tensor) -> int:
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"{name}: the kernel takes float32 or bfloat16, got {x.dtype}")
-    return _DTYPES[x.dtype]
+def _check_rows(name: str, x: torch.Tensor, fp16: bool = False) -> int:
+    """x's dtype code; fp16: the kernel also has an fp16 route."""
+    table = _DTYPES_F16 if fp16 else _DTYPES
+    if x.dtype not in table:
+        also = ", float16" if fp16 else ""
+        raise ValueError(f"{name}: the kernel takes float32{also} or bfloat16, got {x.dtype}")
+    return table[x.dtype]
 
 
 def _check_weights(name: str, dev: torch.device, *ts: Optional[torch.Tensor]):
@@ -251,7 +259,7 @@ def int4_matmul_pallas(x: torch.Tensor, p: torch.Tensor, s: torch.Tensor) -> tor
     if x.device.type == "cpu":
         y = int4_matmul_pallas_reference(xf, p, s)
     else:
-        dt = _check_rows("int4_matmul_pallas", x)
+        dt = _check_rows("int4_matmul_pallas", x, fp16=True)
         _check_weights("int4_matmul_pallas", x.device, p, s)
         if p.dtype != torch.int8 or s.dtype != torch.float32 or p.shape[0] * 2 != k:
             raise ValueError(f"int4_matmul_pallas: bad weight {p.dtype} {tuple(p.shape)}, "
@@ -342,7 +350,7 @@ def fused_mlp_int4(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_mlp_int4_reference(mlp_params, x, act)
     first, up, down, gelu = _mlp_parts(mlp_params, act)
-    dt = _check_rows("fused_mlp_int4", x)
+    dt = _check_rows("fused_mlp_int4", x, fp16=True)
     shape = x.shape
     h = shape[-1]
     xf = x.reshape(-1, h).contiguous()
@@ -380,7 +388,7 @@ def fused_mlp_int4_parts(mlp_params: Dict, x: torch.Tensor, act: str) -> torch.T
     first, up, down, gelu = _mlp_parts(mlp_params, act)
     if x.device.type != "cuda" or x.dim() != 2:
         raise ValueError("fused_mlp_int4_parts: a CUDA tensor [M, H]")
-    dt = _check_rows("fused_mlp_int4_parts", x)
+    dt = _check_rows("fused_mlp_int4_parts", x, fp16=True)
     m, h = x.shape
     i_dim = first["w_p4"].shape[1]
     plan = fused_mlp_int4_plan(m, h, i_dim)

@@ -96,9 +96,10 @@ def parse_args(argv):
                    help="prompt-lookup speculative decode with this draft "
                         "length (0 = greedy). Token-identical to greedy")
     p.add_argument("--fast", action="store_true", default=False,
-                   help="tanh GELU in the SAM encoder (and the window "
-                        "attention's fast path, which the kernels make a "
-                        "no-op; without flash attention it is refused)")
+                   help="tanh GELU in the SAM encoder, and the einsum window "
+                        "attention's fast branch (bias and logits in the "
+                        "activation dtype) where flash attention is off; the "
+                        "kernels ignore it")
     p.add_argument("--seg_token_num", default=1, type=int)
     p.add_argument("--image_feature_scale_num", default=1, type=int)
     p.add_argument("--max_new_tokens", default=512, type=int)

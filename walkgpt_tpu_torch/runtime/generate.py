@@ -9,7 +9,10 @@ per layer, or with fused_layer K12 per layer of the int4x format; K11 over
 the flat bf16 cache): every row writes decode step s at the same slot t
 + s (t = padded prompt length); the pad gap [len_r, t) of a shorter row
 holds zeros and stays masked; rope positions are each row's own logical
-positions. Speculative decode instead keeps the cache compact per row and
+positions. With cache_grow_step, greedy decode runs in segments of that
+many steps over the same allocation, segment k's attention reading only
+the prefix T + (k + 1) * step of the heads-layout cache. Speculative
+decode instead keeps the cache compact per row and
 verifies a chunk of drafted tokens per iteration. Each row stops at its own
 EOS and emits pad afterwards. Alongside the tokens come the last-layer
 hidden states that predicted them, which the [SEG] gather reads.
@@ -23,7 +26,7 @@ import torch.nn.functional as F
 
 from ..core.config import LLMConfig
 from ..models import llm
-from ..ops.flash_attention import DECODE_BLOCK
+from ..ops import flash_attention as fa
 
 
 class GenerateResult(NamedTuple):
@@ -80,13 +83,15 @@ def _prefill(params, cfg: LLMConfig, inputs_embeds, attention_mask, kv_cache,
 def _cache_layout(cfg: LLMConfig, kv_quant, max_len: int, fused_decode: bool):
     """(layout, quant, cache length) of a decode's KV cache: the flat
     quantized caches ("int8_flat" / "int4_flat"), and with fused_decode the
-    flat fp cache, are rounded up to a multiple of DECODE_BLOCK (the extra
-    slots stay masked); kv_quant "int8" / True / "int4" is the quantized
-    heads layout."""
+    flat fp cache (rope models only, as in the JAX package), are rounded up
+    to a multiple of DECODE_BLOCK (read at call time; the extra slots stay
+    masked); kv_quant "int8" / True / "int4" is the quantized heads
+    layout."""
+    block = fa.DECODE_BLOCK
     if kv_quant in ("int8_flat", "int4_flat"):
-        return "flat", kv_quant[:4], -(-max_len // DECODE_BLOCK) * DECODE_BLOCK
-    if fused_decode and not kv_quant:
-        return "flat", "", -(-max_len // DECODE_BLOCK) * DECODE_BLOCK
+        return "flat", kv_quant[:4], -(-max_len // block) * block
+    if fused_decode and cfg.pos_emb == "rope" and not kv_quant:
+        return "flat", "", -(-max_len // block) * block
     return "heads", kv_quant, max_len
 
 
@@ -118,20 +123,31 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                     attention_mask: torch.Tensor, *, max_new_tokens: int,
                     eos_id: int, pad_id: int = 0,
                     logits_mask: Optional[torch.Tensor] = None, flash_fn=None,
-                    kv_quant="", prefill_chunk: int = 0,
-                    fused_layer: bool = False) -> GenerateResult:
+                    kv_quant="", prefill_chunk: int = 0, cache_grow_step: int = 0,
+                    fused_layer: Optional[bool] = None) -> GenerateResult:
     """inputs_embeds: [B, T, H] right-padded prompt embeddings;
     attention_mask: [B, T] bool; logits_mask: optional [V] bool of allowed
     tokens, applied at every step. The cache is in the embeddings' dtype
     (heads layout; flat, read by K11, with cfg.fused_decode), or quantized:
     kv_quant "int8_flat" / "int4_flat" (the flat quantized cache read by
     K4) or "int8" / True / "int4" (heads layout). fused_layer: every
-    decode_step takes K12 on the layers it supports (llm.decode_step)."""
+    decode_step takes K12 on the layers it supports (llm.decode_step;
+    None: ops/fused_layer.FUSED_LAYER).
+
+    cache_grow_step > 0 (the growing cache; heads layout only, as in the
+    JAX package, and only when max_new_tokens exceeds it): the decode runs
+    in segments of cache_grow_step steps (the last one shorter) over the
+    one full-length allocation, and segment k's attention reads only the
+    slots [0, T + (k + 1) * step) (llm.decode_step's attend_len). The slots
+    past that prefix are masked anyway, so the tokens are the single
+    allocation's; the hidden states differ by the sums' shorter length."""
     b, t, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     prefill_hidden, kv_cache, max_len = _prefilled_cache(
         params, cfg, inputs_embeds, attention_mask, kv_quant, flash_fn, prefill_chunk,
         t + max_new_tokens, cfg.fused_decode)
+    grow = bool(cache_grow_step and not llm._cache_is_flat(kv_cache)
+                and max_new_tokens > cache_grow_step)
     lengths0 = attention_mask.long().sum(-1)                            # [B]
     rows = torch.arange(b, device=dev)
     hid = prefill_hidden[rows, (lengths0 - 1).clamp_min(0)]             # [B, H]
@@ -140,10 +156,14 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     token = pick(hid)
     cache_len = lengths0.clone()
     done = torch.zeros(b, dtype=torch.bool, device=dev)
-    key_pos = torch.arange(max_len, device=dev)[None]                  # [1, L]
-    prompt_valid = key_pos < lengths0[:, None]                          # [B, L]
     toks, hids, valids = [], [], []
     for s in range(max_new_tokens):
+        if s % (cache_grow_step if grow else max_new_tokens) == 0:
+            # a new segment: the prefix its attention reads (the whole cache
+            # without growing)
+            attend_len = min(t + s + cache_grow_step, max_len) if grow else max_len
+            key_pos = torch.arange(attend_len, device=dev)[None]                  # [1, L]
+            prompt_valid = key_pos < lengths0[:, None]                           # [B, L]
         valids.append(~done)
         toks.append(torch.where(done, pad_id, token))
         hids.append(hid)
@@ -151,8 +171,10 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         x = llm.embed(params, token)[:, None].to(inputs_embeds.dtype)
         key_mask = prompt_valid | ((key_pos >= t) & (key_pos <= t + s))
         hidden, kv_cache = llm.decode_step(params, cfg, kv_cache, x, cache_len, key_mask,
-                                           write_slot=t + s, valid_len=t + s + 1,
-                                           fused_layer=fused_layer)
+                                           write_slot=t + s,
+                                           attend_len=attend_len if attend_len < max_len
+                                           else None,
+                                           valid_len=t + s + 1, fused_layer=fused_layer)
         hid = hidden[:, 0]
         token = torch.where(done, pad_id, pick(hid))
         cache_len = cache_len + 1

@@ -38,7 +38,7 @@ import torch
 from ..core.config import LLMConfig
 from ..core.tree import resolve_device
 from ..models import llm
-from ..ops.flash_attention import DECODE_BLOCK
+from ..ops import flash_attention as fa
 from .generate import _cache_len_axis as _len_axis
 
 
@@ -93,7 +93,7 @@ class ContinuousBatcher:
         self.layout = "heads"
         self.kv_quant = kv_quant or ""
         if self.kv_quant in ("int8_flat", "int4_flat"):
-            self.max_len = -(-self.max_len // DECODE_BLOCK) * DECODE_BLOCK
+            self.max_len = -(-self.max_len // fa.DECODE_BLOCK) * fa.DECODE_BLOCK
             self.layout, self.kv_quant = "flat", self.kv_quant[:4]
         self._flat = self.layout == "flat"
 
