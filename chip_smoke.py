@@ -270,9 +270,35 @@ Phases (any failure raises and the script exits non-zero):
      f. (within b) one ViT-H encode (bf16) through the einsum attention's
         fast branch against the kernels' route: the drift reported, K2/K3
         idle, outputs finite.
+  11. (after 10) multi-device inference, every rank of a mesh on this one
+     card (parallel/dist.launch picks gloo, CUDA tensors staged through host
+     memory; walls are of ranks time-sharing the card):
+     a. K4 (20 kv heads over int4_flat), K5 (the qkv4 5120 -> 7680) and K6
+        (the local intermediate 6912, tile 256) at WalkGPT-13B's tp = 2
+        shard shapes, 8 rows, against their plain versions, with times and
+        bounds;
+     b. demo_config, int4x weights over int4_flat (fp32, float SAM blocks),
+        greedy and speculative_k=8 at dp 2 x tp 2 (four ranks,
+        parallel/infer.run_on_mesh) against the single device on the card:
+        identical tokens, lengths and [SEG] rows and masks within 1e-3, in
+        every row but at most one, whose tokens part at a near tie
+        (MESH_TIE_REL); K1-K6 and K8 launched in the ranks, K7 and K12
+        never, no JAX import;
+     c. runtime/evaluate.main at WalkGPT-13B int4x + int4_flat + int8 SAM
+        blocks (bf16; 2 samples, 8 new tokens) on one device, then with
+        --mesh 1,2 (the CLI spawns two tp ranks): the responses identical or
+        one parting at a near tie (MESH_TIE_REL), giou, ciou and the mIoUs
+        within MESH_METRIC_TOL, K1-K6 launched in each rank; images/s, each
+        rank's launches and peak memory;
+     d. WalkGPT-13B int4x at tp = 2 (make_tp_generate, 2 images, 8 rows of
+        64-token prompts, 2 and 6 new tokens): per rank a greedy step's
+        wall, device ms (profiler) and the collectives' share.
 Then one JSON line with every kernel's numbers (K1's, K4's, K5's and K6's
 with their fp16 route's numbers and launches under "fp16", K6's gelu route
-at MPT-7B widths under "gelu_mpt7b_bf16") and, last, the device line.
+at MPT-7B widths under "gelu_mpt7b_bf16", K4's, K5's and K6's at
+WalkGPT-13B's tp = 2 shard shapes with 11c's launches per rank under
+"tp2_13b"; the launches of 11b's and 11c's ranks in the totals) and, last,
+the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
 """
@@ -281,6 +307,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -296,7 +324,7 @@ import torch
 import torch.nn.functional as F
 
 from walkgpt_tpu_torch.core.config import (LossWeights, demo_config, flagship_1b_config,
-                                            walkgpt_7b_config)
+                                            walkgpt_7b_config, walkgpt_13b_config)
 from walkgpt_tpu_torch.core import config as config_module
 from walkgpt_tpu_torch.core import nn
 from walkgpt_tpu_torch.core.nn import int8_matmul, unpack4
@@ -308,6 +336,8 @@ from walkgpt_tpu_torch.models import (llm, sam, sam_decoder_multiscale, sam_enco
 from walkgpt_tpu_torch.models.projectors import ctp_apply
 from walkgpt_tpu_torch.ops import attention, cuda_build, fused_layer, int4, int8_gemm, quant
 from walkgpt_tpu_torch.ops import flash_attention as fa
+from walkgpt_tpu_torch.parallel import dist, infer
+from walkgpt_tpu_torch.parallel import tp as tpmod
 from walkgpt_tpu_torch.runtime import (checkpoint, consolidate_cli, evaluate, export, generate,
                                        lora, merge_lora_cli, parity_cli, serving, train,
                                        train_cli)
@@ -2174,7 +2204,8 @@ class _Quantizers:
     def __enter__(self):
         a8, rows, band, cache = nn.quantize_a8, int4.quantize_rows, fa.banded_q8_chunk, llm._quant_rows
 
-        def q_a8(x):
+        def q_a8(x, amax_reduce=None):      # recorded on one device: no reduce
+            assert amax_reduce is None
             xq, sx = a8(x)
             one = torch.ones((), device=x.device)
             inv = (127.0 * one / x.abs().amax(-1, keepdim=True).float().clamp_min(1e-8)).to(x.dtype)
@@ -3476,9 +3507,9 @@ class EvalSpy:
             self.params = build(*a, **k)
             return self.params
 
-        def eval_fns(cfg, device):
+        def eval_fns(cfg, device, mesh=None):
             self.cfg = cfg
-            fwd, gen = fns(cfg, device)
+            fwd, gen = fns(cfg, device, mesh)
 
             def fwd_spy(max_segs):
                 f = fwd(max_segs)
@@ -5176,6 +5207,422 @@ def phase_variants(dev, seed, max_new_tokens, numbers):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: multi-device inference (the manual dp x tp ranks of parallel/)
+# ---------------------------------------------------------------------------
+
+# 11c's depth: samples of the eval CLI run (one batch of 2) and new tokens;
+# 11d's two token counts, whose difference gives a greedy step's cost
+MESH_SAMPLES, MESH_NEW_TOKENS, MESH_STEP_TOKENS = 2, 8, (2, 6)
+# 11b, 11c: a mesh run's tokens may part from the single device's only at a
+# near tie, in at most one row (11c: one response) a call: where the single
+# device's logits of its token and of the mesh's (11c: of its top two, the
+# text giving no token) at the parting step lie within MESH_TIE_REL of the
+# largest logit's magnitude. The programs sum the row-parallel products in
+# another order and K4 and K6 round inside to bf16 at other shapes, so a
+# near tie can fall the other way. The limit is from the gaps measured at
+# 11b's partings on an H100 (700 W): 7.9e-4 (greedy) and 3.6e-3
+# (speculative_k=8) of the scale, about 3x the larger
+MESH_TIE_REL = 1e-2
+# 11b: the masks of the rows that did not part, against the single device's
+MESH_MASK_ATOL = 1e-3
+# 11c: giou, ciou and both mIoUs of the --mesh 1,2 CLI against one device's.
+# They come from the teacher-forced pass, which does not depend on the
+# answers, so they are held whatever the responses do. The runs' masks
+# differ by bf16 drift, which flips pixels at the threshold: measured on an
+# H100 (700 W), 2e-4 (giou, ciou, mIoU(no-bg)) and 4e-4 (mIoU(all)); the
+# limit is 5x the larger
+MESH_METRIC_TOL = 2e-3
+MESH_METRICS = ("giou", "ciou", "miou_inclusive", "miou_exclusive")
+MESH_KERNELS = ("decode_attention_q", "int4_matmul_pallas", "fused_mlp_int4")
+
+
+def phase_mesh(dev, seed, numbers):
+    """Phase 11 (11a-11d): the kernels at WalkGPT-13B's tp = 2 shard shapes
+    (their numbers go under "tp2_13b" in the kernels line, with 11c's
+    per-rank launches), demo_config at dp 2 x tp 2 on the card against the
+    single device, the eval CLI at 13B with --mesh 1,2 against the same CLI
+    on one device, and 11d's per-rank step times. Every rank shares the one
+    card. Returns the launches of 11b's and 11c's ranks, summed."""
+    t0 = time.perf_counter()
+    card = smi_line()
+    log(f"== phase 11: multi-device inference, every rank on the one card ({card})")
+    times = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        times[name] = round(time.perf_counter() - t, 1)
+        return out
+    shard = timed("11a", lambda: phase_mesh_kernels(dev, seed))
+    launches = timed("11b", lambda: phase_mesh_demo(dev, seed))
+    more, ranks = timed("11c", lambda: phase_mesh_eval(dev, seed, card))
+    launches = add(launches, more)
+    timed("11d", lambda: phase_mesh_steps(dev, seed, card))
+    for name in MESH_KERNELS:
+        per_rank = [r["launches"][name] for r in ranks]
+        if min(per_rank) <= 0:
+            raise AssertionError(f"{name} never launched in a rank of the 13B --mesh 1,2 run")
+        numbers[name]["tp2_13b"] = dict(shard[name], launches_per_rank=per_rank)
+    log(f"  phase 11 (multi-device): {time.perf_counter() - t0:.1f} s ({times})")
+    return launches
+
+
+def phase_mesh_kernels(dev, seed):
+    """11a: K4, K5 and K6 at WalkGPT-13B's tp = 2 shard shapes (20 heads of
+    128 over int4_flat, the fused qkv4 5120 -> 7680, the int4 MLP at the
+    local intermediate 6912, whose down pack's tile is tile_for(6912) = 256)
+    and 8 rows (the eval CLI's row bucket), against their plain versions,
+    with times and bounds."""
+    log("== phase 11a: K4, K5, K6 at WalkGPT-13B's tp = 2 shard shapes, 8 rows")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    bf16 = torch.bfloat16
+    local = tpmod.tp_llm_cfg(walkgpt_13b_config().llm, 2)
+    h, d, i_dim = local.num_heads, local.head_dim, local.intermediate_size
+    qkv = (local.num_heads + 2 * local.num_kv_heads) * d
+    log(f"  13B at tp = 2: {h} heads and {local.num_kv_heads} kv heads of {d}, qkv4 "
+        f"{local.hidden_size} -> {qkv}, intermediate {i_dim} (tile {int4.tile_for(i_dim)})")
+    check = lambda name, case, label: check_kernel(name, case, bf16, 100, 4, label,
+                                                   relative=True)
+    return {
+        "decode_attention_q": check(
+            "decode_attention_q", k4_case(dev, bf16, 8, h, local.num_kv_heads, d, 768, 520, True,
+                                          gen), "13B tp2 int4_flat, 8 rows"),
+        "int4_matmul_pallas": check(
+            "int4_matmul_pallas", k5_case(dev, bf16, 8, local.hidden_size, qkv, gen),
+            "13B tp2 qkv4, 8 rows"),
+        "fused_mlp_int4": check(
+            "fused_mlp_int4", mlp_case(dev, bf16, "int4", 8, local.hidden_size, i_dim, gen),
+            "13B tp2 mlp, 8 rows"),
+    }
+
+
+def mesh_batch(cfg, dev, seed):
+    """11b's batch: 4 images, 6 question rows (image 0 and 3 with two each)
+    and 2 padding rows at the end (one live token, no image), as collate
+    lays them out: the dp split must permute the rows (plan_dp_rows)."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    s = cfg.sam.img_size
+    ids, mask = prompts(8, [40, 27, 33, 21, 36, 30, 1, 1], 48, cfg.llm.vocab_size, gen, dev)
+    ids[6:, 1] = 0                          # the padding rows carry no image
+    images = torch.randn(4, s, s, 3, generator=gen, device=dev)
+    rows = torch.tensor([0, 0, 1, 2, 3, 3, 0, 0], device=dev)
+    hw = torch.tensor([[s, s], [s * 3 // 4, s], [s, s * 3 // 4], [s, s]], device=dev)
+    return images, ids, mask, rows, hw
+
+
+def single_decode(params, cfg, images, ids, mask, rows, max_new, eos_id, spec=0):
+    """The single device's decode of a batch as generate_and_segment runs it,
+    with the hidden states that predicted each token (GenerateResult)."""
+    with torch.inference_mode():
+        _, sam_tokens = walkgpt.encode_sam(params, cfg, images)
+        vis = walkgpt.visual_tokens(params, cfg, sam_tokens)[rows]
+        return walkgpt._generate(params, cfg, vis, ids, mask, max_new, eos_id, spec)
+
+
+def hold_partings(label, params, cfg, res, partings):
+    """Each (row, step, the mesh's token or None) where a mesh run parts from
+    the single device's decode `res`: the single device's logits there,
+    held to MESH_TIE_REL (its token against the mesh's, or its top two). At
+    most one row may part."""
+    if len(partings) > 1:
+        raise AssertionError(f"{label}: {len(partings)} rows part from the single device "
+                             "(at most one may, at a near tie)")
+    for row, step, other in partings:
+        logits = llm.lm_logits(params["llm"], cfg.llm, res.pred_hidden[row, step][None])[0]
+        logits = logits.float()
+        mine, scale = int(res.tokens[row, step]), float(logits.abs().max())
+        top = logits.topk(2).values
+        gap = float(logits[mine] - logits[other]) if other is not None else float(top[0] - top[1])
+        what = "its token's and the mesh run's" if other is not None else "its top two"
+        log(f"  {label}: row {row} parts at step {step}: the single device's logits, "
+            f"{what}, {gap:.3e} apart (limit {MESH_TIE_REL * scale:.3e}, logits up to "
+            f"{scale:.3g})")
+        if gap > MESH_TIE_REL * scale:
+            raise AssertionError(f"{label}: row {row} parts from the single device beyond a tie")
+
+
+def seg_slots(res, row):
+    """The [SEG] slots of `row` in an EvaluateOutput, in slot order."""
+    return (res.seg_valid & (res.seg_rows == row)).nonzero()[:, 0]
+
+
+def hold_mesh_demo(label, params, cfg, x, kw, k, ref, out):
+    """11b's rule for one call, the mesh's output `out` against the single
+    device's `ref`: at most one row's tokens part, at a near tie
+    (hold_partings); every other row has identical tokens and length, the
+    same number of [SEG] slots and masks within MESH_MASK_ATOL of the single
+    device's (max_segs holds every token, so a parting row's [SEG]s take no
+    slot of another row)."""
+    ref = walkgpt.EvaluateOutput(*(t.cpu() if torch.is_tensor(t) else t for t in ref))
+    parted = [r for r in range(ref.tokens.shape[0]) if not torch.equal(out.tokens[r],
+                                                                       ref.tokens[r])]
+    if parted:
+        res = single_decode(params, cfg, *x[:4], kw["max_new_tokens"], kw["eos_id"], k)
+        if not torch.equal(res.tokens.cpu(), ref.tokens):
+            raise AssertionError(f"{label}: the single device's decode is not reproducible")
+        partings = []
+        for r in parted:
+            s = int((out.tokens[r] != ref.tokens[r]).nonzero()[0])
+            partings.append((r, s, int(out.tokens[r, s])))
+        hold_partings(label, params, cfg, res, partings)
+    else:
+        same = all(torch.equal(getattr(out, n), getattr(ref, n))
+                   for n in ("seg_valid", "seg_rows"))
+        if not same:
+            raise AssertionError(f"{label}: tokens identical, [SEG] slots not")
+    rows = slots = 0
+    err = 0.0
+    for r in range(ref.tokens.shape[0]):
+        if r in parted:
+            continue
+        a, b = seg_slots(ref, r), seg_slots(out, r)
+        if len(a) != len(b) or int(out.lengths[r]) != int(ref.lengths[r]):
+            raise AssertionError(f"{label}: row {r}: {len(a)} [SEG] slots and length "
+                                 f"{int(ref.lengths[r])} on one device, {len(b)} and "
+                                 f"{int(out.lengths[r])} on the mesh")
+        if len(a):
+            err = max(err, float((out.pred_masks[b] - ref.pred_masks[a]).abs().max()))
+        rows, slots = rows + 1, slots + len(a)
+    log(f"  {label}: {rows} of {ref.tokens.shape[0]} rows' tokens identical; in those rows "
+        f"lengths identical, {slots} [SEG] slots in the same rows, masks max_abs {err:.3e} "
+        f"(limit {MESH_MASK_ATOL:g})")
+    if err > MESH_MASK_ATOL or slots == 0:
+        raise AssertionError(f"{label}: the masks of the rows that did not part differ "
+                             f"({err:.3e}) or none was compared")
+
+
+def phase_mesh_demo(dev, seed):
+    """11b: demo_config, int4x weights over int4_flat (float SAM blocks; fp32,
+    TF32 off), greedy and speculative_k=8 at dp 2 x tp 2: four ranks on the
+    card against the single-device program on the card (hold_mesh_demo:
+    identical tokens, lengths and [SEG] rows and masks within
+    MESH_MASK_ATOL, in every row but at most one, which parts at a near
+    tie); K1-K6 and K8 launched in the ranks, K7 and K12 never. Returns the
+    ranks' launches, summed."""
+    log("== phase 11b: demo_config int4x + int4_flat at dp 2 x tp 2 (4 ranks on one card) "
+        "against one device")
+    fmt = dict(FORMAT_7B, sam_int8=False)
+    cfg = demo_config().replace(kv_quant_cache="int4_flat", use_flash_attention=True)
+    params = walkgpt.init_quantized(cfg, seed=seed, dtype=torch.float32, device=dev, **fmt)
+    x = mesh_batch(cfg, dev, seed)
+    # max_segs holds every token of the 8 rows (the [SEG] token is the one
+    # the probe emits most), so that each row's masks are compared
+    kw = dict(max_new_tokens=16, max_segs=128, eos_id=-1)
+    names = ("images", "input_ids", "attention_mask", "row_image_idx", "pixel_hw")
+    run = lambda c, **extra: walkgpt.generate_and_segment(params, c, **dict(zip(names, x)),
+                                                          device=dev, **kw, **extra)
+    vals, counts = torch.unique(run(cfg).tokens, return_counts=True)
+    cfg = cfg.replace(seg_token_id=int(vals[counts.argmax()]))
+    single = {0: run(cfg), SPEC_K: run(cfg, speculative_k=SPEC_K)}
+    x_cpu = tuple(t.cpu() for t in x)
+    t0 = time.perf_counter()
+    (outs,), ranks = infer.run_on_mesh(
+        2, 2, [infer.Job(cfg, to_device(params, "cpu"),
+                         [("generate", x_cpu, kw),
+                          ("generate", x_cpu, dict(kw, speculative_k=SPEC_K))])],
+        device=dev.type, timeout=600, deadline=900)
+    log(f"  4 ranks: {time.perf_counter() - t0:.1f} s (spawn, weights, both runs)")
+    for (k, ref), out in zip(single.items(), outs):
+        hold_mesh_demo(f"11b speculative_k={k}", params, cfg, x, kw, k, ref, out)
+    launches = {}
+    for r in ranks:
+        launches = add(launches, r.launches)
+    ran = {k: v for k, v in launches.items() if v}
+    log(f"  kernel launches in the 4 ranks: "
+        f"{[{k: v for k, v in r.launches.items() if v} for r in ranks]}")
+    need = ("flash_attention", "sam_window_attention_packed", "sam_flash_attention",
+            "decode_attention_q", "int4_matmul_pallas", "fused_mlp_int4",
+            "decode_attention_q_chunk")
+    if (any(r.foreign_modules for r in ranks) or not all(ran.get(n, 0) > 0 for n in need)
+            or ran.get("fused_mlp_int8") or ran.get("fused_layer_tail")):
+        raise AssertionError(f"11b: launches {ran}; need {need}, never K7 or K12; "
+                             f"imports {[r.foreign_modules for r in ranks]}")
+    return launches
+
+
+def mesh_tie_check(spy, single_path, mesh_path):
+    """11c's rule on the two responses JSONs: equal, or a differing answer
+    parts from the single device's at a near tie (hold_partings, the top
+    two logits: the text gives no token): the single device's first batch
+    is decoded again (its tokens held to the CLI's) and the parting step
+    found on the answer text. At most one answer may part."""
+    a, b = json.load(open(single_path)), json.load(open(mesh_path))
+    if len(a) != len(b) or [x["image_path"] for x in a] != [x["image_path"] for x in b]:
+        raise AssertionError("11c: the responses differ in number or images")
+    differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+    log(f"  11c: {len(a)} responses, {len(a) - len(differ)} identical to the single device's")
+    if not differ:
+        return
+    params, cfg = spy.params, spy.cfg
+    (max_new, _, eos_id, _, _), _, gargs, cli = spy.gen[0]
+    _, images, ids, mask, rows, _ = gargs
+    if len(spy.gen) != 1 or max(differ) >= ids.shape[0]:
+        raise AssertionError("11c: a differing response outside the first batch")
+    res = single_decode(params, cfg, images, ids, mask, rows, max_new, eos_id)
+    if not torch.equal(res.tokens, cli.tokens):
+        raise AssertionError("11c: the single device's decode is not reproducible")
+    tok = tokenizer.build_tokenizer(None, model_max_length=2048)
+    tokenizer.setup_walkgpt_tokens(tok)                 # the CLI's tokens
+    partings = []
+    for i in differ:
+        answer = b[i]["response"].split("| Answer: ", 1)[1]
+        toks = res.tokens[i].cpu().numpy()
+        step = next((k for k in range(len(toks))
+                     if not answer.startswith(evaluate.decode_answer(tok, toks, k + 1))),
+                    len(toks) - 1)
+        partings.append((i, step, None))
+    hold_partings("11c", params, cfg, res, partings)
+
+
+def phase_mesh_eval(dev, seed, card):
+    """11c: runtime/evaluate.main at WalkGPT-13B int4x + int4_flat + int8 SAM
+    blocks (bf16) on a synthetic manifest of MESH_SAMPLES samples, 2 a
+    batch, MESH_NEW_TOKENS new tokens, first on one device, then with
+    --mesh 1,2 (two tp ranks spawned by the CLI, both on the card): the
+    responses held by mesh_tie_check, the metrics within MESH_METRIC_TOL of
+    one device's, K1-K6 launched in both ranks and no JAX import; images/s and peak memory of each rank and
+    of this process. Returns (the ranks' launches summed, each rank's
+    record)."""
+    log("== phase 11c: the eval CLI at WalkGPT-13B int4x, --mesh 1,2 against one device")
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        samples = synthetic_pave.write_manifest(data, MESH_SAMPLES, seed=seed, height=480,
+                                                width=640)
+        n_questions = sum(len(s["question"]) if isinstance(s["question"], list) else 1
+                          for s in samples)
+        single_out, mesh_out = (os.path.join(root, f"responses_{n}.json")
+                                for n in ("single", "mesh"))
+        argv = lambda out: eval_argv(data, out, "13b", "bf16", MESH_NEW_TOKENS, MESH_SAMPLES)
+        torch.cuda.reset_peak_memory_stats()
+        with EvalSpy() as spy:
+            t0 = time.perf_counter()
+            single = evaluate.main(argv(single_out))
+            wall_single = time.perf_counter() - t0
+        peak_single = torch.cuda.max_memory_allocated()
+        check_responses("11c one device", single_out, n_questions)
+        spy.gen, spy.fwd = spy.gen[:1], []
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = evaluate.main(argv(mesh_out) + ["--mesh", "1,2"])
+        wall_mesh = time.perf_counter() - t0
+        check_responses("11c --mesh 1,2", mesh_out, n_questions)
+        ranks = res["mesh_ranks"]
+        log(f"  11c: {card}; WalkGPT-13B int4x, {MESH_SAMPLES} images, {MESH_NEW_TOKENS} new "
+            f"tokens. One device: images/s {single['images_per_sec']:.4f}, main "
+            f"{wall_single:.1f} s, peak {peak_single / 2**30:.2f} GiB. --mesh 1,2 (2 ranks "
+            f"time-sharing one card): images/s {res['images_per_sec']:.4f}, main "
+            f"{wall_mesh:.1f} s (spawn and builds included); rank peaks "
+            f"{[round(r['peak_bytes'] / 2**30, 2) for r in ranks]} GiB (each while it "
+            f"builds; the ranks build in turns), this process holding "
+            f"{held / 2**30:.2f} GiB meanwhile (the sum, a bound on the card's peak: "
+            f"{(held + sum(r['peak_bytes'] for r in ranks)) / 2**30:.2f} GiB)")
+        for r, rank in enumerate(ranks):
+            log(f"  11c rank {r}: launches "
+                f"{ {k: v for k, v in rank['launches'].items() if v} }, "
+                f"{rank['seconds']:.1f} s")
+        keys = ("giou", "ciou", "ap50", "depth_acc")
+        ran = [all(rank["launches"][k] > 0 for k in EVAL_SYMBOLS) for rank in ranks]
+        if not (all(k in res for k in keys) and all(ran)
+                and not any(rank["foreign_modules"] for rank in ranks)):
+            raise AssertionError("11c: a metric is missing, a kernel never launched in a "
+                                 "rank, or a rank imported JAX")
+        mesh_tie_check(spy, single_out, mesh_out)
+        diffs = {k: abs(res[k] - single[k]) for k in MESH_METRICS}
+        log(f"  11c: the teacher-forced metrics, --mesh 1,2 against one device: "
+            + ", ".join(f"{k} {res[k]:.6f} / {single[k]:.6f}" for k in MESH_METRICS)
+            + f"; largest difference {max(diffs.values()):.3e} (limit {MESH_METRIC_TOL:g})")
+        if not all(d <= MESH_METRIC_TOL for d in diffs.values()):
+            raise AssertionError(f"11c: the metrics part from one device's: {diffs}")
+    launches = {}
+    for rank in ranks:
+        launches = add(launches, rank["launches"])
+    return launches, ranks
+
+
+def mesh_timed(mesh, run):
+    """run() in a rank, timed: {"wall_ms": host ms of a synchronised run,
+    "collective_ms" / "collectives": the host ms in and the number of this
+    rank's collectives during it, "device_ms": the card's kernel and copy
+    ms over a second run under torch.profiler, None off CUDA or where the
+    profiler saw no device time}."""
+    axes = (mesh.tp_axis, mesh.dp_axis)
+    cuda = mesh.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    calls0, secs0 = sum(a.calls for a in axes), sum(a.seconds for a in axes)
+    t0 = time.perf_counter()
+    run()
+    sync()
+    stats = dict(wall_ms=(time.perf_counter() - t0) * 1e3,
+                 collective_ms=(sum(a.seconds for a in axes) - secs0) * 1e3,
+                 collectives=sum(a.calls for a in axes) - calls0, device_ms=None)
+    if not cuda:
+        return stats
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    stats["device_ms"] = dev_us / 1e3 if dev_us > 0 else None
+    return stats
+
+
+def mesh_step_rank(mesh, cfg, build, inputs, counts, max_segs):
+    """11d's rank (dist.launch): its slice of build's weights, then
+    make_tp_generate at each token count of `counts`, each run timed
+    (mesh_timed); the first warms up and is dropped."""
+    params = infer.rank_params(mesh, cfg, build)
+    stats = []
+    for n in counts:
+        fn = tpmod.make_tp_generate(mesh, cfg, max_new_tokens=n, max_segs=max_segs, eos_id=-1)
+        stats.append(mesh_timed(mesh, lambda: fn(params, *inputs)))
+    return stats[1:]
+
+
+def phase_mesh_steps(dev, seed, card):
+    """11d: WalkGPT-13B int4x + int4_flat + int8 SAM blocks (random weights
+    from the seed, built in each rank) at tp = 2 through make_tp_generate
+    on 2 images and 8 rows of 64-token prompts, at MESH_STEP_TOKENS new
+    tokens: per rank the wall, the card's time (profiler) and the
+    collectives' host time of a run, and their differences over the extra
+    tokens, a greedy step's (the SAM encode and the mask decode cancel).
+    Both ranks share the one card."""
+    log("== phase 11d: per-rank greedy step at WalkGPT-13B tp = 2 (2 ranks, one card)")
+    cfg = walkgpt_13b_config().replace(kv_quant_cache="int4_flat")
+    build = functools.partial(walkgpt.init_quantized, cfg, seed=seed, dtype=torch.bfloat16,
+                              **FORMAT_7B)
+    gen = torch.Generator().manual_seed(seed + 13)
+    s = cfg.sam.img_size
+    ids, mask = prompts(8, [64, 60, 56, 52, 48, 44, 40, 36], 64, cfg.llm.vocab_size, gen,
+                        torch.device("cpu"))
+    images = torch.randn(2, s, s, 3, generator=gen).to(torch.bfloat16)
+    inputs = (images, ids, mask, torch.tensor([0, 0, 0, 0, 1, 1, 1, 1]),
+              torch.tensor([[s, s], [s * 3 // 4, s]]))
+    n1, n2 = MESH_STEP_TOKENS
+    ranks = dist.launch(mesh_step_rank, 1, 2, dev.type, (cfg, build, inputs, (n1, n1, n2), 8),
+                        timeout=600, deadline=900)
+    for r, rank in enumerate(ranks):
+        a, b = rank.value
+        per = lambda k: (b[k] - a[k]) / (n2 - n1) if a[k] is not None and b[k] is not None \
+            else None
+        wall, device, coll = per("wall_ms"), per("device_ms"), per("collective_ms")
+        calls = (b["collectives"] - a["collectives"]) / (n2 - n1)
+        dev_txt = f"{device:.2f}" if device is not None else "not measured"
+        log(f"  11d rank {r} ({card}; 2 ranks time-sharing one card): a greedy step of 8 rows "
+            f"{wall:.2f} ms wall, {dev_txt} ms on the card (profiler), collectives "
+            f"{coll:.2f} ms of host time in {calls:.0f} calls, {coll / wall:.3f} of the step; "
+            f"runs of {n1} and {n2} tokens {a['wall_ms']:.1f} and {b['wall_ms']:.1f} ms wall, "
+            f"peak {rank.peak_bytes / 2**30:.2f} GiB")
+        # a layer's two sums over the ranks and its W8A8 o-proj's absmax
+        if not (wall > 0 and calls == 3 * cfg.llm.num_layers):
+            raise AssertionError(f"11d rank {r}: step {wall} ms, {calls} collectives a step "
+                                 f"(expected {3 * cfg.llm.num_layers})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5251,6 +5698,9 @@ def main(argv=None) -> int:
     # phase 10, after the model paths of phase 4 (its profiler readings
     # among theirs)
     launches = add(launches, phase_variants(dev, args.seed, args.max_new_tokens, numbers))
+    torch.cuda.empty_cache()
+    # phase 11, the ranks of a dp x tp mesh on this card
+    launches = add(launches, phase_mesh(dev, args.seed, numbers))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     launches = add(launches, phase_w8a8_blocks(dev, args.seed))

@@ -100,6 +100,7 @@ def test_port_imports_without_jax():
         "from walkgpt_tpu_torch.models import sam_predictor, sam_decoder_multiscale, sam_tower\n"
         "from walkgpt_tpu_torch.eval import matcher\n"
         "from walkgpt_tpu_torch.ops import flash_attention, cuda_build, losses, quant\n"
+        "from walkgpt_tpu_torch.parallel import dist, infer, tp\n"
         "assert not any(m.split('.')[0] in ('jax', 'walkgpt_tpu') for m in sys.modules)\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -141,6 +142,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         evaluate.build_model(args, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate.validate(args, cfg, params, None, [])
+    # the multi-device entry points resolve the ranks' device before spawning
+    from walkgpt_tpu_torch.parallel import dist, infer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--model_size", "tiny", "--mesh", "1,2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist.launch(print, 1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        infer.run_on_mesh(1, 2, [infer.Job(cfg, params, [])])
 
 
 def test_native_loader_builds_from_the_port_only():
@@ -157,12 +166,14 @@ def test_native_loader_builds_from_the_port_only():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "1,2"], "Multi-device"),
-    (["--val_dataset", "MultiReasonSeg|val", "--mesh", "1,2"], "Multi-device"),
+    (["--mesh", "1,2", "--mesh_impl", "gspmd"], "Multi-device"),
+    (["--val_dataset", "MultiReasonSeg|val", "--mesh", "2,1"], "Multi-device"),
     (["--tokenizer", "bpe"], "Eval CLI, data and checkpoints")])
 def test_eval_refuses_unported_options_at_startup(argv, item, monkeypatch):
     """Each option whose code the port lacks raises before anything is
-    built (the device check included), naming its ROADMAP.md Queue 1 item."""
+    built (the device check included), naming its ROADMAP.md Queue 1 item:
+    the GSPMD leg of --mesh (asked for, or picked by auto at tp = 1), and
+    the BPE tokenizer. --mesh with tp > 1 runs (tests/test_torch_eval_mesh.py)."""
     from walkgpt_tpu_torch.runtime import evaluate
     monkeypatch.setattr(evaluate, "build_model", lambda *a, **k: pytest.fail("built"))
     with pytest.raises(NotImplementedError, match=re.escape(item)):

@@ -19,6 +19,14 @@ with decode_step(fused_layer=True) on a layer of the int4x format, by K12,
 which runs that layer's attention, o-proj, residual, norm and MLP in one
 launch.
 
+Manual tensor parallelism (parallel/tp.py): with `tp` (a parallel/dist.Axis)
+the params and cfg are one rank's head and intermediate shard, the o- and
+down-projections are row-parallel and their partial outputs are summed over
+the tp ranks (_psum_tp: two per layer), the W8A8 quantizer of those
+projections takes the tp ranks' largest absmax (_amax_reduce_for), K7 and
+K12 are not used (their fusions cross the sum), and ALiBi is refused (its
+slopes index the global heads), all as in the JAX package's tp_axis.
+
 LoRA: a q/k/v projection with "lora_a" [in, r] and "lora_b" [r, out]
 leaves adds (x @ lora_a) @ lora_b * lora_scale in the activation dtype
 (runtime/lora.py makes and merges the adapters). `forward(remat=True)`
@@ -162,19 +170,39 @@ def _norm(p, x, cfg: LLMConfig):
     return nn.layer_norm(p, x, eps=cfg.norm_eps)
 
 
-def _mlp(p, x, cfg: LLMConfig):
+def _amax_reduce_for(tp):
+    """The W8A8 quantizer's hook for the row-parallel projections under tp
+    (core/nn.linear amax_reduce): the pmax over the tp ranks, so every rank
+    quantizes with the single device's per-token absmax. None without tp."""
+    return None if tp is None else tp.pmax
+
+
+def _psum_tp(x: torch.Tensor, tp) -> torch.Tensor:
+    """The megatron reduction point: under tp the o- and down-projections
+    are row-parallel, so each rank holds a partial sum of the residual
+    stream's update; the sum over the tp ranks makes it whole again (the
+    same bits on every rank). The identity without tp."""
+    return x if tp is None else tp.psum(x)
+
+
+def _mlp(p, x, cfg: LLMConfig, tp=None):
     """Packed int4 MLPs take K6 on decode rows; W8A8 MLPs take K7 on decode
-    rows under _FUSED_MLP8 (fused_mlp_int8 returns None for longer inputs);
-    the rest the per-projection products."""
+    rows under _FUSED_MLP8 (fused_mlp_int8 returns None for longer inputs)
+    and without tp (K7 requantizes the intermediate per tile_for(I) group,
+    which re-bins at the local intermediate); the rest the per-projection
+    products, the down-projection's quantizer under tp with the pmax hook.
+    Under tp the result is this rank's partial sum."""
     if int4.mlp_is_int4(p):
         return int4.mlp_int4(p, x, cfg.act)
-    if _FUSED_MLP8 and int4.mlp_is_w8a8(p):
+    if _FUSED_MLP8 and int4.mlp_is_w8a8(p) and tp is None:
         y = int4.fused_mlp_int8(p, x, cfg.act)
         if y is not None:
             return y
+    red = _amax_reduce_for(tp)
     if cfg.act == "silu":
-        return nn.linear(p["down"], F.silu(nn.linear(p["gate"], x)) * nn.linear(p["up"], x))
-    return nn.linear(p["fc2"], nn.gelu_exact(nn.linear(p["fc1"], x)))
+        return nn.linear(p["down"], F.silu(nn.linear(p["gate"], x)) * nn.linear(p["up"], x),
+                         amax_reduce=red)
+    return nn.linear(p["fc2"], nn.gelu_exact(nn.linear(p["fc1"], x)), amax_reduce=red)
 
 
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -232,11 +260,12 @@ def _qkv_rope(p, cfg: LLMConfig, x: torch.Tensor, cos, sin):
 def _attention(p, cfg: LLMConfig, x: torch.Tensor, *, cos, sin,
                mask: torch.Tensor, flash_fn=None,
                key_valid: Optional[torch.Tensor] = None,
-               bias: Optional[torch.Tensor] = None):
+               bias: Optional[torch.Tensor] = None, tp=None):
     """Full-sequence self-attention. Returns (output, (k, v)) with the new
     keys/values [B, n_kv, T, D] (pre-repeat, post-rope) for the cache.
     flash_fn(q, k, v, key_valid) implements causal attention (K1); with an
-    ALiBi bias the plain attention runs instead, as in the JAX package."""
+    ALiBi bias the plain attention runs instead, as in the JAX package.
+    Under tp the output is this rank's partial sum."""
     q, k, v = _qkv_rope(p, cfg, x, cos, sin)
     n_rep = cfg.num_heads // cfg.num_kv_heads
     kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
@@ -244,7 +273,7 @@ def _attention(p, cfg: LLMConfig, x: torch.Tensor, *, cos, sin,
         out = flash_fn(q, kr, vr, key_valid)
     else:
         out = mha(q, kr, vr, mask=mask, bias=bias)
-    return nn.linear(p["o"], merge_heads(out)), (k, v)
+    return nn.linear(p["o"], merge_heads(out), amax_reduce=_amax_reduce_for(tp)), (k, v)
 
 
 def lm_logits(params: Params, cfg: LLMConfig, hidden: torch.Tensor) -> torch.Tensor:
@@ -430,19 +459,29 @@ def _put_chunk(buf: torch.Tensor, i: int, val: torch.Tensor, slots: torch.Tensor
 # ---------------------------------------------------------------------------
 
 def _block(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos, sin, mask, flash_fn,
-           key_valid, bias):
+           key_valid, bias, tp=None):
     h, kv = _attention(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg),
                        cos=cos, sin=sin, mask=mask, flash_fn=flash_fn, key_valid=key_valid,
-                       bias=bias)
-    x = x + h
-    return x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg), kv
+                       bias=bias, tp=tp)
+    x = x + _psum_tp(h, tp)
+    return x + _psum_tp(_mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg, tp), tp), kv
+
+
+def refuse_alibi_tp(cfg: LLMConfig, tp) -> None:
+    """ALiBi under manual tp raises, as in the JAX package: here in forward
+    and decode_step, and in parallel/tp.tp_llm_cfg before any rank starts."""
+    if tp is not None and cfg.pos_emb == "alibi":
+        raise NotImplementedError(
+            "manual tp: ALiBi slopes index the global heads; the JAX package refuses "
+            "it too, and no item of ROADMAP.md's Queue 1 ports it")
 
 
 def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
             attention_mask: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             kv_cache: Optional[Params] = None,
-            flash_fn=None, remat: bool = False) -> Tuple[torch.Tensor, Optional[Params]]:
+            flash_fn=None, remat: bool = False,
+            tp=None) -> Tuple[torch.Tensor, Optional[Params]]:
     """Full-sequence (training / prefill) forward.
 
     inputs_embeds: [B, T, H]; attention_mask: [B, T] bool (True = real token).
@@ -453,8 +492,10 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
     the JAX package's jax.checkpoint with nothing saveable). Returns
     (final-norm hidden states [B, T, H], kv_cache). ALiBi models add the
     bias of positions 0 .. T-1 (the JAX package's, whatever the mask) in
-    the plain attention; flash_fn is then not called.
+    the plain attention; flash_fn is then not called. tp: this rank's axis
+    of a manual tp mesh (module docstring), params and cfg its shard.
     """
+    refuse_alibi_tp(cfg, tp)
     b, t, _ = inputs_embeds.shape
     dev = inputs_embeds.device
     if positions is None:
@@ -480,7 +521,7 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
-        args = (layer, cfg, x, cos, sin, mask, flash_fn, attention_mask, bias)
+        args = (layer, cfg, x, cos, sin, mask, flash_fn, attention_mask, bias, tp)
         if remat:
             x, (k_new, v_new) = checkpoint(_block, *args, use_reentrant=False)
         else:
@@ -495,7 +536,7 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
                 key_mask: torch.Tensor, write_slot: Optional[int] = None,
                 attend_len: Optional[int] = None,
                 valid_len: Optional[int] = None,
-                fused_layer: Optional[bool] = None) -> Tuple[torch.Tensor, Params]:
+                fused_layer: Optional[bool] = None, tp=None) -> Tuple[torch.Tensor, Params]:
     """One decode step over any of the caches: heads layout (fp: einsum
     attention; quantized: _int8_kv_decode_attention), flat fp (K11) or flat
     quantized (K4). ALiBi models decode over the heads layout alone.
@@ -515,8 +556,12 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
     valid slot is below it: greedy_generate's growing-cache segments);
     writes still reach the whole buffer. valid_len: no slot at or past it
     is valid (flat quantized caches: K4 skips the length blocks past it).
-    The cache is updated in place. Returns (hidden [B, 1, H], kv_cache).
+    tp: this rank's axis of a manual tp mesh (module docstring): params,
+    cfg and cache are its kv-head shard, and K12 is skipped (the sum over
+    the ranks falls inside its fusion). The cache is updated in place.
+    Returns (hidden [B, 1, H], kv_cache).
     """
+    refuse_alibi_tp(cfg, tp)
     b = inputs_embeds.shape[0]
     rows = torch.arange(b, device=inputs_embeds.device)
     n_rep = cfg.num_heads // cfg.num_kv_heads
@@ -564,7 +609,7 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
         _write_kv(kv_cache, i, k1.transpose(1, 2), v1.transpose(1, 2), put)
         qf = q[:, :, 0].reshape(b, cfg.num_heads * cfg.head_dim)
         pack4 = kv_cache["k"].shape[-1] < cfg.num_kv_heads * cfg.head_dim
-        if flat and quant and fused_layer and layer_tail_supported(layer, cfg):
+        if flat and quant and fused_layer and tp is None and layer_tail_supported(layer, cfg):
             q8, qs = banded_q8(qf, n_kv=cfg.num_kv_heads, head_dim=cfg.head_dim)
             y = fused_layer_tail(
                 x[:, 0], q8, qs, kv_cache["k"], kv_cache["k_scale"], kv_cache["v"],
@@ -590,13 +635,14 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
             k_cache, v_cache = _cache_kv(kv_cache, i, q.dtype, attend_len=attend_len)
             att = merge_heads(mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
                                   mask=key_mask[:, None, None, :], bias=bias))[:, 0]
-        x = x + nn.linear(layer["attn"]["o"], att[:, None])
-        x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
+        x = x + _psum_tp(nn.linear(layer["attn"]["o"], att[:, None],
+                                   amax_reduce=_amax_reduce_for(tp)), tp)
+        x = x + _psum_tp(_mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg, tp), tp)
     return _norm(params["final_norm"], x, cfg), kv_cache
 
 
 def decode_chunk(params: Params, cfg: LLMConfig, kv_cache: Params,
-                 inputs_embeds: torch.Tensor, cache_len: torch.Tensor
+                 inputs_embeds: torch.Tensor, cache_len: torch.Tensor, tp=None
                  ) -> Tuple[torch.Tensor, Params]:
     """T tokens against the cache in one pass: the verify step of
     speculative decode (runtime/generate.speculative_generate).
@@ -608,7 +654,7 @@ def decode_chunk(params: Params, cfg: LLMConfig, kv_cache: Params,
     quantized caches run K8, which reads each cache block once per chunk.
     Writes past the cache's end are dropped (_chunk_slots). The cache is
     updated in place. Returns (hidden [B, T, H], kv_cache). Rope models
-    only, as in the JAX package."""
+    only, as in the JAX package. tp: as decode_step's."""
     if cfg.pos_emb == "alibi":
         raise NotImplementedError("speculative chunk decode: rope models")
     b, t, _ = inputs_embeds.shape
@@ -641,6 +687,6 @@ def decode_chunk(params: Params, cfg: LLMConfig, kv_cache: Params,
             k_cache, v_cache = _cache_kv(kv_cache, i, q.dtype)
             att = merge_heads(mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
                                   mask=mask))
-        x = x + nn.linear(layer["attn"]["o"], att)
-        x = x + _mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg)
+        x = x + _psum_tp(nn.linear(layer["attn"]["o"], att, amax_reduce=_amax_reduce_for(tp)), tp)
+        x = x + _psum_tp(_mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg, tp), tp)
     return _norm(params["final_norm"], x, cfg), kv_cache

@@ -19,6 +19,11 @@ Training: `model_forward` is the teacher-forced forward with the losses
 (token CE, mask BCE and dice, InfoNCE) that runtime/train.py differentiates;
 the LLM's attention runs K1 with its backward K1b.
 
+Manual dp x tp inference (parallel/tp.py): `generate_seg_embeds` and
+`teacher_seg_embeds` with `tp` are a rank's half of the sharded generation
+and teacher-forced passes; the rank with the gathered [SEG] embeddings
+decodes the masks (`decode_seg_masks`).
+
 The CLIP visual stream (`generate_and_segment(visual_stream="clip")`): the
 CLIP-448 pixels go through the CLIP tower (models/clip_vit.py, plain
 attention as in the JAX package) and the mm_projector, are bilinearly
@@ -297,9 +302,7 @@ def model_forward(params, cfg: WalkGPTConfig, *, images: torch.Tensor,
     those gradients (optax set_to_zero never reads them), so its compiled
     step computes no more than this. remat recomputes each LLM block in the
     backward pass."""
-    flash_fn = None
-    if cfg.use_flash_attention:
-        flash_fn = lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
+    flash_fn = _flash_fn(cfg)
     r, _ = input_ids.shape
     lw = cfg.losses
 
@@ -470,21 +473,26 @@ def _as_inputs(dev, **arrays):
     return out
 
 
+def _flash_fn(cfg: WalkGPTConfig):
+    """K1 as the LLM's causal attention where cfg.use_flash_attention."""
+    if not cfg.use_flash_attention:
+        return None
+    return lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
+
+
 def _generate(params, cfg: WalkGPTConfig, vis_rows, input_ids, attention_mask,
               max_new_tokens: int, eos_id: int, speculative_k: int,
-              fused_layer: Optional[bool] = None, vis_mask_rows=None) -> GenerateResult:
+              fused_layer: Optional[bool] = None, vis_mask_rows=None, tp=None) -> GenerateResult:
     """Visual tokens per row -> splice -> greedy decode (with fused_layer,
     K12 in its steps; with cfg.decode_cache_grow, the growing cache), or
     speculative decode with `speculative_k` drafts per iteration whose
     lookup history is the textual prompt (the <image> sentinel and pad
-    positions excluded)."""
-    flash_fn = None
-    if cfg.use_flash_attention:
-        flash_fn = lambda q, k, v, kv: flash_attention(q, k, v, True, key_valid=kv)
+    positions excluded). tp: the LLM as one rank of a manual tp mesh
+    (runtime/generate.py)."""
     sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask,
                        vis_mask=vis_mask_rows)
-    kw = dict(max_new_tokens=max_new_tokens, eos_id=eos_id, flash_fn=flash_fn,
-              kv_quant=cfg.kv_quant_cache or "", prefill_chunk=cfg.prefill_chunk)
+    kw = dict(max_new_tokens=max_new_tokens, eos_id=eos_id, flash_fn=_flash_fn(cfg),
+              kv_quant=cfg.kv_quant_cache or "", prefill_chunk=cfg.prefill_chunk, tp=tp)
     if speculative_k > 0:
         hist_ids = torch.where(attention_mask & (input_ids >= 0), input_ids, -2)
         return speculative_generate(params["llm"], cfg.llm, sp.embeds, sp.attention_mask,
@@ -564,19 +572,47 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
 @torch.inference_mode()
 def generate_seg_embeds(params, cfg: WalkGPTConfig, *, sam_tokens, input_ids,
                         attention_mask, row_image_idx, max_new_tokens: int, max_segs: int,
-                        eos_id: int, speculative_k: int = 0, device=None) -> SegEmbeds:
+                        eos_id: int, speculative_k: int = 0, tp=None,
+                        device=None) -> SegEmbeds:
     """generate_and_segment without the encode and the mask decode: SAM
     tokens [B, L, C] (encode_sam's second output) -> splice -> greedy or
-    speculative decode -> [SEG] gather -> CTP."""
+    speculative decode -> [SEG] gather -> CTP. tp: one rank of a manual tp
+    mesh (parallel/tp.make_tp_generate): params["llm"] and cfg.llm are its
+    head and intermediate shard; the rest runs replicated."""
     dev = resolve_device(device)
     x = _as_inputs(dev, sam_tokens=sam_tokens, input_ids=input_ids,
                    attention_mask=attention_mask, row_image_idx=row_image_idx)
     vis_rows = visual_tokens(params, cfg, x["sam_tokens"])[x["row_image_idx"]]
     res = _generate(params, cfg, vis_rows, x["input_ids"], x["attention_mask"],
-                    max_new_tokens, eos_id, speculative_k)
+                    max_new_tokens, eos_id, speculative_k, tp=tp)
     seg_valid, seg_rows, emb = _seg_gather(params, cfg, res.tokens, res.pred_hidden, max_segs)
     return SegEmbeds(tokens=res.tokens, lengths=res.lengths, seg_valid=seg_valid,
                      seg_rows=seg_rows, pred_embeddings=emb)
+
+
+@torch.inference_mode()
+def teacher_seg_embeds(params, cfg: WalkGPTConfig, *, sam_tokens, input_ids, attention_mask,
+                       row_image_idx, max_segs: int, tp=None, device=None) -> SegEmbeds:
+    """The teacher-forced [SEG] embeddings (model_forward without the losses
+    and the mask decode): the conversation rows forward once, the [SEG]
+    states gathered on the spliced timeline, CTP. tokens are the input ids
+    and lengths the rows' valid counts. The sharded eval pass
+    (parallel/tp.make_tp_forward) runs it in every rank and decodes the
+    masks once; tp as in generate_seg_embeds."""
+    dev = resolve_device(device)
+    x = _as_inputs(dev, sam_tokens=sam_tokens, input_ids=input_ids,
+                   attention_mask=attention_mask, row_image_idx=row_image_idx)
+    ids = x["input_ids"]
+    vis_rows = visual_tokens(params, cfg, x["sam_tokens"])[x["row_image_idx"]]
+    sp = splice_visual(params, cfg, ids, vis_rows, attention_mask=x["attention_mask"])
+    hidden, _ = llm.forward(params["llm"], cfg.llm, sp.embeds, attention_mask=sp.attention_mask,
+                            flash_fn=_flash_fn(cfg), tp=tp)
+    seg_mask = seg_timeline_mask(ids, cfg.seg_token_id, cfg)
+    seg_idx, seg_valid = _first_true(seg_mask.reshape(-1), max_segs)
+    seg_rows = seg_idx // seg_mask.shape[1]
+    emb = ctp_apply(params["ctp"][0], hidden.reshape(-1, hidden.shape[-1])[seg_idx])
+    return SegEmbeds(tokens=ids, lengths=x["attention_mask"].long().sum(-1),
+                     seg_valid=seg_valid, seg_rows=seg_rows, pred_embeddings=emb)
 
 
 def finalize_masks(pred_canvas: torch.Tensor, input_hw: Tuple[int, int],

@@ -25,13 +25,22 @@ out_file_{rank}.json and acc_list_{rank}.json under log_base_dir/exp_name.
 
 The CLI runs on the CUDA GPU unless --device names another device; it raises
 when CUDA is asked for and absent. Options whose code is not ported yet
-(--mesh, --tokenizer bpe) are refused at startup, naming their item of
-ROADMAP.md's Queue 1.
+(--mesh_impl gspmd, --mesh with the CLIP stream, --tokenizer bpe) are
+refused at startup, naming their item of ROADMAP.md's Queue 1.
+
+--mesh dp,tp (with --mesh_impl shard_map, or auto with tp > 1): the manual
+dp x tp inference of parallel/tp.py. The CLI spawns dp * tp ranks
+(parallel/dist.launch) on --device; each builds the model from the seed or
+the checkpoints, repacks it for tp and keeps its slice (the ranks build one
+after the other, so that one full model at a time is in memory); every rank
+runs the eval loop over the whole dataset, and the root rank alone
+harvests, scores, logs and writes the responses. Where the ranks share one
+card, its wall time is that of ranks time-sharing the card.
 
 Usage:
   python -m walkgpt_tpu_torch.runtime.evaluate --val_dataset "PAVE|val" \\
       --dataset_dir ./datasets --weight ckpt.../mp_rank_00_model_states.pt \\
-      --save_responses_path out/responses.json [--device cpu]
+      --save_responses_path out/responses.json [--device cpu] [--mesh 1,2]
 """
 from __future__ import annotations
 
@@ -47,6 +56,10 @@ import numpy as np
 import torch
 
 from ..core.tree import resolve_device
+
+# a mesh rank that waits this long in one collective fails (seconds): the
+# ranks wait for each other while one builds its model or the root harvests
+MESH_TIMEOUT = 1800.0
 
 
 def parse_args(argv):
@@ -113,9 +126,16 @@ def parse_args(argv):
                         "against the SAM features)")
     p.add_argument("--max_samples", default=-1, type=int,
                    help="limit evaluated samples (smoke runs)")
-    p.add_argument("--mesh", default="", help="sharded inference (not ported)")
+    p.add_argument("--mesh", default="",
+                   help="sharded inference over dp x tp ranks: 'dp,tp' (e.g. '1,2': "
+                        "two tensor-parallel ranks). --val_batch_size must be a multiple "
+                        "of dp (the SAM encode splits over all ranks where it is a "
+                        "multiple of dp * tp)")
     p.add_argument("--mesh_impl", default="auto",
-                   choices=["auto", "gspmd", "shard_map"])
+                   choices=["auto", "gspmd", "shard_map"],
+                   help="'shard_map': the manual dp x tp ranks (parallel/tp.py) with the "
+                        "kernels and the quantized flat caches; 'auto' picks it when tp > "
+                        "1 and the stream is 'sam'; 'gspmd' is not ported")
     p.add_argument("--log_base_dir", default="./runs")
     p.add_argument("--exp_name", default="walkgpt_eval")
     p.add_argument("--save_responses_path", default="")
@@ -127,11 +147,29 @@ def parse_args(argv):
     return p.parse_args(argv)
 
 
+def parse_mesh(args):
+    """(dp, tp) of --mesh ('dp,tp', also 'dp2,tp4'), or None without it."""
+    spec = getattr(args, "mesh", "")
+    if not spec:
+        return None
+    dp, tp = (int(x) for x in spec.replace("dp", "").replace("tp", "").split(","))
+    return dp, tp
+
+
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for an option whose code the port lacks,
     naming its item of ROADMAP.md's Queue 1. Nothing falls back."""
+    mesh = parse_mesh(args)
+    stream = getattr(args, "visual_stream", "sam")
+    impl = getattr(args, "mesh_impl", "auto")
+    if mesh is not None and impl == "auto":
+        impl = "shard_map" if mesh[1] > 1 and stream == "sam" else "gspmd"
     for on, what, item in (
-            (bool(getattr(args, "mesh", "")), "--mesh (sharded inference)", "Multi-device"),
+            (mesh is not None and stream == "clip",
+             "--mesh with --visual_stream clip (the JAX package runs it on GSPMD)",
+             "Multi-device: the GSPMD leg"),
+            (mesh is not None and impl == "gspmd",
+             "--mesh_impl gspmd (and auto with tp = 1)", "Multi-device: the GSPMD leg"),
             (getattr(args, "tokenizer", "byte") == "bpe",
              "--tokenizer bpe (needs the tokenizers package)",
              "Eval CLI, data and checkpoints: what is left")):
@@ -274,7 +312,7 @@ def decode_answer(tokenizer, token_row: np.ndarray, length: int) -> str:
     return text.replace("\n", " ").replace("  ", " ").strip()
 
 
-def _eval_fns(cfg, device):
+def _eval_fns(cfg, device, mesh=None):
     """The eval loop's two passes as plain callables over tensors on
     `device`: fwd(max_segs)(params, images, input_ids, labels,
     attention_mask, row_image_idx, gt_masks, pixel_hw) -> (ForwardOutput,
@@ -282,9 +320,29 @@ def _eval_fns(cfg, device):
     histograms reduced on the device; gen(max_new_tokens, max_segs, eos_id,
     speculative_k, visual_stream)(params, images, input_ids, attention_mask,
     row_image_idx, pixel_hw[, images_clip, clip_resize_hw]) ->
-    generate_and_segment's EvaluateOutput."""
+    generate_and_segment's EvaluateOutput. With a mesh (parallel/dist
+    RankMesh) they are the manual dp x tp programs, make_tp_forward and
+    make_tp_generate (the SAM stream), built once per key; every rank calls
+    them, and the root rank gets their outputs, the others None."""
     from ..eval.metrics import device_mask_counts
     from ..models import walkgpt
+
+    if mesh is not None:
+        import functools
+        from ..parallel import tp as tpmod
+
+        @functools.lru_cache(maxsize=16)
+        def tp_fwd(max_segs):
+            return tpmod.make_tp_forward(mesh, cfg, max_segs=max_segs)
+
+        @functools.lru_cache(maxsize=16)
+        def tp_gen(max_new_tokens, max_segs, eos_id, speculative_k=0, visual_stream="sam"):
+            if visual_stream != "sam":
+                raise NotImplementedError("the manual dp x tp ranks serve the SAM stream only")
+            return tpmod.make_tp_generate(mesh, cfg, max_new_tokens=max_new_tokens,
+                                          max_segs=max_segs, eos_id=eos_id,
+                                          speculative_k=speculative_k)
+        return tp_fwd, tp_gen
 
     def fwd(max_segs):
         @torch.inference_mode()
@@ -317,12 +375,17 @@ def _eval_fns(cfg, device):
     return fwd, gen
 
 
-def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
+def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None, mesh=None):
     """The PAVE eval loop on one device (args.device, default CUDA): batches
     of --val_batch_size images, prepared and uploaded two ahead in a
     background thread; per batch the teacher-forced pass (mask metrics) and
     the generation pass (responses). Batch k is read back only after batch
-    k + 1 has been queued. Returns (metrics, responses)."""
+    k + 1 has been queued. Returns (metrics, responses).
+
+    mesh: this rank of a manual dp x tp mesh (parallel/dist.RankMesh), whose
+    device the loop runs on and whose local weights `params` are; every rank
+    runs the loop, the root alone harvests and logs, and the others return
+    (None, [])."""
     from ..data.collate import collate_batch
     from ..data.prefetch import prefetch_map, shard_indices
     from ..data.tokenizer import tokenizer_image_token
@@ -330,8 +393,10 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
     from .batching import prepare_batch
 
     refuse_unported(args)
-    dev = resolve_device(device if device is not None else getattr(args, "device", None))
-    fwd_fn, gen_fn = _eval_fns(cfg, dev)
+    dev = (mesh.device if mesh is not None else
+           resolve_device(device if device is not None else getattr(args, "device", None)))
+    fwd_fn, gen_fn = _eval_fns(cfg, dev, mesh)
+    root = mesh is None or mesh.is_root
 
     acc = IoUAccumulator()
     depth = DepthAccuracy()
@@ -422,7 +487,7 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
     for samples, batch, db, x in prefetch_map(load, groups, depth=2):
         n_images += len(samples)
         # 1. teacher-forced mask metrics (only [M, 3, 2] counts come back)
-        out, counts = fwd_fn(db.max_segs)(
+        fwd_out = fwd_fn(db.max_segs)(
             params, x["images"], x["input_ids"], x["labels"],
             x["attention_mask"], x["row_image_idx"], x["gt_masks"], x["pixel_hw"])
 
@@ -442,6 +507,9 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
             params, x["images"], torch.as_tensor(ids_p, device=dev),
             torch.as_tensor(ids_p != tokenizer.pad_token_id, device=dev),
             x["row_image_idx"], x["pixel_hw"], *clip_args)
+        if not root:
+            continue
+        out, counts = fwd_out
         # harvest the PREVIOUS batch now that this one is queued
         if pending is not None:
             harvest(*pending)
@@ -457,6 +525,8 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
         now = time.perf_counter()
         group_secs.append((now - t_prev, len(pending[0])))
         t_prev = now
+    if not root:
+        return None, []
 
     wall = time.perf_counter() - t_wall
     steady = 0.0
@@ -495,14 +565,15 @@ def format_metric_line(dataset_name: str, res: dict) -> str:
     return line
 
 
-def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None):
+def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None, mesh=None):
     """Hungarian-matched multi-mask evaluation for MultiReasonSeg-style data
     (the JAX package's ar_validate) on one device (args.device, default
     CUDA): per sample, generate and decode every [SEG] mask, assign the
     predictions to the GT masks (eval/matcher.match_pred, costs on the
     device, the assignment on the host), score matched IoU; per-rank JSON
     artifacts. Images go up in the compute dtype, as `validate` sends them.
-    Returns (metrics, records)."""
+    Returns (metrics, records). mesh: as validate's (the root alone
+    matches, scores and writes; the others return (None, []))."""
     from ..data.collate import collate_batch
     from ..data.prefetch import prefetch_map, shard_indices
     from ..data.tokenizer import tokenizer_image_token
@@ -511,8 +582,10 @@ def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None
     from .batching import prepare_batch
 
     refuse_unported(args)
-    dev = resolve_device(device if device is not None else getattr(args, "device", None))
-    _, gen_fn = _eval_fns(cfg, dev)
+    dev = (mesh.device if mesh is not None else
+           resolve_device(device if device is not None else getattr(args, "device", None)))
+    _, gen_fn = _eval_fns(cfg, dev, mesh)
+    root = mesh is None or mesh.is_root
     img_dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     acc = IoUAccumulator()
     records = []
@@ -538,6 +611,8 @@ def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None
             torch.as_tensor(ids != tokenizer.pad_token_id, device=dev),
             torch.as_tensor(db.row_image_idx, dtype=torch.long, device=dev),
             torch.as_tensor(db.pixel_hw, device=dev))
+        if not root:
+            continue
 
         n_pred = int(ev.seg_valid.sum())
         n_gt = int(sum(m.shape[0] for m in batch["masks_list"]))
@@ -582,6 +657,8 @@ def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None
         records.append({"image_path": db.image_paths[0], "pred_count": n_pred,
                         "gt_count": n_gt, "ious": sample_ious, "answer": answer})
 
+    if not root:
+        return None, []
     acc.all_reduce()
     res = acc.results()
     counts = np.array([count_correct, count_total], np.float64)
@@ -599,11 +676,25 @@ def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None
     return res, records
 
 
-def main(argv=None):
-    args = parse_args(argv if argv is not None else sys.argv[1:])
-    refuse_unported(args)
-    resolve_device(args.device)
+def _rank_model(args, cfg, mesh):
+    """A mesh rank's weights: build_model on the rank's device, repacked for
+    tp (parallel/tp.repack_params) and sliced (local_params), the global
+    tree freed. Returns (local params, the global tree's count_params)."""
+    from ..core import nn
+    from ..parallel import tp as tpmod
+    params = build_model(args, cfg, device=mesh.device)
+    total = nn.count_params(params)
+    params, specs = tpmod.repack_params(params, cfg, mesh.tp)
+    params = tpmod.local_params(params, specs, mesh.tp, mesh.tp_index)
+    if mesh.device.type == "cuda":
+        torch.cuda.empty_cache()
+    return params, total
 
+
+def run(args, mesh=None):
+    """The CLI's body after the startup checks: tokenizer, config, model,
+    dataset, the eval loop, the responses JSON. mesh: this rank of a dp x tp
+    mesh (main spawns them); the root returns the metrics, the others None."""
     from ..core import nn
     from ..data import conversation as conv_lib
     from ..data.pave import PAVEDataset
@@ -617,7 +708,13 @@ def main(argv=None):
                               use_mm_start_end=args.use_mm_start_end)
 
     cfg = build_config(args, st.seg_token_idx)
-    params = build_model(args, cfg)
+    if mesh is None:
+        params = build_model(args, cfg)
+        total = nn.count_params(params)
+    else:
+        # one rank at a time holds a whole model while it builds
+        params, total = mesh.in_turns(lambda: _rank_model(args, cfg, mesh))
+    root = mesh is None or mesh.is_root
 
     name = args.val_dataset.split("|")[0]
     split = args.val_dataset.split("|")[1] if "|" in args.val_dataset else "val"
@@ -636,16 +733,19 @@ def main(argv=None):
                               is_val=True, seg_token_num=args.seg_token_num,
                               clip_image_size=(cfg.clip.image_size if cfg.clip else 448))
 
-    # parameter/FLOPs banner (evaluation_walkgpt.py:999-1015)
-    total = nn.count_params(params)
-    print(f"Model parameters: {total:,} (~{total / 1e9:.2f}B)")
-    print(f"Estimated compute per batch (FLOPs, seq_len="
-          f"{args.model_max_length}): {6 * total * args.model_max_length:,}")
+    if root:
+        if mesh is not None:
+            print(f"mesh inference (manual tp): dp={mesh.dp} x tp={mesh.tp} ranks on "
+                  f"{mesh.device.type}, backend {mesh.backend}")
+        # parameter/FLOPs banner (evaluation_walkgpt.py:999-1015)
+        print(f"Model parameters: {total:,} (~{total / 1e9:.2f}B)")
+        print(f"Estimated compute per batch (FLOPs, seq_len="
+              f"{args.model_max_length}): {6 * total * args.model_max_length:,}")
 
-    if name == "MultiReasonSeg":
-        res, text_log = ar_validate(args, cfg, params, tokenizer, dataset)
-    else:
-        res, text_log = validate(args, cfg, params, tokenizer, dataset)
+    loop = ar_validate if name == "MultiReasonSeg" else validate
+    res, text_log = loop(args, cfg, params, tokenizer, dataset, mesh=mesh)
+    if not root:
+        return None
 
     if args.save_responses_path:
         os.makedirs(os.path.dirname(args.save_responses_path) or ".",
@@ -653,6 +753,35 @@ def main(argv=None):
         with open(args.save_responses_path, "w") as f:
             json.dump(text_log, f, indent=2)
         print(f"saved responses to {args.save_responses_path}")
+    return res
+
+
+def _mesh_rank(mesh, argv):
+    """parallel/dist.launch worker: one rank of main's --mesh run."""
+    return run(parse_args(argv), mesh)
+
+
+def main(argv=None):
+    argv = list(argv if argv is not None else sys.argv[1:])
+    args = parse_args(argv)
+    refuse_unported(args)
+    resolve_device(args.device)
+    mesh = parse_mesh(args)
+    if mesh is None:
+        return run(args)
+    from ..parallel import dist
+    from ..parallel.tp import tp_llm_cfg
+    dp, tp = mesh
+    if max(1, args.val_batch_size) % dp:
+        raise ValueError(f"--val_batch_size {args.val_batch_size} must be a multiple of "
+                         f"dp={dp}")
+    tp_llm_cfg(build_config(args, 0).llm, tp)      # refused splits raise before the ranks start
+    ranks = dist.launch(_mesh_rank, dp, tp, args.device, (argv,), timeout=MESH_TIMEOUT)
+    res = ranks[0].value
+    # what each rank ran: kernel launches, peak device memory, seconds
+    res["mesh_ranks"] = [dict(launches=r.launches, peak_bytes=r.peak_bytes,
+                              seconds=r.seconds, foreign_modules=r.foreign_modules)
+                         for r in ranks]
     return res
 
 

@@ -16,6 +16,11 @@ decode instead keeps the cache compact per row and
 verifies a chunk of drafted tokens per iteration. Each row stops at its own
 EOS and emits pad afterwards. Alongside the tokens come the last-layer
 hidden states that predicted them, which the [SEG] gather reads.
+
+`tp` (a parallel/dist.Axis) runs the LLM as one rank of a manual tp mesh
+(models/llm.py): params and cfg are the rank's shard, and every rank of the
+tp group picks the same tokens (the sums over the ranks give them the same
+logits, bit for bit).
 """
 from __future__ import annotations
 
@@ -61,13 +66,13 @@ def _pad_cache_len(kv_cache, max_len: int):
 
 
 def _prefill(params, cfg: LLMConfig, inputs_embeds, attention_mask, kv_cache,
-             flash_fn, chunk: int = 0):
+             flash_fn, chunk: int = 0, tp=None):
     """Prompt prefill into the cache; chunk > 0 runs row groups one after the
     other (bounds prefill activation memory), writing their cache rows."""
     b = inputs_embeds.shape[0]
     if not chunk or b <= chunk or b % chunk:
         return llm.forward(params, cfg, inputs_embeds, attention_mask=attention_mask,
-                           kv_cache=kv_cache, flash_fn=flash_fn)
+                           kv_cache=kv_cache, flash_fn=flash_fn, tp=tp)
     hidden = []
     for start in range(0, b, chunk):
         rows = slice(start, start + chunk)
@@ -75,7 +80,7 @@ def _prefill(params, cfg: LLMConfig, inputs_embeds, attention_mask, kv_cache,
         sub = {k: v[:, rows] if torch.is_tensor(v) else v for k, v in kv_cache.items()}
         hs, _ = llm.forward(params, cfg, inputs_embeds[rows],
                             attention_mask=attention_mask[rows], kv_cache=sub,
-                            flash_fn=flash_fn)
+                            flash_fn=flash_fn, tp=tp)
         hidden.append(hs)
     return torch.cat(hidden, dim=0), kv_cache
 
@@ -96,7 +101,7 @@ def _cache_layout(cfg: LLMConfig, kv_quant, max_len: int, fused_decode: bool):
 
 
 def _prefilled_cache(params, cfg: LLMConfig, inputs_embeds, attention_mask, kv_quant,
-                     flash_fn, prefill_chunk: int, max_len: int, fused_decode: bool):
+                     flash_fn, prefill_chunk: int, max_len: int, fused_decode: bool, tp=None):
     """Prefill on a prompt-length cache, then grow it to the decode's length.
     Returns (prefill_hidden, kv_cache, cache length)."""
     b, t, _ = inputs_embeds.shape
@@ -104,7 +109,7 @@ def _prefilled_cache(params, cfg: LLMConfig, inputs_embeds, attention_mask, kv_q
     kv_cache = llm.init_kv_cache(cfg, b, t, dtype=inputs_embeds.dtype,
                                  device=inputs_embeds.device, quant=quant, layout=layout)
     prefill_hidden, kv_cache = _prefill(params, cfg, inputs_embeds, attention_mask,
-                                        kv_cache, flash_fn, prefill_chunk)
+                                        kv_cache, flash_fn, prefill_chunk, tp)
     return prefill_hidden, _pad_cache_len(kv_cache, max_len), max_len
 
 
@@ -124,7 +129,7 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                     eos_id: int, pad_id: int = 0,
                     logits_mask: Optional[torch.Tensor] = None, flash_fn=None,
                     kv_quant="", prefill_chunk: int = 0, cache_grow_step: int = 0,
-                    fused_layer: Optional[bool] = None) -> GenerateResult:
+                    fused_layer: Optional[bool] = None, tp=None) -> GenerateResult:
     """inputs_embeds: [B, T, H] right-padded prompt embeddings;
     attention_mask: [B, T] bool; logits_mask: optional [V] bool of allowed
     tokens, applied at every step. The cache is in the embeddings' dtype
@@ -132,7 +137,7 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     kv_quant "int8_flat" / "int4_flat" (the flat quantized cache read by
     K4) or "int8" / True / "int4" (heads layout). fused_layer: every
     decode_step takes K12 on the layers it supports (llm.decode_step;
-    None: ops/fused_layer.FUSED_LAYER).
+    None: ops/fused_layer.FUSED_LAYER; never under tp).
 
     cache_grow_step > 0 (the growing cache; heads layout only, as in the
     JAX package, and only when max_new_tokens exceeds it): the decode runs
@@ -145,7 +150,7 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     dev = inputs_embeds.device
     prefill_hidden, kv_cache, max_len = _prefilled_cache(
         params, cfg, inputs_embeds, attention_mask, kv_quant, flash_fn, prefill_chunk,
-        t + max_new_tokens, cfg.fused_decode)
+        t + max_new_tokens, cfg.fused_decode, tp)
     grow = bool(cache_grow_step and not llm._cache_is_flat(kv_cache)
                 and max_new_tokens > cache_grow_step)
     lengths0 = attention_mask.long().sum(-1)                            # [B]
@@ -174,7 +179,8 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                                            write_slot=t + s,
                                            attend_len=attend_len if attend_len < max_len
                                            else None,
-                                           valid_len=t + s + 1, fused_layer=fused_layer)
+                                           valid_len=t + s + 1, fused_layer=fused_layer,
+                                           tp=tp)
         hid = hidden[:, 0]
         token = torch.where(done, pad_id, pick(hid))
         cache_len = cache_len + 1
@@ -220,7 +226,7 @@ def speculative_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                          prompt_ids: Optional[torch.Tensor] = None,
                          logits_mask: Optional[torch.Tensor] = None, flash_fn=None,
                          kv_quant="", prefill_chunk: int = 0, draft_fn=None,
-                         force_accept: Optional[int] = None) -> GenerateResult:
+                         force_accept: Optional[int] = None, tp=None) -> GenerateResult:
     """Greedy decode with prompt-lookup speculative verification: each
     iteration verifies `draft_k` drafted tokens in one llm.decode_chunk pass
     (K8 over the flat quantized caches), and emits the accepted run plus the
@@ -242,7 +248,7 @@ def speculative_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     dev = inputs_embeds.device
     prefill_hidden, kv_cache, _ = _prefilled_cache(
         params, cfg, inputs_embeds, attention_mask, kv_quant, flash_fn, prefill_chunk,
-        t + max_new_tokens, False)
+        t + max_new_tokens, False, tp)
     lengths0 = attention_mask.long().sum(-1)
     rows = torch.arange(b, device=dev)[:, None]
     pick = _picker(params, cfg, logits_mask)
@@ -273,7 +279,7 @@ def speculative_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
             props = _ngram_propose(hist[:, :l_hist], hlen, ngram, k)
         chunk = torch.cat([cur[:, None], props.long()], dim=1)            # [B, K+1]
         embeds = llm.embed(params, chunk).to(inputs_embeds.dtype)
-        hidden, kv_cache = llm.decode_chunk(params, cfg, kv_cache, embeds, cache_len)
+        hidden, kv_cache = llm.decode_chunk(params, cfg, kv_cache, embeds, cache_len, tp)
         preds = pick(hidden.reshape(-1, h)).reshape(b, k + 1)
 
         n_acc = torch.cumprod((props == preds[:, :k]).long(), dim=1).sum(-1)  # [B]

@@ -140,7 +140,7 @@ def refuse_unported(args) -> None:
     if args.dp > 1 or args.tp > 1:
         raise NotImplementedError(
             f"--dp {args.dp} --tp {args.tp} (the sharded train step) is not ported yet: "
-            "ROADMAP.md Queue 1, 'Multi-device'")
+            "ROADMAP.md Queue 1, 'Multi-device: the sharded training step'")
 
 
 class ScalarLogger:
