@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of WalkGPT on one NVIDIA GPU, end to end.
 
-    python3 chip_smoke.py [--seed 0] [--max-new-tokens 16]
+    python3 chip_smoke.py [--seed 0] [--max-new-tokens 8]
 
 The script must end within 20 minutes on hosts whose CPU runs at half the
 speed of others (its host-side work and the CPU halves of the card-against-
-CPU checks scale with it), so the paths of phases 4, 6, 9 and 10 are cut in
-depth: phase 4 (and 10) decodes 16 new tokens a request (32 before PR 18,
-64 before PR 17), its server caps the budgets at 32 (64, 128), 6a, 6e and
-9d decode 32 new tokens (64), 6a reads 8 samples (16), 6d 2 (4) and 6e 2
-(4); PERF.md has the runs that set these.
+CPU checks scale with it), so earlier phases are cut in depth: phases 4 and
+10 decode 8 new tokens a request (16 before PR 21, 32 before PR 18, 64
+before PR 17; 10d's growing cache steps by 4, since its step of 16 never
+grew a 16-token decode), phases 3, 3b and 3c 8 (16 before PR 21), 11d
+times runs of 2 and 4 tokens (2 and 6), phase 4's server caps the budgets
+at 16 in segments of 16 (32, 64, 128), 6a, 6e and 9d decode 16 new tokens
+(32 before PR 21, 64), 6a reads 4 samples (8 before PR 21, 16), 6d 1 (2
+before PR 21, 4) and 6e 2 (4), 7a validates on 1 sample (2 before PR 21),
+and phase 12b runs its remat step as the second of its two steps. PERF.md
+has the runs that set these.
 
 Phases (any failure raises and the script exits non-zero):
   1. device: the card's name and power limit; build the CUDA kernels
@@ -154,13 +159,13 @@ Phases (any failure raises and the script exits non-zero):
      with respect to its rel-pos tables (K2b in 28 blocks, K3b in 4),
      and the same backward warm under the profiler (device ms, and K2's,
      K3's, K2b's and K3b's shares, by problem name).
-  6. (after 5) the PAVE evaluation entry point: a synthetic manifest (8
-     samples, 12 questions, .pt label maps of 480 x 640 with several class
+  6. (after 5) the PAVE evaluation entry point: a synthetic manifest (4
+     samples, .pt label maps of 480 x 640 with several class
      ids and 255 pixels, no frames: the dataset's dummy images), then
      a. runtime/evaluate.main at WalkGPT-7B int4x (--quant int4x --kv_cache
-        int4_flat --sam_quant int8 --precision bf16, 2 images a batch, 32
-        new tokens, random weights from seed 0) on 8 samples (4
-        batches, so that the median batch is a steady rate): the native
+        int4_flat --sam_quant int8 --precision bf16, 2 images a batch, 16
+        new tokens, random weights from seed 0) on 4 samples (2
+        batches, the second a steady rate): the native
         preprocessing library loaded, the metric line's keys, one response
         per question in the "Question: ... | Answer: ..." form, K1-K6
         launched and no plain version called; images/s, steady images/s,
@@ -175,7 +180,7 @@ Phases (any failure raises and the script exits non-zero):
      c. the CLI's SAM encoder (int8 blocks) in the block_runs layout
         against the blocks layout on one 1024^2 image, bit for bit;
      d. validate at demo_config in the same format (fp32) on the card and
-        on the CPU, the first 2 samples, 16 new tokens: every batch's
+        on the CPU, the first sample, 16 new tokens: every batch's
         generated tokens and lengths equal in the rows of its questions
         (the padding rows of the row bucket, which nothing reads, logged),
         and identical responses;
@@ -183,7 +188,7 @@ Phases (any failure raises and the script exits non-zero):
         mask tolerance of 0 on either side are left out (their number
         printed);
      e. the CLIP stream: runtime/evaluate.main --visual_stream clip at
-        WalkGPT-7B int4x (6a's flags, CLIP ViT-L/14-448) on 2 samples, 32
+        WalkGPT-7B int4x (6a's flags, CLIP ViT-L/14-448) on 2 samples, 16
         new tokens: 6a's keys and response checks, K1-K6 launched and no
         plain version called, images/s; then generate_and_segment(
         visual_stream="clip") at demo_config in the 7B int4x format, the
@@ -191,7 +196,7 @@ Phases (any failure raises and the script exits non-zero):
   7. (after 6) the training entry point, runtime/train_cli.main:
      a. at WalkGPT-7B full width (--model_size 7b --precision bf16
         --dataset PAVE --lora_r 8 --batch_size 2 --epochs 1
-        --steps_per_epoch 3 --eval_samples 2, its defaults otherwise) on a
+        --steps_per_epoch 3 --eval_samples 1, its defaults otherwise) on a
         synthetic manifest, random weights from seed 0; the free bytes of
         the temporary directory and the state's and best checkpoint's
         bytes reckoned from the tree first (1b instead only if the disk
@@ -229,7 +234,7 @@ Phases (any failure raises and the script exits non-zero):
         and SAMVisionTower within 1e-3, the exported mask decoder equal to
         decode_masks;
      d. evaluate.ar_validate at WalkGPT-7B int4x + int4_flat + int8 SAM
-        (bf16, 32 new tokens) on a synthetic MUSE manifest of 4 samples
+        (bf16, 16 new tokens) on a synthetic MUSE manifest of 4 samples
         (480 x 640 .npy images, 2-3 RLE targets each), [SEG] the token a
         first run emits most: K1-K6 launches held exactly, no plain version
         called; images/s, the metric line, target_count_acc;
@@ -259,7 +264,7 @@ Phases (any failure raises and the script exits non-zero):
         where the predictor hidden states up to the parting agree within
         FLOAT_PART_REL (a near tie);
      d. the growing cache: the dense fp16 request with decode_cache_grow
-        16 (launches held), and greedy_generate with cache_grow_step 16
+        4 (launches held), and greedy_generate with cache_grow_step 4
         against 0 on its spliced prompt (as c's comparison);
      e. the decode switches, one request each at full width with launches
         held: WalkGPT-7B int4x with DECODE_QDOT8 off, DECODE_PVDOT8 on,
@@ -291,14 +296,40 @@ Phases (any failure raises and the script exits non-zero):
         within MESH_METRIC_TOL, K1-K6 launched in each rank; images/s, each
         rank's launches and peak memory;
      d. WalkGPT-13B int4x at tp = 2 (make_tp_generate, 2 images, 8 rows of
-        64-token prompts, 2 and 6 new tokens): per rank a greedy step's
+        64-token prompts, 2 and 4 new tokens): per rank a greedy step's
         wall, device ms (profiler) and the collectives' share.
+  12. (after 7b) the sharded training step (runtime/train.py's
+     make_sharded_train_step: manual dp x tp, ZeRO-1 optimizer state),
+     every rank on this one card (gloo, host-staged collectives; walls
+     are of ranks time-sharing it):
+     a. K1 and K1b at WalkGPT-7B's tp = 2 training shapes ([2,16,767,128],
+        bf16) against their plain versions, with kernel, plain and library
+        (SDPA forward and backward) times and the bound;
+     b. demo_config in fp32 (TF32 off), LoRA r = 8, 4 images and 4 rows,
+        at dp 2 x tp 2 (four ranks): two steps (the second with remat) and
+        a pair with grad_accum 2, against the single-device train_step on
+        the card: loss terms within LOSS_RTOL, trainable leaves within
+        phase 3d's tolerance, frozen leaves unchanged and replicated
+        leaves bit-identical across the ranks, each rank's optimizer state
+        1/dp of its ZeRO-split leaves; K1, K1b, K2 and K3 launched in every
+        rank, no plain version called, no JAX import;
+     c. train_cli.main at WalkGPT-7B with 7a's flags plus --dp 1 --tp 2
+        --no_eval on 7a's manifest and seed: each step's loss within
+        MESH_TRAIN_REL of 7a's, the state checkpoint written once in 7a's
+        single-device layout and reloading bit for bit, K1, K1b, K2 and K3
+        launched in each rank; per rank s/step, peak memory, the
+        collectives' calls and host seconds a step, the save's seconds;
+     d. demo_config: two steps of the CLI's ranks at --dp 2 --tp 2 (in
+        12b's launch), then --auto_resume on one device for two more,
+        against four steps on one device (the losses within LOSS_RTOL, the
+        leaves within 3d's tolerance).
 Then one JSON line with every kernel's numbers (K1's, K4's, K5's and K6's
 with their fp16 route's numbers and launches under "fp16", K6's gelu route
 at MPT-7B widths under "gelu_mpt7b_bf16", K4's, K5's and K6's at
 WalkGPT-13B's tp = 2 shard shapes with 11c's launches per rank under
-"tp2_13b"; the launches of 11b's and 11c's ranks in the totals) and, last,
-the device line.
+"tp2_13b"; K1's and K1b's at WalkGPT-7B's tp = 2 training shapes with
+12c's launches per rank under "tp2_7b_train"; the launches of 11b's, 11c's,
+12b's, 12c's and 12d's ranks in the totals) and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
 """
@@ -309,6 +340,8 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import glob
+import hashlib
 import json
 import math
 import os
@@ -2025,9 +2058,9 @@ def phase_parity(dev, seed):
     kw = dict(images=images, input_ids=ids, attention_mask=mask,
               row_image_idx=torch.tensor([0, 1, 1], device=dev),
               pixel_hw=torch.tensor([[s, s], [s * 3 // 4, s]], device=dev),
-              max_new_tokens=16, max_segs=8, device=dev)
+              max_new_tokens=8, max_segs=8, device=dev)
     # random weights: [SEG] is the token the probe emits most, so the mask
-    # path runs on real [SEG] states; no EOS, so all 16 steps are compared
+    # path runs on real [SEG] states; no EOS, so all 8 steps are compared
     probe = walkgpt.generate_and_segment(params, cfg.replace(use_flash_attention=False),
                                          eos_id=-1, **kw).tokens
     vals, counts = torch.unique(probe, return_counts=True)
@@ -2074,7 +2107,7 @@ def phase_parity_quant(dev, seed):
         kw = dict(images=images, input_ids=ids, attention_mask=mask,
                   row_image_idx=torch.tensor([0, 1, 1], device=dev),
                   pixel_hw=torch.tensor([[s, s], [s * 3 // 4, s]], device=dev),
-                  max_new_tokens=16, max_segs=8, eos_id=-1, fused_layer=fuse)
+                  max_new_tokens=8, max_segs=8, eos_id=-1, fused_layer=fuse)
         probe = walkgpt.generate_and_segment(params, cfg, device=dev, **kw).tokens
         vals, counts = torch.unique(probe, return_counts=True)
         cfg = cfg.replace(seg_token_id=int(vals[counts.argmax()]))
@@ -2470,7 +2503,7 @@ def w8a8_edge(params, cfg, dev, kw, card_records, cpu_records):
 
 
 def demo_request(params, cfg, dev, seed, probe=True, **extra):
-    """A demo_config request of 2 images and 3 prompt rows, 16 new tokens, no
+    """A demo_config request of 2 images and 3 prompt rows, 8 new tokens, no
     EOS (all steps compared), and cfg with [SEG] set to the token a probe
     run emits most, so the mask path runs on real [SEG] states (probe
     False: no probe run, cfg as it is)."""
@@ -2481,7 +2514,7 @@ def demo_request(params, cfg, dev, seed, probe=True, **extra):
     kw = dict(images=images, input_ids=ids, attention_mask=mask,
               row_image_idx=torch.tensor([0, 1, 1], device=dev),
               pixel_hw=torch.tensor([[s, s], [s * 3 // 4, s]], device=dev),
-              max_new_tokens=16, max_segs=8, eos_id=-1, **extra)
+              max_new_tokens=8, max_segs=8, eos_id=-1, **extra)
     if not probe:
         return kw, cfg
     probe = walkgpt.generate_and_segment(params, cfg, device=dev, **kw).tokens
@@ -2839,7 +2872,7 @@ def pave_prompt_ids(tok):
     return out
 
 
-def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=32, segment=32):
+def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=16, segment=16):
     """The continuous-batching server at full width: eight text requests
     (PAVE questions in the llava_v1 template, each paired with one of
     n_images random 1024^2 images, every image encoded once), MSQP and
@@ -3486,10 +3519,10 @@ EVAL_SYMBOLS = {"flash_attention": "FlashMma", "sam_window_attention_packed": "W
 
 # 6a's samples (4 batches of 2: a median batch past the first one's warm-up)
 # and 6d's (the CPU's plain versions run them too)
-EVAL_SAMPLES, DEMO_SAMPLES = 8, 2
+EVAL_SAMPLES, DEMO_SAMPLES = 4, 1
 # new tokens a request of the eval CLI decodes (6a, 6e, 9d): the production
 # budget of 512 is cut to keep the run inside its time limit
-EVAL_NEW_TOKENS = 32
+EVAL_NEW_TOKENS = 16
 
 
 class EvalSpy:
@@ -3935,11 +3968,13 @@ def state_bytes_7b(dev, seed):
     return total + 2 * trainable, total, count
 
 
-def phase_train_cli(dev, seed):
+def phase_train_cli(dev, seed, ref):
     """7a: train_cli.main at WalkGPT-7B full width (LoRA r=8, bf16, PAVE, 2
     images a step, 3 steps, validation on 2 samples), random weights from
     seed 0; its scalars, checkpoint, projector artifact and leaves held;
-    s/step, peak memory, checkpoint bytes and seconds. Returns launches."""
+    s/step, peak memory, checkpoint bytes and seconds. Fills ref with the
+    model size run, the scalars and the state's layout (each leaf's path,
+    shape and dtype), which phase 12c is held to. Returns launches."""
     log("== phase 7a: train_cli.main at WalkGPT-7B, full width")
     t_phase = time.perf_counter()
     card = smi_line()
@@ -3979,7 +4014,7 @@ def phase_train_cli(dev, seed):
         runs = os.path.join(root, "runs")
         argv = ["--model_size", size, "--precision", "bf16", "--dataset", "PAVE", "--lora_r",
                 "8", "--batch_size", "2", "--epochs", "1", "--steps_per_epoch", "3",
-                "--eval_samples", "2", "--dataset_dir", data, "--log_base_dir", runs]
+                "--eval_samples", "1", "--dataset_dir", data, "--log_base_dir", runs]
         for f in KERNELS:
             f.launches = 0
         torch.cuda.reset_peak_memory_stats()
@@ -4003,6 +4038,10 @@ def phase_train_cli(dev, seed):
         load_s = time.perf_counter() - t0
         same = (back.step == state.step and _same_tree(back.params, state.params)
                 and _same_tree(back.opt_state, state.opt_state))
+        ref.update(size=size, scalars=sc, layout={
+            p: (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else x
+            for p, x in leaves_with_path(dict(params=state.params, opt_state=state.opt_state,
+                                              step=state.step)).items()})
         del back
         torch.cuda.empty_cache()
         state_save = [s for s in spy.saves if s[0] == state_dir]
@@ -5071,7 +5110,7 @@ def phase_fp16_paths(dev, seed, max_new_tokens):
     the SAM encoder in fp32 on K2/K3's fp32 routes, the LLM in fp16), dense
     (K1 in fp16) and int4x over int4_flat with weight-only int8 SAM blocks
     (K1, K4, K5, K6 in fp16), outputs finite; 10d: the growing cache
-    (decode_cache_grow 16) against the single allocation on the dense
+    (decode_cache_grow GROW_STEP) against the single allocation on the dense
     request; the card against the CPU at demo_config's widths in fp16.
     Returns (launches, the fp16 routes' launches)."""
     log("== phase 10c: --precision fp16 at WalkGPT-7B, random weights")
@@ -5082,14 +5121,14 @@ def phase_fp16_paths(dev, seed, max_new_tokens):
     launches, out, ms, cfg = requests(params, cfg, kw, "WalkGPT-7B fp16 dense", n=1)
     fp16_launches = dict.fromkeys(FP16_ROUTES, 0)
     fp16_launches["flash_attention"] += launches["flash_attention"]
-    log("== phase 10d: the growing cache (decode_cache_grow 16) against one allocation, "
-        "WalkGPT-7B fp16 dense")
-    grow_launches = requests(params, cfg.replace(decode_cache_grow=16), kw,
-                             "decode_cache_grow=16", n=1)[0]
+    log(f"== phase 10d: the growing cache (decode_cache_grow {GROW_STEP}) against one "
+        "allocation, WalkGPT-7B fp16 dense")
+    grow_launches = requests(params, cfg.replace(decode_cache_grow=GROW_STEP), kw,
+                             f"decode_cache_grow={GROW_STEP}", n=1)[0]
     launches = add(launches, grow_launches)
     base = greedy_on(params, cfg, kw, dev)
-    grown = greedy_on(params, cfg, kw, dev, cache_grow_step=16)
-    same_or_edge("greedy, cache_grow_step 16 against 0", grown, base,
+    grown = greedy_on(params, cfg, kw, dev, cache_grow_step=GROW_STEP)
+    same_or_edge(f"greedy, cache_grow_step {GROW_STEP} against 0", grown, base,
                  lambda h: llm.lm_logits(params["llm"], cfg.llm, h.to(dev, f16)).float().cpu())
     del params
     torch.cuda.empty_cache()
@@ -5213,7 +5252,7 @@ def phase_variants(dev, seed, max_new_tokens, numbers):
 
 # 11c's depth: samples of the eval CLI run (one batch of 2) and new tokens;
 # 11d's two token counts, whose difference gives a greedy step's cost
-MESH_SAMPLES, MESH_NEW_TOKENS, MESH_STEP_TOKENS = 2, 8, (2, 6)
+MESH_SAMPLES, MESH_NEW_TOKENS, MESH_STEP_TOKENS = 2, 8, (2, 4)
 # 11b, 11c: a mesh run's tokens may part from the single device's only at a
 # near tie, in at most one row (11c: one response) a call: where the single
 # device's logits of its token and of the mesh's (11c: of its top two, the
@@ -5224,6 +5263,10 @@ MESH_SAMPLES, MESH_NEW_TOKENS, MESH_STEP_TOKENS = 2, 8, (2, 6)
 # 11b's partings on an H100 (700 W): 7.9e-4 (greedy) and 3.6e-3
 # (speculative_k=8) of the scale, about 3x the larger
 MESH_TIE_REL = 1e-2
+# 10d's growing cache step: it grows only where the decode is longer than a
+# step (runtime/generate.greedy_generate), so it takes 4 of phase 10's 8 new
+# tokens (its 16 never grew a 16-token decode)
+GROW_STEP = 4
 # 11b: the masks of the rows that did not part, against the single device's
 MESH_MASK_ATOL = 1e-3
 # 11c: giou, ciou and both mIoUs of the --mesh 1,2 CLI against one device's.
@@ -5623,10 +5666,347 @@ def phase_mesh_steps(dev, seed, card):
                                  f"(expected {3 * cfg.llm.num_layers})")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sharded training step, every rank on the one card
+# ---------------------------------------------------------------------------
+
+# 12c: the training CLI at WalkGPT-7B with --dp 1 --tp 2 against 7a's
+# single-device run of the same data: bf16, and the tp ranks sum the o- and
+# down-projections' partial products in fp32 rounded once where the single
+# device's products round inside, so each step's loss parts by bf16 drift:
+# measured on an H100 (700 W) 3.1e-4 to 4.7e-4 of the loss, most of it
+# InfoNCE's. Its top-k refinement is a hard selection that a last-place
+# change of the features can flip (phase 3d: 7e-3 of nce), so the limit is
+# 10x the larger gap
+MESH_TRAIN_REL = 5e-3
+MESH_TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "sam_window_attention_packed",
+                      "sam_flash_attention")
+
+
+def mesh_train_inputs(dev, seed):
+    """12b's model and batch, alike on every rank and in this process:
+    demo_config in fp32 with the kernels' path and InfoNCE without its top-k
+    refinement (phase 3d's reason), LoRA r = 8, and a batch of 4 images and 4
+    rows (the SAM encode splits over all four ranks, one image each)."""
+    base = demo_config().replace(use_flash_attention=True)
+    cfg = base.replace(losses=dataclasses.replace(base.losses, nce_topk=None))
+    g = torch.Generator(device=dev).manual_seed(seed + 21)
+    params = walkgpt.init(cfg, seed=seed, dtype=torch.float32, device=dev)
+    params["llm"] = lora.init_lora(params["llm"], g, r=8, alpha=16.0)
+    batch = train_batch(cfg, dev, g, [60, 47, 52, 38], 64, 20, 4, 8, [256, 192], torch.float32)
+    return cfg, params, batch
+
+
+# 12b's runs: (name, TrainConfig, remat of each step)
+MESH_TRAIN_RUNS = (("steps (the second with remat)", train.TrainConfig(warmup_steps=0),
+                    (False, True)),
+                   ("grad_accum 2", train.TrainConfig(warmup_steps=0, grad_accum=2),
+                    (False, False)))
+
+
+def _digest(x):
+    return hashlib.sha1(x.detach().cpu().reshape(-1).view(torch.uint8).numpy()).hexdigest()
+
+
+def _no_topk(*a, **k):
+    return LossWeights(*a, **{"nce_topk": None, **k})
+
+
+def mesh_train_rank(mesh, seed, cli_argv, adapters):
+    """The rank of 12b and of 12d's mesh leg (dist.launch), TF32 off. 12b:
+    MESH_TRAIN_RUNS through make_sharded_train_step; per run the metrics,
+    each replicated trainable leaf's digest, whether every ZeRO-split
+    leaf's state holds 1/dp of its local bytes (and those bytes), and on the
+    root the gathered trainable leaves (CPU) and whether the gathered frozen
+    leaves are the initial ones bit for bit; the plain versions' calls.
+    12d: train_cli's rank body (what train_cli.main spawns) on cli_argv
+    with 7b's patches (the kernels' path at demo_config, InfoNCE without its
+    top-k refinement); its record under "cli"."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params, batch = mesh_train_inputs(mesh.device, seed)
+    init = leaves_with_path(params)
+    out = {}
+    with PlainSpy() as plain:
+        for name, tc, remats in MESH_TRAIN_RUNS:
+            state, opt = train.init_state(params, tc)
+            step_fns = {}
+            for remat in sorted(set(remats)):
+                step_fns[remat], sharded, _ = train.make_sharded_train_step(
+                    mesh, opt, cfg, 8, state, batch, remat=remat)
+            metrics = []
+            for remat in remats:
+                sharded, m = step_fns[remat](sharded, batch)
+                metrics.append({k: float(v) for k, v in m.items()})
+            local = leaves_with_path(sharded.params)
+            layout = sharded.layout
+            zero_ok, state_bytes, split_bytes = True, 0, 0
+            for p, ax in layout.zero_axes.items():
+                mine = sum(_tree_bytes({p: v[p]}) for v in sharded.opt_state.values()
+                           if isinstance(v, dict))
+                kinds = sum(1 for v in sharded.opt_state.values() if isinstance(v, dict))
+                if ax is not None:
+                    zero_ok &= mine * mesh.dp == kinds * _tree_bytes({p: local[p]})
+                    split_bytes += kinds * _tree_bytes({p: local[p]})
+                state_bytes += mine
+            whole = train.gather_state(mesh, sharded)
+            rec = dict(metrics=metrics, zero_ok=zero_ok, state_bytes=state_bytes,
+                       split_bytes=split_bytes,
+                       digests={p: _digest(local[p]) for p in opt.trainable
+                                if layout.tp_axes.get(p) is None})
+            if whole is not None:
+                got = leaves_with_path(whole.params)
+                rec["trainable"] = {p: got[p] for p in opt.trainable}
+                rec["frozen_same"] = all(
+                    torch.equal(got[p], x.cpu()) for p, x in init.items()
+                    if isinstance(x, torch.Tensor) and p not in opt.trainable)
+            out[name] = rec
+            del sharded, whole, state
+            torch.cuda.empty_cache()
+    out["plain_calls"] = plain.calls
+    del params, init
+    torch.cuda.empty_cache()
+    with Patched((evaluate, "build_config", with_kernels(evaluate.build_config)),
+                 (config_module, "LossWeights", _no_topk)):
+        out["cli"] = train_cli._mesh_rank(mesh, cli_argv, adapters)
+    return out
+
+
+def phase_mesh_train_kernels(dev, seed):
+    """12a: K1 and K1b at WalkGPT-7B's tp = 2 training shapes (16 heads a
+    rank, 2 rows of 767 spliced tokens, the second with 60 pad keys) in
+    bf16 against their plain versions, with kernel, plain and library
+    (SDPA forward, and its backward) times and the bound."""
+    log("== phase 12a: K1 and K1b at WalkGPT-7B's tp = 2 training shapes")
+    gen = torch.Generator(device=dev).manual_seed(seed + 22)
+    bf16 = torch.bfloat16
+    local = tpmod.tp_llm_cfg(walkgpt_7b_config().llm, 2)
+    h, d = local.num_heads, local.head_dim
+    log(f"  7B at tp = 2: {h} heads of {d} a rank, [2, {h}, 767, {d}] bf16")
+    return {
+        "flash_attention": check_kernel(
+            "flash_attention", k1_case(dev, bf16, 2, h, 767, d, [767, 707], gen), bf16, 50, 3,
+            "7B tp2 training forward"),
+        "flash_attention_bwd": check_backward(
+            "flash_attention_bwd", k1b_case(dev, bf16, 2, h, 767, d, [767, 707], gen), bf16, 50,
+            3, "7B tp2 training backward"),
+    }
+
+
+def phase_mesh_train_demo(dev, seed, ranks):
+    """12b: demo_config in fp32 (TF32 off), LoRA r = 8, at dp 2 x tp 2 (the
+    four ranks of mesh_train_rank, on the card) through
+    make_sharded_train_step, against the single-device train_step on the
+    card: MESH_TRAIN_RUNS, the loss terms within LOSS_RTOL, the trainable
+    leaves within phase 3d's tolerance, the frozen ones unchanged bit for
+    bit, the replicated trainable leaves bit-identical across the ranks,
+    each rank's optimizer state 1/dp of its ZeRO-split leaves' bytes; K1,
+    K1b, K2 and K3 launched in every rank (which also ran 12d's mesh leg),
+    no plain version called, no JAX import."""
+    log("== phase 12b: demo_config fp32 sharded train step at dp 2 x tp 2 (4 ranks on one "
+        "card) against one device")
+    cfg, params, batch = mesh_train_inputs(dev, seed)
+    root = ranks[0].value
+    ok = all(r.value["plain_calls"] == 0 for r in ranks)
+    for name, tc, remats in MESH_TRAIN_RUNS:
+        state, opt = train.init_state(params, tc)
+        want = []
+        for remat in remats:
+            state, m = train.train_step(state, batch, opt=opt, model_cfg=cfg, max_segs=8,
+                                        remat=remat, device=dev)
+            want.append({k: float(v) for k, v in m.items()})
+        rec = root[name]
+        loss_ok = all(abs(g[k] - w[k]) <= LOSS_RTOL * abs(w[k])
+                      for g, w in zip(rec["metrics"], want) for k in train.METRICS)
+        for i, (g, w) in enumerate(zip(rec["metrics"], want)):
+            log(f"  12b {name} step {i + 1}: " + " ".join(
+                f"{k}={g[k]:.6f}/{w[k]:.6f}" for k in train.METRICS + ("grad_norm",))
+                + " (mesh/one device)")
+        now = leaves_with_path(state.params)
+        out, worst = _leaf_errors(rec["trainable"], {p: now[p].cpu() for p in opt.trainable})
+        n_el = sum(now[p].numel() for p in opt.trainable)
+        same = all(r.value[name]["digests"] == rec["digests"] for r in ranks)
+        zero = all(r.value[name]["zero_ok"] for r in ranks)
+        lr2 = 2 * tc.lr
+        log(f"  12b {name}: trainable leaves {out} of {n_el} elements outside rtol {LEAF_RTOL} / "
+            f"atol {LEAF_ATOL}, max_abs {worst:.3e}; frozen leaves unchanged {rec['frozen_same']}; "
+            f"{len(rec['digests'])} replicated trainable leaves bit-identical on the 4 ranks "
+            f"{same}; optimizer state a rank "
+            f"{[r.value[name]['state_bytes'] for r in ranks]} bytes, its ZeRO-split leaves' "
+            f"1/dp of {rec['split_bytes']} bytes: {zero}")
+        ok &= (loss_ok and out <= LEAF_OUTLIERS * n_el and worst <= lr2 and rec["frozen_same"]
+               and same and zero)
+        del state
+    ran = all(all(r.launches[k] > 0 for k in MESH_TRAIN_KERNELS) for r in ranks)
+    log(f"  12b and 12d's mesh leg, launches per rank: {[_nonzero(r.launches) for r in ranks]}; "
+        f"plain versions called in 12b {[r.value['plain_calls'] for r in ranks]}; jax modules "
+        f"imported {[r.foreign_modules for r in ranks]}")
+    if not (ok and ran and all(r.jax_free for r in ranks)):
+        raise AssertionError("12b: the sharded train step disagrees with one device, or a "
+                             "kernel never launched, or a plain version or JAX ran in a rank")
+
+
+def phase_mesh_resume(dev, root, base, ranks):
+    """12d: demo_config fp32 (TF32 off, 7b's patches): the training CLI's
+    mesh ranks at --dp 2 --tp 2 for two steps (train_cli's own rank body, run
+    by mesh_train_rank so that the patches hold in the ranks; their log dir
+    under root/mesh), then --auto_resume on one device for two more; held
+    to the CLI on one device for two steps and the same resume: the train/*
+    scalars of the four steps within LOSS_RTOL, the trainable leaves at the
+    end within phase 3d's tolerance. base: the legs' common flags."""
+    log("== phase 12d: demo_config, a mesh checkpoint (--dp 2 --tp 2) resumed on one device")
+    first = ranks[0].value["cli"]
+    runs = {}
+    for how in ("mesh", "one device"):
+        argv = base + ["--log_base_dir", os.path.join(root, how), "--device", dev.type]
+        t0 = time.perf_counter()
+        with Patched((evaluate, "build_config", with_kernels(evaluate.build_config)),
+                     (config_module, "LossWeights", _no_topk)):
+            if how != "mesh":
+                train_cli.main(argv + ["--epochs", "1"])
+            state = train_cli.main(argv + ["--epochs", "2", "--auto_resume"])
+        runs[how] = dict(state=state, secs=time.perf_counter() - t0,
+                         sc=_scalars(os.path.join(root, how, "walkgpt_train", "scalars.jsonl")))
+    mesh, one = runs["mesh"], runs["one device"]
+    loss_ok = all(abs(mesh["sc"][(t, s)] - one["sc"][(t, s)]) <= LOSS_RTOL * abs(one["sc"][(t, s)])
+                  for t in TRAIN_TAGS for s in (1, 2, 3, 4))
+    for s in (1, 2, 3, 4):
+        log(f"  12d step {s}: " + " ".join(
+            f"{t.split('/')[1]}={mesh['sc'][(t, s)]:.6f}/{one['sc'][(t, s)]:.6f}"
+            for t in TRAIN_TAGS) + " (mesh then one device / one device)")
+    mask = leaves_with_path(train.trainable_mask(one["state"].params, train.TrainConfig()))
+    ms, os_ = leaves_with_path(mesh["state"].params), leaves_with_path(one["state"].params)
+    out, worst = _leaf_errors({p: x for p, x in ms.items() if mask.get(p)},
+                              {p: x.cpu() for p, x in os_.items() if mask.get(p)})
+    n_el = sum(x.numel() for p, x in os_.items() if mask.get(p))
+    lr2 = 2 * train.TrainConfig().lr
+    log(f"  12d: after 4 steps, {out} of {n_el} trainable elements outside rtol {LEAF_RTOL} / "
+        f"atol {LEAF_ATOL}, max_abs {worst:.3e}; the mesh's checkpoint reloads bit for bit "
+        f"{first['reloads_bit_for_bit']}; the resumed leg {mesh['secs']:.1f} s, the one-device "
+        f"legs {one['secs']:.1f} s")
+    if not (loss_ok and out <= LEAF_OUTLIERS * n_el and worst <= lr2
+            and mesh["state"].step == one["state"].step == 4
+            and first["reloads_bit_for_bit"] == [True]):
+        raise AssertionError("12d: the mesh checkpoint resumed on one device parts from "
+                             "four steps on one device")
+
+
+def phase_mesh_train_cli(dev, seed, card, ref):
+    """12c: train_cli.main at WalkGPT-7B with phase 7a's flags plus --dp 1
+    --tp 2 --no_eval (two ranks on the card) on 7a's manifest and seed:
+    every train/* tag finite for steps 1-3 and each step's loss within
+    MESH_TRAIN_REL of 7a's; the state checkpoint written once, in 7a's
+    single-device layout (its leaves' paths, shapes and dtypes), reloading
+    bit for bit against the gathered state; K1, K1b, K2 and K3 launched in
+    each rank, no JAX import; per rank s/step (median of steps 2-3), peak
+    memory, the collectives' calls and host seconds a step, and the save's
+    seconds. ref: 7a's scalars and state layout. Returns the ranks'
+    records."""
+    log("== phase 12c: train_cli.main at WalkGPT-7B, --dp 1 --tp 2 (2 ranks on one card)")
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        synthetic_pave.write_manifest(data, 8, seed=seed, height=480, width=640)
+        runs = os.path.join(root, "runs")
+        argv = ["--model_size", ref["size"], "--precision", "bf16", "--dataset", "PAVE",
+                "--lora_r", "8", "--batch_size", "2", "--epochs", "1", "--steps_per_epoch", "3",
+                "--eval_samples", "1", "--dataset_dir", data, "--log_base_dir", runs,
+                "--dp", "1", "--tp", "2", "--no_eval"]
+        t0 = time.perf_counter()
+        res = train_cli.main(argv)
+        wall = time.perf_counter() - t0
+        run_dir = os.path.join(runs, "walkgpt_train")
+        sc = _scalars(os.path.join(run_dir, "scalars.jsonl"))
+        finite = all(math.isfinite(sc.get((t, s), math.nan)) for t in TRAIN_TAGS + METRIC_TAGS
+                     for s in (1, 2, 3))
+        gaps = [abs(sc[("train/loss", s)] - ref["scalars"][("train/loss", s)])
+                / abs(ref["scalars"][("train/loss", s)]) for s in (1, 2, 3)]
+        for s in (1, 2, 3):
+            log(f"  12c step {s}: " + " ".join(
+                f"{t.split('/')[1]}={sc[(t, s)]:.5f}/{ref['scalars'][(t, s)]:.5f}"
+                for t in TRAIN_TAGS) + " (tp 2 / 7a's one device)")
+        saved = torch.load(os.path.join(res["state_dir"], checkpoint.PARAMS_FILE),
+                           map_location="cpu", weights_only=True, mmap=True)
+        layout = {p: (tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor) else x
+                  for p, x in leaves_with_path(saved).items()}
+        same_layout = layout.keys() == ref["layout"].keys() and all(
+            layout[p] == v for p, v in ref["layout"].items() if isinstance(v, tuple))
+        del saved
+        states = glob.glob(os.path.join(run_dir, "ckpt_model", "global_step*", "state"))
+    ranks = res["mesh_ranks"]
+    for r, rank in enumerate(ranks):
+        steps = sorted(rank["step_secs"][1:3])
+        per = lambda k: sum(rank[k][1:3]) / 2
+        log(f"  12c rank {r} ({card}; 2 ranks time-sharing one card): s/step (median of steps "
+            f"2-3) {(steps[0] + steps[1]) / 2:.3f} (steps "
+            + ", ".join(f"{x:.3f}" for x in rank["step_secs"])
+            + f"), collectives {per('collective_calls'):.0f} calls and "
+            f"{per('collective_secs'):.3f} s of host time a step, peak "
+            f"{rank['peak_bytes'] / 1e9:.2f} GB, launches {_nonzero(rank['launches'])}, "
+            f"{rank['seconds']:.1f} s"
+            + (f"; state saved in {rank['save_secs'][0]:.2f} s" if rank["save_secs"] else ""))
+    log(f"  12c: main {wall:.1f} s (spawn, the ranks' builds in turns, 3 steps, the gather and "
+        f"the save); loss against 7a's per step {[f'{g:.2e}' for g in gaps]} (limit "
+        f"{MESH_TRAIN_REL:g}); {len(states)} state checkpoint, 7a's layout {same_layout}, "
+        f"reloads bit for bit {res['reloads_bit_for_bit']}; train/* finite {finite}")
+    ran = all(all(rank["launches"][k] > 0 for k in MESH_TRAIN_KERNELS) for rank in ranks)
+    if not (finite and max(gaps) <= MESH_TRAIN_REL and len(states) == 1 and same_layout
+            and res["reloads_bit_for_bit"] == [True] and ran
+            and all(rank["jax_free"] for rank in ranks)):
+        raise AssertionError("12c: the training CLI at --tp 2 failed a check")
+    return ranks
+
+
+def phase_mesh_train(dev, seed, numbers, ref):
+    """Phase 12 (12a-12d): the sharded training step, every rank on the one
+    card. 12b and 12d's mesh leg run in one launch of four ranks
+    (mesh_train_rank). K1's and K1b's 12a numbers go under "tp2_7b_train" in
+    the kernels line, with 12c's launches per rank. ref: 7a's scalars and
+    state layout. Returns the launches of the ranks of 12b, 12c and 12d,
+    summed."""
+    t0 = time.perf_counter()
+    card = smi_line()
+    log(f"== phase 12: the sharded training step, every rank on the one card ({card})")
+    times = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.empty_cache()
+        times[name] = round(time.perf_counter() - t, 1)
+        return out
+    shard = timed("12a", lambda: phase_mesh_train_kernels(dev, seed))
+    with tempfile.TemporaryDirectory() as root:
+        data = os.path.join(root, "data")
+        synthetic_pave.write_manifest(data, 4, seed=seed, height=120, width=160)
+        base = ["--model_size", "demo", "--precision", "fp32", "--dataset", "PAVE", "--lora_r",
+                "8", "--batch_size", "2", "--steps_per_epoch", "2", "--no_eval",
+                "--dataset_dir", data]
+        cli_argv = base + ["--log_base_dir", os.path.join(root, "mesh"), "--epochs", "1",
+                           "--dp", "2", "--tp", "2"]
+        args = train_cli.parse_args(cli_argv)
+        adapters = train_cli.fresh_adapters(args, evaluate.build_config(args, 0))
+        ranks = timed("12b and 12d's mesh leg, 4 ranks", lambda: dist.launch(
+            mesh_train_rank, 2, 2, dev.type, (seed, cli_argv, adapters), timeout=600,
+            deadline=900))
+        timed("12b against one device", lambda: phase_mesh_train_demo(dev, seed, ranks))
+        launches = {}
+        for r in ranks:
+            launches = add(launches, r.launches)
+        cli_ranks = timed("12c", lambda: phase_mesh_train_cli(dev, seed, card, ref))
+        for rank in cli_ranks:
+            launches = add(launches, rank["launches"])
+        timed("12d one device", lambda: phase_mesh_resume(dev, root, base, ranks))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        numbers[name]["tp2_7b_train"] = dict(
+            shard[name], launches_per_rank=[rank["launches"][name] for rank in cli_ranks])
+    log(f"  phase 12 (sharded training): {time.perf_counter() - t0:.1f} s ({times})")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--max-new-tokens", type=int, default=16)
+    ap.add_argument("--max-new-tokens", type=int, default=8)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -5718,9 +6098,13 @@ def main(argv=None) -> int:
     launches = add(launches, phase_eval(dev, args.seed))
     log(f"  PAVE evaluation: phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    launches = add(launches, phase_train_cli(dev, args.seed))
+    ref_7a = {}
+    launches = add(launches, phase_train_cli(dev, args.seed, ref_7a))
     torch.cuda.empty_cache()
     phase_train_cli_parity(dev, args.seed)
+    torch.cuda.empty_cache()
+    # phase 12, the sharded training step in ranks on this card (12c against 7a)
+    launches = add(launches, phase_mesh_train(dev, args.seed, numbers, ref_7a))
     torch.cuda.empty_cache()
     launches = add(launches, phase_sam_tools(dev, args.seed, smi_line()))
     if min(launches.values()) <= 0:

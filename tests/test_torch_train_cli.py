@@ -1,7 +1,9 @@
 """The port's training CLI (walkgpt_tpu_torch/runtime/train_cli.py) against
 the JAX package's, end to end on the CPU at tiny_config, and its port-only
 legs: --auto_resume, --quant_base int4x, --tune_mm_adapter, the mixture
-DSL's errors and the refusal of the sharded flags.
+DSL's errors, and --dp 2 --tp 2 (four gloo ranks) against the JAX CLI's
+single-device run, its checkpoint resumed on one device, and its refusal of
+--quant_base.
 
 Both CLIs train on one synthetic manifest (no frames: the dataset's dummy
 images) from one reference-layout state dict (--weight: LLM with peft LoRA
@@ -11,7 +13,7 @@ query scale, which the reference layout always carries). build_model merges
 a state dict's adapters into the base, in both packages, so both CLIs inject
 fresh r=2 adapters from seed + 1; the port's generator draws other numbers,
 so the test hands the port JAX's fresh lora_a (lora_b starts at 0 in
-both). The CLIP tower is not in the state dict: each package keeps its own
+both; under --dp / --tp main draws them once, before it spawns the ranks). The CLIP tower is not in the state dict: each package keeps its own
 random one, which no step reads, so it is only held unchanged.
 
 Tolerances (tests/test_torch_train.py's): the train/* scalars rtol 1e-5
@@ -22,6 +24,7 @@ import argparse
 import glob
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -35,6 +38,8 @@ from walkgpt_tpu.runtime import checkpoint as jck
 from walkgpt_tpu.runtime import train_cli as jcli
 from walkgpt_tpu_torch.core import config as tcfg
 from walkgpt_tpu_torch.core.tree import from_numpy_tree, leaves_with_path, map_with_path
+from walkgpt_tpu_torch.data import conversation as tconv
+from walkgpt_tpu_torch.data.pave import PAVEDataset
 from walkgpt_tpu_torch.data.tokenizer import ByteTokenizer, setup_walkgpt_tokens
 from walkgpt_tpu_torch.models import walkgpt as twalk
 from walkgpt_tpu_torch.runtime import checkpoint as tck
@@ -262,13 +267,138 @@ def test_build_train_dataset_validates(tmp_path):
         tcli.build_train_dataset(args, cfg, samples_per_epoch=4)
 
 
-@pytest.mark.parametrize("flag", ["--dp", "--tp"])
-def test_sharded_flags_refuse_at_startup(flag, monkeypatch, tmp_path):
-    """--dp 2 / --tp 2 raise before anything is built (the device check
-    included), naming ROADMAP.md's Queue 1 item."""
+@pytest.fixture(scope="module")
+def mesh_run(setup):
+    """The port's CLI with --dp 2 --tp 2 (four gloo ranks, spawned by main)
+    on the runs fixture's flags, with validation on one sample: main's
+    record, and the state it wrote, loaded."""
+    root = setup["root"]
+    argv = [a for a in _argv(root, "torch", root / "runs_mesh", "--device", "cpu", "--dp", "2",
+                             "--tp", "2", "--eval_samples", "1") if a != "--no_eval"]
+    mp = pytest.MonkeyPatch()
+    try:
+        _with_jax_lora(mp, setup["lora_a"])      # main draws the adapters for every rank
+        res = tcli.main(argv)
+    finally:
+        mp.undo()
+    return res, tck.load(res["state_dir"])
+
+
+def test_mesh_cli_matches_jax(setup, runs, mesh_run):
+    """--dp 2 --tp 2 against the JAX CLI's single-device run: the train/*
+    scalars of both steps within LOSS_TOL, the state checkpoint written
+    once, in the single-device layout, on the root (it loads into the
+    single-device state's structure and holds the gathered state bit for
+    bit), its trainable leaves within LEAF_TOL of JAX's and its frozen
+    leaves those of the port's single-device run, bit for bit; the val/*
+    scalars those of validate on the checkpoint's parameters on one
+    device; no import of the JAX package in the ranks."""
+    root = setup["root"]
+    jstate, tstate = runs
+    res, saved = mesh_run
+    mdir = root / "runs_mesh" / "walkgpt_train"
+    js, ms = _scalars(root / "runs_jax" / "walkgpt_train"), _scalars(mdir)
+    for step in (1, 2):
+        for tag in TAGS:
+            np.testing.assert_allclose(ms[(tag, step)], js[(tag, step)], **LOSS_TOL,
+                                       err_msg=f"{tag} step {step}")
+    assert _layout(mdir) == ("global_step2", ["global_step2/out_mm_projector",
+                                              "global_step2/state"])
+    assert res["step"] == 2 and res["reloads_bit_for_bit"] == [True]
+    # no rank imports jax or the JAX package; the root's TensorBoard writer
+    # imports TensorFlow where it is installed, which imports part of jax
+    # (RankResult.jax_free), and the other ranks write no scalars
+    ranks = res["mesh_ranks"]
+    assert len(ranks) == 4 and all(r["jax_free"] for r in ranks)
+    assert not any(r["foreign_modules"] for r in ranks[1:])
+    state = tck.load(res["state_dir"], like=tstate)       # the single-device layout
+    assert state.step == 2 and state.opt_state["count"] == 2
+    jflat = {shd._path_str(p): np.asarray(v)
+             for p, v in jax.tree_util.tree_flatten_with_path(jstate.params)[0]}
+    got, single = leaves_with_path(state.params), leaves_with_path(tstate.params)
+    assert got.keys() == single.keys()
+    trainable = {p for p, m in leaves_with_path(ttr.trainable_mask(
+        tstate.params, ttr.TrainConfig())).items() if m}
+    for p, x in got.items():
+        if p in trainable:
+            np.testing.assert_allclose(x.numpy(), jflat[p], **LEAF_TOL, err_msg=p)
+        elif isinstance(x, torch.Tensor):
+            assert torch.equal(x, single[p]), p
+
+    # the root's validation ran on the gathered parameters
+    args = tcli.parse_args(_argv(root, "torch", root / "unused", "--device", "cpu"))
+    tconv.set_default_conversation(args.conv_type)       # as the CLI sets it
+    tok = ByteTokenizer(2048)
+    seg = setup_walkgpt_tokens(tok).seg_token_idx
+    va = argparse.Namespace(**vars(args), max_samples=1, max_new_tokens=32,
+                            use_mm_start_end=True, no_console_text=True, val_dataset="PAVE|val")
+    data = str(root / "data")
+    val_ds = PAVEDataset(os.path.join(data, "val.jsonl"), os.path.join(data, "labelmap.json"),
+                         image_size=64, pad_size=64, is_val=True)
+    want, _ = tev.validate(va, tev.build_config(args, seg), state.params, tok, val_ds,
+                           device="cpu")
+    for tag, key in (("val/giou", "giou"), ("val/ciou", "ciou"), ("val/miou", "miou")):
+        np.testing.assert_allclose(ms[(tag, 0)], want[key], rtol=1e-6, err_msg=tag)
+
+
+def test_mesh_refuses_quant_base_with_jax_message(monkeypatch, tmp_path):
+    """--dp 2 --quant_base int4x raises at startup (nothing built) with the
+    JAX CLI's message (walkgpt_tpu/runtime/train_cli.py:344-347)."""
     monkeypatch.setattr(tev, "build_model", lambda *a, **k: pytest.fail("built"))
-    with pytest.raises(NotImplementedError, match="Multi-device"):
-        tcli.main([flag, "2", "--log_base_dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="--quant_base is a single-chip recipe"):
+        tcli.main(["--dp", "2", "--quant_base", "int4x", "--device", "cpu",
+                   "--log_base_dir", str(tmp_path)])
+    assert tcli.QLORA_MESH in jcli.main.__code__.co_consts
+
+
+def test_mesh_checkpoint_resumes_on_one_device(setup, runs, mesh_run, tmp_path):
+    """The mesh run's checkpoint, resumed by the single-device CLI for one
+    more epoch (--auto_resume --epochs 2), against the single-device run's
+    own checkpoint resumed the same way: the train/* scalars of steps 3
+    and 4 within LOSS_TOL, the trainable leaves within LEAF_TOL, the frozen
+    ones bit for bit."""
+    root = setup["root"]
+    finals = {}
+    for name, src in (("mesh", root / "runs_mesh"), ("single", root / "runs_torch")):
+        dst = tmp_path / name / "walkgpt_train" / "ckpt_model"
+        shutil.copytree(src / "walkgpt_train" / "ckpt_model" / "global_step2",
+                        dst / "global_step2")
+        argv = _argv(root, "torch", tmp_path / name, "--device", "cpu", "--auto_resume")
+        argv[argv.index("--epochs") + 1] = "2"
+        finals[name] = (tcli.main(argv), _scalars(tmp_path / name / "walkgpt_train"))
+    (mstate, ms), (sstate, ss) = finals["mesh"], finals["single"]
+    assert mstate.step == sstate.step == 4
+    for step in (3, 4):
+        for tag in TAGS:
+            np.testing.assert_allclose(ms[(tag, step)], ss[(tag, step)], **LOSS_TOL,
+                                       err_msg=f"{tag} step {step}")
+    trainable = {p for p, m in leaves_with_path(ttr.trainable_mask(
+        sstate.params, ttr.TrainConfig())).items() if m}
+    got, want = leaves_with_path(mstate.params), leaves_with_path(sstate.params)
+    for p, x in want.items():
+        if p in trainable:
+            np.testing.assert_allclose(got[p].numpy(), x.numpy(), **LEAF_TOL, err_msg=p)
+        elif isinstance(x, torch.Tensor):
+            assert torch.equal(got[p], x), p
+
+
+@pytest.mark.parametrize("precision,targets", [("fp32", "q_proj,v_proj"),
+                                               ("bf16", "q_proj,k_proj,v_proj,o_proj")])
+def test_fresh_adapters_are_init_lora_over_the_model(precision, targets):
+    """The adapters main draws before it spawns a mesh's ranks (over the
+    projections' shapes alone) are those init_lora draws over the built
+    model from the same seed, bit for bit."""
+    args = tcli.parse_args(["--model_size", "tiny", "--precision", precision,
+                            "--lora_target_modules", targets, "--lora_r", "4", "--device", "cpu"])
+    cfg = tev.build_config(args, 300)
+    params = tev.build_model(args, cfg)
+    want = tlora.lora_adapter_tree(tlora.init_lora(
+        params["llm"], torch.Generator().manual_seed(args.seed + 1), r=4,
+        alpha=args.lora_alpha, targets=targets.split(",")))
+    got, want = leaves_with_path(tcli.fresh_adapters(args, cfg)), leaves_with_path(want)
+    assert got.keys() == want.keys() and any(p.endswith("lora_a") for p in got)
+    for p, x in want.items():
+        assert x.dtype == got[p].dtype and torch.equal(x, got[p]), p
 
 
 def test_entry_point_defaults_to_cuda(monkeypatch, tmp_path):

@@ -22,7 +22,12 @@ launch.
 Manual tensor parallelism (parallel/tp.py): with `tp` (a parallel/dist.Axis)
 the params and cfg are one rank's head and intermediate shard, the o- and
 down-projections are row-parallel and their partial outputs are summed over
-the tp ranks (_psum_tp: two per layer), the W8A8 quantizer of those
+the tp ranks (_psum_tp: two per layer, dist.reduce_from, so that a forward
+with gradients passes the gradient through as it is), the normed inputs of
+the column-parallel q/k/v (with their LoRA branch) and gate/up projections
+go through dist.copy_to in `forward` (the gradient of those inputs summed
+over the tp ranks in the backward pass, also when remat recomputes a
+block), the W8A8 quantizer of those
 projections takes the tp ranks' largest absmax (_amax_reduce_for), K7 and
 K12 are not used (their fusions cross the sum), and ALiBi is refused (its
 slopes index the global heads), all as in the JAX package's tp_axis.
@@ -48,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core import nn
 from ..core.config import LLMConfig
 from ..ops import int4
+from ..parallel.dist import copy_to, reduce_from
 from ..ops.attention import merge_heads, mha, split_heads
 from ..ops.flash_attention import (banded_q8, decode_attention, decode_attention_q,
                                    decode_attention_q_chunk)
@@ -181,8 +187,9 @@ def _psum_tp(x: torch.Tensor, tp) -> torch.Tensor:
     """The megatron reduction point: under tp the o- and down-projections
     are row-parallel, so each rank holds a partial sum of the residual
     stream's update; the sum over the tp ranks makes it whole again (the
-    same bits on every rank). The identity without tp."""
-    return x if tp is None else tp.psum(x)
+    same bits on every rank; its gradient passes through as it is). The
+    identity without tp."""
+    return reduce_from(tp, x)
 
 
 def _mlp(p, x, cfg: LLMConfig, tp=None):
@@ -460,11 +467,12 @@ def _put_chunk(buf: torch.Tensor, i: int, val: torch.Tensor, slots: torch.Tensor
 
 def _block(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos, sin, mask, flash_fn,
            key_valid, bias, tp=None):
-    h, kv = _attention(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg),
+    h, kv = _attention(layer["attn"], cfg, copy_to(tp, _norm(layer["input_norm"], x, cfg)),
                        cos=cos, sin=sin, mask=mask, flash_fn=flash_fn, key_valid=key_valid,
                        bias=bias, tp=tp)
     x = x + _psum_tp(h, tp)
-    return x + _psum_tp(_mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg, tp), tp), kv
+    hn = copy_to(tp, _norm(layer["post_norm"], x, cfg))
+    return x + _psum_tp(_mlp(layer["mlp"], hn, cfg, tp), tp), kv
 
 
 def refuse_alibi_tp(cfg: LLMConfig, tp) -> None:

@@ -303,7 +303,6 @@ def model_forward(params, cfg: WalkGPTConfig, *, images: torch.Tensor,
     step computes no more than this. remat recomputes each LLM block in the
     backward pass."""
     flash_fn = _flash_fn(cfg)
-    r, _ = input_ids.shape
     lw = cfg.losses
 
     # 1. SAM encode once per image, expanded per conversation row
@@ -312,7 +311,6 @@ def model_forward(params, cfg: WalkGPTConfig, *, images: torch.Tensor,
     with contextlib.nullcontext() if encoder_grads else torch.no_grad():
         feats, sam_tokens = encode_sam(params, cfg, images)
     vis_rows = visual_tokens(params, cfg, sam_tokens)[row_image_idx]
-    sam_tokens_rows = sam_tokens[row_image_idx]
 
     # 2. splice + LLM forward
     sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask,
@@ -330,16 +328,53 @@ def model_forward(params, cfg: WalkGPTConfig, *, images: torch.Tensor,
     seg_mask = seg_timeline_mask(input_ids, cfg.seg_token_id, cfg)
     seg_idx, seg_valid = _first_true(seg_mask.reshape(-1), max_segs)
     seg_rows = seg_idx // seg_mask.shape[1]
-    pred_embeddings = ctp_apply(params["ctp"][0], hidden.reshape(-1, hidden.shape[-1])[seg_idx])
+    head = seg_losses(params, cfg, hidden.reshape(-1, hidden.shape[-1])[seg_idx], seg_valid,
+                      seg_rows, feats=feats, sam_tokens=sam_tokens, input_ids=input_ids,
+                      labels=labels, row_image_idx=row_image_idx, gt_masks=gt_masks,
+                      pixel_hw=pixel_hw)
+
+    ce_loss, bce_loss = lw.ce * ce, lw.bce * head.bce
+    dice_loss, nce_loss = lw.dice * head.dice, lw.nce * head.nce
+    mask_loss = bce_loss + dice_loss
+    return ForwardOutput(loss=ce_loss + mask_loss + nce_loss, ce_loss=ce_loss,
+                         mask_bce_loss=bce_loss, mask_dice_loss=dice_loss, nce_loss=nce_loss,
+                         mask_loss=mask_loss, pred_masks=head.pred_canvas, seg_valid=seg_valid,
+                         seg_rows=seg_rows,
+                         mask_scores=_mask_score(head.pred_canvas.detach(), head.pixel_valid))
+
+
+class SegLosses(NamedTuple):
+    bce: torch.Tensor             # unweighted mask BCE
+    dice: torch.Tensor            # unweighted mask dice
+    nce: torch.Tensor             # unweighted InfoNCE
+    pred_canvas: torch.Tensor     # [max_segs, S, S] logits on the img_size canvas
+    pixel_valid: torch.Tensor     # [max_segs, S, S] bool: the [SEG]'s image's valid region
+
+
+def seg_losses(params, cfg: WalkGPTConfig, seg_hidden: torch.Tensor, seg_valid: torch.Tensor,
+               seg_rows: torch.Tensor, *, feats: torch.Tensor, sam_tokens: torch.Tensor,
+               input_ids: torch.Tensor, labels: torch.Tensor, row_image_idx: torch.Tensor,
+               gt_masks: torch.Tensor, pixel_hw: torch.Tensor) -> SegLosses:
+    """model_forward's [SEG] head on the gathered [SEG] states: CTP,
+    InfoNCE against every row's SAM tokens, the mask decode against each
+    [SEG]'s image and the mask losses over num_masks = seg_valid.sum().
+    seg_hidden [max_segs, H] (the states that predicted each [SEG], in
+    row-major order), seg_valid and seg_rows [max_segs]; feats and
+    sam_tokens of all B images; input_ids, labels and row_image_idx of all
+    R rows. The sharded training step runs it on every rank on the [SEG]
+    states gathered over dp."""
+    lw = cfg.losses
+    r = input_ids.shape[0]
+    pred_embeddings = ctp_apply(params["ctp"][0], seg_hidden)
 
     # 5. InfoNCE region alignment; rows with no image sentinel, no [SEG] and
     #    no trained label are padding rows and leave the negative pool
     row_nce_ok = (input_ids == IMAGE_TOKEN_INDEX).any(dim=1) | (labels != IGNORE_INDEX).any(dim=1)
     for sid in _seg_ids(cfg):
         row_nce_ok = row_nce_ok | (input_ids == sid).any(dim=1)
-    nce = infonce_loss(pred_embeddings, sam_tokens_rows, seg_rows, params["tiny_xattn"],
-                       temperature=lw.nce_tau, top_k=lw.nce_topk, exclude_same_row=r > 1,
-                       valid=seg_valid, row_valid=row_nce_ok)
+    nce = infonce_loss(pred_embeddings, sam_tokens[row_image_idx], seg_rows,
+                       params["tiny_xattn"], temperature=lw.nce_tau, top_k=lw.nce_topk,
+                       exclude_same_row=r > 1, valid=seg_valid, row_valid=row_nce_ok)
 
     # 6. SAM mask decoding per [SEG] against its own image's features
     img_of_seg = row_image_idx[seg_rows]
@@ -350,7 +385,7 @@ def model_forward(params, cfg: WalkGPTConfig, *, images: torch.Tensor,
 
     # 7. mask losses on the canvas, restricted to each image's valid region
     hw = pixel_hw[img_of_seg]
-    dev = images.device
+    dev = pred_canvas.device
     yy = torch.arange(img_size, device=dev)[None, :, None]
     xx = torch.arange(img_size, device=dev)[None, None, :]
     pixel_valid = (yy < hw[:, 0, None, None]) & (xx < hw[:, 1, None, None])
@@ -358,14 +393,8 @@ def model_forward(params, cfg: WalkGPTConfig, *, images: torch.Tensor,
     bce = _masked_bce(pred_canvas, gt_masks, pixel_valid, seg_valid, num_masks)
     dice = _masked_dice(pred_canvas, gt_masks, pixel_valid, seg_valid, num_masks,
                         scale=lw.dice_scale)
-
-    ce_loss, bce_loss, dice_loss, nce_loss = lw.ce * ce, lw.bce * bce, lw.dice * dice, lw.nce * nce
-    mask_loss = bce_loss + dice_loss
-    return ForwardOutput(loss=ce_loss + mask_loss + nce_loss, ce_loss=ce_loss,
-                         mask_bce_loss=bce_loss, mask_dice_loss=dice_loss, nce_loss=nce_loss,
-                         mask_loss=mask_loss, pred_masks=pred_canvas, seg_valid=seg_valid,
-                         seg_rows=seg_rows,
-                         mask_scores=_mask_score(pred_canvas.detach(), pixel_valid))
+    return SegLosses(bce=bce, dice=dice, nce=nce, pred_canvas=pred_canvas,
+                     pixel_valid=pixel_valid)
 
 
 def _masked_bce(pred, gt, pixel_valid, seg_valid, num_masks):

@@ -8,14 +8,15 @@
     (optionally top-k-refined) SAM tokens of the embedding's own row, the
     negatives every token of the other rows; CE over [pos | negatives] / tau;
   * cross_entropy_with_smoothing: token CE with label smoothing, torch
-    F.cross_entropy semantics, mean over the labels that are not ignored.
+    F.cross_entropy semantics, mean over the labels that are not ignored
+    (cross_entropy_sum_count: its sum and count).
 
 Every loss takes static-shape inputs with an optional validity mask, as in
 the JAX package, so the padded training batch needs no host sync.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -127,15 +128,27 @@ def infonce_loss(pred_embeddings: torch.Tensor,   # [M, D] CTP outputs of the [S
     return loss
 
 
-def cross_entropy_with_smoothing(logits: torch.Tensor, labels: torch.Tensor, *,
-                                 ignore_index: int = -100,
-                                 label_smoothing: float = 0.1) -> torch.Tensor:
-    """logits [T, V], labels [T]: (1 - eps) * nll + eps * mean_k(-logp_k),
-    averaged over the labels that are not ignore_index (at least 1)."""
+def cross_entropy_sum_count(logits: torch.Tensor, labels: torch.Tensor, *,
+                            ignore_index: int = -100, label_smoothing: float = 0.1
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """logits [T, V], labels [T]: (the sum over the labels that are not
+    ignore_index of (1 - eps) * nll + eps * mean_k(-logp_k), their count).
+    A dp shard of the sharded training step divides its sum by the count
+    summed over the shards."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0)
     nll = -torch.gather(logp, 1, safe[:, None])[:, 0]
     smooth = -logp.mean(-1)
     per = ((1.0 - label_smoothing) * nll + label_smoothing * smooth) * valid.float()
-    return per.sum() / valid.sum().float().clamp_min(1.0)
+    return per.sum(), valid.sum()
+
+
+def cross_entropy_with_smoothing(logits: torch.Tensor, labels: torch.Tensor, *,
+                                 ignore_index: int = -100,
+                                 label_smoothing: float = 0.1) -> torch.Tensor:
+    """logits [T, V], labels [T]: (1 - eps) * nll + eps * mean_k(-logp_k),
+    averaged over the labels that are not ignore_index (at least 1)."""
+    total, count = cross_entropy_sum_count(logits, labels, ignore_index=ignore_index,
+                                           label_smoothing=label_smoothing)
+    return total / count.float().clamp_min(1.0)

@@ -29,6 +29,14 @@ bf16 and fp16 partials with one rounding at the end (the order and
 precision in which XLA's CPU all-reduce adds the JAX package's partials),
 so the ranks of a tp group pick the same tokens and their caches never
 part.
+
+`Axis`'s collectives are forward-only (they detach their input). The
+training step differentiates through three autograd functions built on
+them (Megatron's pairs, which XLA derives for the JAX package):
+`copy_to` (identity forward, psum of the gradient backward: a
+column-parallel input), `reduce_from` (psum forward, identity backward: a
+row-parallel output) and `gather_from` (all-gather forward; backward the
+psum of the gradient, of which the rank keeps its own slice).
 """
 from __future__ import annotations
 
@@ -84,14 +92,18 @@ class _HostExchange:
             self.maps[(member, slot)] = buf
         return buf
 
-    def parts(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def parts(self, x: torch.Tensor, members: Optional[Sequence[int]] = None
+              ) -> List[Optional[torch.Tensor]]:
+        """Every member's x (None for a member not in `members`, whose file
+        is then not read)."""
         slot = self.count % 2
         self.count += 1
         nbytes = x.numel() * x.element_size()
         view = lambda m: self._map(m, slot, nbytes)[:nbytes].view(x.dtype).view(x.shape)
         view(self.index).copy_(x)
         tdist.barrier(group=self.group)
-        return [x if m == self.index else view(m).to(x.device, copy=True)
+        return [x if m == self.index else
+                view(m).to(x.device, copy=True) if members is None or m in members else None
                 for m in range(self.size)]
 
 
@@ -114,17 +126,21 @@ class Axis:
     def size(self) -> int:
         return len(self.ranks)
 
-    def parts(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def parts(self, x: torch.Tensor, members: Optional[Sequence[int]] = None
+              ) -> List[Optional[torch.Tensor]]:
         """Every member's x, in axis order, on x's device. x has the same
-        shape and dtype on every member."""
+        shape and dtype on every member. members: the members whose x this
+        rank needs (its own always comes back); under gloo the others' are
+        not copied and come back as None (under NCCL all are gathered)."""
         if self.size == 1:
             return [x]
         src = x.detach().contiguous()
         if src.dtype == torch.bool:            # gloo gathers no bools
-            return [p.bool() for p in self.parts(src.to(torch.uint8))]
+            return [p if p is None else p.bool()
+                    for p in self.parts(src.to(torch.uint8), members)]
         t0 = time.perf_counter()
         if self.exchange is not None:
-            out = self.exchange.parts(src)
+            out = self.exchange.parts(src, members)
         else:
             out = [torch.empty_like(src) for _ in self.ranks]
             tdist.all_gather(out, src, group=self.group)
@@ -149,6 +165,84 @@ class Axis:
         if self.size == 1:
             return x
         return torch.stack(self.parts(x)).amax(0)
+
+    def gather_first(self, x: torch.Tensor, dim: int = 0) -> Optional[torch.Tensor]:
+        """The members' x concatenated along dim on the axis's first member,
+        None on the others (which copy nothing under gloo)."""
+        parts = self.parts(x, members=None if self.index == 0 else ())
+        return torch.cat(parts, dim) if self.index == 0 else None
+
+
+# ---------------------------------------------------------------------------
+# differentiable collectives (the training step's)
+# ---------------------------------------------------------------------------
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.psum(g), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.psum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = ctx.axis.psum(g.contiguous())
+        return whole.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None, None
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to(axis: Optional[Axis], x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel input: x itself forward; backward, the gradient
+    summed over the axis (each member's is the partial gradient of its own
+    output columns). The identity without an axis of more than one."""
+    if axis is None or axis.size == 1 or not _differentiable(x):
+        return x
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from(axis: Optional[Axis], x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel output: Axis.psum of the members' partial sums
+    forward (the same bits on every member); backward, the gradient as it
+    is. Without gradients it is Axis.psum itself."""
+    if axis is None or axis.size == 1:
+        return x
+    if not _differentiable(x):
+        return axis.psum(x)
+    return _ReduceFrom.apply(x, axis)
+
+
+def gather_from(axis: Axis, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Axis.all_gather forward; backward, the psum of the gradient over the
+    axis, of which the member keeps the slice of its own x (every member
+    uses the gathered tensor)."""
+    if axis.size == 1:
+        return x
+    if not _differentiable(x):
+        return axis.all_gather(x, dim)
+    return _GatherFrom.apply(x, axis, dim)
 
 
 class RankMesh:
@@ -175,6 +269,10 @@ class RankMesh:
                             tp_groups[self.dp_index])
         self.dp_axis = axis("dp", dp_ranks[self.tp_index], self.dp_index, self.tp_index,
                             dp_groups[self.tp_index])
+        # every rank, in rank order (the training step's reduction of the
+        # replicated leaves' gradients)
+        self.world_axis = axis("world", range(dp * tp), rank, 0,
+                               tdist.group.WORLD if dp * tp > 1 else None)
 
     @property
     def world(self) -> int:
@@ -224,14 +322,24 @@ def plan(device, world: int) -> Tuple[str, List[torch.device], str]:
 @dataclasses.dataclass
 class RankResult:
     """What one rank returned, with what it ran: the kernels' launch counts
-    ({wrapper name: launches} over the rank's life), the modules of the JAX
-    package it had imported (none), its peak device memory (bytes, CUDA
-    only) and its seconds from start to return."""
+    ({wrapper name: launches} over the rank's life), the modules of jax and
+    of the JAX package it had imported (none), its peak device memory
+    (bytes, CUDA only), its seconds from start to return, and whether
+    TensorFlow was loaded (by TensorBoard's writer, where it is installed;
+    TensorFlow imports part of jax itself)."""
     value: Any
     launches: dict
     foreign_modules: List[str]
     peak_bytes: int
     seconds: float
+    tensorflow: bool = False
+
+    @property
+    def jax_free(self) -> bool:
+        """No module of the JAX package, and none of jax but what TensorFlow
+        imported."""
+        return not self.foreign_modules or (self.tensorflow and all(
+            m.split(".")[0] == "jax" for m in self.foreign_modules))
 
 
 def _kernel_launches() -> dict:
@@ -258,7 +366,7 @@ def _rank_main(job: str, rank: int, dp: int, tp: int, device: str, backend: str,
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
         foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "walkgpt_tpu"))
         blob = pickle.dumps(RankResult(value, _kernel_launches(), foreign, peak,
-                                       time.perf_counter() - t0))
+                                       time.perf_counter() - t0, "tensorflow" in sys.modules))
     except Exception:                      # reported to the launcher, which raises
         err = traceback.format_exc()
     finally:

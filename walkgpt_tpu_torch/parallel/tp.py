@@ -31,7 +31,7 @@ masks once. The root returns the output, every other rank None.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -236,7 +236,9 @@ def local_params(tree: Any, specs: Any, tp: int, rank: int, device=None) -> Any:
     """Rank `rank`'s weights: each leaf with a spec axis is cut into tp even
     slices along it and slice `rank` kept as a tensor of its own (so the
     global tree can be freed); replicated leaves pass through. device, when
-    given, moves every tensor there."""
+    given, moves every tensor there. The training step also takes a dp
+    rank's ZeRO slice of its optimizer state with it (the zero_spec axis,
+    dp and the dp index in place of the tp ones)."""
     if isinstance(tree, dict):
         return {k: local_params(v, specs[k], tp, rank, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -250,6 +252,69 @@ def local_params(tree: Any, specs: Any, tp: int, rank: int, device=None) -> Any:
                              f"on axis {specs}")
         tree = tree.narrow(specs, rank * (n // tp), n // tp).clone()
     return tree if device is None else tree.to(device)
+
+
+def _join(trees, specs):
+    """The tp ranks' local trees joined: each leaf with a split axis the
+    concatenation of the ranks' slices along it, every other leaf rank 0's."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _join([t[k] for t in trees], specs[k]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_join([t[i] for t in trees], specs[i]) for i in range(len(first)))
+    if not torch.is_tensor(first) or specs is None:
+        return first
+    return torch.cat([t.to(first.device) for t in trees], dim=specs)
+
+
+def _unpermute_qkv_cols(arr: torch.Tensor, cfg: LLMConfig, tp: int, axis: int) -> torch.Tensor:
+    """Inverse of _permute_qkv_cols: [q_0 k_0 v_0 | q_1 k_1 v_1 | ...] ->
+    [q | k | v]."""
+    hq = cfg.num_heads * cfg.head_dim // tp
+    kvd = cfg.num_kv_heads * cfg.head_dim // tp
+    blocks = torch.chunk(arr, tp, dim=axis)
+    return torch.cat([b.narrow(axis, off, n) for off, n in ((0, hq), (hq, kvd), (hq + kvd, kvd))
+                      for b in blocks], dim=axis)
+
+
+def _unrepack_down_p4t(p4t: torch.Tensor, tp: int) -> torch.Tensor:
+    """Inverse of _repack_down_p4t: the ranks' tile-local packs -> the global
+    tile-local pack (integer codes move: bit for bit)."""
+    codes = torch.cat([_unpack_p4t(s) for s in torch.chunk(p4t, tp, dim=0)], dim=0)
+    return _pack_p4t(codes)
+
+
+def global_params(local_trees, specs, cfg, tp: Optional[int] = None) -> Params:
+    """The single-device WalkGPT tree from the tp ranks' local trees (in tp
+    order; the slices of local_params over repack_params' tree), the
+    inverse of both: the split leaves concatenated, the fused qkv4 / qkv8
+    columns put back in [q | k | v] order, the down packs re-laid at the
+    global tile, and the row-parallel biases (held as b / tp by each rank)
+    multiplied back, which is exact where tp is a power of two. Bit for bit
+    otherwise. Optimizer moments laid out like their parameters take the
+    same way back (a tree with only the trained leaves, specs of the same
+    structure or the whole tree's). tp defaults to len(local_trees)."""
+    tp = tp or len(local_trees)
+    out = _join(list(local_trees), specs)
+    if tp == 1 or "llm" not in out or "layers" not in out["llm"]:
+        return out
+    row = {"o", "down", "fc2"}
+    for layer in out["llm"]["layers"]:
+        for gk in ("attn", "mlp"):
+            for pk, proj in layer.get(gk, {}).items():
+                if not isinstance(proj, dict):
+                    continue
+                for key, leaf in list(proj.items()):
+                    if pk in ("qkv4", "qkv8"):
+                        if torch.is_tensor(leaf) and (
+                                (key in ("w_q", "w_p4", "w") and leaf.dim() == 2)
+                                or (key in ("w_scale", "b") and leaf.dim() == 1)):
+                            proj[key] = _unpermute_qkv_cols(leaf, cfg.llm, tp, leaf.dim() - 1)
+                    elif pk in row and key == "w_p4t" and torch.is_tensor(leaf):
+                        proj[key] = _unrepack_down_p4t(leaf, tp)
+                    elif pk in row and key == "b" and torch.is_tensor(leaf):
+                        proj[key] = leaf * tp
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -118,6 +118,28 @@ def load(path: str, like: Optional[Any] = None) -> Any:
     return rec(like, tree, "")
 
 
+def same_as_saved(path: str, tree: Any) -> bool:
+    """Whether the file `save` wrote to `path` holds `tree` bit for bit:
+    the same structure (a NamedTuple as the dict of its fields), every
+    tensor of the same dtype, shape and bits, every other leaf equal. The
+    file is mapped, not copied into memory."""
+    saved = torch.load(os.path.join(path, PARAMS_FILE), map_location="cpu", weights_only=True,
+                       mmap=True)
+
+    def same(a, b) -> bool:
+        if isinstance(a, dict):
+            return isinstance(b, dict) and a.keys() == b.keys() and all(
+                same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                    and all(same(x, y) for x, y in zip(a, b)))
+        if isinstance(a, torch.Tensor):
+            return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a, b))
+        return a == b
+    return same(saved, _host(tree))
+
+
 # ---------------------------------------------------------------------------
 # torch loading helpers
 # ---------------------------------------------------------------------------

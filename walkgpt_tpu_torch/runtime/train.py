@@ -22,8 +22,16 @@ this from optax; here the same chain is written out in optax's order:
 grad_accum > 1 follows optax.MultiSteps: the running mean of the
 micro-batch gradients, applied every grad_accum-th call, with no update in
 between. QLoRA partitions the tree and differentiates only the trainable
-subtree, so the frozen base may be integer-quantized. Not ported here: the
-sharded step (make_sharded_train_step) and the training CLI.
+subtree, so the frozen base may be integer-quantized.
+
+make_sharded_train_step runs the step over a manual dp x tp rank mesh
+(parallel/dist.py): each rank differentiates its share of the loss
+(parallel/train.py), the gradients are summed over the mesh, and each dp
+rank keeps Adam's moments (and grad_accum's running mean) only for its
+ZeRO-1 slice of each trainable leaf (parallel/sharding.zero_spec), updates
+that slice and all-gathers the updated slices over dp. gather_state
+rebuilds the single-device TrainState (so a checkpoint does not depend on
+the mesh) and shard_state splits one.
 
 Parameters are functional, as in the JAX package: a step returns new
 tensors for the trainable leaves and leaves the old state as it was.
@@ -150,25 +158,29 @@ class Optimizer:
             state.update(mini_step=0, acc={p: torch.zeros_like(x) for p, x in leaves.items()})
         return state
 
-    def update(self, grads: Dict[str, torch.Tensor], state: Dict, params: Dict[str, torch.Tensor]
-               ) -> Tuple[Optional[Dict[str, torch.Tensor]], Dict]:
+    def update(self, grads: Dict[str, torch.Tensor], state: Dict, params: Dict[str, torch.Tensor],
+               norm_fn=None) -> Tuple[Optional[Dict[str, torch.Tensor]], Dict]:
         """grads and params: {path: tensor} of the trainable leaves.
         Returns (updates {path: u}, or None on a micro-step that applies
-        nothing; the new state)."""
+        nothing; the new state). Every step but the clip's norm is
+        elementwise, so the sharded step runs it on the ZeRO slices of the
+        leaves (and their moments), with norm_fn({path: tensor}) -> the
+        global norm over the slices of every rank (default: global_norm of
+        the leaves given)."""
         k = self.cfg.grad_accum
         if k > 1:
             n = state["mini_step"]
             acc = {p: a + (grads[p] - a) / (n + 1) for p, a in state["acc"].items()}
             if n < k - 1:
                 return None, dict(state, mini_step=n + 1, acc=acc)
-            updates, inner = self._inner(acc, state, params)
+            updates, inner = self._inner(acc, state, params, norm_fn)
             return updates, dict(inner, mini_step=0,
                                  acc={p: torch.zeros_like(a) for p, a in acc.items()})
-        return self._inner(grads, state, params)
+        return self._inner(grads, state, params, norm_fn)
 
-    def _inner(self, grads, state, params):
+    def _inner(self, grads, state, params, norm_fn=None):
         cfg = self.cfg
-        norm = global_norm(list(grads.values()))
+        norm = (norm_fn or _leaves_norm)(grads)
         count = state["count"] + 1
         lr = -self.schedule(state["count"])
         bc1 = 1 - torch.tensor(cfg.beta1, dtype=torch.float32) ** count
@@ -189,6 +201,10 @@ def global_norm(leaves: List[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(x * x), each in the leaf's dtype
     (optax.global_norm)."""
     return torch.sqrt(sum(torch.sum(x * x) for x in leaves))
+
+
+def _leaves_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return global_norm(list(grads.values()))
 
 
 def make_optimizer(cfg: TrainConfig, params: Any) -> Tuple[Optimizer, Any]:
@@ -294,3 +310,284 @@ def qlora_train_step(state: TrainState, frozen: Any, batch: Dict, *, opt: Optimi
                                        remat, device)
     trainable = map_with_path(lambda p, x: x if p in opt.trainable else None, params)
     return TrainState(trainable, opt_state, state.step + 1), metrics
+
+
+# ---------------------------------------------------------------------------
+# the sharded step: manual dp x tp over a rank mesh, ZeRO-1 optimizer state
+# ---------------------------------------------------------------------------
+
+ROW_PARALLEL_BIASES = ("/attn/o/b", "/mlp/down/b", "/mlp/fc2/b")
+
+
+def batch_pspecs(batch: Dict) -> Dict:
+    """The batch's specs: images and the conversation rows split over dp
+    on their leading axis, the rest (gt_masks, pixel_hw) replicated (the
+    JAX package's PartitionSpec entries as tuples)."""
+    specs = {}
+    for k, v in batch.items():
+        if k in ("images", "input_ids", "labels", "attention_mask", "row_image_idx"):
+            specs[k] = ("dp",) + (None,) * (v.ndim - 1)
+        else:
+            specs[k] = ()
+    return specs
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLayout:
+    """How a rank holds the single-device TrainState: the mesh's shape, the
+    global config, each parameter's tp split axis (parallel/tp.repack_params'
+    spec tree, and by path with the replicated leaves left out), each
+    trainable leaf's ZeRO axis (the dp split of its optimizer state,
+    parallel/sharding.opt_state_pspecs; None where no axis divides) and the
+    replicated trainable leaves whose local gradient is partial over tp
+    (lora_a of a column-parallel projection)."""
+    dp: int
+    tp: int
+    cfg: WalkGPTConfig
+    tp_specs: Any
+    tp_axes: Dict[str, Optional[int]]
+    zero_axes: Dict[str, Optional[int]]
+    partial: frozenset
+
+
+class ShardedTrainState(NamedTuple):
+    """A rank's TrainState: its local parameters (the LLM's tp shard), its
+    ZeRO slices of the optimizer's moments (and of grad_accum's running
+    mean), the step, and the layout gather_state undoes."""
+    params: Any
+    opt_state: Any
+    step: int
+    layout: ShardLayout
+
+
+def _layout(mesh, model_cfg, trainable: Set[str], opt_state, repacked, tp_specs
+            ) -> ShardLayout:
+    from ..parallel import sharding
+    specs = sharding.param_pspecs(repacked, tp_specs)
+    if mesh.tp > 1:
+        bias = sorted(p for p in trainable
+                      if p.startswith("llm/layers/") and p.endswith(ROW_PARALLEL_BIASES))
+        if bias:
+            raise NotImplementedError(
+                f"the sharded train step under tp: trainable row-parallel biases {bias[:2]} "
+                "(each rank holds b / tp; no LLaMA configuration has them)")
+    zero = sharding.opt_state_pspecs(opt_state, specs, repacked, dp=mesh.dp)["mu"]
+    partial = frozenset(
+        p for p in trainable if mesh.tp > 1 and p.endswith("/lora_a")
+        and "tp" in specs.get(p[:-len("lora_a")] + "lora_b", ()))
+    return ShardLayout(dp=mesh.dp, tp=mesh.tp, cfg=model_cfg, tp_specs=tp_specs,
+                       tp_axes=leaves_with_path(tp_specs),
+                       zero_axes={p: sharding.spec_axis(zero[p], "dp") for p in trainable},
+                       partial=partial)
+
+
+def shard_state(mesh, state: TrainState, model_cfg: WalkGPTConfig, opt: Optimizer
+                ) -> ShardedTrainState:
+    """The rank's share of a single-device TrainState (any device): the
+    parameters repacked and sliced for tp (parallel/tp.repack_params,
+    local_params), each moment sliced like its parameter, then to the
+    rank's ZeRO slice over dp; on the rank's device."""
+    from ..parallel import tp as tpmod
+    repacked, tp_specs = tpmod.repack_params(state.params, model_cfg, mesh.tp)
+    layout = _layout(mesh, model_cfg, opt.trainable, state.opt_state, repacked, tp_specs)
+    params = tpmod.local_params(repacked, tp_specs, mesh.tp, mesh.tp_index, device=mesh.device)
+
+    def local(path, x):
+        x = tpmod.local_params(x, layout.tp_axes.get(path), mesh.tp, mesh.tp_index)
+        return tpmod.local_params(x, layout.zero_axes[path], mesh.dp, mesh.dp_index,
+                                  device=mesh.device)
+    opt_state = {k: {p: local(p, x) for p, x in v.items()} if isinstance(v, dict) else v
+                 for k, v in state.opt_state.items()}
+    return ShardedTrainState(params, opt_state, state.step, layout)
+
+
+def gather_state(mesh, sharded: ShardedTrainState) -> Optional[TrainState]:
+    """The single-device TrainState on the root rank, its tensors on the
+    CPU (None on the other ranks): the ZeRO slices gathered over dp, the tp
+    slices over tp (parallel/tp.global_params for the parameters). Every
+    rank calls it; only the ranks of dp index 0 take part in the tp half."""
+    from ..parallel import tp as tpmod
+    layout = sharded.layout
+    host = lambda x: None if x is None else x.detach().cpu()
+
+    def over_dp(path, x):                 # the rank's local tensor, on dp index 0
+        ax = layout.zero_axes[path]
+        if ax is None or mesh.dp == 1:
+            return x if mesh.dp_index == 0 else None
+        return mesh.dp_axis.gather_first(x, ax)
+
+    def over_tp(path, x):                 # the global tensor, on the root
+        ax = layout.tp_axes.get(path)
+        if ax is None or mesh.tp == 1:
+            return host(x) if mesh.tp_index == 0 else None
+        return host(mesh.tp_axis.gather_first(x, ax))
+
+    moments = {k: {p: over_dp(p, x) for p, x in v.items()}
+               for k, v in sharded.opt_state.items() if isinstance(v, dict)}
+    if mesh.dp_index != 0:
+        return None
+    moments = {k: {p: over_tp(p, x) for p, x in v.items()} for k, v in moments.items()}
+    # the parameters: rank r's tree holds the tp slices' parts, the
+    # replicated leaves once (only the root reads the others' slices)
+    slices = {}
+
+    def part(path, x):
+        if layout.tp_axes.get(path) is None or mesh.tp == 1:
+            return host(x) if mesh.tp_index == 0 else None
+        parts = mesh.tp_axis.parts(x, members=None if mesh.tp_index == 0 else ())
+        slices[path] = [host(t) for t in parts] if mesh.tp_index == 0 else None
+        return host(x) if mesh.tp_index == 0 else None
+    own = map_with_path(part, sharded.params)
+    if not mesh.is_root:
+        return None
+    trees = [map_with_path(lambda p, x: slices[p][r] if p in slices else x, own)
+             for r in range(mesh.tp)]
+    params = tpmod.global_params(trees, layout.tp_specs, layout.cfg, mesh.tp)
+    opt_state = {k: moments.get(k, v) for k, v in sharded.opt_state.items()}
+    return TrainState(params=params, opt_state=opt_state, step=sharded.step)
+
+
+def _flat_parts(axis, tensors: Dict[str, torch.Tensor], members=None):
+    """The members' copies of `tensors`, in one collective per dtype (the
+    tensors flattened into one buffer): a list over the members of {path:
+    tensor}, None for a member whose buffer this rank does not read."""
+    out = [{} for _ in range(axis.size)]
+    for dt in dict.fromkeys(x.dtype for x in tensors.values()):
+        keys = [p for p, x in tensors.items() if x.dtype == dt]
+        sizes = [tensors[p].numel() for p in keys]
+        parts = axis.parts(torch.cat([tensors[p].reshape(-1) for p in keys]), members)
+        for m, flat in enumerate(parts):
+            if flat is None:
+                out[m] = None
+            elif out[m] is not None:
+                out[m].update((p, c.view(tensors[p].shape))
+                              for p, c in zip(keys, torch.split(flat, sizes)))
+    return out
+
+
+def _flat_reduce(axis, tensors: Dict[str, torch.Tensor], combine, members=None
+                 ) -> Dict[str, torch.Tensor]:
+    """combine(the members' tensors) for every tensor, over one collective
+    per dtype (_flat_parts); combine is elementwise (an ordered sum)."""
+    if axis.size == 1 or not tensors:
+        return dict(tensors)
+    parts = _flat_parts(axis, tensors, members)
+    return {p: combine([None if m is None else m[p] for m in parts]) for p in tensors}
+
+
+def _zero_slice(mesh, layout: ShardLayout, path: str, x: torch.Tensor) -> torch.Tensor:
+    from ..parallel import tp as tpmod
+    return tpmod.local_params(x, layout.zero_axes[path], mesh.dp, mesh.dp_index)
+
+
+def reduce_gradients(mesh, layout: ShardLayout, grads: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Each trainable leaf's gradient summed over the mesh, as the rank's
+    ZeRO slice: a tp-split leaf's over dp (its tp slice is its own); a
+    replicated leaf's over the whole mesh in rank order, every rank's where
+    its gradient is partial over tp (layout.partial), else the first tp
+    rank's of each dp shard (the tp ranks computed it alike: taking one
+    gives every rank the same bits whatever the order of the card's atomic
+    adds). Every sum is dist.ordered_sum's: the same bits on every rank
+    that holds the leaf."""
+    from ..parallel.dist import ordered_sum
+    split = {p: g for p, g in grads.items() if layout.tp_axes.get(p) is not None}
+    partial = {p: g for p, g in grads.items() if p not in split and p in layout.partial}
+    whole = {p: g for p, g in grads.items() if p not in split and p not in layout.partial}
+    first = tuple(d * mesh.tp for d in range(mesh.dp))
+    out = _flat_reduce(mesh.dp_axis, split, ordered_sum)
+    out.update(_flat_reduce(mesh.world_axis, partial, ordered_sum))
+    out.update(_flat_reduce(mesh.world_axis, whole,
+                            lambda parts: ordered_sum([parts[r] for r in first]), members=first))
+    return {p: _zero_slice(mesh, layout, p, out[p]) for p in grads}
+
+
+def sharded_norm(mesh, layout: ShardLayout, slices: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm of the leaves whose ZeRO slices the ranks hold:
+    each leaf's sum of squares (fp32 sums of the squares in the leaf's
+    dtype) summed over dp where its state splits over dp and over tp where
+    the leaf splits over tp, counted once along the axes where it is
+    replicated; then, as global_norm, each leaf's sum in its dtype, summed
+    over the leaves in order. The same bits on every rank."""
+    paths = list(slices)
+    dev = next(iter(slices.values())).device
+    local = torch.stack([torch.sum(slices[p] * slices[p], dtype=torch.float32) for p in paths])
+    over_dp = torch.tensor([layout.zero_axes[p] is not None for p in paths], device=dev)
+    over_tp = torch.tensor([layout.tp_axes.get(p) is not None for p in paths], device=dev)
+    v = torch.where(over_dp | (mesh.dp_index == 0), local, 0.0)
+    v = mesh.dp_axis.psum(v)
+    v = torch.where(over_tp | (mesh.tp_index == 0), v, 0.0)
+    v = mesh.tp_axis.psum(v)
+    return torch.sqrt(sum(v[i].to(slices[p].dtype) for i, p in enumerate(paths)))
+
+
+def _gather_slices(mesh, layout: ShardLayout, slices: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The updated ZeRO slices all-gathered over dp into whole local leaves
+    (one collective per dtype); leaves without a ZeRO axis pass."""
+    split = {p: x for p, x in slices.items() if layout.zero_axes[p] is not None}
+    out = {p: x for p, x in slices.items() if p not in split}
+    if mesh.dp == 1 or not split:
+        return dict(out, **split)
+    parts = _flat_parts(mesh.dp_axis, split)
+    out.update((p, torch.cat([m[p] for m in parts], dim=layout.zero_axes[p])) for p in split)
+    return out
+
+
+def make_sharded_train_step(mesh, opt: Optimizer, model_cfg: WalkGPTConfig, max_segs: int,
+                            state: TrainState, batch: Dict, *, sp: bool = False,
+                            remat: bool = False):
+    """The train step over a manual dp x tp rank mesh (parallel/dist.RankMesh;
+    every rank calls this and then the step). Returns JAX's triple
+    (step_fn, sharded_state, batch_specs): step_fn(sharded_state, batch) ->
+    (sharded_state, metrics) takes the whole batch on every rank;
+    sharded_state is the rank's share of `state` (shard_state); batch_specs
+    batch_pspecs(batch).
+
+    The step: parallel/train.sharded_loss (the rank's share of the single
+    device's loss) differentiated in the trainable leaves; the gradients
+    summed over the mesh as the rank's ZeRO slices (reduce_gradients); the
+    clip's global norm over every rank's slices (sharded_norm); the
+    Optimizer (Adam's moments and grad_accum's running mean) on the slices;
+    the updated slices all-gathered over dp. Frozen leaves get no gradient
+    and stay the same tensors. The metrics are the global loss terms and
+    the gradients' global norm, the same on every rank.
+
+    sp (sequence parallelism) raises NotImplementedError; so do a tp split
+    the LLM refuses (parallel/tp.tp_llm_cfg) and trainable row-parallel
+    biases under tp. A batch whose rows or images dp does not divide raises
+    ValueError in the step, before any collective."""
+    from ..parallel import tp as tpmod
+    from ..parallel.train import check_batch_split, sharded_loss
+    if sp:
+        raise NotImplementedError(
+            "make_sharded_train_step(sp=True), Megatron sequence parallelism, is not ported "
+            "yet: ROADMAP.md Queue 1, 'Multi-device: sequence parallelism in the sharded "
+            "train step'")
+    tpmod.tp_llm_cfg(model_cfg.llm, mesh.tp)
+    sharded = shard_state(mesh, state, model_cfg, opt)
+    layout = sharded.layout
+    norm_fn = lambda g: sharded_norm(mesh, layout, g)
+
+    def step_fn(st: ShardedTrainState, bt: Dict) -> Tuple[ShardedTrainState, Dict]:
+        check_batch_split(int(bt["input_ids"].shape[0]), int(bt["images"].shape[0]), mesh.dp)
+        bt = _batch(bt, mesh.device)
+        leaves = {p: x.detach().requires_grad_()
+                  for p, x in leaves_with_path(st.params).items() if p in opt.trainable}
+        loss, metrics = sharded_loss(mesh, _replace(st.params, leaves), model_cfg, bt, max_segs,
+                                     remat)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        grads = {p: torch.zeros_like(x) if g is None else g
+                 for (p, x), g in zip(leaves.items(), grads)}
+        slices = reduce_gradients(mesh, layout, grads)
+        del grads
+        metrics["grad_norm"] = norm_fn(slices).detach()
+        old = {p: _zero_slice(mesh, layout, p, x.detach()) for p, x in leaves.items()}
+        updates, opt_state = opt.update(slices, st.opt_state, old, norm_fn=norm_fn)
+        params = st.params
+        if updates is not None:
+            new = {p: (old[p] + u).to(old[p].dtype) for p, u in updates.items()}
+            params = _replace(params, _gather_slices(mesh, layout, new))
+        return ShardedTrainState(params, opt_state, st.step + 1, layout), metrics
+
+    return step_fn, sharded, batch_pspecs(batch)
