@@ -281,20 +281,39 @@ Phases (any failure raises and the script exits non-zero):
      a. K4 (20 kv heads over int4_flat), K5 (the qkv4 5120 -> 7680) and K6
         (the local intermediate 6912, tile 256) at WalkGPT-13B's tp = 2
         shard shapes, 8 rows, against their plain versions, with times and
-        bounds;
+        bounds; then the GSPMD leg's shapes at 13B dp 2 x tp 2: K1 at 20
+        heads a rank (a rank's 4 prefill rows of 11c), K2 and K3 at ViT-H's
+        8 heads a rank (packed qkv [25, 196, 1920]; [1, 8, 4096, 80]), K5
+        and K6 whole on the replicated packs (qkv4 5120 -> 15360; H 5120, I
+        13824) at a rank's 4 rows;
      b. demo_config, int4x weights over int4_flat (fp32, float SAM blocks),
         greedy and speculative_k=8 at dp 2 x tp 2 (four ranks,
         parallel/infer.run_on_mesh) against the single device on the card:
         identical tokens, lengths and [SEG] rows and masks within 1e-3, in
         every row but at most one, whose tokens part at a near tie
         (MESH_TIE_REL); K1-K6 and K8 launched in the ranks, K7 and K12
-        never, no JAX import;
+        never, no JAX import; then, in a launch of its own, the GSPMD leg
+        (parallel/infer.make_sharded_generate, JAX's param_pspecs layout)
+        at dp 2 x tp 2 on 8 rows over 4 images (row_image_idx = arange(8)
+        % 4: rows read images the other dp shard encodes), int4x over
+        int4_flat and dense over the fp32 heads cache, greedy and
+        speculative_k=8, the SAM and the CLIP stream: the towers split over
+        tp (the SAM features, the visual tokens) within MESH_TOWER_REL of
+        one device's, and the rest of each call under the same rules
+        against one device running it on those tower outputs (the rows
+        identical to one device from the pixels logged, with one device's
+        smallest top-2 logit gap of each row where some part);
+        each rank's weight bytes those of param_pspecs, K1-K6 and K8
+        launched in every rank, no plain version called, no JAX import;
      c. runtime/evaluate.main at WalkGPT-13B int4x + int4_flat + int8 SAM
         blocks (bf16; 2 samples, 8 new tokens) on one device, then with
         --mesh 1,2 (the CLI spawns two tp ranks): the responses identical or
         one parting at a near tie (MESH_TIE_REL), giou, ciou and the mIoUs
         within MESH_METRIC_TOL, K1-K6 launched in each rank; images/s, each
-        rank's launches and peak memory;
+        rank's launches and peak memory; then with --mesh 2,2 --mesh_impl
+        gspmd (four ranks, JAX's layout) under the same rules against the
+        same one-device run, with each rank's weight bytes and its
+        collectives' calls and host seconds;
      d. WalkGPT-13B int4x at tp = 2 (make_tp_generate, 2 images, 8 rows of
         64-token prompts, 2 and 4 new tokens): per rank a greedy step's
         wall, device ms (profiler) and the collectives' share.
@@ -327,9 +346,10 @@ Then one JSON line with every kernel's numbers (K1's, K4's, K5's and K6's
 with their fp16 route's numbers and launches under "fp16", K6's gelu route
 at MPT-7B widths under "gelu_mpt7b_bf16", K4's, K5's and K6's at
 WalkGPT-13B's tp = 2 shard shapes with 11c's launches per rank under
-"tp2_13b"; K1's and K1b's at WalkGPT-7B's tp = 2 training shapes with
-12c's launches per rank under "tp2_7b_train"; the launches of 11b's, 11c's,
-12b's, 12c's and 12d's ranks in the totals) and, last, the device line.
+"tp2_13b"; K1's, K2's, K3's, K5's and K6's at the GSPMD leg's 13B shapes
+with the GSPMD 11c run's launches per rank under "gspmd_13b"; K1's and K1b's at WalkGPT-7B's tp = 2 training shapes with
+12c's launches per rank under "tp2_7b_train"; the launches of 11b's, 11c's
+(both legs), 12b's, 12c's and 12d's ranks in the totals) and, last, the device line.
 Needs one CUDA GPU and nvcc (CUDA_HOME or /usr/local/cuda); exits non-zero
 without a GPU.
 """
@@ -369,7 +389,7 @@ from walkgpt_tpu_torch.models import (llm, sam, sam_decoder_multiscale, sam_enco
 from walkgpt_tpu_torch.models.projectors import ctp_apply
 from walkgpt_tpu_torch.ops import attention, cuda_build, fused_layer, int4, int8_gemm, quant
 from walkgpt_tpu_torch.ops import flash_attention as fa
-from walkgpt_tpu_torch.parallel import dist, infer
+from walkgpt_tpu_torch.parallel import dist, infer, sharding
 from walkgpt_tpu_torch.parallel import tp as tpmod
 from walkgpt_tpu_torch.runtime import (checkpoint, consolidate_cli, evaluate, export, generate,
                                        lora, merge_lora_cli, parity_cli, serving, train,
@@ -790,14 +810,7 @@ def traced_kernels(label, fn):
     """The package's CUDA kernels (torch.profiler names, namespaces and
     arguments cut) that one call of fn launches."""
     kernels = {}
-    for attempt in range(3):   # a short trace may come back without device events
-        try:
-            profiled(fn, kernels)
-            break
-        except AssertionError:
-            if attempt == 2:
-                raise
-            log(f"  {label}: the profiler saw no device time, tracing again")
+    profiled(fn, kernels, label=label)
     return sorted({n.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
                    for n in kernels if is_package_kernel(n)})
 
@@ -2986,9 +2999,9 @@ def phase_serving(dev, seed, params, cfg, n_images=3, slots=4, max_new=16, segme
     # full segments each under the profiler (the same pool, every slot busy)
     seg_dev, adm_dev, seg_kernels, adm_kernels = [], [], {}, {}
     batcher._admit_row = lambda *a: (lambda r: (adm_dev.append(r[1]), r[0])[1])(
-        profiled(lambda: admit(*a), adm_kernels))
+        profiled(lambda: admit(*a), adm_kernels, rerun=False, label="serving admit"))
     batcher._decode_segment = lambda *a: (lambda r: (seg_dev.append(r[1]), r[0])[1])(
-        profiled(lambda: decode(*a), seg_kernels))
+        profiled(lambda: decode(*a), seg_kernels, rerun=False, label="serving segment"))
     again = batcher.run(reqs[:slots], [2 * segment] * slots)
     batcher._admit_row = admit
     batcher._decode_segment = decode
@@ -3540,9 +3553,9 @@ class EvalSpy:
             self.params = build(*a, **k)
             return self.params
 
-        def eval_fns(cfg, device, mesh=None):
+        def eval_fns(cfg, device, mesh=None, impl="shard_map"):
             self.cfg = cfg
-            fwd, gen = fns(cfg, device, mesh)
+            fwd, gen = fns(cfg, device, mesh, impl)
 
             def fwd_spy(max_segs):
                 f = fwd(max_segs)
@@ -4654,21 +4667,46 @@ def _leaves(tree):
         yield tree
 
 
-def profiled(fn, kernels):
+PROFILE_TRIES = 4   # traces of one call before its device time counts as lost
+
+
+def profiled(fn, kernels, rerun=True, label=""):
     """fn under torch.profiler, tracing the card only (no host-side op
     events to collect): (out, ms the card spent in kernels and copies);
-    each kernel's device time is added to `kernels` by name."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        out, _ = host_ms(fn)
-    device = 0.0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            kernels[e.name] = kernels.get(e.name, 0.0) + ms
-            device += ms
-    if device <= 0.0:
-        raise AssertionError("the profiler saw no device time")
-    return out, device
+    each kernel's device time is added to `kernels` by name.
+
+    A trace now and then comes back with no device events at all (CUPTI
+    drops them; one call in a few dozen, anywhere in the script). fn then
+    runs again under a new trace, up to PROFILE_TRIES traces in all. With
+    rerun=False (fn changes state that must not change twice) the call's ms
+    are instead the span between two CUDA events around it, and `kernels`
+    gets nothing from it. label names the call in those notes."""
+    where = f"{label}: " if label else ""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            start.record()
+            out, _ = host_ms(fn)
+            end.record()
+        seen, device = {}, 0.0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                ms = e.time_range.elapsed_us() / 1e3
+                seen[e.name] = seen.get(e.name, 0.0) + ms
+                device += ms
+        if device > 0.0:
+            for name, ms in seen.items():
+                kernels[name] = kernels.get(name, 0.0) + ms
+            return out, device
+        if not rerun:
+            end.synchronize()
+            span = start.elapsed_time(end)
+            log(f"  {where}the profiler saw no device time; the call's span by CUDA events: "
+                f"{span:.3f} ms")
+            return out, span
+        log(f"  {where}the profiler saw no device time (trace {attempt} of {PROFILE_TRIES})"
+            + (", tracing again" if attempt < PROFILE_TRIES else ""))
+    raise AssertionError(f"{where}the profiler saw no device time in {PROFILE_TRIES} traces")
 
 
 @torch.inference_mode()
@@ -5269,6 +5307,12 @@ MESH_TIE_REL = 1e-2
 GROW_STEP = 4
 # 11b: the masks of the rows that did not part, against the single device's
 MESH_MASK_ATOL = 1e-3
+# 11b (GSPMD): the SAM features and visual tokens of the towers split over
+# tp against one device's, per image, relative to the image's max abs value.
+# The row-parallel products sum in another order: measured at demo_config
+# (fp32) on an H100 (700 W), up to 7.3e-7 (the visual tokens) and 1.27e-6
+# (the SAM features); the limit is about 8x the larger
+MESH_TOWER_REL = 1e-5
 # 11c: giou, ciou and both mIoUs of the --mesh 1,2 CLI against one device's.
 # They come from the teacher-forced pass, which does not depend on the
 # answers, so they are held whatever the responses do. The runs' masks
@@ -5299,15 +5343,19 @@ def phase_mesh(dev, seed, numbers):
         times[name] = round(time.perf_counter() - t, 1)
         return out
     shard = timed("11a", lambda: phase_mesh_kernels(dev, seed))
+    gspmd = timed("11a GSPMD", lambda: phase_gspmd_kernels(dev, seed))
     launches = timed("11b", lambda: phase_mesh_demo(dev, seed))
-    more, ranks = timed("11c", lambda: phase_mesh_eval(dev, seed, card))
+    launches = add(launches, timed("11b GSPMD", lambda: phase_gspmd_demo(dev, seed)))
+    more, ranks, granks = timed("11c", lambda: phase_mesh_eval(dev, seed, card))
     launches = add(launches, more)
     timed("11d", lambda: phase_mesh_steps(dev, seed, card))
-    for name in MESH_KERNELS:
-        per_rank = [r["launches"][name] for r in ranks]
-        if min(per_rank) <= 0:
-            raise AssertionError(f"{name} never launched in a rank of the 13B --mesh 1,2 run")
-        numbers[name]["tp2_13b"] = dict(shard[name], launches_per_rank=per_rank)
+    for key, numbered, rank_list, what in (("tp2_13b", shard, ranks, "--mesh 1,2"),
+                                           ("gspmd_13b", gspmd, granks, "GSPMD --mesh 2,2")):
+        for name in numbered:
+            per_rank = [r["launches"][name] for r in rank_list]
+            if min(per_rank) <= 0:
+                raise AssertionError(f"{name} never launched in a rank of the 13B {what} run")
+            numbers[name][key] = dict(numbered[name], launches_per_rank=per_rank)
     log(f"  phase 11 (multi-device): {time.perf_counter() - t0:.1f} s ({times})")
     return launches
 
@@ -5341,6 +5389,52 @@ def phase_mesh_kernels(dev, seed):
     }
 
 
+def phase_gspmd_kernels(dev, seed):
+    """11a (GSPMD): the kernels at the shapes the GSPMD leg gives them at
+    WalkGPT-13B, dp 2 x tp 2: K1 at 20 heads a rank over a rank's 4 prefill
+    rows of 11c (128-token prompt bucket, 256 visual tokens), K2 and K3 at
+    ViT-H's 8 heads a rank on a rank's one image (packed qkv [25, 196,
+    1920]; [1, 8, 4096, 80]), K5 and K6 whole on the replicated packs
+    (qkv4 5120 -> 15360; H 5120, I 13824) at 4 rows; against their plain
+    versions, with times and bounds."""
+    log("== phase 11a (GSPMD): K1, K2, K3, K5, K6 at the GSPMD leg's WalkGPT-13B shapes, "
+        "dp 2 x tp 2")
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    bf16 = torch.bfloat16
+    cfg = walkgpt_13b_config()
+    g = cfg.llm
+    heads, vit = g.num_heads // 2, cfg.sam.num_heads // 2
+    d_vit = cfg.sam.embed_dim // cfg.sam.num_heads
+    n = 128 - 1 + cfg.visual_tokens
+    qkv = (g.num_heads + 2 * g.num_kv_heads) * g.head_dim
+    log(f"  13B at dp 2 x tp 2: {heads} heads of {g.head_dim} a rank over {n} positions; "
+        f"ViT-H {vit} heads of {d_vit} a rank; qkv4 {g.hidden_size} -> {qkv} and the MLP "
+        f"(I {g.intermediate_size}) whole")
+    check = lambda name, case, label, rel=False: check_kernel(name, case, bf16, 100, 4, label,
+                                                              relative=rel)
+    return {
+        "flash_attention": check(
+            "flash_attention", k1_case(dev, bf16, 4, heads, n, g.head_dim, [n, n - 40, n - 90,
+                                                                              n - 3], gen),
+            "13B GSPMD prefill, 20 heads a rank"),
+        "sam_window_attention_packed": check(
+            "sam_window_attention_packed", k2_case(dev, bf16, 25, vit, d_vit,
+                                                   cfg.sam.window_size, gen),
+            "ViT-H GSPMD, 8 heads a rank"),
+        "sam_flash_attention": check(
+            "sam_flash_attention", k3_case(dev, bf16, 1, vit, cfg.sam.grid, cfg.sam.grid,
+                                           d_vit, gen, strided=True),
+            "ViT-H GSPMD, 8 heads a rank"),
+        "int4_matmul_pallas": check(
+            "int4_matmul_pallas", k5_case(dev, bf16, 4, g.hidden_size, qkv, gen),
+            "13B GSPMD qkv4 whole, 4 rows", True),
+        "fused_mlp_int4": check(
+            "fused_mlp_int4", mlp_case(dev, bf16, "int4", 4, g.hidden_size,
+                                       g.intermediate_size, gen),
+            "13B GSPMD mlp whole, 4 rows", True),
+    }
+
+
 def mesh_batch(cfg, dev, seed):
     """11b's batch: 4 images, 6 question rows (image 0 and 3 with two each)
     and 2 padding rows at the end (one live token, no image), as collate
@@ -5355,23 +5449,28 @@ def mesh_batch(cfg, dev, seed):
     return images, ids, mask, rows, hw
 
 
-def single_decode(params, cfg, images, ids, mask, rows, max_new, eos_id, spec=0):
+def single_decode(params, cfg, images, ids, mask, rows, max_new, eos_id, spec=0, clip=None):
     """The single device's decode of a batch as generate_and_segment runs it,
-    with the hidden states that predicted each token (GenerateResult)."""
+    with the hidden states that predicted each token (GenerateResult).
+    clip: (images_clip, clip_resize_hw) for the CLIP stream."""
     with torch.inference_mode():
-        _, sam_tokens = walkgpt.encode_sam(params, cfg, images)
-        vis = walkgpt.visual_tokens(params, cfg, sam_tokens)[rows]
-        return walkgpt._generate(params, cfg, vis, ids, mask, max_new, eos_id, spec)
+        vis_mask = None
+        if clip is not None:
+            toks, vis_mask = walkgpt.clip_visual_tokens(params, cfg, *clip)
+            vis, vis_mask = toks[rows], vis_mask[rows]
+        else:
+            _, sam_tokens = walkgpt.encode_sam(params, cfg, images)
+            vis = walkgpt.visual_tokens(params, cfg, sam_tokens)[rows]
+        return walkgpt._generate(params, cfg, vis, ids, mask, max_new, eos_id, spec,
+                                 vis_mask_rows=vis_mask)
 
 
-def hold_partings(label, params, cfg, res, partings):
+def hold_partings(label, params, cfg, res, partings, max_parted=1):
     """Each (row, step, the mesh's token or None) where a mesh run parts from
     the single device's decode `res`: the single device's logits there,
-    held to MESH_TIE_REL (its token against the mesh's, or its top two). At
-    most one row may part."""
-    if len(partings) > 1:
-        raise AssertionError(f"{label}: {len(partings)} rows part from the single device "
-                             "(at most one may, at a near tie)")
+    held to MESH_TIE_REL (its token against the mesh's, or its top two),
+    each logged first. At most max_parted rows may part (None: any number,
+    each at a near tie)."""
     for row, step, other in partings:
         logits = llm.lm_logits(params["llm"], cfg.llm, res.pred_hidden[row, step][None])[0]
         logits = logits.float()
@@ -5384,6 +5483,9 @@ def hold_partings(label, params, cfg, res, partings):
             f"{scale:.3g})")
         if gap > MESH_TIE_REL * scale:
             raise AssertionError(f"{label}: row {row} parts from the single device beyond a tie")
+    if max_parted is not None and len(partings) > max_parted:
+        raise AssertionError(f"{label}: {len(partings)} rows part from the single device "
+                             f"(at most {max_parted} may, at a near tie)")
 
 
 def seg_slots(res, row):
@@ -5391,25 +5493,30 @@ def seg_slots(res, row):
     return (res.seg_valid & (res.seg_rows == row)).nonzero()[:, 0]
 
 
-def hold_mesh_demo(label, params, cfg, x, kw, k, ref, out):
+def hold_mesh_demo(label, params, cfg, x, kw, k, ref, out, clip=None, max_parted=1,
+                   res=None):
     """11b's rule for one call, the mesh's output `out` against the single
     device's `ref`: at most one row's tokens part, at a near tie
     (hold_partings); every other row has identical tokens and length, the
     same number of [SEG] slots and masks within MESH_MASK_ATOL of the single
     device's (max_segs holds every token, so a parting row's [SEG]s take no
-    slot of another row)."""
+    slot of another row). clip: the CLIP stream's (images_clip,
+    clip_resize_hw); max_parted: hold_partings' bound; res: the single
+    device's GenerateResult behind ref (default: single_decode again)."""
     ref = walkgpt.EvaluateOutput(*(t.cpu() if torch.is_tensor(t) else t for t in ref))
     parted = [r for r in range(ref.tokens.shape[0]) if not torch.equal(out.tokens[r],
                                                                        ref.tokens[r])]
     if parted:
-        res = single_decode(params, cfg, *x[:4], kw["max_new_tokens"], kw["eos_id"], k)
+        if res is None:
+            res = single_decode(params, cfg, *x[:4], kw["max_new_tokens"], kw["eos_id"], k,
+                                clip)
         if not torch.equal(res.tokens.cpu(), ref.tokens):
             raise AssertionError(f"{label}: the single device's decode is not reproducible")
         partings = []
         for r in parted:
             s = int((out.tokens[r] != ref.tokens[r]).nonzero()[0])
             partings.append((r, s, int(out.tokens[r, s])))
-        hold_partings(label, params, cfg, res, partings)
+        hold_partings(label, params, cfg, res, partings, max_parted)
     else:
         same = all(torch.equal(getattr(out, n), getattr(ref, n))
                    for n in ("seg_valid", "seg_rows"))
@@ -5485,27 +5592,228 @@ def phase_mesh_demo(dev, seed):
     return launches
 
 
-def mesh_tie_check(spy, single_path, mesh_path):
+def gspmd_batch(cfg, dev, seed):
+    """11b (GSPMD)'s batch: 4 images, 8 question rows with row_image_idx =
+    arange(8) % 4 (a dp shard's rows read the other shard's images), the
+    CLIP pixels and their valid sizes."""
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    s, sc = cfg.sam.img_size, cfg.clip.image_size
+    ids, mask = prompts(8, [40, 27, 33, 21, 36, 30, 25, 44], 48, cfg.llm.vocab_size, gen, dev)
+    images = torch.randn(4, s, s, 3, generator=gen, device=dev)
+    hw = torch.tensor([[s, s], [s * 3 // 4, s], [s, s * 3 // 4], [s, s]], device=dev)
+    clip = torch.randn(4, sc, sc, 3, generator=gen, device=dev)
+    clip_hw = torch.tensor([[sc, sc], [sc, sc - 7], [sc - 14, sc], [sc, sc]], device=dev)
+    return images, ids, mask, torch.arange(8, device=dev) % 4, hw, clip, clip_hw
+
+
+def gspmd_towers(mesh, params, cfg, inputs, stream):
+    """The GSPMD leg's tower outputs for the whole batch, as
+    make_sharded_generate computes them before its decode: the SAM
+    features [B, g, g, C] the masks decode against and the visual tokens
+    [B, V, H] the rows splice (the rank's dp shard of the images through
+    the towers split over tp, gathered over dp). On the CPU."""
+    _, g = infer._gspmd(mesh, cfg)
+    dev = mesh.device
+    im, _ = infer._dp_shards("11b", mesh, int(inputs[0].shape[0]), int(inputs[1].shape[0]))
+    with torch.inference_mode():
+        feats, sam_tokens = infer._encode_gathered(mesh, params, cfg, inputs[0], im, g)
+        if stream == "clip":
+            toks, _ = walkgpt.clip_visual_tokens(params, cfg, inputs[5][im].to(dev),
+                                                 inputs[6][im].to(dev), tp=g)
+            vis = mesh.dp_axis.all_gather(toks)
+        else:
+            vis = walkgpt.visual_tokens(params, cfg, sam_tokens)
+    return feats.cpu(), vis.cpu()
+
+
+def gspmd_demo_rank(mesh, jobs):
+    """11b (GSPMD)'s rank (dist.launch): per job (cfg, tree, calls) the
+    rank's shard_params block of the tree, then for each call (inputs, kw)
+    make_sharded_generate and the towers' outputs (gspmd_towers), the plain
+    versions counted. Returns (the root's (output, SAM features, visual
+    tokens) per call per job, the rank's weight bytes per job, the plain
+    calls)."""
+    outs, sizes = [], []
+    with PlainSpy() as plain:
+        for cfg, tree, calls in jobs:
+            params = infer.rank_params(mesh, cfg, tree, layout="gspmd")
+            sizes.append(infer.param_bytes(params))
+            outs.append([(infer._to_cpu(infer.make_sharded_generate(mesh, cfg, **kw)(
+                params, *inputs)),) + gspmd_towers(mesh, params, cfg, inputs,
+                                                   kw.get("visual_stream", "sam"))
+                for inputs, kw in calls])
+            del params
+            torch.cuda.empty_cache()
+    return outs, sizes, plain.calls
+
+
+def single_after_towers(params, cfg, x, kw, k, feats, vis, clip):
+    """One device's generate_and_segment after its towers, on given SAM
+    features [B, g, g, C] and visual tokens [B, V, H]: the splice, the
+    decode, the [SEG] gather and the mask decode. Returns (its
+    EvaluateOutput, its GenerateResult)."""
+    dev = x[0].device
+    feats, vis = feats.to(dev), vis.to(dev)
+    rows = x[3]
+    with torch.inference_mode():
+        vm = walkgpt.clip_padding_masks(cfg, clip[1])[1][rows] if clip is not None else None
+        res = walkgpt._generate(params, cfg, vis[rows], x[1], x[2], kw["max_new_tokens"],
+                                kw["eos_id"], k, vis_mask_rows=vm)
+        valid, seg_rows, emb = walkgpt._seg_gather(params, cfg, res.tokens, res.pred_hidden,
+                                                   kw["max_segs"])
+        canvas, score = walkgpt.decode_seg_masks(params, cfg, feats, emb, rows[seg_rows], x[4])
+    return walkgpt.EvaluateOutput(tokens=res.tokens, lengths=res.lengths, pred_masks=canvas,
+                                  seg_valid=valid, seg_rows=seg_rows, mask_scores=score), res
+
+
+def hold_towers(label, params, cfg, x, stream, feats, vis):
+    """The GSPMD leg's tower outputs against one device's: the SAM features
+    and the visual tokens, each image's max abs difference over its max abs
+    value within MESH_TOWER_REL."""
+    with torch.inference_mode():
+        f1, sam_tokens = walkgpt.encode_sam(params, cfg, x[0])
+        v1 = (walkgpt.clip_visual_tokens(params, cfg, x[5], x[6])[0] if stream == "clip"
+              else walkgpt.visual_tokens(params, cfg, sam_tokens))
+    rel = {}
+    for name, got, want in (("SAM features", feats, f1), ("visual tokens", vis, v1)):
+        want = want.cpu()
+        rel[name] = [float((got[i] - want[i]).abs().max() / want[i].abs().max())
+                     for i in range(want.shape[0])]
+    log(f"  {label}: the towers split over tp against one device's, per image: "
+        + "; ".join(f"{n} {', '.join(f'{r:.2e}' for r in v)}" for n, v in rel.items())
+        + f" (relative, limit {MESH_TOWER_REL:g})")
+    if max(max(v) for v in rel.values()) > MESH_TOWER_REL:
+        raise AssertionError(f"{label}: the towers split over tp differ from one device's")
+
+
+def phase_gspmd_demo(dev, seed):
+    """11b (GSPMD): make_sharded_generate at demo_config, dp 2 x tp 2 (four
+    ranks on the card, one launch), on gspmd_batch: int4x weights over
+    int4_flat (fp32, float SAM blocks) and dense fp32 weights over the fp32
+    heads cache, each greedy and speculative_k=8 on the SAM and the CLIP
+    stream, against the single-device program on the card: the towers'
+    outputs within MESH_TOWER_REL of one device's (hold_towers) and the rest
+    of the call against one device running it on those outputs with 11b's
+    rules (hold_mesh_demo; the rows identical to one device from the pixels
+    logged); each rank's weight bytes those param_pspecs gives (the
+    embedding's vocabulary rows, the SAM and CLIP towers split); K1-K6 and
+    K8 launched in every rank, K7 and K12 never, no plain version called,
+    no JAX import. Returns the ranks' launches, summed."""
+    log("== phase 11b (GSPMD): demo_config at dp 2 x tp 2 through make_sharded_generate "
+        "(4 ranks on one card) against one device")
+    base = demo_config().replace(use_flash_attention=True)
+    x = gspmd_batch(base, dev, seed)
+    x_cpu = tuple(t.cpu() for t in x)
+    kw = dict(max_new_tokens=16, max_segs=128, eos_id=-1)
+    names = ("images", "input_ids", "attention_mask", "row_image_idx", "pixel_hw",
+             "images_clip", "clip_resize_hw")
+    formats = (
+        ("int4x + int4_flat", base.replace(kv_quant_cache="int4_flat"),
+         lambda c: walkgpt.init_quantized(c, seed=seed, dtype=torch.float32, device=dev,
+                                          **dict(FORMAT_7B, sam_int8=False))),
+        ("dense + fp32 heads", base,
+         lambda c: walkgpt.init(c, seed=seed + 1, dtype=torch.float32, device=dev)))
+    jobs, checks, wholes = [], [], []
+    for label, cfg0, make in formats:
+        params = make(cfg0)
+        wholes.append(to_device(params, "cpu"))
+
+        def run(c, stream, k):
+            return walkgpt.generate_and_segment(params, c, **dict(zip(names, x)), device=dev,
+                                                visual_stream=stream, speculative_k=k, **kw)
+        for stream in ("sam", "clip"):
+            # each stream's [SEG]: the token its greedy run emits most
+            vals, counts = torch.unique(run(cfg0, stream, 0).tokens, return_counts=True)
+            cfg = cfg0.replace(seg_token_id=int(vals[counts.argmax()]))
+            for k in (0, SPEC_K):
+                checks.append((f"11b GSPMD {label}, {stream}, speculative_k={k}", params, cfg,
+                               stream, k, run(cfg, stream, k)))
+            jobs.append((cfg, wholes[-1], [(x_cpu, dict(kw, visual_stream=stream,
+                                                         speculative_k=k))
+                                           for k in (0, SPEC_K)]))
+    t0 = time.perf_counter()
+    ranks = dist.launch(gspmd_demo_rank, 2, 2, dev.type, (jobs,), timeout=600, deadline=900)
+    log(f"  4 ranks: {time.perf_counter() - t0:.1f} s (spawn, weights, {len(checks)} runs)")
+    outs = [o for job in ranks[0].value[0] for o in job]
+    for (label, params, cfg, stream, k, ref), (out, feats, vis) in zip(checks, outs):
+        clip = (x[5], x[6]) if stream == "clip" else None
+        # the towers split over tp sum their row-parallel products in
+        # another order than one device, so their outputs differ at fp32's
+        # rounding (MESH_TOWER_REL); the rest of the call is held to one
+        # device running it on those outputs, with 11b's one-row rule
+        hold_towers(label, params, cfg, x, stream, feats, vis)
+        after, res = single_after_towers(params, cfg, x, kw, k, feats, vis, clip)
+        hold_mesh_demo(label + " (after the towers)", params, cfg, x, kw, k, after, out,
+                       clip=clip, res=res)
+        # from the pixels the towers' rounding reaches the int4 and W8A8
+        # formats' quantizers (the int4_flat cache's codes, K5 / K6's bf16
+        # inputs, the a8 codes), which turn it into code flips in every row,
+        # so rows whose greedy tokens pass near ties may part: logged, with
+        # one device's smallest top-2 logit gap of each row
+        n = out.tokens.shape[0]
+        parted = [r for r in range(n) if not torch.equal(out.tokens[r], ref.tokens[r].cpu())]
+        msg = f"  {label}: from the pixels, {n - len(parted)} of {n} rows' tokens identical"
+        if parted:
+            res0 = single_decode(params, cfg, *x[:4], kw["max_new_tokens"], kw["eos_id"], k,
+                                 clip)
+            with torch.inference_mode():
+                logits = llm.lm_logits(params["llm"], cfg.llm, res0.pred_hidden).float()
+            top = logits.topk(2, dim=-1).values
+            gap = ((top[..., 0] - top[..., 1]) / logits.abs().amax(-1)).amin(-1)
+            msg += (f"; rows {parted} part; one device's smallest top-2 logit gap per row, "
+                    f"over the logits' scale: {', '.join(f'{float(g):.1e}' for g in gap)}")
+        log(msg)
+    for j, whole in enumerate(wholes):
+        specs = sharding.param_pspecs(whole, tp=2)
+        want = sum(t.numel() * t.element_size() // (2 if "tp" in specs[p] else 1)
+                   for p, t in leaves_with_path(whole).items() if torch.is_tensor(t))
+        got = [r.value[1][2 * j] for r in ranks]
+        split = [p for p in ("llm/embed_tokens/w", "sam/image_encoder/blocks/0/qkv/w",
+                             "clip/layers/0/attn/q/w") if "tp" not in specs[p]]
+        log(f"  11b GSPMD {formats[j][0]}: a rank's weights {got} bytes, param_pspecs' "
+            f"{want} (the whole tree {infer.param_bytes(whole)})")
+        if got != [want] * 4 or split:
+            raise AssertionError(f"11b GSPMD: the ranks' weights are not param_pspecs' blocks "
+                                 f"({got} against {want}; not split: {split})")
+    launches = {}
+    for r in ranks:
+        launches = add(launches, r.launches)
+    need = ("flash_attention", "sam_window_attention_packed", "sam_flash_attention",
+            "decode_attention_q", "int4_matmul_pallas", "fused_mlp_int4",
+            "decode_attention_q_chunk")
+    log(f"  kernel launches in the 4 ranks: "
+        f"{[{k: v for k, v in r.launches.items() if v} for r in ranks]}; plain versions "
+        f"called {[r.value[2] for r in ranks]}")
+    if (any(r.foreign_modules for r in ranks) or any(r.value[2] for r in ranks)
+            or not all(r.launches[n] > 0 for r in ranks for n in need)
+            or launches.get("fused_mlp_int8") or launches.get("fused_layer_tail")):
+        raise AssertionError(f"11b GSPMD: launches {launches}; need {need} in every rank, "
+                             f"never K7 or K12, no plain version, no JAX import")
+    return launches
+
+
+def mesh_tie_check(spy, single_path, mesh_path, label="11c"):
     """11c's rule on the two responses JSONs: equal, or a differing answer
     parts from the single device's at a near tie (hold_partings, the top
     two logits: the text gives no token): the single device's first batch
     is decoded again (its tokens held to the CLI's) and the parting step
-    found on the answer text. At most one answer may part."""
+    found on the answer text. At most one answer may part. label: the run's
+    name in the log."""
     a, b = json.load(open(single_path)), json.load(open(mesh_path))
     if len(a) != len(b) or [x["image_path"] for x in a] != [x["image_path"] for x in b]:
-        raise AssertionError("11c: the responses differ in number or images")
+        raise AssertionError(f"{label}: the responses differ in number or images")
     differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
-    log(f"  11c: {len(a)} responses, {len(a) - len(differ)} identical to the single device's")
+    log(f"  {label}: {len(a)} responses, {len(a) - len(differ)} identical to the single device's")
     if not differ:
         return
     params, cfg = spy.params, spy.cfg
     (max_new, _, eos_id, _, _), _, gargs, cli = spy.gen[0]
     _, images, ids, mask, rows, _ = gargs
     if len(spy.gen) != 1 or max(differ) >= ids.shape[0]:
-        raise AssertionError("11c: a differing response outside the first batch")
+        raise AssertionError(f"{label}: a differing response outside the first batch")
     res = single_decode(params, cfg, images, ids, mask, rows, max_new, eos_id)
     if not torch.equal(res.tokens, cli.tokens):
-        raise AssertionError("11c: the single device's decode is not reproducible")
+        raise AssertionError(f"{label}: the single device's decode is not reproducible")
     tok = tokenizer.build_tokenizer(None, model_max_length=2048)
     tokenizer.setup_walkgpt_tokens(tok)                 # the CLI's tokens
     partings = []
@@ -5516,19 +5824,22 @@ def mesh_tie_check(spy, single_path, mesh_path):
                      if not answer.startswith(evaluate.decode_answer(tok, toks, k + 1))),
                     len(toks) - 1)
         partings.append((i, step, None))
-    hold_partings("11c", params, cfg, res, partings)
+    hold_partings(label, params, cfg, res, partings)
 
 
 def phase_mesh_eval(dev, seed, card):
     """11c: runtime/evaluate.main at WalkGPT-13B int4x + int4_flat + int8 SAM
     blocks (bf16) on a synthetic manifest of MESH_SAMPLES samples, 2 a
     batch, MESH_NEW_TOKENS new tokens, first on one device, then with
-    --mesh 1,2 (two tp ranks spawned by the CLI, both on the card): the
-    responses held by mesh_tie_check, the metrics within MESH_METRIC_TOL of
-    one device's, K1-K6 launched in both ranks and no JAX import; images/s and peak memory of each rank and
-    of this process. Returns (the ranks' launches summed, each rank's
-    record)."""
-    log("== phase 11c: the eval CLI at WalkGPT-13B int4x, --mesh 1,2 against one device")
+    --mesh 1,2 (two tp ranks spawned by the CLI, both on the card), then
+    with --mesh 2,2 --mesh_impl gspmd (four ranks, JAX's layout): each
+    mesh run's responses held by mesh_tie_check, its metrics within
+    MESH_METRIC_TOL of one device's, K1-K6 launched in every rank and no
+    JAX import; images/s and peak memory of each rank and of this process,
+    the GSPMD ranks' weight bytes and collectives. Returns (the ranks'
+    launches summed, each manual rank's record, each GSPMD rank's)."""
+    log("== phase 11c: the eval CLI at WalkGPT-13B int4x, --mesh 1,2 and --mesh 2,2 "
+        "--mesh_impl gspmd against one device")
     with tempfile.TemporaryDirectory() as root:
         data = os.path.join(root, "data")
         samples = synthetic_pave.write_manifest(data, MESH_SAMPLES, seed=seed, height=480,
@@ -5574,16 +5885,53 @@ def phase_mesh_eval(dev, seed, card):
             raise AssertionError("11c: a metric is missing, a kernel never launched in a "
                                  "rank, or a rank imported JAX")
         mesh_tie_check(spy, single_out, mesh_out)
-        diffs = {k: abs(res[k] - single[k]) for k in MESH_METRICS}
-        log(f"  11c: the teacher-forced metrics, --mesh 1,2 against one device: "
-            + ", ".join(f"{k} {res[k]:.6f} / {single[k]:.6f}" for k in MESH_METRICS)
-            + f"; largest difference {max(diffs.values()):.3e} (limit {MESH_METRIC_TOL:g})")
-        if not all(d <= MESH_METRIC_TOL for d in diffs.values()):
-            raise AssertionError(f"11c: the metrics part from one device's: {diffs}")
+        mesh_metrics("11c --mesh 1,2", res, single)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gspmd_out = os.path.join(root, "responses_gspmd.json")
+        t0 = time.perf_counter()
+        gres = evaluate.main(argv(gspmd_out) + ["--mesh", "2,2", "--mesh_impl", "gspmd"])
+        wall_gspmd = time.perf_counter() - t0
+        check_responses("11c --mesh 2,2 gspmd", gspmd_out, n_questions)
+        granks = gres["mesh_ranks"]
+        log(f"  11c GSPMD: {card}; --mesh 2,2 --mesh_impl gspmd (4 ranks time-sharing one "
+            f"card): images/s {gres['images_per_sec']:.4f} (one device "
+            f"{single['images_per_sec']:.4f}, --mesh 1,2 {res['images_per_sec']:.4f}), main "
+            f"{wall_gspmd:.1f} s (spawn and builds included); rank peaks "
+            f"{[round(r['peak_bytes'] / 2**30, 2) for r in granks]} GiB (each while it "
+            f"builds, in turns), weights a rank "
+            f"{[round(r['param_bytes'] / 2**30, 3) for r in granks]} GiB (--mesh 1,2: "
+            f"{[round(r['param_bytes'] / 2**30, 3) for r in ranks]}), collectives a rank "
+            f"{[r['collectives'] for r in granks]} taking "
+            f"{[round(r['collective_seconds'], 2) for r in granks]} s of host time (--mesh "
+            f"1,2: {[r['collectives'] for r in ranks]}, "
+            f"{[round(r['collective_seconds'], 2) for r in ranks]} s)")
+        for r, rank in enumerate(granks):
+            log(f"  11c GSPMD rank {r}: launches "
+                f"{ {k: v for k, v in rank['launches'].items() if v} }, "
+                f"{rank['seconds']:.1f} s")
+        ran = [all(rank["launches"][k] > 0 for k in EVAL_SYMBOLS) for rank in granks]
+        if not (all(k in gres for k in keys) and all(ran)
+                and not any(rank["foreign_modules"] for rank in granks)):
+            raise AssertionError("11c GSPMD: a metric is missing, a kernel never launched in a "
+                                 "rank, or a rank imported JAX")
+        mesh_tie_check(spy, single_out, gspmd_out, "11c GSPMD")
+        mesh_metrics("11c GSPMD --mesh 2,2", gres, single)
     launches = {}
-    for rank in ranks:
+    for rank in ranks + granks:
         launches = add(launches, rank["launches"])
-    return launches, ranks
+    return launches, ranks, granks
+
+
+def mesh_metrics(label, res, single):
+    """giou, ciou and both mIoUs of a mesh run within MESH_METRIC_TOL of the
+    single device's."""
+    diffs = {k: abs(res[k] - single[k]) for k in MESH_METRICS}
+    log(f"  {label}: the teacher-forced metrics against one device: "
+        + ", ".join(f"{k} {res[k]:.6f} / {single[k]:.6f}" for k in MESH_METRICS)
+        + f"; largest difference {max(diffs.values()):.3e} (limit {MESH_METRIC_TOL:g})")
+    if not all(d <= MESH_METRIC_TOL for d in diffs.values()):
+        raise AssertionError(f"{label}: the metrics part from one device's: {diffs}")
 
 
 def mesh_timed(mesh, run):

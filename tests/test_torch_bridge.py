@@ -166,14 +166,11 @@ def test_native_loader_builds_from_the_port_only():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "1,2", "--mesh_impl", "gspmd"], "Multi-device"),
-    (["--val_dataset", "MultiReasonSeg|val", "--mesh", "2,1"], "Multi-device"),
     (["--tokenizer", "bpe"], "Eval CLI, data and checkpoints")])
 def test_eval_refuses_unported_options_at_startup(argv, item, monkeypatch):
-    """Each option whose code the port lacks raises before anything is
-    built (the device check included), naming its ROADMAP.md Queue 1 item:
-    the GSPMD leg of --mesh (asked for, or picked by auto at tp = 1), and
-    the BPE tokenizer. --mesh with tp > 1 runs (tests/test_torch_eval_mesh.py)."""
+    """An option whose code the port lacks raises before anything is built
+    (the device check included), naming its ROADMAP.md Queue 1 item: the
+    BPE tokenizer. Both legs of --mesh run (tests/test_torch_eval_mesh.py)."""
     from walkgpt_tpu_torch.runtime import evaluate
     monkeypatch.setattr(evaluate, "build_model", lambda *a, **k: pytest.fail("built"))
     with pytest.raises(NotImplementedError, match=re.escape(item)):

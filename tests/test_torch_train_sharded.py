@@ -284,7 +284,7 @@ def test_opt_state_pspecs_match_jax(setup):
     port's tp layout of tiny_config at tp 2."""
     params = from_numpy_tree(setup["np_params"], "cpu")
     repacked, tp_specs = tpmod.repack_params(params, setup["tcfg"], 2)
-    specs = sharding.param_pspecs(repacked, tp_specs)
+    specs = sharding.manual_pspecs(repacked, tp_specs)
     assert specs["llm/layers/0/attn/q/lora_b"] == (None, "tp")
     assert specs["llm/layers/0/attn/q/lora_a"] == (None, None)
     assert specs["llm/layers/0/attn/o/w"] == ("tp", None)

@@ -168,7 +168,7 @@ def quantize_a8(x: torch.Tensor, amax_reduce=None) -> Tuple[torch.Tensor, torch.
     return xq, one / inv.float()
 
 
-def linear(p: Params, x: torch.Tensor, amax_reduce=None) -> torch.Tensor:
+def linear(p: Params, x: torch.Tensor, amax_reduce=None, reduce=None) -> torch.Tensor:
     """`x @ w (+ b)` and the JAX package's quantized formats
     (`walkgpt_tpu/core/nn.py:95-143`, `ops/quant.py`, `ops/int4.py`):
 
@@ -176,26 +176,35 @@ def linear(p: Params, x: torch.Tensor, amax_reduce=None) -> torch.Tensor:
       the int8 weight, then the two scales. The activation is quantized in
       x's dtype (a bf16 x * inv rounds to bf16 before the round to int).
       amax_reduce: fn(ax) -> ax on the per-token absmax before the
-      quantize; manual tensor parallelism (parallel/tp.py) passes the pmax
-      over the tp ranks for the row-parallel projections, whose input is
-      head- or intermediate-sharded, so every rank's codes are the single
-      device's (a local amax re-bins each shard: 5e-2 hidden-state drift at
-      tiny scale in the JAX package). The other formats ignore it;
+      quantize; tensor parallelism (parallel/tp.py, parallel/gspmd.py)
+      passes the pmax over the tp ranks for the row-parallel projections,
+      whose input is head- or intermediate-sharded, so every rank's codes
+      are the single device's (a local amax re-bins each shard: 5e-2
+      hidden-state drift at tiny scale in the JAX package). The other
+      formats ignore it;
     - "w_q" (weight-only int8): x @ w_q in x's dtype, times the scale;
     - "w_p4" (packed int4, half pairs): the dual dot
-      x[:, :K/2] @ lo + x[:, K/2:] @ hi in x's dtype, times the scale."""
+      x[:, :K/2] @ lo + x[:, K/2:] @ hi in x's dtype, times the scale.
+
+    reduce: fn(y) -> y on the product before its scales and the bias (the
+    GSPMD leg's sum of a row-parallel projection's partial products over
+    tp, where XLA places it: a W8A8 product's int32 partials sum exactly).
+    Not for "w_p4"."""
+    red = reduce or (lambda y: y)
     if "a8" in p:
         xq, sx = quantize_a8(x, amax_reduce)
-        y = int8_matmul(xq.reshape(-1, xq.shape[-1]), p["w_q"])
+        y = red(int8_matmul(xq.reshape(-1, xq.shape[-1]), p["w_q"]))
         y = y.reshape(*x.shape[:-1], y.shape[-1])
         y = (y.float() * sx * p["w_scale"]).to(x.dtype)
     elif "w_q" in p:
-        y = (x @ p["w_q"].to(x.dtype)) * p["w_scale"].to(x.dtype)
+        y = red(x @ p["w_q"].to(x.dtype)) * p["w_scale"].to(x.dtype)
     elif "w_p4" in p:
+        if reduce is not None:
+            raise ValueError("linear: a packed int4 product takes no reduce")
         y = int4_matmul(x, p["w_p4"], p["w_scale"])
     else:
         x, w = _promote(x, p["w"])
-        y = x @ w
+        y = red(x @ w)
         if "b" in p:
             y = y + p["b"]
         return y

@@ -13,7 +13,10 @@ padding-mask variant custom_clip.py:27-152):
 
 CLIP uses quick-GELU (x * sigmoid(1.702 x)) and pre-LN blocks. Attention is
 the plain `ops/attention.mha`, as the JAX package computes it outside any
-Pallas kernel.
+Pallas kernel. Under the GSPMD leg (`tp`, a parallel/gspmd.GspmdAxis) a
+rank holds its blocks under JAX's param_pspecs: q/k/v and fc1 column-split
+(the rank's heads, where tp divides their count), out and fc2 row-split and
+summed over tp, their biases added after the sum.
 """
 from __future__ import annotations
 
@@ -65,10 +68,11 @@ def resize_pos_embed(pos_embed: torch.Tensor, src_grid: int, dst_grid: int) -> t
 
 
 def apply(params, cfg: CLIPVisionConfig, images: torch.Tensor, *,
-          attention_mask: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+          attention_mask: Optional[torch.Tensor] = None, tp=None) -> List[torch.Tensor]:
     """images: [B, S, S, 3] NHWC. attention_mask: optional [B, 1+P] bool over
     [class]+patch tokens. Returns all hidden states (embeddings + per layer),
-    so callers select cfg.select_layer / cfg.aux_layer."""
+    so callers select cfg.select_layer / cfg.aux_layer. tp: a rank of the
+    GSPMD leg (module docstring)."""
     b = images.shape[0]
     x = nn.conv2d(params["patch_embed"], images, stride=(cfg.patch_size, cfg.patch_size),
                   padding="VALID")
@@ -80,16 +84,20 @@ def apply(params, cfg: CLIPVisionConfig, images: torch.Tensor, *,
 
     mask = None if attention_mask is None else attention_mask[:, None, None, :]  # keys masked
 
+    heads = cfg.num_heads if tp is None else tp.heads(cfg.num_heads)
+    part = heads != cfg.num_heads
     hidden_states = [x]
     for layer in params["layers"]:
         h = nn.layer_norm(layer["ln1"], x, eps=cfg.ln_eps)
         a = layer["attn"]
-        att = mha(split_heads(nn.linear(a["q"], h), cfg.num_heads),
-                  split_heads(nn.linear(a["k"], h), cfg.num_heads),
-                  split_heads(nn.linear(a["v"], h), cfg.num_heads), mask=mask)
-        x = x + nn.linear(a["out"], merge_heads(att))
+        qkv = [nn.linear(a[n], h) if tp is None else tp.column(a[n], h, part)
+               for n in ("q", "k", "v")]
+        att = mha(*(split_heads(t, heads) for t in qkv), mask=mask)
+        out = merge_heads(att)
+        x = x + (nn.linear(a["out"], out) if tp is None else tp.row(a["out"], out))
         h = nn.layer_norm(layer["ln2"], x, eps=cfg.ln_eps)
-        x = x + nn.mlp(layer["mlp"], h, act=quick_gelu)
+        x = x + (nn.mlp(layer["mlp"], h, act=quick_gelu) if tp is None
+                 else tp.mlp(layer["mlp"], h, quick_gelu))
         hidden_states.append(x)
     return hidden_states
 

@@ -32,6 +32,15 @@ projections takes the tp ranks' largest absmax (_amax_reduce_for), K7 and
 K12 are not used (their fusions cross the sum), and ALiBi is refused (its
 slopes index the global heads), all as in the JAX package's tp_axis.
 
+The GSPMD leg (parallel/gspmd.py): with `tp` a GspmdAxis the params are the
+rank's blocks under JAX's param_pspecs and cfg the rank's head shard
+(GspmdAxis.local_llm): q/k/v take the rank's heads' columns (of the whole
+fused qkv4 / qkv8 product, which is replicated), the o- and split MLP
+projections are row-parallel with the bias after the sum, the packed int4
+MLP (K6) runs whole without a sum, the embedding and the head are split
+over tp (embed, lm_logits), and ALiBi takes the slopes of the rank's
+global head indices.
+
 LoRA: a q/k/v projection with "lora_a" [in, r] and "lora_b" [r, out]
 leaves adds (x @ lora_a) @ lora_b * lora_scale in the activation dtype
 (runtime/lora.py makes and merges the adapters). `forward(remat=True)`
@@ -54,6 +63,7 @@ from ..core import nn
 from ..core.config import LLMConfig
 from ..ops import int4
 from ..parallel.dist import copy_to, reduce_from
+from ..parallel.gspmd import is_gspmd
 from ..ops.attention import merge_heads, mha, split_heads
 from ..ops.flash_attention import (banded_q8, decode_attention, decode_attention_q,
                                    decode_attention_q_chunk)
@@ -158,11 +168,20 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
     return torch.tensor(s, dtype=torch.float32, device=device)
 
 
-def alibi_bias(cfg: LLMConfig, q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+def _slopes(cfg: LLMConfig, tp, device) -> torch.Tensor:
+    """The ALiBi slopes of cfg's heads; under the GSPMD leg, of the rank's
+    global head indices."""
+    if not is_gspmd(tp):
+        return alibi_slopes(cfg.num_heads, device)
+    s = alibi_slopes(tp.llm.num_heads, device)
+    return tp.part(s) if cfg.num_heads != tp.llm.num_heads else s
+
+
+def alibi_bias(cfg: LLMConfig, q_pos: torch.Tensor, k_pos: torch.Tensor, tp=None) -> torch.Tensor:
     """[H, Tq, Tk] additive bias: -slope * (q - k), 0 on and above the
     diagonal. fp32."""
     dist = (q_pos[:, None] - k_pos[None, :]).float().clamp_min(0.0)
-    return -alibi_slopes(cfg.num_heads, q_pos.device)[:, None, None] * dist[None]
+    return -_slopes(cfg, tp, q_pos.device)[:, None, None] * dist[None]
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +200,12 @@ def _amax_reduce_for(tp):
     (core/nn.linear amax_reduce): the pmax over the tp ranks, so every rank
     quantizes with the single device's per-token absmax. None without tp."""
     return None if tp is None else tp.pmax
+
+
+def _manual(tp):
+    """tp where it is a manual tp axis, None under the GSPMD leg (whose
+    collectives carry no gradient) and without tp."""
+    return None if is_gspmd(tp) else tp
 
 
 def _psum_tp(x: torch.Tensor, tp) -> torch.Tensor:
@@ -212,6 +237,31 @@ def _mlp(p, x, cfg: LLMConfig, tp=None):
     return nn.linear(p["fc2"], nn.gelu_exact(nn.linear(p["fc1"], x)), amax_reduce=red)
 
 
+def _mlp_update(p, x, cfg: LLMConfig, tp=None):
+    """The MLP's update of the residual stream, whole on every rank: under
+    manual tp _mlp's partial sums summed; under the GSPMD leg the split
+    gate/up (fc1) columns and down (fc2) rows of a dense or int8 MLP
+    through GspmdAxis.row, and a replicated MLP (packed int4: K6) whole."""
+    if not is_gspmd(tp):
+        return _psum_tp(_mlp(p, x, cfg, tp), tp)
+    silu = cfg.act == "silu"
+    if not tp.is_split(p["gate" if silu else "fc1"]):
+        return _mlp(tp.packed(p), x, cfg)
+    if silu:
+        h = F.silu(nn.linear(p["gate"], x)) * nn.linear(p["up"], x)
+    else:
+        h = nn.gelu_exact(nn.linear(p["fc1"], x))
+    return tp.row(p["down" if silu else "fc2"], h)
+
+
+def _o_update(p, att: torch.Tensor, tp=None) -> torch.Tensor:
+    """The attention output projection's update of the residual stream,
+    whole on every rank (att: the merged heads, the rank's under tp)."""
+    if is_gspmd(tp):
+        return tp.row(p, att)
+    return _psum_tp(nn.linear(p, att, amax_reduce=_amax_reduce_for(tp)), tp)
+
+
 def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = nn._promote(a, b)
     return a @ b
@@ -230,17 +280,22 @@ def _proj(p, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _qkv_proj(p, x: torch.Tensor, cfg: LLMConfig):
+def _qkv_proj(p, x: torch.Tensor, cfg: LLMConfig, tp=None):
     """q/k/v projections: one packed int4 product (K5 on decode rows) for
     "qkv4", one W8A8 product for "qkv8", else three (each with its LoRA
-    term, if any)."""
+    term, if any). Under the GSPMD leg, the rank's heads' columns of each
+    (of the whole fused product: qkv4 and qkv8 are replicated)."""
+    g = cfg if not is_gspmd(tp) else tp.llm
+    part = cfg.num_heads != g.num_heads             # the rank runs its heads only
     if "qkv4" in p or "qkv8" in p:
+        hq, kvd = g.num_heads * g.head_dim, g.num_kv_heads * g.head_dim
         qkv = (int4.int4_matmul_pallas(x, p["qkv4"]["w_p4"], p["qkv4"]["w_scale"])
                if "qkv4" in p else nn.linear(p["qkv8"], x))
-        hq = cfg.num_heads * cfg.head_dim
-        kvd = cfg.num_kv_heads * cfg.head_dim
-        return qkv[..., :hq], qkv[..., hq:hq + kvd], qkv[..., hq + kvd:]
-    return _proj(p["q"], x), _proj(p["k"], x), _proj(p["v"], x)
+        out = qkv[..., :hq], qkv[..., hq:hq + kvd], qkv[..., hq + kvd:]
+        return out if not is_gspmd(tp) else tuple(tp.fit(y, False, part) for y in out)
+    if not is_gspmd(tp):
+        return _proj(p["q"], x), _proj(p["k"], x), _proj(p["v"], x)
+    return tuple(tp.column(p[n], x, part, _proj) for n in ("q", "k", "v"))
 
 
 def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -251,10 +306,10 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
     return x[:, :, None].expand(b, h, n_rep, t, d).reshape(b, h * n_rep, t, d)
 
 
-def _qkv_rope(p, cfg: LLMConfig, x: torch.Tensor, cos, sin):
+def _qkv_rope(p, cfg: LLMConfig, x: torch.Tensor, cos, sin, tp=None):
     """q [B, H, T, D], k and v [B, n_kv, T, D]; roped unless cos is None
     (ALiBi)."""
-    qp, kp, vp = _qkv_proj(p, x, cfg)
+    qp, kp, vp = _qkv_proj(p, x, cfg, tp)
     q = split_heads(qp, cfg.num_heads)
     k = split_heads(kp, cfg.num_kv_heads)
     v = split_heads(vp, cfg.num_kv_heads)
@@ -272,30 +327,42 @@ def _attention(p, cfg: LLMConfig, x: torch.Tensor, *, cos, sin,
     keys/values [B, n_kv, T, D] (pre-repeat, post-rope) for the cache.
     flash_fn(q, k, v, key_valid) implements causal attention (K1); with an
     ALiBi bias the plain attention runs instead, as in the JAX package.
-    Under tp the output is this rank's partial sum."""
-    q, k, v = _qkv_rope(p, cfg, x, cos, sin)
+    The output is the whole update of the residual stream (_o_update)."""
+    q, k, v = _qkv_rope(p, cfg, x, cos, sin, tp)
     n_rep = cfg.num_heads // cfg.num_kv_heads
     kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     if flash_fn is not None and bias is None:
         out = flash_fn(q, kr, vr, key_valid)
     else:
         out = mha(q, kr, vr, mask=mask, bias=bias)
-    return nn.linear(p["o"], merge_heads(out), amax_reduce=_amax_reduce_for(tp)), (k, v)
+    return _o_update(p["o"], merge_heads(out), tp), (k, v)
 
 
-def lm_logits(params: Params, cfg: LLMConfig, hidden: torch.Tensor) -> torch.Tensor:
+def lm_logits(params: Params, cfg: LLMConfig, hidden: torch.Tensor, tp=None) -> torch.Tensor:
+    """The logits of hidden. Under the GSPMD leg: a tied head multiplies by
+    the rank's vocabulary rows and gathers the slices over tp; a dense or
+    int8 head [H, V] split on H is row-parallel (GspmdAxis.row: partial
+    logits summed over tp); the packed int4 head runs whole (K5)."""
     if cfg.tie_embeddings:
-        return hidden @ params["embed_tokens"]["w"].T
+        logits = hidden @ params["embed_tokens"]["w"].T
+        return (tp.fit(logits, tp.is_split(params["embed_tokens"]), False) if is_gspmd(tp)
+                else logits)
     head = params["lm_head"]
     if "w_p4" in head and "b" not in head:
         # K5 on decode rows; the packed head may be zero-padded to a
         # multiple of 128 columns: slice back to the vocabulary
         logits = int4.int4_matmul_pallas(hidden, head["w_p4"], head["w_scale"])
         return logits[..., :cfg.vocab_size]
+    if is_gspmd(tp):
+        return tp.row(head, hidden)
     return nn.linear(head, hidden)
 
 
-def embed(params: Params, ids: torch.Tensor) -> torch.Tensor:
+def embed(params: Params, ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """The embedding lookup; under the GSPMD leg over the rank's vocabulary
+    rows and summed over tp (GspmdAxis.embed)."""
+    if is_gspmd(tp):
+        return tp.embed(params["embed_tokens"]["w"], ids)
     return nn.embed(params["embed_tokens"], ids)
 
 
@@ -467,18 +534,20 @@ def _put_chunk(buf: torch.Tensor, i: int, val: torch.Tensor, slots: torch.Tensor
 
 def _block(layer: Params, cfg: LLMConfig, x: torch.Tensor, cos, sin, mask, flash_fn,
            key_valid, bias, tp=None):
-    h, kv = _attention(layer["attn"], cfg, copy_to(tp, _norm(layer["input_norm"], x, cfg)),
+    h, kv = _attention(layer["attn"], cfg,
+                       copy_to(_manual(tp), _norm(layer["input_norm"], x, cfg)),
                        cos=cos, sin=sin, mask=mask, flash_fn=flash_fn, key_valid=key_valid,
                        bias=bias, tp=tp)
-    x = x + _psum_tp(h, tp)
-    hn = copy_to(tp, _norm(layer["post_norm"], x, cfg))
-    return x + _psum_tp(_mlp(layer["mlp"], hn, cfg, tp), tp), kv
+    x = x + h
+    hn = copy_to(_manual(tp), _norm(layer["post_norm"], x, cfg))
+    return x + _mlp_update(layer["mlp"], hn, cfg, tp), kv
 
 
 def refuse_alibi_tp(cfg: LLMConfig, tp) -> None:
     """ALiBi under manual tp raises, as in the JAX package: here in forward
-    and decode_step, and in parallel/tp.tp_llm_cfg before any rank starts."""
-    if tp is not None and cfg.pos_emb == "alibi":
+    and decode_step, and in parallel/tp.tp_llm_cfg before any rank starts.
+    The GSPMD leg runs it."""
+    if tp is not None and not is_gspmd(tp) and cfg.pos_emb == "alibi":
         raise NotImplementedError(
             "manual tp: ALiBi slopes index the global heads; the JAX package refuses "
             "it too, and no item of ROADMAP.md's Queue 1 ports it")
@@ -501,7 +570,8 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
     (final-norm hidden states [B, T, H], kv_cache). ALiBi models add the
     bias of positions 0 .. T-1 (the JAX package's, whatever the mask) in
     the plain attention; flash_fn is then not called. tp: this rank's axis
-    of a manual tp mesh (module docstring), params and cfg its shard.
+    of a manual tp mesh or a GspmdAxis (module docstring), params and cfg
+    its shard.
     """
     refuse_alibi_tp(cfg, tp)
     b, t, _ = inputs_embeds.shape
@@ -517,7 +587,7 @@ def forward(params: Params, cfg: LLMConfig, inputs_embeds: torch.Tensor, *,
     cos = sin = bias = None
     if cfg.pos_emb == "alibi":
         pos = torch.arange(t, device=dev)
-        bias = alibi_bias(cfg, pos, pos)[None]
+        bias = alibi_bias(cfg, pos, pos, tp)[None]
     else:
         cos, sin = rope_tables(cfg, positions)
 
@@ -586,8 +656,7 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
         # [B, H, 1, L]: -slope * max(cache_len - slot, 0) over every slot
         k_pos = torch.arange(kv_cache["k"].shape[3], device=cache_len.device)
         dist = (cache_len[:, None, None] - k_pos[None, None]).float().clamp_min(0.0)
-        bias = -alibi_slopes(cfg.num_heads, cache_len.device)[None, :, None, None] \
-            * dist[:, None]
+        bias = -_slopes(cfg, tp, cache_len.device)[None, :, None, None] * dist[:, None]
         if attend_len is not None:
             bias = bias[..., :attend_len]
     else:
@@ -613,7 +682,8 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
-        q, k1, v1 = _qkv_rope(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg), cos, sin)
+        q, k1, v1 = _qkv_rope(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg), cos, sin,
+                              tp)
         _write_kv(kv_cache, i, k1.transpose(1, 2), v1.transpose(1, 2), put)
         qf = q[:, :, 0].reshape(b, cfg.num_heads * cfg.head_dim)
         pack4 = kv_cache["k"].shape[-1] < cfg.num_kv_heads * cfg.head_dim
@@ -643,9 +713,8 @@ def decode_step(params: Params, cfg: LLMConfig, kv_cache: Params,
             k_cache, v_cache = _cache_kv(kv_cache, i, q.dtype, attend_len=attend_len)
             att = merge_heads(mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
                                   mask=key_mask[:, None, None, :], bias=bias))[:, 0]
-        x = x + _psum_tp(nn.linear(layer["attn"]["o"], att[:, None],
-                                   amax_reduce=_amax_reduce_for(tp)), tp)
-        x = x + _psum_tp(_mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg, tp), tp)
+        x = x + _o_update(layer["attn"]["o"], att[:, None], tp)
+        x = x + _mlp_update(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg, tp)
     return _norm(params["final_norm"], x, cfg), kv_cache
 
 
@@ -684,7 +753,8 @@ def decode_chunk(params: Params, cfg: LLMConfig, kv_cache: Params,
 
     x = inputs_embeds
     for i, layer in enumerate(params["layers"]):
-        q, k1, v1 = _qkv_rope(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg), cos, sin)
+        q, k1, v1 = _qkv_rope(layer["attn"], cfg, _norm(layer["input_norm"], x, cfg), cos, sin,
+                              tp)
         _write_kv(kv_cache, i, k1.transpose(1, 2), v1.transpose(1, 2), put)
         if flat:
             att = decode_attention_q_chunk(
@@ -695,6 +765,6 @@ def decode_chunk(params: Params, cfg: LLMConfig, kv_cache: Params,
             k_cache, v_cache = _cache_kv(kv_cache, i, q.dtype)
             att = merge_heads(mha(q, _repeat_kv(k_cache, n_rep), _repeat_kv(v_cache, n_rep),
                                   mask=mask))
-        x = x + _psum_tp(nn.linear(layer["attn"]["o"], att, amax_reduce=_amax_reduce_for(tp)), tp)
-        x = x + _psum_tp(_mlp(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg, tp), tp)
+        x = x + _o_update(layer["attn"]["o"], att, tp)
+        x = x + _mlp_update(layer["mlp"], _norm(layer["post_norm"], x, cfg), cfg, tp)
     return _norm(params["final_norm"], x, cfg), kv_cache

@@ -60,11 +60,12 @@ def init(g: torch.Generator, cfg: SamConfig, dtype=torch.float32):
 
 def encode_image(params, cfg: SamConfig, images: torch.Tensor, *,
                  use_flash: bool = False, fast_windowed: bool = False,
-                 fast_gelu: bool = False) -> torch.Tensor:
-    """[B, S, S, 3] -> [B, grid, grid, 256] NHWC."""
+                 fast_gelu: bool = False, tp=None) -> torch.Tensor:
+    """[B, S, S, 3] -> [B, grid, grid, 256] NHWC (tp: a rank of the GSPMD
+    leg, models/sam_encoder.py)."""
     return sam_encoder.apply(params["image_encoder"], cfg.encoder, images,
                              use_flash=use_flash, fast_windowed=fast_windowed,
-                             fast_gelu=fast_gelu)
+                             fast_gelu=fast_gelu, tp=tp)
 
 
 def decode_masks(params, cfg: SamConfig, image_embeddings: torch.Tensor, *,

@@ -10,6 +10,17 @@ branch). The neck runs in fp32.
 Parameters use the `blocks` layout (one dict per block) or the stacked
 `block_runs` layout of `stack_for_scan` (one stacked dict per run of
 windowed blocks, looped over its leading axis; the same arithmetic).
+
+Under the GSPMD leg (`tp`, a parallel/gspmd.GspmdAxis) a rank holds its
+blocks under JAX's param_pspecs: the contiguous qkv column slice is
+gathered over tp and the rank's heads of q, k and v taken
+(GspmdAxis.qkv_heads), so K2 and K3 run at the rank's heads with their
+rel-pos terms; proj is row-parallel over those heads and fc1 / fc2 column
+and row split, each sum over tp followed by its bias. In the stacked
+layout JAX's rules, written for per-block paths, split a run's leaves along
+their stack axis or their input rows; the rank holds those blocks, gathers
+a run's split leaves over tp before the run (one run's weights at a time)
+and runs its blocks whole, the single device's arithmetic.
 """
 from __future__ import annotations
 
@@ -109,18 +120,28 @@ def _fast_attention(p, q, k, v, h: int, w: int) -> torch.Tensor:
 
 
 def _attention(p, x: torch.Tensor, num_heads: int, use_rel_pos: bool,
-               use_flash: bool, windowed: bool = False, fast: bool = False) -> torch.Tensor:
+               use_flash: bool, windowed: bool = False, fast: bool = False,
+               tp=None) -> torch.Tensor:
     """x: [B, H, W, C] (B may include folded windows). fast: the einsum
-    branch of _fast_attention where no kernel runs (rel-pos blocks)."""
+    branch of _fast_attention where no kernel runs (rel-pos blocks). tp:
+    the rank's heads of the GSPMD leg (module docstring)."""
     b, h, w, c = x.shape
-    qkv = nn.linear(p["qkv"], x.reshape(b, h * w, c))
+    head_dim = c // num_heads
+    x2 = x.reshape(b, h * w, c)
+    if tp is None:
+        qkv = nn.linear(p["qkv"], x2)
+    else:
+        qkv, num_heads = tp.qkv_heads(p["qkv"], x2, c, num_heads)
+    proj = (lambda o: nn.linear(p["proj"], o)) if tp is None else \
+        (lambda o: tp.row(p["proj"], o))
+    cl = num_heads * head_dim
     if use_flash and use_rel_pos and windowed:
         # K2 over the packed layout: qkv stays unsplit, merged heads come back
-        rel = _rel_projections_packed(qkv[:, :, :c], p["rel_pos_h"], p["rel_pos_w"],
+        rel = _rel_projections_packed(qkv[:, :, :cl], p["rel_pos_h"], p["rel_pos_w"],
                                       h, num_heads)
-        out = sam_window_attention_packed(qkv, rel, num_heads, c // num_heads, h)
-        return nn.linear(p["proj"], out).reshape(b, h, w, c)
-    q, k, v = (split_heads(t, num_heads) for t in qkv.split(c, dim=-1))
+        out = sam_window_attention_packed(qkv, rel, num_heads, head_dim, h)
+        return proj(out).reshape(b, h, w, c)
+    q, k, v = (split_heads(t, num_heads) for t in qkv.split(cl, dim=-1))
     if use_flash and use_rel_pos:
         rel_h, rel_w = _rel_projections(q, p["rel_pos_h"], p["rel_pos_w"], h, w)
         out = sam_flash_attention(q, k, v, rel_h.to(q.dtype), rel_w.to(q.dtype), (h, w))
@@ -132,25 +153,28 @@ def _attention(p, x: torch.Tensor, num_heads: int, use_rel_pos: bool,
             bias = decomposed_rel_pos_bias(q, p["rel_pos_h"], p["rel_pos_w"],
                                            (h, w), (h, w))
         out = mha(q, k, v, bias=bias)
-    return nn.linear(p["proj"], merge_heads(out)).reshape(b, h, w, c)
+    return proj(merge_heads(out)).reshape(b, h, w, c)
 
 
 def _block(p, x: torch.Tensor, cfg: SAMEncoderConfig, window: int,
            use_flash: bool, fast_windowed: bool = False,
-           fast_gelu: bool = False) -> torch.Tensor:
+           fast_gelu: bool = False, tp=None) -> torch.Tensor:
     shortcut = x
     x = nn.layer_norm(p["ln1"], x)
     if window > 0:
         h, w = x.shape[1], x.shape[2]
         x, pad_hw = window_partition(x, window)
         x = _attention(p, x, cfg.num_heads, cfg.use_rel_pos, use_flash, windowed=True,
-                       fast=fast_windowed)
+                       fast=fast_windowed, tp=tp)
         x = window_unpartition(x, window, pad_hw, (h, w))
     else:
-        x = _attention(p, x, cfg.num_heads, cfg.use_rel_pos, use_flash)
+        x = _attention(p, x, cfg.num_heads, cfg.use_rel_pos, use_flash, tp=tp)
     x = shortcut + x
     act = nn.gelu_tanh if fast_gelu else nn.gelu_exact
-    return x + nn.mlp(p["mlp"], nn.layer_norm(p["ln2"], x), act=act)
+    h = nn.layer_norm(p["ln2"], x)
+    if tp is None:
+        return x + nn.mlp(p["mlp"], h, act=act)
+    return x + tp.mlp(p["mlp"], h, act)
 
 
 def _scan_plan(cfg: SAMEncoderConfig):
@@ -218,11 +242,13 @@ def stack_for_scan(params, cfg: SAMEncoderConfig):
     return out
 
 
-def _blocks(params, cfg: SAMEncoderConfig):
-    """(block params, window) in order, from either layout."""
+def _blocks(params, cfg: SAMEncoderConfig, tp=None):
+    """(block params, window, the block's tp) in order, from either layout.
+    Under the GSPMD leg a stacked run's split leaves are gathered over tp
+    first and its blocks run whole (tp None)."""
     if "block_runs" not in params:
         for i, blk in enumerate(params["blocks"]):
-            yield blk, (0 if i in cfg.global_attn_indexes else cfg.window_size)
+            yield blk, (0 if i in cfg.global_attn_indexes else cfg.window_size), tp
         return
     plan = _scan_plan(cfg)
     if len(params["block_runs"]) != len(plan):
@@ -230,28 +256,31 @@ def _blocks(params, cfg: SAMEncoderConfig):
                          f"({len(params['block_runs'])} runs against the plan {plan})")
     for (window, n), run in zip(plan, params["block_runs"]):
         if n == 1:
-            yield run, window
+            yield run, window, tp
             continue
         lead = next(x for x in leaves_with_path(run).values()
                     if isinstance(x, torch.Tensor)).shape[0]
         if lead != n:
             raise ValueError(f"a stacked run has a leading axis of {lead}, the plan {n}")
+        if tp is not None:
+            run = tp.whole(run)
         for i in range(n):
-            yield _run_block(run, i), window
+            yield _run_block(run, i), window, None
 
 
 def apply(params, cfg: SAMEncoderConfig, images: torch.Tensor, *,
           use_flash: bool = False, fast_windowed: bool = False,
-          fast_gelu: bool = False) -> torch.Tensor:
+          fast_gelu: bool = False, tp=None) -> torch.Tensor:
     """images: [B, img, img, 3] NHWC (normalized, padded). Returns
     [B, grid, grid, out_chans] NHWC feature maps. fast_windowed: the
     windowed blocks' einsum attention takes its fast branch (no effect with
-    use_flash, whose kernels run)."""
+    use_flash, whose kernels run). tp: a rank of the GSPMD leg (module
+    docstring)."""
     x = nn.conv2d(params["patch_embed"], images,
                   stride=(cfg.patch_size, cfg.patch_size), padding="VALID")
     x = x + params["pos_embed"].to(x.dtype)
-    for blk, window in _blocks(params, cfg):
-        x = _block(blk, x, cfg, window, use_flash, fast_windowed, fast_gelu)
+    for blk, window, blk_tp in _blocks(params, cfg, tp):
+        x = _block(blk, x, cfg, window, use_flash, fast_windowed, fast_gelu, blk_tp)
     # neck in fp32 (the upstream encoder's overflow guard)
     n = params["neck"]
     y = x.float()

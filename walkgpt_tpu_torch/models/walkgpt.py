@@ -22,7 +22,9 @@ the LLM's attention runs K1 with its backward K1b.
 Manual dp x tp inference (parallel/tp.py): `generate_seg_embeds` and
 `teacher_seg_embeds` with `tp` are a rank's half of the sharded generation
 and teacher-forced passes; the rank with the gathered [SEG] embeddings
-decodes the masks (`decode_seg_masks`).
+decodes the masks (`decode_seg_masks`). The GSPMD leg (parallel/infer.
+make_sharded_generate) runs the same two with a parallel/gspmd.GspmdAxis
+as `tp`, and `encode_sam` and `clip_visual_tokens` with it split the towers.
 
 The CLIP visual stream (`generate_and_segment(visual_stream="clip")`): the
 CLIP-448 pixels go through the CLIP tower (models/clip_vit.py, plain
@@ -113,18 +115,18 @@ def init_quantized(cfg: WalkGPTConfig, *, seed: int = 0, dtype=torch.bfloat16,
 # vision encoding
 # ---------------------------------------------------------------------------
 
-def encode_sam(params, cfg: WalkGPTConfig, images: torch.Tensor
+def encode_sam(params, cfg: WalkGPTConfig, images: torch.Tensor, tp=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """images [B, S, S, 3] -> (feature maps [B, g, g, C], tokens [B, g*g, C]).
     sam_encode_chunk > 0 encodes sub-batches one after the other;
     fast_windowed_attention selects the einsum attention's fast branch in
     the windowed blocks (the kernels' route, use_flash_attention, ignores
-    it, as in the JAX package)."""
+    it, as in the JAX package). tp: a rank of the GSPMD leg."""
     def enc(im):
         return sam.encode_image(params["sam"], sam_config(cfg), im,
                                 use_flash=cfg.use_flash_attention,
                                 fast_windowed=cfg.fast_windowed_attention,
-                                fast_gelu=cfg.fast_gelu)
+                                fast_gelu=cfg.fast_gelu, tp=tp)
     b = images.shape[0]
     ch = cfg.sam_encode_chunk
     if ch and b > ch and b % ch == 0:
@@ -193,7 +195,7 @@ def splice_visual(params, cfg: WalkGPTConfig, input_ids: torch.Tensor,
                   vis_tokens: torch.Tensor,
                   attention_mask: Optional[torch.Tensor] = None,
                   labels: Optional[torch.Tensor] = None,
-                  vis_mask: Optional[torch.Tensor] = None) -> Spliced:
+                  vis_mask: Optional[torch.Tensor] = None, tp=None) -> Spliced:
     """Replace each row's <image> sentinel by the V visual tokens (+V-1 net
     growth). Rows without a sentinel get the block appended at their first
     pad slot with attention masked off (text-only rows). labels [R, T],
@@ -201,12 +203,13 @@ def splice_visual(params, cfg: WalkGPTConfig, input_ids: torch.Tensor,
     IGNORE_INDEX. vis_mask [R, V] (optional): per-visual-token validity,
     the CLIP pixel path's padding mask on the visual grid
     (vit_attention_mask_for_llm, llava_arch.py:176-181), masking padded
-    patch positions out of attention."""
+    patch positions out of attention. tp: the embedding lookup of a rank of
+    the GSPMD leg (llm.embed)."""
     r, t = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((r, t), dtype=torch.bool, device=input_ids.device)
     embeds, _, attn, labels_out, pos = _splice_block(
-        llm.embed(params["llm"], input_ids.clamp_min(0)), input_ids == IMAGE_TOKEN_INDEX,
+        llm.embed(params["llm"], input_ids.clamp_min(0), tp), input_ids == IMAGE_TOKEN_INDEX,
         attention_mask, labels, vis_tokens, vis_mask)
     return Spliced(embeds=embeds, attention_mask=attn, image_pos=pos, labels=labels_out)
 
@@ -516,10 +519,10 @@ def _generate(params, cfg: WalkGPTConfig, vis_rows, input_ids, attention_mask,
     K12 in its steps; with cfg.decode_cache_grow, the growing cache), or
     speculative decode with `speculative_k` drafts per iteration whose
     lookup history is the textual prompt (the <image> sentinel and pad
-    positions excluded). tp: the LLM as one rank of a manual tp mesh
-    (runtime/generate.py)."""
+    positions excluded). tp: the LLM as one rank of a manual tp mesh or of
+    the GSPMD leg (runtime/generate.py)."""
     sp = splice_visual(params, cfg, input_ids, vis_rows, attention_mask=attention_mask,
-                       vis_mask=vis_mask_rows)
+                       vis_mask=vis_mask_rows, tp=tp)
     kw = dict(max_new_tokens=max_new_tokens, eos_id=eos_id, flash_fn=_flash_fn(cfg),
               kv_quant=cfg.kv_quant_cache or "", prefill_chunk=cfg.prefill_chunk, tp=tp)
     if speculative_k > 0:
@@ -599,21 +602,25 @@ def generate_and_segment(params, cfg: WalkGPTConfig, *,
 
 
 @torch.inference_mode()
-def generate_seg_embeds(params, cfg: WalkGPTConfig, *, sam_tokens, input_ids,
-                        attention_mask, row_image_idx, max_new_tokens: int, max_segs: int,
-                        eos_id: int, speculative_k: int = 0, tp=None,
-                        device=None) -> SegEmbeds:
+def generate_seg_embeds(params, cfg: WalkGPTConfig, *, sam_tokens=None, input_ids,
+                        attention_mask, row_image_idx=None, max_new_tokens: int, max_segs: int,
+                        eos_id: int, speculative_k: int = 0, tp=None, vis_rows=None,
+                        vis_mask_rows=None, device=None) -> SegEmbeds:
     """generate_and_segment without the encode and the mask decode: SAM
-    tokens [B, L, C] (encode_sam's second output) -> splice -> greedy or
-    speculative decode -> [SEG] gather -> CTP. tp: one rank of a manual tp
-    mesh (parallel/tp.make_tp_generate): params["llm"] and cfg.llm are its
-    head and intermediate shard; the rest runs replicated."""
+    tokens [B, L, C] (encode_sam's second output) and row_image_idx, or the
+    rows' visual tokens vis_rows [R, V, H] (with vis_mask_rows [R, V], the
+    CLIP stream's), -> splice -> greedy or speculative decode -> [SEG]
+    gather -> CTP. tp: one rank of a manual tp mesh
+    (parallel/tp.make_tp_generate; params["llm"] and cfg.llm are its head
+    and intermediate shard, the rest runs replicated) or of the GSPMD leg
+    (parallel/infer.make_sharded_generate)."""
     dev = resolve_device(device)
-    x = _as_inputs(dev, sam_tokens=sam_tokens, input_ids=input_ids,
-                   attention_mask=attention_mask, row_image_idx=row_image_idx)
-    vis_rows = visual_tokens(params, cfg, x["sam_tokens"])[x["row_image_idx"]]
+    x = _as_inputs(dev, input_ids=input_ids, attention_mask=attention_mask)
+    if vis_rows is None:
+        vis_rows = visual_tokens(params, cfg, torch.as_tensor(sam_tokens, device=dev))[
+            torch.as_tensor(row_image_idx, device=dev).long()]
     res = _generate(params, cfg, vis_rows, x["input_ids"], x["attention_mask"],
-                    max_new_tokens, eos_id, speculative_k, tp=tp)
+                    max_new_tokens, eos_id, speculative_k, vis_mask_rows=vis_mask_rows, tp=tp)
     seg_valid, seg_rows, emb = _seg_gather(params, cfg, res.tokens, res.pred_hidden, max_segs)
     return SegEmbeds(tokens=res.tokens, lengths=res.lengths, seg_valid=seg_valid,
                      seg_rows=seg_rows, pred_embeddings=emb)
@@ -633,7 +640,7 @@ def teacher_seg_embeds(params, cfg: WalkGPTConfig, *, sam_tokens, input_ids, att
                    attention_mask=attention_mask, row_image_idx=row_image_idx)
     ids = x["input_ids"]
     vis_rows = visual_tokens(params, cfg, x["sam_tokens"])[x["row_image_idx"]]
-    sp = splice_visual(params, cfg, ids, vis_rows, attention_mask=x["attention_mask"])
+    sp = splice_visual(params, cfg, ids, vis_rows, attention_mask=x["attention_mask"], tp=tp)
     hidden, _ = llm.forward(params["llm"], cfg.llm, sp.embeds, attention_mask=sp.attention_mask,
                             flash_fn=_flash_fn(cfg), tp=tp)
     seg_mask = seg_timeline_mask(ids, cfg.seg_token_id, cfg)
@@ -683,30 +690,32 @@ def clip_padding_masks(cfg: WalkGPTConfig, clip_resize_hw: torch.Tensor
 
 def encode_clip_tokens(params, cfg: WalkGPTConfig, images_clip: torch.Tensor, *,
                        attention_mask: Optional[torch.Tensor] = None,
-                       clip_resize_hw: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       clip_resize_hw: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """CLIP pixel path: tower (with the padding mask from clip_resize_hw when
     no attention_mask is given) -> select_layer patch features ->
     mm_projector, [B, P, H]. The projector is applied, as the JAX package
     applies it (the reference's code has it commented out, and its raw
-    tower features could not splice into an H_llm timeline)."""
+    tower features could not splice into an H_llm timeline). tp: a rank of
+    the GSPMD leg (the tower split over tp, the projector whole)."""
     if cfg.clip is None or "clip" not in params:
         raise ValueError("CLIP tower not built")
     if attention_mask is None and clip_resize_hw is not None:
         attention_mask, _ = clip_padding_masks(cfg, clip_resize_hw)
-    hs = clip_vit.apply(params["clip"], cfg.clip, images_clip, attention_mask=attention_mask)
+    hs = clip_vit.apply(params["clip"], cfg.clip, images_clip, attention_mask=attention_mask,
+                        tp=tp)
     feats, _aux = clip_vit.select_features(hs, cfg.clip)
     return nn.linear(params["mm_projector"], feats)
 
 
 def clip_visual_tokens(params, cfg: WalkGPTConfig, images_clip: torch.Tensor,
-                       clip_resize_hw: Optional[torch.Tensor] = None
+                       clip_resize_hw: Optional[torch.Tensor] = None, tp=None
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """CLIP pixels -> spliceable LLM tokens: encode_clip_tokens, then a
     bilinear downsample of the patch grid to the visual grid
     (llava_arch.py:251-259), plus the LLM-side validity mask
     (vit_attention_mask_for_llm, :176-181). Returns (tokens [B, V, H],
     llm_mask [B, V] bool, or None without clip_resize_hw)."""
-    toks = encode_clip_tokens(params, cfg, images_clip, clip_resize_hw=clip_resize_hw)
+    toks = encode_clip_tokens(params, cfg, images_clip, clip_resize_hw=clip_resize_hw, tp=tp)
     b, l, h = toks.shape
     g = int(round(l ** 0.5))
     if g * g != l:

@@ -1,4 +1,5 @@
-"""The rank mesh of the port's manual dp x tp inference.
+"""The rank mesh of the port's sharded programs (the manual dp x tp leg, the
+GSPMD leg and the sharded training step).
 
 The JAX package runs one program over a `jax.sharding.Mesh` with the axes
 ("dp", "tp") and reduces inside it with `lax.psum`, `lax.pmax`,
@@ -349,9 +350,10 @@ def _kernel_launches() -> dict:
 
 
 def _rank_main(job: str, rank: int, dp: int, tp: int, device: str, backend: str,
-               init_method: str, timeout: float, out_q) -> None:
+               init_method: str, timeout: float, tf32: Tuple[bool, bool], out_q) -> None:
     t0 = time.perf_counter()
     torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     err, blob = None, None
     try:
         with open(job, "rb") as f:              # written by launch
@@ -384,7 +386,11 @@ def launch(fn: Callable, dp: int, tp: int, device=None, args: tuple = (), *,
     launch, which each rank then imports), args plain data (numpy arrays,
     CPU tensors) and what fn returns too. device: the ranks' device (default
     CUDA; raises without one); on CUDA the kernels are built here, before the
-    ranks start, so that no two ranks compile one source. timeout: seconds a
+    ranks start, so that no two ranks compile one source. The ranks run with
+    the launcher's TF32 switches (torch.backends.cuda.matmul and
+    cudnn.allow_tf32), which a spawned process does not inherit: a caller
+    that turns TF32 off for fp32 products and convolutions gets ranks that
+    compute as it does. timeout: seconds a
     rank may wait in one collective; deadline: seconds for the whole run
     (None: no limit). The process group meets through a file store in a
     fresh temporary directory (no fixed port: launches run side by side),
@@ -410,9 +416,10 @@ def launch(fn: Callable, dp: int, tp: int, device=None, args: tuple = (), *,
     job = os.path.join(root, "job.pkl")
     with open(job, "wb") as f:
         pickle.dump((fn, args), f)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     procs = [ctx.Process(target=_rank_main,
                          args=(job, r, dp, tp, str(devices[r]), backend, init_method, timeout,
-                               out_q))
+                               tf32, out_q))
              for r in range(world)]
     results: dict = {}
     t_end = None if deadline is None else time.monotonic() + deadline

@@ -1,5 +1,5 @@
 """The PAVE evaluation CLI (PyTorch counterpart of
-`walkgpt_tpu/runtime/evaluate.py`, its single-device legs).
+`walkgpt_tpu/runtime/evaluate.py`).
 
 Per PAVE val sample:
   1. the teacher-forced `model_forward` on the GT conversation produces masks
@@ -24,18 +24,24 @@ point-sampled BCE + dice costs (eval/matcher.py), score the matched pairs
 out_file_{rank}.json and acc_list_{rank}.json under log_base_dir/exp_name.
 
 The CLI runs on the CUDA GPU unless --device names another device; it raises
-when CUDA is asked for and absent. Options whose code is not ported yet
-(--mesh_impl gspmd, --mesh with the CLIP stream, --tokenizer bpe) are
-refused at startup, naming their item of ROADMAP.md's Queue 1.
+when CUDA is asked for and absent. --tokenizer bpe is refused at startup,
+naming its item of ROADMAP.md's Queue 1.
 
---mesh dp,tp (with --mesh_impl shard_map, or auto with tp > 1): the manual
-dp x tp inference of parallel/tp.py. The CLI spawns dp * tp ranks
-(parallel/dist.launch) on --device; each builds the model from the seed or
-the checkpoints, repacks it for tp and keeps its slice (the ranks build one
-after the other, so that one full model at a time is in memory); every rank
-runs the eval loop over the whole dataset, and the root rank alone
-harvests, scores, logs and writes the responses. Where the ranks share one
-card, its wall time is that of ranks time-sharing the card.
+--mesh dp,tp spawns dp * tp ranks (parallel/dist.launch) on --device; each
+builds the model from the seed or the checkpoints (the ranks build one after
+the other, so that one full model at a time is in memory) and keeps its
+slice; every rank runs the eval loop over the whole dataset, and the root
+rank alone harvests, scores, logs and writes the responses. Where the ranks
+share one card, its wall time is that of ranks time-sharing the card.
+--mesh_impl picks the layout as the JAX CLI does ("auto": shard_map where
+tp > 1 and the stream is SAM, else gspmd):
+  * shard_map: the manual dp x tp inference of parallel/tp.py (the weights
+    repacked for tp; the SAM stream only);
+  * gspmd: JAX's param_pspecs layout (parallel/infer.make_sharded_generate
+    and make_sharded_forward), both streams; a batch whose images or rows
+    dp does not divide (MultiReasonSeg's one image, a last short batch) is
+    padded for the call with blank images and inert rows, whose tokens and
+    [SEG]s are dropped.
 
 Usage:
   python -m walkgpt_tpu_torch.runtime.evaluate --val_dataset "PAVE|val" \\
@@ -133,9 +139,12 @@ def parse_args(argv):
                         "multiple of dp * tp)")
     p.add_argument("--mesh_impl", default="auto",
                    choices=["auto", "gspmd", "shard_map"],
-                   help="'shard_map': the manual dp x tp ranks (parallel/tp.py) with the "
-                        "kernels and the quantized flat caches; 'auto' picks it when tp > "
-                        "1 and the stream is 'sam'; 'gspmd' is not ported")
+                   help="'shard_map': the manual dp x tp ranks (parallel/tp.py), the "
+                        "weights repacked for tp, the SAM stream only; 'gspmd': JAX's "
+                        "param_pspecs layout (parallel/infer.make_sharded_generate: the "
+                        "vocab-split embedding, the tp-split SAM and CLIP towers), both "
+                        "streams; 'auto': shard_map when tp > 1 and the stream is 'sam', "
+                        "else gspmd")
     p.add_argument("--log_base_dir", default="./runs")
     p.add_argument("--exp_name", default="walkgpt_eval")
     p.add_argument("--save_responses_path", default="")
@@ -156,26 +165,31 @@ def parse_mesh(args):
     return dp, tp
 
 
+def mesh_impl(args) -> str:
+    """The layout of --mesh: --mesh_impl, "auto" resolved as the JAX CLI
+    does (shard_map where tp > 1 and the stream is SAM, else gspmd)."""
+    impl = getattr(args, "mesh_impl", "auto")
+    if impl == "auto":
+        mesh = parse_mesh(args) or (1, 1)
+        impl = ("shard_map" if mesh[1] > 1 and getattr(args, "visual_stream", "sam") == "sam"
+                else "gspmd")
+    return impl
+
+
 def refuse_unported(args) -> None:
     """Raise NotImplementedError for an option whose code the port lacks,
-    naming its item of ROADMAP.md's Queue 1. Nothing falls back."""
+    naming its item of ROADMAP.md's Queue 1, and for what neither package
+    runs: the CLIP stream on the shard_map leg (the JAX CLI's message).
+    Nothing falls back."""
     mesh = parse_mesh(args)
-    stream = getattr(args, "visual_stream", "sam")
-    impl = getattr(args, "mesh_impl", "auto")
-    if mesh is not None and impl == "auto":
-        impl = "shard_map" if mesh[1] > 1 and stream == "sam" else "gspmd"
-    for on, what, item in (
-            (mesh is not None and stream == "clip",
-             "--mesh with --visual_stream clip (the JAX package runs it on GSPMD)",
-             "Multi-device: the GSPMD leg"),
-            (mesh is not None and impl == "gspmd",
-             "--mesh_impl gspmd (and auto with tp = 1)", "Multi-device: the GSPMD leg"),
-            (getattr(args, "tokenizer", "byte") == "bpe",
-             "--tokenizer bpe (needs the tokenizers package)",
-             "Eval CLI, data and checkpoints: what is left")):
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md Queue 1, "
-                                      f"'{item}'")
+    impl = mesh_impl(args)
+    if mesh is not None and impl == "shard_map" and getattr(args, "visual_stream",
+                                                              "sam") == "clip":
+        raise NotImplementedError("--mesh_impl shard_map supports the SAM stream only")
+    if getattr(args, "tokenizer", "byte") == "bpe":
+        raise NotImplementedError("--tokenizer bpe (needs the tokenizers package) is not "
+                                  "ported yet: ROADMAP.md Queue 1, 'Eval CLI, data and "
+                                  "checkpoints: what is left'")
 
 
 def build_config(args, seg_token_idx):
@@ -312,7 +326,73 @@ def decode_answer(tokenizer, token_row: np.ndarray, length: int) -> str:
     return text.replace("\n", " ").replace("  ", " ").strip()
 
 
-def _eval_fns(cfg, device, mesh=None):
+def _pad_to(x, n: int, fill=0):
+    """x with rows of `fill` appended up to n rows (None and full x as they
+    are)."""
+    if x is None or x.shape[0] == n:
+        return x
+    return torch.cat([x, x.new_full((n - x.shape[0], *x.shape[1:]), fill)])
+
+
+def _repeat_first(x, n: int):
+    """x with copies of its first row appended up to n rows."""
+    if x is None or x.shape[0] == n:
+        return x
+    return torch.cat([x, x[:1].expand(n - x.shape[0], *x.shape[1:])])
+
+
+def _padded_rows(input_ids, attention_mask, n: int):
+    """The rows padded to n with inert rows: one live token (the first
+    row's first id), no image, no [SEG]."""
+    ids, mask = _pad_to(input_ids, n), _pad_to(attention_mask, n, False)
+    ids[input_ids.shape[0]:, 0] = input_ids[0, 0]
+    mask[input_ids.shape[0]:, 0] = True
+    return ids, mask
+
+
+def _dp_padded(fn, dp: int, teacher: bool = False):
+    """The GSPMD leg's gen (make_sharded_generate's fn) or, with teacher,
+    fwd (make_sharded_forward's) on a batch whose images or rows dp does
+    not divide: padded with blank images (the first image's pixel_hw and
+    CLIP size) and inert rows (_padded_rows) that read image 0. The padding
+    rows come last and hold no [SEG], so the teacher pass's slots are the
+    batch's own; gen's output drops the padding's tokens and [SEG]s (they
+    follow every real one in row-major order, so the real ones keep the
+    single device's slots)."""
+    def padded(b, r):
+        return -(-b // dp) * dp, -(-r // dp) * dp
+
+    def fwd(params, images, input_ids, labels, attention_mask, row_image_idx, gt_masks,
+            pixel_hw):
+        nb, nr = padded(images.shape[0], input_ids.shape[0])
+        if (nb, nr) == (images.shape[0], input_ids.shape[0]):
+            return fn(params, images, input_ids, labels, attention_mask, row_image_idx,
+                      gt_masks, pixel_hw)
+        ids, mask = _padded_rows(input_ids, attention_mask, nr)
+        return fn(params, _pad_to(images, nb), ids, _pad_to(labels, nr, -100), mask,
+                  _pad_to(row_image_idx, nr), gt_masks, _repeat_first(pixel_hw, nb))
+
+    def gen(params, images, input_ids, attention_mask, row_image_idx, pixel_hw,
+            images_clip=None, clip_resize_hw=None):
+        b, r = images.shape[0], input_ids.shape[0]
+        nb, nr = padded(b, r)
+        if (nb, nr) == (b, r):
+            return fn(params, images, input_ids, attention_mask, row_image_idx, pixel_hw,
+                      images_clip, clip_resize_hw)
+        ids, mask = _padded_rows(input_ids, attention_mask, nr)
+        out = fn(params, _pad_to(images, nb), ids, mask, _pad_to(row_image_idx, nr),
+                 _repeat_first(pixel_hw, nb), _pad_to(images_clip, nb),
+                 _repeat_first(clip_resize_hw, nb))
+        if out is None:
+            return None
+        keep = out.seg_valid & (out.seg_rows < r)
+        return out._replace(tokens=out.tokens[:r], lengths=out.lengths[:r], seg_valid=keep,
+                            seg_rows=torch.where(keep, out.seg_rows, 0),
+                            mask_scores=torch.where(keep, out.mask_scores, 0.0))
+    return fwd if teacher else gen
+
+
+def _eval_fns(cfg, device, mesh=None, impl="shard_map"):
     """The eval loop's two passes as plain callables over tensors on
     `device`: fwd(max_segs)(params, images, input_ids, labels,
     attention_mask, row_image_idx, gt_masks, pixel_hw) -> (ForwardOutput,
@@ -321,11 +401,29 @@ def _eval_fns(cfg, device, mesh=None):
     speculative_k, visual_stream)(params, images, input_ids, attention_mask,
     row_image_idx, pixel_hw[, images_clip, clip_resize_hw]) ->
     generate_and_segment's EvaluateOutput. With a mesh (parallel/dist
-    RankMesh) they are the manual dp x tp programs, make_tp_forward and
-    make_tp_generate (the SAM stream), built once per key; every rank calls
+    RankMesh) they are the sharded programs, built once per key: impl
+    "shard_map", the manual dp x tp make_tp_forward and make_tp_generate
+    (the SAM stream); "gspmd", make_sharded_forward and
+    make_sharded_generate (padded for dp by _dp_padded). Every rank calls
     them, and the root rank gets their outputs, the others None."""
     from ..eval.metrics import device_mask_counts
     from ..models import walkgpt
+
+    if mesh is not None and impl == "gspmd":
+        import functools
+        from ..parallel import infer
+
+        @functools.lru_cache(maxsize=16)
+        def sharded_fwd(max_segs):
+            return _dp_padded(infer.make_sharded_forward(mesh, cfg, max_segs=max_segs),
+                              mesh.dp, teacher=True)
+
+        @functools.lru_cache(maxsize=16)
+        def sharded_gen(max_new_tokens, max_segs, eos_id, speculative_k=0, visual_stream="sam"):
+            return _dp_padded(infer.make_sharded_generate(
+                mesh, cfg, max_new_tokens=max_new_tokens, max_segs=max_segs, eos_id=eos_id,
+                visual_stream=visual_stream, speculative_k=speculative_k), mesh.dp)
+        return sharded_fwd, sharded_gen
 
     if mesh is not None:
         import functools
@@ -382,10 +480,10 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None, m
     the generation pass (responses). Batch k is read back only after batch
     k + 1 has been queued. Returns (metrics, responses).
 
-    mesh: this rank of a manual dp x tp mesh (parallel/dist.RankMesh), whose
-    device the loop runs on and whose local weights `params` are; every rank
-    runs the loop, the root alone harvests and logs, and the others return
-    (None, [])."""
+    mesh: this rank of a dp x tp mesh (parallel/dist.RankMesh; the layout
+    of --mesh_impl), whose device the loop runs on and whose local weights
+    `params` are; every rank runs the loop, the root alone harvests and
+    logs, and the others return (None, [])."""
     from ..data.collate import collate_batch
     from ..data.prefetch import prefetch_map, shard_indices
     from ..data.tokenizer import tokenizer_image_token
@@ -395,7 +493,7 @@ def validate(args, cfg, params, tokenizer, dataset, logger=print, device=None, m
     refuse_unported(args)
     dev = (mesh.device if mesh is not None else
            resolve_device(device if device is not None else getattr(args, "device", None)))
-    fwd_fn, gen_fn = _eval_fns(cfg, dev, mesh)
+    fwd_fn, gen_fn = _eval_fns(cfg, dev, mesh, mesh_impl(args))
     root = mesh is None or mesh.is_root
 
     acc = IoUAccumulator()
@@ -584,7 +682,7 @@ def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None
     refuse_unported(args)
     dev = (mesh.device if mesh is not None else
            resolve_device(device if device is not None else getattr(args, "device", None)))
-    _, gen_fn = _eval_fns(cfg, dev, mesh)
+    _, gen_fn = _eval_fns(cfg, dev, mesh, mesh_impl(args))
     root = mesh is None or mesh.is_root
     img_dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     acc = IoUAccumulator()
@@ -677,25 +775,33 @@ def ar_validate(args, cfg, params, tokenizer, dataset, logger=print, device=None
 
 
 def _rank_model(args, cfg, mesh):
-    """A mesh rank's weights: build_model on the rank's device, repacked for
-    tp (parallel/tp.repack_params) and sliced (local_params), the global
-    tree freed. Returns (local params, the global tree's count_params)."""
+    """A mesh rank's weights: build_model on the rank's device, then its
+    slice under the layout of --mesh_impl (gspmd: parallel/infer.
+    shard_params, JAX's param_pspecs; shard_map: repacked for tp,
+    parallel/tp.repack_params, and sliced, local_params), the global tree
+    freed. Returns (local params, the global tree's count_params)."""
     from ..core import nn
-    from ..parallel import tp as tpmod
+    from ..parallel import infer, tp as tpmod
     params = build_model(args, cfg, device=mesh.device)
     total = nn.count_params(params)
-    params, specs = tpmod.repack_params(params, cfg, mesh.tp)
-    params = tpmod.local_params(params, specs, mesh.tp, mesh.tp_index)
+    if mesh_impl(args) == "gspmd":
+        params = infer.shard_params(params, mesh)
+    else:
+        params, specs = tpmod.repack_params(params, cfg, mesh.tp)
+        params = tpmod.local_params(params, specs, mesh.tp, mesh.tp_index)
     if mesh.device.type == "cuda":
         torch.cuda.empty_cache()
     return params, total
 
 
-def run(args, mesh=None):
+def run(args, mesh=None, report=None):
     """The CLI's body after the startup checks: tokenizer, config, model,
     dataset, the eval loop, the responses JSON. mesh: this rank of a dp x tp
-    mesh (main spawns them); the root returns the metrics, the others None."""
+    mesh (main spawns them); the root returns the metrics, the others None.
+    report: a dict that gets the bytes of the weights this process holds
+    ("param_bytes")."""
     from ..core import nn
+    from ..parallel import infer
     from ..data import conversation as conv_lib
     from ..data.pave import PAVEDataset
     from ..data.tokenizer import build_tokenizer, setup_walkgpt_tokens
@@ -714,6 +820,8 @@ def run(args, mesh=None):
     else:
         # one rank at a time holds a whole model while it builds
         params, total = mesh.in_turns(lambda: _rank_model(args, cfg, mesh))
+    if report is not None:
+        report["param_bytes"] = infer.param_bytes(params)
     root = mesh is None or mesh.is_root
 
     name = args.val_dataset.split("|")[0]
@@ -735,7 +843,8 @@ def run(args, mesh=None):
 
     if root:
         if mesh is not None:
-            print(f"mesh inference (manual tp): dp={mesh.dp} x tp={mesh.tp} ranks on "
+            what = "GSPMD" if mesh_impl(args) == "gspmd" else "manual tp"
+            print(f"mesh inference ({what}): dp={mesh.dp} x tp={mesh.tp} ranks on "
                   f"{mesh.device.type}, backend {mesh.backend}")
         # parameter/FLOPs banner (evaluation_walkgpt.py:999-1015)
         print(f"Model parameters: {total:,} (~{total / 1e9:.2f}B)")
@@ -757,8 +866,14 @@ def run(args, mesh=None):
 
 
 def _mesh_rank(mesh, argv):
-    """parallel/dist.launch worker: one rank of main's --mesh run."""
-    return run(parse_args(argv), mesh)
+    """parallel/dist.launch worker: one rank of main's --mesh run. Returns
+    (the root's metrics or None, the rank's weight bytes, its collectives'
+    count and host seconds)."""
+    report = {}
+    res = run(parse_args(argv), mesh, report)
+    axes = (mesh.tp_axis, mesh.dp_axis, mesh.world_axis)
+    return res, report["param_bytes"], (sum(a.calls for a in axes),
+                                        sum(a.seconds for a in axes))
 
 
 def main(argv=None):
@@ -775,12 +890,17 @@ def main(argv=None):
     if max(1, args.val_batch_size) % dp:
         raise ValueError(f"--val_batch_size {args.val_batch_size} must be a multiple of "
                          f"dp={dp}")
-    tp_llm_cfg(build_config(args, 0).llm, tp)      # refused splits raise before the ranks start
+    if mesh_impl(args) == "shard_map":
+        # refused splits raise before the ranks start
+        tp_llm_cfg(build_config(args, 0).llm, tp)
     ranks = dist.launch(_mesh_rank, dp, tp, args.device, (argv,), timeout=MESH_TIMEOUT)
-    res = ranks[0].value
-    # what each rank ran: kernel launches, peak device memory, seconds
+    res = ranks[0].value[0]
+    # what each rank ran: kernel launches, peak device memory, seconds, the
+    # bytes of its weights, its collectives and their host seconds
     res["mesh_ranks"] = [dict(launches=r.launches, peak_bytes=r.peak_bytes,
-                              seconds=r.seconds, foreign_modules=r.foreign_modules)
+                              seconds=r.seconds, foreign_modules=r.foreign_modules,
+                              param_bytes=r.value[1], collectives=r.value[2][0],
+                              collective_seconds=r.value[2][1])
                          for r in ranks]
     return res
 

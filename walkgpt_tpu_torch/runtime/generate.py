@@ -17,10 +17,13 @@ verifies a chunk of drafted tokens per iteration. Each row stops at its own
 EOS and emits pad afterwards. Alongside the tokens come the last-layer
 hidden states that predicted them, which the [SEG] gather reads.
 
-`tp` (a parallel/dist.Axis) runs the LLM as one rank of a manual tp mesh
-(models/llm.py): params and cfg are the rank's shard, and every rank of the
-tp group picks the same tokens (the sums over the ranks give them the same
-logits, bit for bit).
+`tp` (a parallel/dist.Axis) runs the LLM as one rank of a manual tp mesh,
+or (a parallel/gspmd.GspmdAxis) of the GSPMD leg, whose embedding and head
+split over tp too (models/llm.py): params and cfg are the rank's shard, the
+cache holds the rank's kv heads (its block under
+parallel/sharding.kv_cache_pspecs), and every rank of the tp group picks
+the same tokens (the sums over the ranks give them the same logits, bit for
+bit).
 """
 from __future__ import annotations
 
@@ -113,11 +116,11 @@ def _prefilled_cache(params, cfg: LLMConfig, inputs_embeds, attention_mask, kv_q
     return prefill_hidden, _pad_cache_len(kv_cache, max_len), max_len
 
 
-def _picker(params, cfg: LLMConfig, logits_mask: Optional[torch.Tensor]):
+def _picker(params, cfg: LLMConfig, logits_mask: Optional[torch.Tensor], tp=None):
     """hidden [N, H] -> the argmax token of each row over the allowed
     vocabulary (logits_mask [V] bool, True = allowed)."""
     def pick(h):
-        logits = llm.lm_logits(params, cfg, h).float()
+        logits = llm.lm_logits(params, cfg, h, tp).float()
         if logits_mask is not None:
             logits = torch.where(logits_mask[None], logits, -torch.inf)
         return logits.argmax(-1)
@@ -156,7 +159,7 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     lengths0 = attention_mask.long().sum(-1)                            # [B]
     rows = torch.arange(b, device=dev)
     hid = prefill_hidden[rows, (lengths0 - 1).clamp_min(0)]             # [B, H]
-    pick = _picker(params, cfg, logits_mask)
+    pick = _picker(params, cfg, logits_mask, tp)
 
     token = pick(hid)
     cache_len = lengths0.clone()
@@ -173,7 +176,7 @@ def greedy_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         toks.append(torch.where(done, pad_id, token))
         hids.append(hid)
         done = done | (token == eos_id)
-        x = llm.embed(params, token)[:, None].to(inputs_embeds.dtype)
+        x = llm.embed(params, token, tp)[:, None].to(inputs_embeds.dtype)
         key_mask = prompt_valid | ((key_pos >= t) & (key_pos <= t + s))
         hidden, kv_cache = llm.decode_step(params, cfg, kv_cache, x, cache_len, key_mask,
                                            write_slot=t + s,
@@ -251,7 +254,7 @@ def speculative_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         t + max_new_tokens, False, tp)
     lengths0 = attention_mask.long().sum(-1)
     rows = torch.arange(b, device=dev)[:, None]
-    pick = _picker(params, cfg, logits_mask)
+    pick = _picker(params, cfg, logits_mask, tp)
 
     # one column past the end of each buffer takes the writes that JAX drops
     l_hist = t + max_new_tokens
@@ -278,7 +281,7 @@ def speculative_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         else:
             props = _ngram_propose(hist[:, :l_hist], hlen, ngram, k)
         chunk = torch.cat([cur[:, None], props.long()], dim=1)            # [B, K+1]
-        embeds = llm.embed(params, chunk).to(inputs_embeds.dtype)
+        embeds = llm.embed(params, chunk, tp).to(inputs_embeds.dtype)
         hidden, kv_cache = llm.decode_chunk(params, cfg, kv_cache, embeds, cache_len, tp)
         preds = pick(hidden.reshape(-1, h)).reshape(b, k + 1)
 

@@ -363,7 +363,7 @@ class ShardedTrainState(NamedTuple):
 def _layout(mesh, model_cfg, trainable: Set[str], opt_state, repacked, tp_specs
             ) -> ShardLayout:
     from ..parallel import sharding
-    specs = sharding.param_pspecs(repacked, tp_specs)
+    specs = sharding.manual_pspecs(repacked, tp_specs)
     if mesh.tp > 1:
         bias = sorted(p for p in trainable
                       if p.startswith("llm/layers/") and p.endswith(ROW_PARALLEL_BIASES))
